@@ -1,0 +1,66 @@
+"""MLP building blocks — the port of ``generative_models_tpu/models/mlp.py``.
+
+Parameters are plain lists of ``{"w": [in, out], "b": [out]}`` tensor
+dicts, the reference's layout, so a JAX checkpoint's leaves map onto
+them one to one. Initialisation is torch.nn.Linear's default: W and b
+~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)), drawn from an explicit
+``torch.Generator`` (the draws differ from JAX's; the distribution is
+the same).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from generative_models_tpu_torch.ops.cuda_mlp import acts_tuple, mlp_fwd
+from generative_models_tpu_torch.ops.linear import fused_linear
+
+
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
+                device="cpu") -> dict:
+    """One linear layer, torch-default init, drawn on the generator's
+    device and moved to `device`. W stored [in, out]."""
+    bound = 1.0 / (in_dim ** 0.5)
+
+    def u(*shape):
+        t = torch.rand(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+        return (t * (2 * bound) - bound).to(device)
+
+    return {"w": u(in_dim, out_dim), "b": u(out_dim)}
+
+
+def mlp_init(gen: torch.Generator, dims: Sequence[int],
+             device="cpu") -> List[dict]:
+    """Stack of linears: dims = [in, h1, ..., out]."""
+    return [linear_init(gen, dims[i], dims[i + 1], device)
+            for i in range(len(dims) - 1)]
+
+
+def mlp_apply_plain(layers: List[dict], x, hidden_act: str = "relu",
+                    out_act: str = "none", slope: float = 0.2,
+                    compute_dtype=None):
+    """Per-layer path (the twin of the reference's ``mlp_apply_xla``)."""
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        act = out_act if i == n - 1 else hidden_act
+        x = fused_linear(x, layer["w"], layer["b"], act=act, slope=slope,
+                         compute_dtype=compute_dtype)
+    return x
+
+
+def mlp_apply(layers: List[dict], x, hidden_act: str = "relu",
+              out_act: str = "none", slope: float = 0.2,
+              compute_dtype=None):
+    """Forward through the stack. A CPU tensor takes the per-layer plain
+    path; any other runs the whole stack as one launch of the CUDA
+    kernel (ops/cuda_mlp.py), or raises."""
+    if x.device.type == "cpu":
+        return mlp_apply_plain(layers, x, hidden_act, out_act, slope,
+                               compute_dtype)
+    out, _ = mlp_fwd(x, [l["w"] for l in layers], [l["b"] for l in layers],
+                     acts_tuple(len(layers), hidden_act, out_act), slope,
+                     compute_dtype)
+    return out

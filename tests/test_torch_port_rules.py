@@ -1,0 +1,117 @@
+"""Rules the PyTorch port keeps: it never loads JAX or the JAX package,
+its entry points run on the card unless asked for the CPU, and its
+kernel modules build nothing until a CUDA tensor reaches them."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from generative_models_tpu_torch.ops import build, cuda_mlp
+from generative_models_tpu_torch.train import trainer as trainer_mod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "generative_models_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import generative_models_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'generative_models_tpu'"
+        " or m.startswith('generative_models_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_no_source_line_imports_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|generative_models_tpu)\b",
+                     re.M)
+    hits = []
+    for path in _port_sources():
+        with open(path) as f:
+            hits += [f"{path}: {m.group(0)}" for m in pat.finditer(f.read())]
+    assert not hits
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer_mod.Trainer("nsgan")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer_mod.resolve_device("cuda:0")
+    assert trainer_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from generative_models_tpu_torch import cli
+    path = tmp_path / "ck.npz"
+    path.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--variant", "nsgan", "--ckpt", str(path),
+                  "--sample-only"])
+
+
+def test_kernel_module_imports_and_runs_on_cpu_without_building():
+    code = (
+        "import sys, torch\n"
+        "from generative_models_tpu_torch.ops import cuda_mlp\n"
+        "x = torch.ones(3, 4); w = torch.ones(4, 2); b = torch.zeros(2)\n"
+        "out, hid = cuda_mlp.mlp_fwd(x, [w], [b], ('relu',))\n"
+        "assert out.shape == (3, 2) and hid == []\n"
+        "assert cuda_mlp.launches == 0\n"
+        "assert 'generative_models_tpu_torch.ops.build' not in sys.modules\n"
+        "assert cuda_mlp._lib.cache_info().currsize == 0\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_wrapper_refuses_devices_it_has_no_path_for():
+    x = torch.empty(3, 4, device="meta")
+    w = torch.empty(4, 2, device="meta")
+    b = torch.empty(2, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_mlp.mlp_fwd(x, [w], [b], ("relu",))
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    before = cuda_mlp.launches
+    x = torch.from_numpy(np.ones((2, 3), np.float32))
+    cuda_mlp.mlp_fwd(x, [torch.ones(3, 5)], [torch.ones(5)], ("tanh",))
+    assert cuda_mlp.launches == before
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    import torch.utils.cpp_extension as ext
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_build_targets_hopper_into_the_ignored_build_dir():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert build.BUILD_DIR == os.path.join(REPO, "build", "torch_kernels")
+    assert os.path.exists(os.path.join(build.CSRC_DIR, "mlp_fwd.cu"))
