@@ -8,23 +8,35 @@ imports nothing of JAX. Phases:
 
 1. the card's name and power limit (nvidia-smi); TF32 off for float32
    matmuls and convolutions, so the plain versions run in true float32;
-2. builds every kernel of the serving path from ``csrc/`` (nvcc,
-   sm_90a) and prints the build time and the ptxas report;
-3. holds the whole-MLP forward kernel against its plain PyTorch version
-   on the card, outputs and every hidden, at the serving shapes (nsgan
-   G 128->400->784 at B 64/1024/8192), the critic's shape, a 3-layer
-   tanh stack and ragged batches, in float32 and bf16 operands;
-4. drives the port's serving path: writes a full-width nsgan checkpoint
-   in the JAX package's npz layout (random weights from a seed), runs
-   ``cli.main([... "--sample-only"])`` and then ``Trainer.sample`` at
-   n = 8192 with fixed noise; each is run with the launch counts set to
-   0 just before it and read just after, and the samples are held
-   against the plain version;
-5. times the kernel, its plain version and one library yardstick
-   (addmm + relu + addmm + sigmoid) with CUDA events at B 64/1024/8192,
-   and reads the kernel's own device time per launch from
-   torch.profiler (the CUDA-event time also holds the wrapper's host
-   cost where that exceeds the kernel's);
+2. builds every kernel of the serving and training paths from ``csrc/``
+   (one nvcc per source, all started together; sm_90a) and prints the
+   build time and the ptxas reports;
+3. holds each kernel against its plain PyTorch version on the card:
+   - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
+     at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
+     stack, and the one-layer ``linear_cuda`` (784->400 leaky_relu at
+     B 100/8192), in float32 and bf16 operands;
+   - the whole-MLP backward (every dW, db and dx): G at B 100/8192, D at
+     B 100, G at a ragged B 37, the tanh stack, float32 and bf16;
+   - the chunk kernel: 8 steps at full width, B 100, from the same state
+     and streams, for nsgan and mmgan at d_steps 1 and nsgan at 2;
+   - a cross-check: 20 steps of the chunk kernel and 20 of the general
+     step (which runs the forward and backward kernels) from one state;
+4. drives the port's main paths, each with the launch counts set to 0
+   just before it and read just after:
+   - serving: a full-width nsgan checkpoint in the JAX package's npz
+     layout (random weights from a seed), ``cli.main([... "--sample-only"])``
+     and ``Trainer.sample`` at n = 8192 held against the plain version;
+   - training through the CLI (``fused_step="auto"``, the chunk kernel):
+     2000 steps in chunks of 1000 at full width on the 60,000-row
+     synthetic split, losses finite, ``final.png`` and ``metrics.jsonl``
+     written;
+   - training through the general step (``fused_step=False``): 200 steps,
+     5 forward and 4 backward launches a step;
+5. times, with CUDA events, each kernel beside its plain version, its
+   bound and one library call, and G+D steps/s of the chunk kernel, the
+   general step and a library step loop (addmm + autograd +
+   ``torch.optim.Adam(foreach=True)``, which the port never calls);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -35,10 +47,12 @@ no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import glob
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,17 +67,44 @@ OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-# Kernel vs plain version on the card. float32: only the order of the
-# K <= 784 products in each sum differs (a few float32 ulps of values
-# of order 1). bf16 operands: both sides round the same operands, but a
-# hidden that lands within that sum-order error of a bf16 rounding tie
-# rounds the other way, one bf16 ulp (<= 2^-6 for |h| < 4) times
-# |W| <= 1/sqrt(K) in the next layer.
+# Kernel vs plain version on the card, fixed before measuring.
+# Forward, max abs error. float32: only the order of the K <= 784
+# products in each sum differs (a few float32 ulps of values of order
+# 1). bf16 operands: both sides round the same operands, but a hidden
+# that lands within that sum-order error of a bf16 rounding tie rounds
+# the other way, one bf16 ulp (<= 2^-6 for |h| < 4) times |W| <= 1/sqrt(K)
+# in the next layer.
 TOL = {"float32": 1e-4, "bfloat16": 5e-3}
+# Backward, max abs error over max |reference| of each dW, db and dx.
+# float32: dW sums up to 8192 rows of products, each g a sum of up to
+# 784, in another order than cuBLAS. bf16: a g within that error of a
+# rounding tie rounds to the other bf16 neighbour (2^-8 relative) in one
+# of the products of a sum.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# Chunk kernel vs its plain version over 8 steps, the plain version run
+# in float64 on the same float32 inputs: metrics max abs error, and each
+# state tensor's (params, mu, nu) max abs error over its max |ref|. The
+# reference is float64 because the float32 plain version is no nearer
+# the exact result than the kernel: Adam divides each element's gradient
+# by its own sqrt(v-hat), and the bias and near-zero gradients of D are
+# sums that nearly cancel, so float32 rounding in either moves them by
+# a visible part of lr (this phase prints the float32 plain version's
+# distance from float64 beside the kernel's).
+CHUNK_TOL = {"metrics": 1e-4, "state": 1e-3}
+# Chunk kernel vs the general step over 20 steps, both float32 (the
+# general step takes its gradients through autograd and Adam in optax's
+# order): metrics max abs error, and the worst state plane's relative L2
+# distance (params, mu or nu, its 8 tensors together) — for the reason
+# above, a few elements may differ by up to 2 lr, so the planes are held
+# by their norm.
+CROSS_TOL = {"metrics": 2e-3, "state": 1e-2}
 
 G_DIMS = [128, 400, 784]
 G_ACTS = ("relu", "sigmoid")
+D_DIMS = [784, 400, 1]
+D_ACTS = ("leaky_relu", "none")
 SERVING_BATCHES = (64, 1024, 8192)
+TRAIN_B = 100
 
 
 def nvidia_smi_line() -> str:
@@ -86,13 +127,62 @@ def make_stack(rng, dims, device):
     return ws, bs
 
 
-def check_kernel_vs_plain(cuda_mlp, torch):
-    """Phase 3: raises at the first output or hidden out of tolerance."""
+def build_all(mods, build_dir):
+    """Phase 2: one nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+        for f in [ex.submit(fn) for fn in mods]:
+            f.result()
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
+        with open(log) as f:
+            print("    " + f.read().strip().replace("\n", "\n    "))
+
+
+def check_fwd(cuda_mlp, linear_cuda, torch):
+    """Phase 3a: raises at the first output or hidden out of tolerance."""
     rng = np.random.default_rng(0)
     cases = [("G", G_DIMS, G_ACTS, b) for b in SERVING_BATCHES + (1, 37, 1000)]
-    cases += [("D", [784, 400, 1], ("leaky_relu", "none"), b)
-              for b in (100, 1000)]
+    cases += [("D", D_DIMS, D_ACTS, b) for b in (TRAIN_B, 1000)]
     cases += [("tanh3", [784, 96, 48, 24], ("tanh",) * 3, b) for b in (37, 8192)]
+    cases += [("lin", [784, 400], ("leaky_relu",), b) for b in (TRAIN_B, 8192)]
+    worst = 0.0
+    for name, dims, acts, b in cases:
+        ws, bs = make_stack(rng, dims, "cuda")
+        x = torch.from_numpy(
+            rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
+        for cdt in (None, torch.bfloat16):
+            key = "bfloat16" if cdt is not None else "float32"
+            if name == "lin":  # the one-layer wrapper (row 2)
+                out, hid = linear_cuda(x, ws[0], bs[0], acts[0], 0.2, cdt), []
+            else:
+                out, hid = cuda_mlp.mlp_fwd(x, ws, bs, acts, 0.2, cdt)
+            ref, ref_hid = cuda_mlp.mlp_fwd_plain(x, ws, bs, acts, 0.2, cdt)
+            torch.cuda.synchronize()
+            err = max(float((a - r).abs().max())
+                      for a, r in zip([out] + hid, [ref] + ref_hid))
+            ok = err <= TOL[key] and all(
+                bool(torch.isfinite(a).all()) for a in [out] + hid)
+            print(f"  fwd {name:5s} {dims} {acts} B={b:5d} {key:8s} "
+                  f"max_abs_err={err:.3e} tol={TOL[key]:.0e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"mlp_fwd disagrees with its plain version: {name} "
+                    f"{dims} B={b} {key}: {err} > {TOL[key]}")
+            if key == "float32":
+                worst = max(worst, err)
+    return worst
+
+
+def check_bwd(cuda_mlp, torch):
+    """Phase 3b: every dW, db and dx against mlp_bwd_plain."""
+    rng = np.random.default_rng(1)
+    cases = [("G", G_DIMS, G_ACTS, b) for b in (TRAIN_B, 8192, 37)]
+    cases += [("D", D_DIMS, D_ACTS, TRAIN_B),
+              ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37)]
+    worst = 0.0
     for name, dims, acts, b in cases:
         ws, bs = make_stack(rng, dims, "cuda")
         x = torch.from_numpy(
@@ -100,19 +190,142 @@ def check_kernel_vs_plain(cuda_mlp, torch):
         for cdt in (None, torch.bfloat16):
             key = "bfloat16" if cdt is not None else "float32"
             out, hid = cuda_mlp.mlp_fwd(x, ws, bs, acts, 0.2, cdt)
-            ref, ref_hid = cuda_mlp.mlp_fwd_plain(x, ws, bs, acts, 0.2, cdt)
+            dy = torch.from_numpy(rng.standard_normal(
+                tuple(out.shape)).astype(np.float32)).cuda()
+            got = cuda_mlp.mlp_bwd(x, hid, out, dy, ws, acts, 0.2, cdt)
+            ref = cuda_mlp.mlp_bwd_plain(x, hid, out, dy, ws, acts, 0.2, cdt)
             torch.cuda.synchronize()
-            err = max(float((a - r).abs().max())
-                      for a, r in zip([out] + hid, [ref] + ref_hid))
-            ok = err <= TOL[key] and all(
-                bool(torch.isfinite(a).all()) for a in [out] + hid)
-            print(f"  {name:5s} {dims} {acts} B={b:5d} {key:8s} "
-                  f"max_abs_err={err:.3e} tol={TOL[key]:.0e} "
+            flat = lambda r: list(r[0]) + list(r[1]) + [r[2]]
+            rel = max(float((a - r).abs().max())
+                      / max(float(r.abs().max()), 1e-30)
+                      for a, r in zip(flat(got), flat(ref)))
+            ok = rel <= BWD_TOL[key] and all(
+                bool(torch.isfinite(a).all()) for a in flat(got))
+            print(f"  bwd {name:5s} {dims} B={b:5d} {key:8s} "
+                  f"max_err/max|ref|={rel:.3e} tol={BWD_TOL[key]:.0e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(
-                    f"kernel disagrees with its plain version: {name} "
-                    f"{dims} B={b} {key}: {err} > {TOL[key]}")
+                    f"mlp_bwd disagrees with its plain version: {name} "
+                    f"{dims} B={b} {key}: {rel} > {BWD_TOL[key]}")
+            if key == "float32":
+                worst = max(worst, rel)
+    return worst
+
+
+def chunk_state(rng, torch, z=128, h=400, x=784):
+    """Params and non-zero Adam slots for the 8 chunk tensors (as after
+    some training), as numpy planes."""
+    p = []
+    for i, o in ((z, h), (h, x), (x, h), (h, 1)):
+        bound = 1.0 / np.sqrt(i)
+        p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
+              rng.uniform(-bound, bound, (o,)).astype(np.float32)]
+    mu = [rng.normal(0, 1e-3, a.shape).astype(np.float32) for a in p]
+    nu = [rng.uniform(0, 1e-5, a.shape).astype(np.float32) for a in p]
+    return p, mu, nu
+
+
+PLANE_NAMES = [f"{pl}.{t}" for pl in ("p", "mu", "nu") for t in (
+    "g_w1", "g_b1", "g_w2", "g_b2", "d_w1", "d_b1", "d_w2", "d_b2")]
+
+
+def state_err(a_planes, r_planes):
+    """(worst relative L2 distance of a plane — params, mu or nu, its 8
+    tensors together —, the tensor with the largest max abs error over
+    its max |ref|, and that ratio)."""
+    l2 = max(float(sum(float((a - r).pow(2).sum()) for a, r in zip(la, lr))
+                   ** 0.5 / max(sum(float(r.pow(2).sum()) for r in lr)
+                                ** 0.5, 1e-30))
+             for la, lr in zip(a_planes, r_planes))
+    pairs = [(a.double(), r.double()) for la, lr in zip(a_planes, r_planes)
+             for a, r in zip(la, lr)]
+    mx = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+          for a, r in pairs]
+    worst = int(np.argmax(mx))
+    return l2, PLANE_NAMES[worst], mx[worst]
+
+
+def check_chunk(cuda_train, torch):
+    """Phase 3c: 8 steps of the chunk kernel vs gan_chunk_plain."""
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for variant, ds in (("nsgan", 1), ("mmgan", 1), ("nsgan", 2)):
+        p, mu, nu = chunk_state(rng, torch)
+        steps = 8
+        gen = torch.Generator(device="cuda").manual_seed(ds)
+        xs = torch.rand(steps * ds * TRAIN_B, 784, device="cuda",
+                        generator=gen)
+        zd = torch.randn(steps * ds * TRAIN_B, 128, device="cuda",
+                         generator=gen)
+        zg = torch.randn(steps * TRAIN_B, 128, device="cuda", generator=gen)
+        hp = cuda_train.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2,
+                                   variant == "mmgan")
+        planes = lambda dt: [[torch.from_numpy(a.copy()).to("cuda", dt)
+                              for a in pl] for pl in (p, mu, nu)]
+        got, ref = planes(torch.float32), planes(torch.float64)
+        kw = dict(steps=steps, ds=ds, batch=TRAIN_B, t_g=3, t_d=5, hp=hp)
+        m = cuda_train.gan_chunk(xs, zd, zg, *got, **kw)
+        m_ref = cuda_train.gan_chunk_plain(xs.double(), zd.double(),
+                                           zg.double(), *ref, **kw)
+        f32 = planes(torch.float32)
+        cuda_train.gan_chunk_plain(xs, zd, zg, *f32, **kw)
+        torch.cuda.synchronize()
+        m_err = float((m - m_ref).abs().max())
+        s_l2, s_name, s_err = state_err(got, ref)
+        _, f32_name, f32_err = state_err(f32, ref)
+        ok = (m_err <= CHUNK_TOL["metrics"] and s_err <= CHUNK_TOL["state"]
+              and bool(torch.isfinite(m).all()))
+        print(f"  chunk {variant} d_steps={ds} steps={steps} B={TRAIN_B} vs "
+              f"plain(float64): metrics_max_abs_err={m_err:.3e} (tol "
+              f"{CHUNK_TOL['metrics']:.0e}) state max_err/max={s_err:.3e} "
+              f"({s_name}; tol {CHUNK_TOL['state']:.0e}) rel L2={s_l2:.3e} "
+              f"{'ok' if ok else 'FAIL'}; plain(float32) vs plain(float64): "
+              f"max_err/max={f32_err:.3e} ({f32_name})")
+        if not ok:
+            raise AssertionError(f"gan_chunk disagrees with its plain "
+                                 f"version: {variant} ds={ds}")
+        worst = max(worst, m_err)
+    return worst
+
+
+def synthetic_split(n, seed):
+    """A small split of the synthetic digits as the trainer takes it."""
+    from generative_models_tpu_torch.data.mnist import synthetic_mnist
+    return synthetic_mnist(n_train=n, n_test=200, seed=seed)
+
+
+def cross_check(cuda_train, step_lib, torch):
+    """Phase 3d: 20 steps of the chunk kernel vs 20 of the general step
+    (mlp_fwd/mlp_bwd + Adam) from one state, batches and noise."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.losses.registry import get_variant
+    cfg = variant_config("nsgan", batch_size=TRAIN_B, dtype="float32")
+    spec = get_variant("nsgan")
+    state = step_lib.init_adversarial_state(
+        spec, cfg, torch.Generator().manual_seed(0), "cuda")
+    data = synthetic_split(1000, seed=3)
+    images = torch.from_numpy(data["x_train"].reshape(1000, -1)).cuda()
+    labels = torch.from_numpy(data["y_train"]).cuda()
+    perm = torch.stack([torch.randperm(1000, device="cuda") for _ in range(4)])
+    rel = torch.arange(20, device="cuda") * TRAIN_B
+    zd = torch.randn(20, 1, TRAIN_B, 128, device="cuda")
+    zg = torch.randn(20, TRAIN_B, 128, device="cuda")
+    noise = lambda k0, n: (zd[k0:k0 + n], zg[k0:k0 + n])
+    args = (images, labels, perm, rel, noise)
+    s_f, m_f = cuda_train.build_fused_many_steps(spec, cfg, 10)(state, *args)
+    s_g, m_g = step_lib.build_many_steps(spec, cfg, 10)(state, *args)
+    torch.cuda.synchronize()
+    m_err = max(float((m_f[k] - m_g[k]).abs().max()) for k in m_g)
+    s_err, s_name, s_max = state_err(cuda_train.state_planes(s_f),
+                                     cuda_train.state_planes(s_g))
+    ok = m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+    print(f"  chunk kernel vs general step, 20 steps: metrics_max_abs_err="
+          f"{m_err:.3e} (tol {CROSS_TOL['metrics']:.0e}) state rel L2="
+          f"{s_err:.3e} (tol {CROSS_TOL['state']:.0e}; worst element "
+          f"{s_name} {s_max:.3e} of its max) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the chunk kernel and the general step disagree")
 
 
 def write_jax_layout_checkpoint(path: str, seed: int) -> None:
@@ -121,7 +334,7 @@ def write_jax_layout_checkpoint(path: str, seed: int) -> None:
     random weights with torch-default init bounds."""
     rng = np.random.default_rng(seed)
     leaves = []
-    for key, dims in (("d_params", [784, 400, 1]), ("g_params", G_DIMS)):
+    for key, dims in (("d_params", D_DIMS), ("g_params", G_DIMS)):
         for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
             bound = 1.0 / np.sqrt(k)
             leaves.append((f"['{key}'][{i}]['b']", rng.uniform(
@@ -135,22 +348,28 @@ def write_jax_layout_checkpoint(path: str, seed: int) -> None:
     np.savez(path, **flat, __meta__=np.array(meta))
 
 
-def drive_main_path(cuda_mlp, torch):
-    """Phase 4. Returns (launches on the main path, max error vs plain)."""
+def reset(*mods):
+    for m in mods:
+        for name in ("launches", "bwd_launches"):
+            if hasattr(m, name):
+                setattr(m, name, 0)
+
+
+def drive_serving(cuda_mlp, cuda_train, torch):
+    """Phase 4a. Returns (mlp_fwd launches, max error vs plain)."""
     from generative_models_tpu_torch import cli
     from generative_models_tpu_torch.train.trainer import Trainer
 
-    os.makedirs(OUT_DIR, exist_ok=True)
     ckpt = os.path.join(OUT_DIR, "nsgan_full.npz")
     write_jax_layout_checkpoint(ckpt, seed=0)
 
     buf = io.StringIO()
-    cuda_mlp.launches = 0
+    reset(cuda_mlp, cuda_train)
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", "nsgan", "--ckpt", ckpt, "--sample-only",
                        "--out-dir", OUT_DIR])
     cli_launches = cuda_mlp.launches
-    print(buf.getvalue().strip())
+    print("  " + buf.getvalue().strip())
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or line["step"] != 1234 or not os.path.getsize(line["samples"]):
         raise AssertionError(f"--sample-only failed: rc={rc} {line}")
@@ -162,7 +381,7 @@ def drive_main_path(cuda_mlp, torch):
     t.load_model(ckpt)
     z = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (8192, 128)).astype(np.float32)).cuda()
-    cuda_mlp.launches = 0
+    reset(cuda_mlp, cuda_train)
     imgs = t.sample(z=z)
     sample_launches = cuda_mlp.launches
     g = t.generator_params
@@ -181,8 +400,66 @@ def drive_main_path(cuda_mlp, torch):
     return cli_launches + sample_launches, err
 
 
+def drive_training_cli(cuda_mlp, cuda_train, torch):
+    """Phase 4b: the CLI's training run, fused_step auto -> chunk kernel.
+    Returns (launch counts, the run's JSON line)."""
+    from generative_models_tpu_torch import cli
+    run_dir = os.path.join(OUT_DIR, "train")
+    buf = io.StringIO()
+    reset(cuda_mlp, cuda_train)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", "nsgan", "--dataset", "synthetic",
+                       "--steps", "2000", "--scan-steps", "1000",
+                       "--echo-every", "500", "--out-dir", run_dir,
+                       "--ckpt", os.path.join(run_dir, "nsgan_trained")])
+    counts = {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
+              "mlp_bwd": cuda_mlp.bwd_launches}
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "))
+    line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    vdir = os.path.join(run_dir, "nsgan")
+    with open(os.path.join(vdir, "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    finite = all(math.isfinite(r[k]) for r in recs
+                 for k in ("d_loss", "d_real", "d_fake", "g_loss"))
+    ok = (rc == 0 and line["steps"] == 2000 and len(recs) == 2000
+          and finite and counts["gan_chunk"] == 2
+          and all(math.isfinite(v) for v in line["eval"].values())
+          and os.path.getsize(os.path.join(vdir, "final.png")) > 0
+          and any(os.path.exists(os.path.join(vdir, f"loss.{e}"))
+                  for e in ("png", "csv")))
+    print(f"  cli training: rc={rc} steps={line['steps']} records="
+          f"{len(recs)} finite={finite} launches={counts} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CLI training run failed its checks")
+    return counts, line
+
+
+def drive_training_general(cuda_mlp, cuda_train, torch):
+    """Phase 4c: Trainer(fused_step=False).train(steps=200)."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    t = Trainer("nsgan", fused_step=False, dataset="synthetic",
+                out_dir=os.path.join(OUT_DIR, "general"))
+    t._load_data()  # the split's upload is set-up, not the path
+    reset(cuda_mlp, cuda_train)
+    hist = t.train(steps=200)
+    counts = {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
+              "mlp_bwd": cuda_mlp.bwd_launches}
+    finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
+    ok = (counts == {"gan_chunk": 0, "mlp_fwd": 1000, "mlp_bwd": 800}
+          and finite and len(hist["g_loss"]) == 200)
+    sps = 200 / t.wall_time
+    print(f"  Trainer(fused_step=False).train(steps=200): launches={counts} "
+          f"(expect 5 fwd + 4 bwd a step) finite={finite} "
+          f"{sps:.1f} steps/s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the general step's training run failed")
+    return counts, sps
+
+
 def time_ms(torch, fn, iters: int) -> float:
-    for _ in range(5):
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -195,9 +472,9 @@ def time_ms(torch, fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_device_ms(torch, fn, iters: int = 20):
-    """Device time per launch of mlp_fwd_kernel from torch.profiler, or
-    None when the profiler records no device time."""
+def kernel_device_ms(torch, fn, name: str, iters: int = 20):
+    """Device time per call of the kernels whose names hold `name`, from
+    torch.profiler, or None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -207,28 +484,57 @@ def kernel_device_ms(torch, fn, iters: int = 20):
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if "mlp_fwd_kernel" in e.key)
+             for e in prof.key_averages() if name in e.key)
     return us / iters / 1e3 if us > 0 else None
 
 
-def bound(dims, b):
-    """(bound_ms, bound_by): each input read once, each output written
-    once; the FMAs at the float32 (non-tensor-core) peak."""
-    mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
-    nbytes = 4 * (b * dims[0] + mats + sum(dims[1:]) + b * sum(dims[1:]))
+def bound_of(flops, nbytes):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * b * mats / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def time_serving(cuda_mlp, torch, card):
-    """Phase 5: per serving batch, kernel / plain / library times."""
-    rng = np.random.default_rng(2)
+def fwd_bound(dims, b):
+    """Each input read once, each output written once; the FMAs at the
+    float32 (non-tensor-core) peak."""
+    mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    nbytes = 4 * (b * dims[0] + mats + sum(dims[1:]) + b * sum(dims[1:]))
+    return bound_of(2.0 * b * mats, nbytes)
+
+
+def bwd_bound(dims, b):
+    """dW and the next g (or dx) of every layer: 4·B·ΣK·N FLOP; reads x,
+    the hiddens, out, dy and W, writes dW, db and dx."""
+    mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    nbytes = 4 * (b * dims[0] + b * sum(dims[1:]) + b * dims[-1]
+                  + 2 * mats + sum(dims[1:]) + b * dims[0])
+    return bound_of(4.0 * b * mats, nbytes)
+
+
+def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400):
+    g_fwd = 2 * b * (z * h + h * x)
+    d_pass = 2 * b * (x * hd + hd)
+    d_update = g_fwd + 2 * d_pass + 2 * (2 * b) * (x * hd + hd)
+    g_update = (g_fwd + d_pass + 2 * b * hd * x + 2 * b * x * h
+                + 2 * b * h * x + 2 * b * z * h)
+    return ds * d_update + g_update
+
+
+def chunk_bound(steps, b=TRAIN_B, z=128, h=400, x=784, hd=400):
+    """The streams read once, the state (params, mu, nu) read and written
+    once, the metrics rows written."""
+    params = z * h + h + h * x + x + x * hd + hd + hd + 1
+    nbytes = 4 * (steps * b * (x + 2 * z) + 2 * 3 * params + steps * 4)
+    return bound_of(steps * chunk_flops_per_step(b), nbytes)
+
+
+def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
+    """Phase 5a: per-kernel times beside plain, library and bound."""
+    rng = np.random.default_rng(4)
+    rows = {"mlp_fwd": [], "linear": [], "mlp_bwd": []}
     ws, bs = make_stack(rng, G_DIMS, "cuda")
-    rows = []
     for b in SERVING_BATCHES:
-        z = torch.from_numpy(
-            rng.standard_normal((b, G_DIMS[0])).astype(np.float32)).cuda()
+        z = torch.randn(b, 128, device="cuda")
         iters = 50 if b >= 8192 else 200
         k_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd(z, ws, bs, G_ACTS), iters)
         p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(z, ws, bs, G_ACTS),
@@ -236,17 +542,158 @@ def time_serving(cuda_mlp, torch, card):
         l_ms = time_ms(torch, lambda: torch.sigmoid(torch.addmm(
             bs[1], torch.relu(torch.addmm(bs[0], z, ws[0])), ws[1])), iters)
         d_ms = kernel_device_ms(
-            torch, lambda: cuda_mlp.mlp_fwd(z, ws, bs, G_ACTS))
-        b_ms, b_by = bound(G_DIMS, b)
-        rows.append({"batch": b, "ms": k_ms, "device_ms": d_ms,
-                     "plain_ms": p_ms,
-                     "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "images_per_s": b / k_ms * 1e3})
-        print(f"  B={b:5d} kernel {k_ms:.4f} ms ({b / k_ms * 1e3:.0f} img/s)  "
-              f"device {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}"
-              f"  plain {p_ms:.4f} ms  library {l_ms:.4f} ms  bound {b_ms:.4f} "
-              f"ms ({b_by})  [{card}]")
+            torch, lambda: cuda_mlp.mlp_fwd(z, ws, bs, G_ACTS), "mlp_fwd_kernel")
+        b_ms, b_by = fwd_bound(G_DIMS, b)
+        rows["mlp_fwd"].append({
+            "shape": f"G B={b}", "ms": k_ms, "device_ms": d_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "images_per_s": b / k_ms * 1e3})
+    lw, lb = make_stack(rng, [784, 400], "cuda")
+    for b in (TRAIN_B, 8192):
+        x = torch.randn(b, 784, device="cuda")
+        k_ms = time_ms(torch, lambda: linear_cuda(x, lw[0], lb[0],
+                                                  "leaky_relu"), 200)
+        p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(
+            x, lw, lb, ("leaky_relu",)), 200)
+        l_ms = time_ms(torch, lambda: torch.nn.functional.leaky_relu(
+            torch.addmm(lb[0], x, lw[0]), 0.2), 200)
+        b_ms, b_by = fwd_bound([784, 400], b)
+        rows["linear"].append({
+            "shape": f"784->400 leaky B={b}", "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
+    for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
+                                ("D", D_DIMS, D_ACTS, TRAIN_B),
+                                ("G", G_DIMS, G_ACTS, 8192)):
+        w, bias = make_stack(rng, dims, "cuda")
+        x = torch.randn(b, dims[0], device="cuda")
+        out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts)
+        dy = torch.randn_like(out)
+        iters = 50 if b >= 8192 else 200
+        k_ms = time_ms(torch, lambda: cuda_mlp.mlp_bwd(x, hid, out, dy, w,
+                                                       acts), iters)
+        p_ms = time_ms(torch, lambda: cuda_mlp.mlp_bwd_plain(
+            x, hid, out, dy, w, acts), iters)
+        # the library: autograd through the addmm stack (backward only)
+        lw2 = [t.clone().requires_grad_(True) for t in w]
+        lb2 = [t.clone().requires_grad_(True) for t in bias]
+        xg = x.clone().requires_grad_(True)
+        h = xg
+        for i, (wi, bi) in enumerate(zip(lw2, lb2)):
+            h = torch.addmm(bi, h, wi)
+            act = acts[i]
+            h = (torch.relu(h) if act == "relu" else torch.sigmoid(h)
+                 if act == "sigmoid" else
+                 torch.nn.functional.leaky_relu(h, 0.2)
+                 if act == "leaky_relu" else h)
+        leaves = lw2 + lb2 + [xg]
+        l_ms = time_ms(torch, lambda: torch.autograd.grad(
+            h, leaves, dy, retain_graph=True), iters)
+        d_ms = kernel_device_ms(
+            torch, lambda: cuda_mlp.mlp_bwd(x, hid, out, dy, w, acts),
+            "mlp_bwd_")
+        b_ms, b_by = bwd_bound(dims, b)
+        rows["mlp_bwd"].append({
+            "shape": f"{name} B={b}", "ms": k_ms, "device_ms": d_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": b_by})
+    for key, rs in rows.items():
+        for r in rs:
+            dev = r.get("device_ms")
+            print(f"  {key:8s} {r['shape']:22s} kernel {r['ms']:.4f} ms"
+                  + (f" (device {dev:.4f})" if dev else "")
+                  + f"  plain {r['plain_ms']:.4f}  library "
+                  f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})  [{card}]")
     return rows
+
+
+def library_step_loop(torch, steps):
+    """The yardstick step the port never calls: nsgan at full width with
+    torch.addmm + autograd + torch.optim.Adam(foreach=True). Returns
+    steps/s (CUDA events)."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(5)
+    gw, gb = make_stack(rng, G_DIMS, "cuda")
+    dw, db = make_stack(rng, D_DIMS, "cuda")
+    gp = [t.requires_grad_(True) for t in gw + gb]
+    dp = [t.requires_grad_(True) for t in dw + db]
+    g_opt = torch.optim.Adam(gp, lr=2e-4, betas=(0.5, 0.999), foreach=True)
+    d_opt = torch.optim.Adam(dp, lr=2e-4, betas=(0.5, 0.999), foreach=True)
+    xs = torch.rand(steps, TRAIN_B, 784, device="cuda")
+    zs = torch.randn(steps, 2, TRAIN_B, 128, device="cuda")
+    ones = torch.ones(TRAIN_B, device="cuda")
+    zeros = torch.zeros(TRAIN_B, device="cuda")
+
+    def G(z):
+        return torch.sigmoid(torch.addmm(gb[1], torch.relu(
+            torch.addmm(gb[0], z, gw[0])), gw[1]))
+
+    def D(x):
+        return torch.addmm(db[1], F.leaky_relu(
+            torch.addmm(db[0], x, dw[0]), 0.2), dw[1])[:, 0]
+
+    def step(k):
+        with torch.no_grad():
+            fake = G(zs[k, 0])
+        d_loss = (F.binary_cross_entropy_with_logits(D(xs[k]), ones)
+                  + F.binary_cross_entropy_with_logits(D(fake), zeros))
+        d_opt.zero_grad(set_to_none=True)
+        d_loss.backward()
+        d_opt.step()
+        g_loss = F.binary_cross_entropy_with_logits(D(G(zs[k, 1])), ones)
+        g_opt.zero_grad(set_to_none=True)
+        g_loss.backward()
+        g_opt.step()
+
+    for k in range(5):
+        step(k)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for k in range(steps):
+        step(k)
+    e1.record()
+    e1.synchronize()
+    return steps / e0.elapsed_time(e1) * 1e3
+
+
+def time_training(cuda_train, torch, card, general_sps):
+    """Phase 5b: G+D steps/s of the chunk kernel on a 1000-step chunk, the
+    general step (phase 4c) and the library step loop."""
+    rng = np.random.default_rng(6)
+    steps = 1000
+    p, mu, nu = chunk_state(rng, torch)
+    planes = [[torch.from_numpy(a.copy()).cuda() for a in pl]
+              for pl in (p, mu, nu)]
+    xs = torch.rand(steps * TRAIN_B, 784, device="cuda")
+    zd = torch.randn(steps * TRAIN_B, 128, device="cuda")
+    zg = torch.randn(steps * TRAIN_B, 128, device="cuda")
+    hp = cuda_train.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, False)
+    kw = dict(ds=1, batch=TRAIN_B, t_g=0, t_d=0, hp=hp)
+    cuda_train.gan_chunk(xs[:10 * TRAIN_B], zd[:10 * TRAIN_B],
+                         zg[:10 * TRAIN_B], *planes, steps=10, **kw)
+    k_ms = time_ms(torch, lambda: cuda_train.gan_chunk(
+        xs, zd, zg, *planes, steps=steps, **kw), 3)
+    p_steps = 50
+    p_ms = time_ms(torch, lambda: cuda_train.gan_chunk_plain(
+        xs[:p_steps * TRAIN_B], zd[:p_steps * TRAIN_B], zg[:p_steps * TRAIN_B],
+        *planes, steps=p_steps, **kw), 2) * steps / p_steps
+    lib_sps = library_step_loop(torch, 200)
+    b_ms, b_by = chunk_bound(steps)
+    row = {"steps": steps, "ms": k_ms, "plain_ms": p_ms,
+           "library_ms": steps / lib_sps * 1e3, "bound_ms": b_ms,
+           "bound_by": b_by, "steps_per_s": steps / k_ms * 1e3,
+           "plain_steps_per_s": steps / p_ms * 1e3,
+           "general_step_steps_per_s": general_sps,
+           "library_steps_per_s": lib_sps,
+           "bound_steps_per_s": steps / b_ms * 1e3}
+    print(f"  G+D steps/s at full width, B={TRAIN_B}: chunk kernel "
+          f"{row['steps_per_s']:.1f} ({k_ms:.3f} ms per 1000-step chunk), "
+          f"general step {general_sps:.1f}, library step loop {lib_sps:.1f}, "
+          f"chunk plain {row['plain_steps_per_s']:.1f}, bound "
+          f"{row['bound_steps_per_s']:.1f} ({b_by})  [{card}]")
+    return row
 
 
 def main() -> int:
@@ -261,42 +708,74 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from generative_models_tpu_torch.ops import build as build_mod
-    from generative_models_tpu_torch.ops import cuda_mlp
+    from generative_models_tpu_torch.ops import cuda_mlp, cuda_train
+    from generative_models_tpu_torch.ops.cuda_linear import linear_cuda
+    from generative_models_tpu_torch.train import step as step_lib
 
+    os.makedirs(OUT_DIR, exist_ok=True)
     card = nvidia_smi_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)  # every unnamed draw below, on the card too
     print(f"    allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.perf_counter()
-    cuda_mlp.build()
-    print(f"[2] built mlp_fwd in {time.perf_counter() - t0:.2f} s")
-    for log in glob.glob(os.path.join(build_mod.BUILD_DIR, "libmlp_fwd-*.log")):
-        with open(log) as f:
-            print("    " + f.read().strip().replace("\n", "\n    "))
+    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_train.build],
+              build_mod.BUILD_DIR)
 
-    print("[3] kernel vs plain version on the card")
-    check_kernel_vs_plain(cuda_mlp, torch)
+    print("[3] kernels vs their plain versions on the card")
+    fwd_err = check_fwd(cuda_mlp, linear_cuda, torch)
+    bwd_err = check_bwd(cuda_mlp, torch)
+    chunk_err = check_chunk(cuda_train, torch)
+    cross_check(cuda_train, step_lib, torch)
 
-    print("[4] serving path: cli --sample-only, Trainer.sample")
-    launches, err = drive_main_path(cuda_mlp, torch)
+    print("[4] main paths (launch counts set to 0 before each, read after)")
+    serve_fwd, serve_err = drive_serving(cuda_mlp, cuda_train, torch)
+    cli_counts, cli_line = drive_training_cli(cuda_mlp, cuda_train, torch)
+    gen_counts, general_sps = drive_training_general(cuda_mlp, cuda_train,
+                                                     torch)
 
     print("[5] times (CUDA events, warm L2)")
-    rows = time_serving(cuda_mlp, torch, card)
-    main_row = rows[-1]  # B = 8192, the largest serving batch
+    rows = time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card)
+    train_row = time_training(cuda_train, torch, card, general_sps)
 
-    print(json.dumps({"kernels": [{
-        "name": "mlp_fwd", "route": "cuda", "source": cuda_mlp.SOURCE,
-        "replaces": "generative_models_tpu/ops/pallas_mlp.py:82",
-        "launches": launches, "max_abs_err": err,
-        "ms": main_row["ms"], "kernel_ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "batch": main_row["batch"],
-        "per_batch": rows}]}))
+    fwd_main = rows["mlp_fwd"][-1]   # B = 8192, the largest serving batch
+    bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
+    print(json.dumps({"kernels": [
+        {"name": "mlp_fwd", "route": "cuda", "source": cuda_mlp.SOURCE,
+         "replaces": "generative_models_tpu/ops/pallas_mlp.py:82",
+         "launches": serve_fwd + cli_counts["mlp_fwd"] + gen_counts["mlp_fwd"],
+         "launches_by_path": {"serving": serve_fwd,
+                              "training_cli": cli_counts["mlp_fwd"],
+                              "training_general": gen_counts["mlp_fwd"]},
+         "max_abs_err": max(fwd_err, serve_err),
+         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
+         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
+         "library_ms": fwd_main["library_ms"], "shape": fwd_main["shape"],
+         "per_shape": rows["mlp_fwd"], "linear_cuda": rows["linear"]},
+        {"name": "mlp_bwd", "route": "cuda", "source": cuda_mlp.BWD_SOURCE,
+         "replaces": "generative_models_tpu/ops/pallas_mlp.py:239",
+         "launches": cli_counts["mlp_bwd"] + gen_counts["mlp_bwd"],
+         "launches_by_path": {"training_cli": cli_counts["mlp_bwd"],
+                              "training_general": gen_counts["mlp_bwd"]},
+         "max_abs_err": bwd_err, "max_abs_err_is": "relative to max|ref|",
+         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
+         "library_ms": bwd_main["library_ms"], "shape": bwd_main["shape"],
+         "per_shape": rows["mlp_bwd"]},
+        {"name": "gan_chunk", "route": "cuda", "source": cuda_train.SOURCE,
+         "replaces": "generative_models_tpu/ops/pallas_train.py:487",
+         "launches": cli_counts["gan_chunk"] + gen_counts["gan_chunk"],
+         "launches_by_path": {"training_cli": cli_counts["gan_chunk"],
+                              "training_general": gen_counts["gan_chunk"]},
+         "max_abs_err": chunk_err,
+         "ms": train_row["ms"], "plain_ms": train_row["plain_ms"],
+         "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],
+         "library_ms": train_row["library_ms"],
+         "shape": f"1000 steps, B={TRAIN_B}, full width",
+         "training": train_row, "cli_run": cli_line}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """MM-GAN and NS-GAN (Goodfellow et al. 2014) — the port of
-``generative_models_tpu/losses/minimax.py``. Forward only: the training
-step is not ported yet.
+``generative_models_tpu/losses/minimax.py``. The train step
+(``train/step.py``) differentiates these losses with torch autograd; the
+chunk kernel (``ops/cuda_train.py``) hand-derives the same gradients.
 
 Shared D objective:      L_D = BCE(D(x), 1) + BCE(D(G(z)), 0)   (logits)
 MM-GAN G (saturating):   L_G = -BCE(D(G(z)), 0)

@@ -14,7 +14,7 @@ from typing import List, Sequence
 
 import torch
 
-from generative_models_tpu_torch.ops.cuda_mlp import acts_tuple, mlp_fwd
+from generative_models_tpu_torch.ops.cuda_mlp import MLPFunction, acts_tuple
 from generative_models_tpu_torch.ops.linear import fused_linear
 
 
@@ -55,12 +55,13 @@ def mlp_apply(layers: List[dict], x, hidden_act: str = "relu",
               out_act: str = "none", slope: float = 0.2,
               compute_dtype=None):
     """Forward through the stack. A CPU tensor takes the per-layer plain
-    path; any other runs the whole stack as one launch of the CUDA
-    kernel (ops/cuda_mlp.py), or raises."""
+    path (torch autograd differentiates it); any other runs the whole
+    stack through :class:`MLPFunction`: one launch of the forward kernel,
+    and one of the backward kernel when a gradient is taken
+    (ops/cuda_mlp.py), or raises."""
     if x.device.type == "cpu":
         return mlp_apply_plain(layers, x, hidden_act, out_act, slope,
                                compute_dtype)
-    out, _ = mlp_fwd(x, [l["w"] for l in layers], [l["b"] for l in layers],
-                     acts_tuple(len(layers), hidden_act, out_act), slope,
-                     compute_dtype)
-    return out
+    flat = [t for l in layers for t in (l["w"], l["b"])]
+    return MLPFunction.apply(x, acts_tuple(len(layers), hidden_act, out_act),
+                             slope, compute_dtype, *flat)

@@ -1,20 +1,33 @@
-"""Loading the JAX package's checkpoints into the port.
+"""Checkpoints in the JAX package's npz layout, read and written with
+numpy alone — no JAX.
 
 The reference (``generative_models_tpu/utils/checkpoint.py``) saves the
 whole train state as an ``.npz`` of ``leaf_00000, leaf_00001, ...`` plus
-a ``__meta__`` JSON list giving each leaf's tree path (e.g.
-``['g_params'][0]['w']``), shape and dtype. This module reads that
-layout with numpy alone — no JAX — and holds every leaf the port uses
-to the shape and dtype the config implies, raising on any mismatch, as
-the reference's ``restore_state`` does. :func:`params_from_numpy` then
-carries the weights onto a device as torch tensors.
+a ``__meta__`` JSON list giving each leaf's tree path as
+``jax.tree_util.keystr`` prints it, its shape and dtype, in the order of
+``jax.tree_util.tree_flatten`` (dict keys sorted). For nsgan with Adam
+and an EMA the leaves are ``['d_opt'][0].count``,
+``['d_opt'][0].mu[i]['b'|'w']``, ``['d_opt'][0].nu[...]``,
+``['d_params'][...]``, ``['g_ema'][...]``, ``['g_opt'][0]...``,
+``['g_params'][...]``, ``['rng']`` (uint32 [2]) and ``['step']`` (int32).
+
+:func:`save_state` writes the port's state in exactly that layout, so a
+port checkpoint restores into the JAX package's ``Trainer.load_model``;
+:func:`load_jax_checkpoint` reads either package's checkpoints and holds
+every leaf the port uses to the shape and dtype the config implies,
+raising on any mismatch, as the reference's ``restore_state`` does. The
+optimizer slots and counts are restored when the file has them. In the
+port, ``['rng']`` holds the two words that seed its noise generators
+(``train/step.py::noise_generator``); a JAX checkpoint's key words seed
+them the same way. :func:`params_from_numpy` carries arrays onto a
+device as torch tensors.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -32,34 +45,9 @@ def exists(path: str) -> bool:
     return os.path.exists(npz_path(path))
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """Leaves by JAX key path string (``jax.tree_util.keystr``)."""
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}['{k}']"))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}[{i}]"))
-        return out
-    return {prefix: tree}
-
-
-def _unflatten(template, leaves: Dict[str, Any], prefix: str = ""):
-    if isinstance(template, dict):
-        return {k: _unflatten(v, leaves, f"{prefix}['{k}']")
-                for k, v in template.items()}
-    if isinstance(template, (list, tuple)):
-        return [_unflatten(v, leaves, f"{prefix}[{i}]")
-                for i, v in enumerate(template)]
-    return leaves[prefix]
-
-
 def param_template(cfg: Config) -> Dict[str, Any]:
-    """The param subtrees a serving state holds, as meta tensors (shapes
-    only): g_params, d_params, and g_ema when cfg.ema_decay > 0."""
+    """The param subtrees a state holds, as meta tensors (shapes only):
+    g_params, d_params, and g_ema when cfg.ema_decay > 0."""
     from generative_models_tpu_torch.losses.registry import get_variant
     spec = get_variant(cfg.variant)
     gen = torch.Generator()  # the draws are discarded; shapes are read
@@ -70,8 +58,65 @@ def param_template(cfg: Config) -> Dict[str, Any]:
     return tmpl
 
 
+def _param_leaves(prefix: str, params) -> List[Tuple[str, Any]]:
+    return [(f"{prefix}[{i}]['{k}']", layer[k])
+            for i, layer in enumerate(params) for k in sorted(layer)]
+
+
+def _opt_leaves(prefix: str, opt: Dict[str, Any]) -> List[Tuple[str, Any]]:
+    """An optax chain state's leaves: its first element carries the slots
+    (ScaleByAdamState: count, mu, nu; ScaleByRmsState: nu), the rest are
+    empty."""
+    p = f"{prefix}[0]"
+    out = [(f"{p}.count", opt["count"])] if "count" in opt else []
+    for slot in ("mu", "nu"):
+        if slot in opt:
+            out += _param_leaves(f"{p}.{slot}", opt[slot])
+    return out
+
+
+def state_leaves(state: Dict[str, Any]) -> List[Tuple[str, Any]]:
+    """Every leaf of a port train state by JAX key path, in
+    ``jax.tree_util.tree_flatten`` order."""
+    out: List[Tuple[str, Any]] = []
+    for key in sorted(state):
+        v = state[key]
+        if key in ("g_opt", "d_opt"):
+            out += _opt_leaves(f"['{key}']", v)
+        elif key in ("g_params", "d_params", "g_ema"):
+            out += _param_leaves(f"['{key}']", v)
+        elif key == "vstate":
+            out += [(f"['vstate']['{k}']", v[k]) for k in sorted(v)]
+        else:
+            out.append((f"['{key}']", v))
+    return out
+
+
+def _to_numpy(key: str, v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if key == "['rng']":
+        return np.asarray(v, dtype=np.uint32)
+    if key == "['step']" or key.endswith(".count"):
+        return np.asarray(v, dtype=np.int32)
+    return np.asarray(v)
+
+
+def save_state(path: str, state: Dict[str, Any]) -> str:
+    """Save a port train state as an ``.npz`` in the JAX package's layout
+    (same leaf paths, shapes, dtypes and order). Returns the path."""
+    path = npz_path(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    leaves = [(p, _to_numpy(p, v)) for p, v in state_leaves(state)]
+    flat = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}
+    meta = json.dumps([{"path": p, "shape": list(a.shape),
+                        "dtype": str(a.dtype)} for p, a in leaves])
+    np.savez(path, **flat, **{_META_KEY: np.array(meta)})
+    return path
+
+
 def read_leaves(path: str) -> Dict[str, np.ndarray]:
-    """Every leaf of a reference ``.npz`` checkpoint, by tree path."""
+    """Every leaf of an npz checkpoint in the JAX layout, by tree path."""
     with np.load(npz_path(path)) as d:
         if _META_KEY not in d.files:
             raise ValueError(
@@ -95,29 +140,49 @@ def read_leaves(path: str) -> Dict[str, np.ndarray]:
     return leaves
 
 
-def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
-    """The serving state of a reference checkpoint as numpy arrays:
-    ``{"g_params", "d_params", ["g_ema",] "step"}``, each param subtree a
-    list of ``{"w", "b"}``. Raises if any leaf is missing, has another
-    shape or dtype than `cfg` implies, or if a param subtree holds extra
-    leaves (another depth, or an EMA the config does not expect)."""
-    leaves = read_leaves(path)
-    tmpl = param_template(cfg)
-    want: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {
-        p: (tuple(t.shape), np.dtype("float32"))
-        for p, t in _flatten(tmpl).items()}
-    want["['step']"] = ((), np.dtype("int32"))
+def _opt_template(cfg: Config, params) -> Dict[str, Any]:
+    """The optimizer state ``cfg.optimizer`` keeps, shapes only."""
+    if cfg.optimizer == "adam":
+        return {"count": torch.empty((), dtype=torch.int32, device="meta"),
+                "mu": params, "nu": params}
+    return {"nu": params}
+
+
+def _check_leaves(path, leaves, want, what):
     for p, (shape, dtype) in want.items():
         if p not in leaves:
-            raise ValueError(
-                f"{path}: no leaf {p!r} — variant/config mismatch "
-                f"(variant={cfg.variant!r}, ema_decay={cfg.ema_decay})")
+            raise ValueError(f"{path}: no leaf {p!r} — {what}")
         a = leaves[p]
         if a.shape != shape or a.dtype != dtype:
             raise ValueError(
                 f"{path}: leaf {p!r} is {a.shape} {a.dtype}, the config "
                 f"expects {shape} {dtype} — refusing to silently "
                 "reshape/recast")
+
+
+def _want(leaf_list) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
+    return {p: (tuple(t.shape), np.dtype("int32" if p.endswith(".count")
+                                         else "float32"))
+            for p, t in leaf_list}
+
+
+def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
+    """The train state of a checkpoint as numpy arrays: ``{"g_params",
+    "d_params", ["g_ema",] "step"}``, each param subtree a list of
+    ``{"w", "b"}``, plus ``"g_opt"``/``"d_opt"`` (``{"count", "mu",
+    "nu"}`` or ``{"nu"}``) and ``"rng"`` when the file has them. Raises if
+    a param leaf is missing, if any leaf has another shape or dtype than
+    `cfg` implies, if the optimizer slots are partial or of another
+    optimizer, or if a param subtree holds extra leaves (another depth,
+    or an EMA the config does not expect)."""
+    leaves = read_leaves(path)
+    tmpl = param_template(cfg)
+    mismatch = (f"variant/config mismatch (variant={cfg.variant!r}, "
+                f"ema_decay={cfg.ema_decay})")
+    want = _want([lf for k in sorted(tmpl)
+                  for lf in _param_leaves(f"['{k}']", tmpl[k])])
+    want["['step']"] = ((), np.dtype("int32"))
+    _check_leaves(path, leaves, want, mismatch)
     subtrees = ("['g_params']", "['d_params']", "['g_ema']")
     extra = sorted(p for p in leaves
                    if p.startswith(subtrees) and p not in want)
@@ -125,8 +190,37 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
         raise ValueError(
             f"{path}: leaves {extra[:4]} are not in the config's model — "
             f"variant/config mismatch (ema_decay={cfg.ema_decay})")
-    out = _unflatten(tmpl, leaves)
+    out: Dict[str, Any] = {
+        k: [{kk: leaves[f"['{k}'][{i}]['{kk}']"] for kk in layer}
+            for i, layer in enumerate(v)] for k, v in tmpl.items()}
     out["step"] = int(leaves["['step']"])
+    for side, params in (("g_opt", "g_params"), ("d_opt", "d_params")):
+        found = sorted(p for p in leaves if p.startswith(f"['{side}']"))
+        if not found:
+            continue
+        want_opt = _want(_opt_leaves(f"['{side}']",
+                                     _opt_template(cfg, tmpl[params])))
+        if sorted(want_opt) != found:
+            raise ValueError(
+                f"{path}: the {side} leaves are not those of "
+                f"optimizer={cfg.optimizer!r} — {mismatch}")
+        _check_leaves(path, leaves, want_opt, mismatch)
+        p0 = f"['{side}'][0]"
+        opt: Dict[str, Any] = {}
+        if f"{p0}.count" in leaves:
+            opt["count"] = leaves[f"{p0}.count"]
+        for slot in ("mu", "nu"):
+            if any(p.startswith(f"{p0}.{slot}") for p in found):
+                opt[slot] = [{kk: leaves[f"{p0}.{slot}[{i}]['{kk}']"]
+                              for kk in layer}
+                             for i, layer in enumerate(tmpl[params])]
+        out[side] = opt
+    if "['rng']" in leaves:
+        rng = leaves["['rng']"]
+        if rng.shape != (2,) or rng.dtype != np.uint32:
+            raise ValueError(f"{path}: leaf ['rng'] is {rng.shape} "
+                             f"{rng.dtype}; the port reads two uint32 words")
+        out["rng"] = rng
     return out
 
 

@@ -115,3 +115,81 @@ def test_build_targets_hopper_into_the_ignored_build_dir():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR == os.path.join(REPO, "build", "torch_kernels")
     assert os.path.exists(os.path.join(build.CSRC_DIR, "mlp_fwd.cu"))
+
+
+def test_training_kernel_modules_import_and_run_on_cpu_without_building():
+    code = (
+        "import sys, torch\n"
+        "from generative_models_tpu_torch.ops import cuda_mlp, cuda_train\n"
+        "x = torch.ones(3, 4); w = torch.ones(4, 2); b = torch.zeros(2)\n"
+        "out, hid = cuda_mlp.mlp_fwd(x, [w], [b], ('relu',))\n"
+        "dws, dbs, dx = cuda_mlp.mlp_bwd(x, hid, out, torch.ones(3, 2), [w],"
+        " ('relu',))\n"
+        "assert dx.shape == (3, 4) and dws[0].shape == (4, 2)\n"
+        "p = [torch.zeros(s) for s in ((2, 3), (3,), (3, 5), (5,), (5, 3),"
+        " (3,), (3, 1), (1,))]\n"
+        "mu = [torch.zeros_like(t) for t in p]\n"
+        "nu = [torch.zeros_like(t) for t in p]\n"
+        "hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, False)\n"
+        "m = cuda_train.gan_chunk(torch.rand(4, 5), torch.randn(4, 2),"
+        " torch.randn(4, 2), p, mu, nu, steps=2, ds=1, batch=2, t_g=0,"
+        " t_d=0, hp=hp)\n"
+        "assert m.shape == (2, 4) and bool(torch.isfinite(m).all())\n"
+        "assert cuda_mlp.bwd_launches == 0 and cuda_train.launches == 0\n"
+        "assert 'generative_models_tpu_torch.ops.build' not in sys.modules\n"
+        "assert cuda_mlp._bwd_lib.cache_info().currsize == 0\n"
+        "assert cuda_train._lib.cache_info().currsize == 0\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_kernel_forward_refuses_inputs_that_need_a_graph():
+    """Off the CPU, mlp_fwd's outputs carry no autograd graph: an input
+    that requires grad under grad mode raises (a meta tensor stands in
+    for a CUDA one); MLPFunction is the path that trains."""
+    x = torch.empty(3, 4, device="meta", requires_grad=True)
+    w = torch.empty(4, 2, device="meta")
+    b = torch.empty(2, device="meta")
+    with pytest.raises(RuntimeError, match="MLPFunction"):
+        cuda_mlp.mlp_fwd(x, [w], [b], ("relu",))
+    with pytest.raises(RuntimeError, match="MLPFunction"):
+        cuda_mlp.mlp_fwd(x.detach(), [w.requires_grad_(True)], [b],
+                         ("relu",))
+    with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_mlp.mlp_fwd(x, [w], [b], ("relu",))
+
+
+def test_training_wrappers_refuse_devices_they_have_no_path_for():
+    from generative_models_tpu_torch.ops import cuda_train
+    meta = lambda *s: torch.empty(s, device="meta")
+    x, w = meta(3, 4), meta(4, 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_mlp.mlp_bwd(x, [], meta(3, 2), meta(3, 2), [w], ("relu",))
+    p = [meta(*s) for s in ((2, 3), (3,), (3, 5), (5,), (5, 3), (3,),
+                            (3, 1), (1,))]
+    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, False)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_train.gan_chunk(meta(4, 5), meta(4, 2), meta(4, 2), p, p, p,
+                             steps=2, ds=1, batch=2, t_g=0, t_d=0, hp=hp)
+
+
+def test_fused_step_auto_trains_the_general_step_on_cpu(monkeypatch,
+                                                        tiny_data):
+    from generative_models_tpu_torch.ops import cuda_train
+
+    def no_chunk(*a, **k):
+        raise AssertionError("the chunk ran on the CPU under 'auto'")
+    monkeypatch.setattr(cuda_train, "gan_chunk", no_chunk)
+    t = trainer_mod.Trainer("nsgan", device="cpu", data=tiny_data,
+                            batch_size=16, hidden_dim=32, z_dim=8,
+                            scan_steps=2)
+    assert t.cfg.fused_step == "auto"
+    t.train(steps=2)
+    assert t.state["step"] == 2
+
+
+def test_training_sources_ship_with_the_package():
+    for src in ("mlp_bwd.cu", "gan_chunk.cu"):
+        assert os.path.exists(os.path.join(build.CSRC_DIR, src))
