@@ -9,8 +9,9 @@ imports nothing of JAX. Phases:
 1. the card's name and power limit (nvidia-smi); TF32 off for float32
    matmuls and convolutions, so the plain versions run in true float32;
 2. builds every kernel of the serving and training paths from ``csrc/``
-   (one nvcc per source, all started together; sm_90a) and prints the
-   build time and the ptxas reports;
+   (five sources — mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk — one
+   nvcc each, all started together; sm_90a) and prints the build time
+   and the ptxas reports;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -22,21 +23,36 @@ imports nothing of JAX. Phases:
      and streams, for nsgan and mmgan at d_steps 1 and nsgan at 2;
    - a cross-check: 20 steps of the chunk kernel and 20 of the general
      step (which runs the forward and backward kernels) from one state;
+   - the sampling kernel ``reparam`` at [100, 20], [8192, 20], a ragged
+     [37, 20] and a wide [64, 200]: z element by element against the
+     plain version's reproduced eps, the row KL, and the backward through
+     autograd against the analytic rule; the moments of 1.3 million
+     draws, and distinct offsets giving distinct noise;
+   - the VAE and BIR-VAE (mse and bce) chunk kernels: 8 steps at full
+     width (784-400-20), B 100, against their plain versions in float64;
+     and 20 steps of each against the general step from one state with
+     the same eps;
 4. drives the port's main paths, each with the launch counts set to 0
    just before it and read just after:
    - serving: a full-width nsgan checkpoint in the JAX package's npz
      layout (random weights from a seed), ``cli.main([... "--sample-only"])``
      and ``Trainer.sample`` at n = 8192 held against the plain version;
    - training through the CLI (``fused_step="auto"``, the chunk kernel):
-     2000 steps in chunks of 1000 at full width on the 60,000-row
-     synthetic split, losses finite, ``final.png`` and ``metrics.jsonl``
-     written;
-   - training through the general step (``fused_step=False``): 200 steps,
-     5 forward and 4 backward launches a step;
+     nsgan, vae and birvae, 1000 steps each in chunks of 500 at full
+     width on the 60,000-row synthetic split, losses finite (and for the
+     VAE family falling: the mean of the last 100 below the mean of the
+     first 100), ``final.png`` and ``metrics.jsonl`` written;
+   - training through the general step (``fused_step=False``): nsgan 200
+     steps, 5 forward and 4 backward launches a step; vae 100 steps, 4
+     forward, 4 backward and 1 ``reparam`` launch a step; birvae 100
+     steps, 3 forward and 3 backward;
+   - serving the VAE: ``--sample-only`` from a full-width vae checkpoint
+     in the JAX layout and ``Trainer.sample`` at n = 8192 against plain;
 5. times, with CUDA events, each kernel beside its plain version, its
-   bound and one library call, and G+D steps/s of the chunk kernel, the
-   general step and a library step loop (addmm + autograd +
-   ``torch.optim.Adam(foreach=True)``, which the port never calls);
+   bound and one library call, and steps/s of each chunk kernel (nsgan
+   G+D, vae, birvae), the general step and a library step loop (addmm +
+   autograd + ``torch.optim.Adam(foreach=True)``, which the port never
+   calls);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -99,12 +115,46 @@ CHUNK_TOL = {"metrics": 1e-4, "state": 1e-3}
 # by their norm.
 CROSS_TOL = {"metrics": 2e-3, "state": 1e-2}
 
+# reparam kernel vs its plain version (the same Philox words, so the same
+# eps up to the last bits of logf/cosf/sqrtf/expf on the card against
+# torch's): z max abs error at |mu| ~ 1, sigma ~ 1, |eps| <= 5.7 (a few
+# float32 ulps of values below 8, and one fused multiply-add where torch
+# rounds twice); the row KL and the analytic backward by max abs error
+# over max |reference| (20- or 200-term float32 sums in another order).
+REPARAM_TOL = {"z": 2e-5, "kl": 1e-5, "grad": 1e-5}
+# eps from 65536 x 20 draws: |mean| and |var - 1| about five standard
+# errors (0.87e-3 and 1.2e-3 at 1.3 million draws).
+REPARAM_MOMENTS = 5e-3
+# VAE / BIR-VAE chunk kernels vs their plain versions in float64 over 8
+# steps: the metrics by max abs error over max |reference| (a loss of
+# order 550 is a float32 sum of 78,400 pixels: a few ulps, 6e-5 each, of
+# the total), each state tensor as CHUNK_TOL's. The BIR-VAE runs at
+# adam_eps = 1e-3: the bias gradient of its mean head is zero in exact
+# arithmetic (the batch normalisation removes a uniform shift), and at
+# the default eps Adam normalises the rounding residue of that sum into
+# steps of order lr, in the kernel and in any float32 version alike. Even
+# so that bias's mu slot is the worst tensor of every BIR-VAE case (2e-4
+# to 9e-4 of its max over data seeds 8-15, the float32 plain version
+# 2e-4 to 1.4e-3): it holds nothing but that residue.
+# The data is drawn by numpy from VAE_CHECK_SEED, so it is the same on
+# every machine, and it holds no ReLU tie: a pre-activation within
+# float32 rounding of zero (about 1e-6 here) is positive in one version
+# and zero in the other, which switches that sample's whole contribution
+# to the unit's gradients on or off — a jump of the function itself, not
+# an error of either version (seen at seeds 9 and 14: one hidden unit's
+# column ~1e-2 of max off after its step, every other tensor ~1e-7).
+VAE_CHUNK_TOL = {"metrics": 2e-5, "state": 1e-3}
+BIRVAE_ADAM_EPS = 1e-3
+VAE_CHECK_SEED = 10
+
 G_DIMS = [128, 400, 784]
 G_ACTS = ("relu", "sigmoid")
 D_DIMS = [784, 400, 1]
 D_ACTS = ("leaky_relu", "none")
 SERVING_BATCHES = (64, 1024, 8192)
 TRAIN_B = 100
+VAE_X, VAE_H, VAE_L = 784, 400, 20
+VAE_CASES = (("vae", "bce"), ("birvae", "mse"), ("birvae", "bce"))
 
 
 def nvidia_smi_line() -> str:
@@ -133,7 +183,7 @@ def build_all(mods, build_dir):
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(fn) for fn in mods]:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk in "
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk in "
           f"{time.perf_counter() - t0:.2f} s")
     for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
         with open(log) as f:
@@ -230,8 +280,17 @@ PLANE_NAMES = [f"{pl}.{t}" for pl in ("p", "mu", "nu") for t in (
     "g_w1", "g_b1", "g_w2", "g_b2", "d_w1", "d_b1", "d_w2", "d_b2")]
 
 
-def state_err(a_planes, r_planes):
-    """(worst relative L2 distance of a plane — params, mu or nu, its 8
+VAE_TENSORS = ("tr_w", "tr_b", "mu_w", "mu_b", "lv_w", "lv_b", "d1_w", "d1_b",
+               "d2_w", "d2_b")
+
+
+def vae_plane_names(birvae):
+    ts = [t for t in VAE_TENSORS if not (birvae and t.startswith("lv"))]
+    return [f"{pl}.{t}" for pl in ("p", "mu", "nu") for t in ts]
+
+
+def state_err(a_planes, r_planes, names=PLANE_NAMES):
+    """(worst relative L2 distance of a plane — params, mu or nu, its
     tensors together —, the tensor with the largest max abs error over
     its max |ref|, and that ratio)."""
     l2 = max(float(sum(float((a - r).pow(2).sum()) for a, r in zip(la, lr))
@@ -243,7 +302,7 @@ def state_err(a_planes, r_planes):
     mx = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
           for a, r in pairs]
     worst = int(np.argmax(mx))
-    return l2, PLANE_NAMES[worst], mx[worst]
+    return l2, names[worst], mx[worst]
 
 
 def check_chunk(cuda_train, torch):
@@ -328,6 +387,183 @@ def cross_check(cuda_train, step_lib, torch):
         raise AssertionError("the chunk kernel and the general step disagree")
 
 
+def check_reparam(cuda_reparam, torch):
+    """Phase 3e: the sampling kernel against its plain version (the same
+    seed and offset reproduce the kernel's eps), its backward, and the
+    moments of its noise. Returns the worst z error."""
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for b, l in ((TRAIN_B, VAE_L), (8192, VAE_L), (37, VAE_L), (64, 200)):
+        mu = torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).cuda()
+        lv = torch.from_numpy(
+            (rng.normal(size=(b, l)) * 0.3).astype(np.float32)).cuda()
+        seed = torch.tensor([b * 7919 + 1, l * 104729 + 3], device="cuda")
+        offset = b + (l << 33)
+        z, kl = cuda_reparam.reparam_fwd(mu, lv, seed, offset)
+        z_ref, kl_ref = cuda_reparam.reparam_and_kl_plain(mu, lv, seed, offset)
+        # the backward through autograd against the analytic rule
+        gm, gl = mu.clone().requires_grad_(True), lv.clone().requires_grad_(True)
+        zz, kk = cuda_reparam.ReparamFunction.apply(gm, gl, seed, offset)
+        dz = torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).cuda()
+        dkl = torch.from_numpy(rng.normal(size=(b,)).astype(np.float32)).cuda()
+        dmu, dlv = torch.autograd.grad([zz, kk], [gm, gl], [dz, dkl])
+        dmu_ref = dz + dkl[:, None] * mu
+        dlv_ref = (dz * 0.5 * (z_ref - mu)
+                   - dkl[:, None] * 0.5 * (1.0 - torch.exp(lv)))
+        torch.cuda.synchronize()
+        z_err = float((z - z_ref).abs().max())
+        kl_err = float((kl - kl_ref).abs().max()) / float(kl_ref.abs().max())
+        g_err = max(float((a - r).abs().max()) / float(r.abs().max())
+                    for a, r in ((dmu, dmu_ref), (dlv, dlv_ref)))
+        ok = (z_err <= REPARAM_TOL["z"] and kl_err <= REPARAM_TOL["kl"]
+              and g_err <= REPARAM_TOL["grad"] and torch.equal(zz, z)
+              and bool(torch.isfinite(z).all()))
+        print(f"  reparam [{b}, {l}] vs plain (reproduced eps): "
+              f"z_max_abs_err={z_err:.3e} (tol {REPARAM_TOL['z']:.0e}) "
+              f"kl max_err/max={kl_err:.3e} (tol {REPARAM_TOL['kl']:.0e}) "
+              f"backward max_err/max={g_err:.3e} (tol "
+              f"{REPARAM_TOL['grad']:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"reparam disagrees with its plain version "
+                                 f"at [{b}, {l}]")
+        worst = max(worst, z_err)
+    # mu = 0, logvar = 0: z is eps itself
+    zero = torch.zeros(65536, VAE_L, device="cuda")
+    seed = torch.tensor([2024, 10], device="cuda")
+    e0, kl0 = cuda_reparam.reparam_fwd(zero, zero, seed, 0)
+    e0b, _ = cuda_reparam.reparam_fwd(zero, zero, seed, 0)
+    e1, _ = cuda_reparam.reparam_fwd(zero, zero, seed, 1)
+    e2, _ = cuda_reparam.reparam_fwd(zero, zero, seed + 1, 0)
+    torch.cuda.synchronize()
+    mean, var = float(e0.mean()), float(e0.var())
+    ok = (abs(mean) <= REPARAM_MOMENTS and abs(var - 1.0) <= REPARAM_MOMENTS
+          and torch.equal(e0, e0b) and not torch.equal(e0, e1)
+          and not torch.equal(e0, e2)
+          and float((e0 - e1).abs().mean()) > 0.5
+          and float((e0 - e2).abs().mean()) > 0.5
+          and float(kl0.abs().max()) == 0.0
+          and bool(torch.isfinite(e0).all()))
+    print(f"  reparam eps over {e0.numel()} draws: mean={mean:.3e} "
+          f"var={var:.5f} max|eps|={float(e0.abs().max()):.3f} (tol "
+          f"{REPARAM_MOMENTS:.0e}); same offset equal, other offset or seed "
+          f"distinct {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the reparam kernel's noise failed its checks")
+    return worst
+
+
+def vae_state(rng, birvae):
+    """Params and non-zero Adam slots of the VAE family's chunk tensors
+    at full width, as numpy planes in the kernel's order."""
+    x, h, l = VAE_X, VAE_H, VAE_L
+    dims = [(x, h), (h, l)] + ([] if birvae else [(h, l)]) + [(l, h), (h, x)]
+    p = []
+    for i, o in dims:
+        bound = 1.0 / np.sqrt(i)
+        p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
+              rng.uniform(-bound, bound, (o,)).astype(np.float32)]
+    mu = [rng.normal(0, 1e-3, a.shape).astype(np.float32) for a in p]
+    nu = [rng.uniform(0, 1e-5, a.shape).astype(np.float32) for a in p]
+    return p, mu, nu
+
+
+def vae_hyper(ctv, variant, recon):
+    from generative_models_tpu_torch.config import variant_config
+    kw = {"adam_eps": BIRVAE_ADAM_EPS} if variant == "birvae" else {}
+    return ctv.VaeHyper.from_config(
+        variant_config(variant, vae_recon=recon, **kw))
+
+
+def check_vae_chunk(ctv, torch, seed=VAE_CHECK_SEED):
+    """Phase 3f: 8 steps of the VAE / BIR-VAE chunk kernels vs their plain
+    versions in float64. Returns {variant: worst metrics error}."""
+    rng = np.random.default_rng(seed)
+    worst = {"vae": 0.0, "birvae": 0.0}
+    steps = 8
+    for variant, recon in VAE_CASES:
+        birvae = variant == "birvae"
+        p, mu, nu = vae_state(rng, birvae)
+        xs = torch.from_numpy(rng.random(
+            (steps * TRAIN_B, VAE_X), dtype=np.float32)).cuda()
+        es = torch.from_numpy(rng.standard_normal(
+            (steps * TRAIN_B, VAE_L), dtype=np.float32)).cuda()
+        hp = vae_hyper(ctv, variant, recon)
+        planes = lambda dt: [[torch.from_numpy(a.copy()).to("cuda", dt)
+                              for a in pl] for pl in (p, mu, nu)]
+        got, ref, f32 = (planes(torch.float32), planes(torch.float64),
+                         planes(torch.float32))
+        kw = dict(steps=steps, batch=TRAIN_B, t=3, hp=hp)
+        kernel = ctv.birvae_chunk if birvae else ctv.vae_chunk
+        plain = ctv.birvae_chunk_plain if birvae else ctv.vae_chunk_plain
+        m = kernel(xs, es, *got, **kw)
+        m_ref = plain(xs.double(), es.double(), *ref, **kw)
+        plain(xs, es, *f32, **kw)
+        torch.cuda.synchronize()
+        names = vae_plane_names(birvae)
+        m_err = float((m - m_ref).abs().max()) / float(m_ref.abs().max())
+        s_l2, s_name, s_err = state_err(got, ref, names)
+        _, f32_name, f32_err = state_err(f32, ref, names)
+        ok = (m_err <= VAE_CHUNK_TOL["metrics"]
+              and s_err <= VAE_CHUNK_TOL["state"]
+              and bool(torch.isfinite(m).all()))
+        print(f"  chunk {variant} {recon} adam_eps={hp.eps:g} steps={steps} "
+              f"B={TRAIN_B} vs plain(float64): metrics max_err/max="
+              f"{m_err:.3e} (tol {VAE_CHUNK_TOL['metrics']:.0e}; loss "
+              f"{float(m_ref[0, 0]):.3f} -> {float(m_ref[-1, 0]):.3f}) state "
+              f"max_err/max={s_err:.3e} ({s_name}; tol "
+              f"{VAE_CHUNK_TOL['state']:.0e}) rel L2={s_l2:.3e} "
+              f"{'ok' if ok else 'FAIL'}; plain(float32) vs plain(float64): "
+              f"max_err/max={f32_err:.3e} ({f32_name})")
+        if not ok:
+            raise AssertionError(
+                f"{variant}_chunk ({recon}) disagrees with its plain version "
+                f"(worst tensor {s_name}; one hidden unit's column alone "
+                f"points to a ReLU tie in the data: see VAE_CHUNK_TOL)")
+        worst[variant] = max(worst[variant], m_err)
+    return worst
+
+
+def cross_check_vae(cuda_train, ctv, step_lib, torch):
+    """Phase 3g: 20 steps of each VAE-family chunk kernel vs 20 of the
+    general step (mlp_fwd/mlp_bwd + autograd + Adam) from one state,
+    batches and eps (handed to both as tensors)."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.losses.registry import get_variant
+    data = synthetic_split(1000, seed=3)
+    images = torch.from_numpy(data["x_train"].reshape(1000, -1)).cuda()
+    labels = torch.from_numpy(data["y_train"]).cuda()
+    perm = torch.stack([torch.randperm(1000, device="cuda") for _ in range(4)])
+    rel = torch.arange(20, device="cuda") * TRAIN_B
+    eps = torch.randn(20, TRAIN_B, VAE_L, device="cuda")
+    noise = lambda k0, n: eps[k0:k0 + n]
+    for variant, recon in VAE_CASES:
+        kw = {"adam_eps": BIRVAE_ADAM_EPS} if variant == "birvae" else {}
+        cfg = variant_config(variant, batch_size=TRAIN_B, dtype="float32",
+                             vae_recon=recon, **kw)
+        spec = get_variant(variant)
+        state = step_lib.init_state(spec, cfg,
+                                    torch.Generator().manual_seed(0), "cuda")
+        args = (images, labels, perm, rel, noise)
+        s_f, m_f = cuda_train.build_fused_many_steps(spec, cfg, 10)(
+            state, *args)
+        s_g, m_g = step_lib.build_many_steps(spec, cfg, 10)(state, *args)
+        torch.cuda.synchronize()
+        m_err = max(float((m_f[k] - m_g[k]).abs().max())
+                    / float(m_g[k].abs().max()) for k in m_g)
+        s_err, s_name, s_max = state_err(
+            ctv.state_planes(s_f), ctv.state_planes(s_g),
+            vae_plane_names(variant == "birvae"))
+        ok = m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+        print(f"  {variant} {recon} chunk kernel vs general step, 20 steps: "
+              f"metrics max_err/max={m_err:.3e} (tol "
+              f"{CROSS_TOL['metrics']:.0e}) state rel L2={s_err:.3e} (tol "
+              f"{CROSS_TOL['state']:.0e}; worst element {s_name} "
+              f"{s_max:.3e} of its max) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {variant} chunk kernel and the "
+                                 f"general step disagree")
+
+
 def write_jax_layout_checkpoint(path: str, seed: int) -> None:
     """A full-width nsgan checkpoint in the JAX package's npz layout
     (leaf_NNNNN arrays + __meta__ key paths): G and D params and step,
@@ -350,7 +586,7 @@ def write_jax_layout_checkpoint(path: str, seed: int) -> None:
 
 def reset(*mods):
     for m in mods:
-        for name in ("launches", "bwd_launches"):
+        for name in ("launches", "bwd_launches", "birvae_launches"):
             if hasattr(m, name):
                 setattr(m, name, 0)
 
@@ -400,62 +636,162 @@ def drive_serving(cuda_mlp, cuda_train, torch):
     return cli_launches + sample_launches, err
 
 
-def drive_training_cli(cuda_mlp, cuda_train, torch):
-    """Phase 4b: the CLI's training run, fused_step auto -> chunk kernel.
-    Returns (launch counts, the run's JSON line)."""
+def launch_counts(mods):
+    cuda_mlp, cuda_train, cuda_reparam, ctv = mods
+    return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
+            "mlp_bwd": cuda_mlp.bwd_launches, "reparam": cuda_reparam.launches,
+            "vae_chunk": ctv.launches, "birvae_chunk": ctv.birvae_launches}
+
+
+LOSS_KEYS = {"nsgan": ("d_loss", "d_real", "d_fake", "g_loss"),
+             "vae": ("loss", "recon_loss", "kl_loss"),
+             "birvae": ("loss", "recon_loss", "latent_power")}
+
+
+def drive_training_cli(variant, mods, torch):
+    """Phase 4b: the CLI's training run of `variant`, fused_step auto ->
+    its chunk kernel, 1000 steps in chunks of 500. Returns (launch
+    counts, the run's JSON line)."""
     from generative_models_tpu_torch import cli
     run_dir = os.path.join(OUT_DIR, "train")
     buf = io.StringIO()
-    reset(cuda_mlp, cuda_train)
+    reset(*mods)
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["--variant", "nsgan", "--dataset", "synthetic",
-                       "--steps", "2000", "--scan-steps", "1000",
+        rc = cli.main(["--variant", variant, "--dataset", "synthetic",
+                       "--steps", "1000", "--scan-steps", "500",
                        "--echo-every", "500", "--out-dir", run_dir,
-                       "--ckpt", os.path.join(run_dir, "nsgan_trained")])
-    counts = {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
-              "mlp_bwd": cuda_mlp.bwd_launches}
+                       "--ckpt", os.path.join(run_dir, f"{variant}_trained")])
+    counts = launch_counts(mods)
     out = buf.getvalue().strip()
     print("  " + out.replace("\n", "\n  "))
     line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
-    vdir = os.path.join(run_dir, "nsgan")
+    vdir = os.path.join(run_dir, variant)
     with open(os.path.join(vdir, "metrics.jsonl")) as f:
         recs = [json.loads(l) for l in f]
-    finite = all(math.isfinite(r[k]) for r in recs
-                 for k in ("d_loss", "d_real", "d_fake", "g_loss"))
-    ok = (rc == 0 and line["steps"] == 2000 and len(recs) == 2000
-          and finite and counts["gan_chunk"] == 2
+    keys = LOSS_KEYS[variant]
+    finite = all(math.isfinite(r[k]) for r in recs for k in keys)
+    chunk = "gan_chunk" if variant == "nsgan" else f"{variant}_chunk"
+    others = [k for k in ("gan_chunk", "vae_chunk", "birvae_chunk")
+              if k != chunk]
+    ok = (rc == 0 and line["steps"] == 1000 and len(recs) == 1000
+          and finite and counts[chunk] == 2
+          and all(counts[k] == 0 for k in others)
+          and sorted(line["eval"]) == sorted(keys)
           and all(math.isfinite(v) for v in line["eval"].values())
           and os.path.getsize(os.path.join(vdir, "final.png")) > 0
           and any(os.path.exists(os.path.join(vdir, f"loss.{e}"))
                   for e in ("png", "csv")))
-    print(f"  cli training: rc={rc} steps={line['steps']} records="
-          f"{len(recs)} finite={finite} launches={counts} "
+    falling = ""
+    if variant != "nsgan":  # a GAN's losses do not fall; a VAE's must
+        first = float(np.mean([r["loss"] for r in recs[:100]]))
+        last = float(np.mean([r["loss"] for r in recs[-100:]]))
+        ok = ok and last < first
+        falling = f" loss first100={first:.3f} last100={last:.3f}"
+    print(f"  cli training {variant}: rc={rc} steps={line['steps']} records="
+          f"{len(recs)} finite={finite}{falling} launches={counts} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the CLI training run failed its checks")
+        raise AssertionError(f"the CLI training run of {variant} failed its "
+                             f"checks")
     return counts, line
 
 
-def drive_training_general(cuda_mlp, cuda_train, torch):
-    """Phase 4c: Trainer(fused_step=False).train(steps=200)."""
+# launches a step of the general step: (mlp_fwd, mlp_bwd, reparam)
+GENERAL_LAUNCHES = {"nsgan": (5, 4, 0), "vae": (4, 4, 1), "birvae": (3, 3, 0)}
+
+
+def drive_training_general(variant, steps, mods, torch):
+    """Phase 4c: Trainer(fused_step=False).train(steps). Returns (launch
+    counts, steps/s on the host's clock)."""
     from generative_models_tpu_torch.train.trainer import Trainer
-    t = Trainer("nsgan", fused_step=False, dataset="synthetic",
+    t = Trainer(variant, fused_step=False, dataset="synthetic",
                 out_dir=os.path.join(OUT_DIR, "general"))
     t._load_data()  # the split's upload is set-up, not the path
-    reset(cuda_mlp, cuda_train)
-    hist = t.train(steps=200)
-    counts = {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
-              "mlp_bwd": cuda_mlp.bwd_launches}
+    reset(*mods)
+    hist = t.train(steps=steps)
+    counts = launch_counts(mods)
     finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
-    ok = (counts == {"gan_chunk": 0, "mlp_fwd": 1000, "mlp_bwd": 800}
-          and finite and len(hist["g_loss"]) == 200)
-    sps = 200 / t.wall_time
-    print(f"  Trainer(fused_step=False).train(steps=200): launches={counts} "
-          f"(expect 5 fwd + 4 bwd a step) finite={finite} "
-          f"{sps:.1f} steps/s {'ok' if ok else 'FAIL'}")
+    fwd, bwd, rep = GENERAL_LAUNCHES[variant]
+    want = {"gan_chunk": 0, "mlp_fwd": fwd * steps, "mlp_bwd": bwd * steps,
+            "reparam": rep * steps, "vae_chunk": 0, "birvae_chunk": 0}
+    ok = (counts == want and finite
+          and all(len(v) == steps for v in hist.values()))
+    sps = steps / t.wall_time
+    print(f"  Trainer({variant!r}, fused_step=False).train(steps={steps}): "
+          f"launches={counts} (expect {fwd} fwd + {bwd} bwd + {rep} reparam a "
+          f"step) finite={finite} {sps:.1f} steps/s {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the general step's training run failed")
+        raise AssertionError(f"the general step's {variant} run failed")
     return counts, sps
+
+
+def write_vae_checkpoint(path: str, seed: int) -> None:
+    """A full-width vae checkpoint in the JAX package's npz layout (key
+    paths as jax.tree_util.keystr prints them, dict keys sorted), random
+    weights with torch-default init bounds."""
+    rng = np.random.default_rng(seed)
+    x, h, l = VAE_X, VAE_H, VAE_L
+
+    def layer(prefix, k, n):
+        bound = 1.0 / np.sqrt(k)
+        return [(f"{prefix}['b']", rng.uniform(-bound, bound, (n,)).astype(
+            np.float32)), (f"{prefix}['w']", rng.uniform(
+                -bound, bound, (k, n)).astype(np.float32))]
+
+    leaves = (layer("['params']['decoder'][0]", l, h)
+              + layer("['params']['decoder'][1]", h, x)
+              + layer("['params']['encoder']['logvar']", h, l)
+              + layer("['params']['encoder']['mu']", h, l)
+              + layer("['params']['encoder']['trunk'][0]", x, h)
+              + [("['step']", np.array(4321, dtype=np.int32))])
+    flat = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}
+    meta = json.dumps([{"path": p, "shape": list(a.shape), "dtype": str(a.dtype)}
+                       for p, a in leaves])
+    np.savez(path, **flat, __meta__=np.array(meta))
+
+
+def drive_vae_serving(mods, torch):
+    """Phase 4d: --sample-only from a vae checkpoint in the JAX layout and
+    Trainer.sample(8192) against the plain decoder. Returns (mlp_fwd
+    launches, max error vs plain)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cuda_mlp = mods[0]
+    ckpt = os.path.join(OUT_DIR, "vae_full.npz")
+    write_vae_checkpoint(ckpt, seed=1)
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", "vae", "--ckpt", ckpt, "--sample-only",
+                       "--out-dir", OUT_DIR])
+    cli_launches = cuda_mlp.launches
+    print("  " + buf.getvalue().strip())
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if (rc != 0 or line["step"] != 4321 or cli_launches < 1
+            or not os.path.getsize(line["samples"])):
+        raise AssertionError(f"vae --sample-only failed: rc={rc} {line} "
+                             f"launches={cli_launches}")
+    t = Trainer("vae")
+    t.load_model(ckpt)
+    z = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8192, VAE_L)).astype(np.float32)).cuda()
+    reset(*mods)
+    imgs = t.sample(z=z)
+    sample_launches = cuda_mlp.launches
+    dec = t.generator_params["decoder"]
+    ref, _ = cuda_mlp.mlp_fwd_plain(z, [l["w"] for l in dec],
+                                    [l["b"] for l in dec], G_ACTS, 0.2)
+    err = float(np.abs(imgs - ref.cpu().numpy()).max())
+    ok = (imgs.shape == (8192, VAE_X) and np.isfinite(imgs).all()
+          and imgs.min() >= 0.0 and imgs.max() <= 1.0
+          and err <= TOL["float32"] and sample_launches >= 1)
+    print(f"  vae cli --sample-only: rc={rc} mlp_fwd launches={cli_launches}; "
+          f"Trainer('vae').sample(n=8192): shape={imgs.shape} launches="
+          f"{sample_launches} max_abs_err_vs_plain={err:.3e} "
+          f"tol={TOL['float32']:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the vae Trainer.sample failed its checks")
+    return cli_launches + sample_launches, err
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -696,6 +1032,154 @@ def time_training(cuda_train, torch, card, general_sps):
     return row
 
 
+def vae_flops_per_step(birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L):
+    """Forward 2 B W, the dW products 2 B W, and the dx products of every
+    layer but the trunk (its dx is never formed)."""
+    w = x * h + (1 if birvae else 2) * h * l + l * h + h * x
+    return 2 * b * w + 2 * b * w + 2 * b * (w - x * h)
+
+
+def vae_chunk_bound(steps, birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L):
+    """The streams (x, eps) read once, the state (params, mu, nu) read and
+    written once, the metrics rows written."""
+    heads = 1 if birvae else 2
+    params = x * h + h + heads * (h * l + l) + l * h + h + h * x + x
+    nbytes = 4 * (steps * b * (x + l) + 2 * 3 * params + steps * 3)
+    return bound_of(steps * vae_flops_per_step(birvae, b, x, h, l), nbytes)
+
+
+def time_reparam(cuda_reparam, torch, card):
+    """Phase 5c: the sampling kernel beside its plain version, the library
+    call (torch.randn and the four-op formula) and its bound: mu and
+    logvar read once, z and the row KL written once."""
+    rows = []
+    for b in (TRAIN_B, 8192):
+        mu = torch.randn(b, VAE_L, device="cuda")
+        lv = torch.randn(b, VAE_L, device="cuda") * 0.3
+        seed = torch.tensor([11, 13], device="cuda")
+        k_ms = time_ms(torch, lambda: cuda_reparam.reparam_fwd(mu, lv, seed, 5),
+                       200)
+        p_ms = time_ms(torch, lambda: cuda_reparam.reparam_and_kl_plain(
+            mu, lv, seed, 5), 50)
+
+        def library():
+            z = mu + torch.exp(0.5 * lv) * torch.randn_like(mu)
+            return z, -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv), -1)
+
+        l_ms = time_ms(torch, library, 200)
+        d_ms = kernel_device_ms(
+            torch, lambda: cuda_reparam.reparam_fwd(mu, lv, seed, 5),
+            "reparam_kernel")
+        b_ms, b_by = bound_of(0.0, 4 * (3 * b * VAE_L + b))
+        rows.append({"shape": f"[{b}, {VAE_L}]", "ms": k_ms, "device_ms": d_ms,
+                     "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"  reparam  {rows[-1]['shape']:22s} kernel {k_ms:.4f} ms"
+              + (f" (device {d_ms:.4f})" if d_ms else "")
+              + f"  plain {p_ms:.4f}  library {l_ms:.4f}  bound {b_ms:.6f} "
+              f"({b_by})  [{card}]")
+    return rows
+
+
+def library_vae_step_loop(torch, steps, birvae, recon):
+    """The yardstick step the port never calls: the VAE (or BIR-VAE) at
+    full width with torch.addmm + autograd + torch.optim.Adam(foreach=True).
+    Returns steps/s (CUDA events)."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(9)
+    x, h, l = VAE_X, VAE_H, VAE_L
+    (w_tr,), (b_tr,) = make_stack(rng, [x, h], "cuda")
+    (w_mu,), (b_mu,) = make_stack(rng, [h, l], "cuda")
+    (w_lv,), (b_lv,) = make_stack(rng, [h, l], "cuda")
+    dw, db = make_stack(rng, [l, h, x], "cuda")
+    params = [w_tr, b_tr, w_mu, b_mu] + ([] if birvae else [w_lv, b_lv]) \
+        + dw + db
+    params = [t.requires_grad_(True) for t in params]
+    opt = torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), foreach=True)
+    xs = torch.rand(steps, TRAIN_B, x, device="cuda")
+    es = torch.randn(steps, TRAIN_B, l, device="cuda")
+
+    def step(k):
+        henc = torch.relu(torch.addmm(b_tr, xs[k], w_tr))
+        m = torch.addmm(b_mu, henc, w_mu)
+        if birvae:
+            mean = m.mean(0, keepdim=True)
+            var = torch.clamp_min((m * m).mean(0, keepdim=True) - mean * mean,
+                                  0.0)
+            z = (m - mean) * torch.rsqrt(var + 1e-5) + 0.1 * es[k]
+            extra = 0.0
+        else:
+            lv = torch.addmm(b_lv, henc, w_lv)
+            z = m + torch.exp(0.5 * lv) * es[k]
+            extra = -0.5 * torch.sum(1.0 + lv - m * m - torch.exp(lv)) / TRAIN_B
+        lg = torch.addmm(db[1], torch.relu(torch.addmm(db[0], z, dw[0])), dw[1])
+        if recon == "bce":
+            rec = F.binary_cross_entropy_with_logits(lg, xs[k], reduction="sum")
+        else:
+            rec = ((torch.sigmoid(lg) - xs[k]) ** 2).sum()
+        loss = rec / TRAIN_B + extra
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    for k in range(5):
+        step(k)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for k in range(steps):
+        step(k)
+    e1.record()
+    e1.synchronize()
+    return steps / e0.elapsed_time(e1) * 1e3
+
+
+def time_vae_training(ctv, torch, card, general_sps):
+    """Phase 5d: steps/s of the VAE and BIR-VAE chunk kernels on a
+    1000-step chunk, beside the general step (phase 4c), a library step
+    loop, the plain version and the bound. Returns {variant: row}."""
+    from generative_models_tpu_torch.config import variant_config
+    rng = np.random.default_rng(10)
+    steps = 1000
+    out = {}
+    for variant, recon in (("vae", "bce"), ("birvae", "mse")):
+        birvae = variant == "birvae"
+        p, mu, nu = vae_state(rng, birvae)
+        planes = [[torch.from_numpy(a.copy()).cuda() for a in pl]
+                  for pl in (p, mu, nu)]
+        xs = torch.rand(steps * TRAIN_B, VAE_X, device="cuda")
+        es = torch.randn(steps * TRAIN_B, VAE_L, device="cuda")
+        hp = ctv.VaeHyper.from_config(variant_config(variant, vae_recon=recon))
+        kernel = ctv.birvae_chunk if birvae else ctv.vae_chunk
+        plain = ctv.birvae_chunk_plain if birvae else ctv.vae_chunk_plain
+        kw = dict(batch=TRAIN_B, t=0, hp=hp)
+        kernel(xs[:10 * TRAIN_B], es[:10 * TRAIN_B], *planes, steps=10, **kw)
+        k_ms = time_ms(torch, lambda: kernel(xs, es, *planes, steps=steps,
+                                             **kw), 3)
+        p_steps = 50
+        p_ms = time_ms(torch, lambda: plain(
+            xs[:p_steps * TRAIN_B], es[:p_steps * TRAIN_B], *planes,
+            steps=p_steps, **kw), 2) * steps / p_steps
+        lib_sps = library_vae_step_loop(torch, 200, birvae, recon)
+        b_ms, b_by = vae_chunk_bound(steps, birvae)
+        row = {"steps": steps, "recon": recon, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": steps / lib_sps * 1e3, "bound_ms": b_ms,
+               "bound_by": b_by, "steps_per_s": steps / k_ms * 1e3,
+               "plain_steps_per_s": steps / p_ms * 1e3,
+               "general_step_steps_per_s": general_sps[variant],
+               "library_steps_per_s": lib_sps,
+               "bound_steps_per_s": steps / b_ms * 1e3}
+        print(f"  {variant} ({recon}) steps/s at full width, B={TRAIN_B}: "
+              f"chunk kernel {row['steps_per_s']:.1f} ({k_ms:.3f} ms per "
+              f"1000-step chunk), general step {general_sps[variant]:.1f}, "
+              f"library step loop {lib_sps:.1f}, chunk plain "
+              f"{row['plain_steps_per_s']:.1f}, bound "
+              f"{row['bound_steps_per_s']:.1f} ({b_by})  [{card}]")
+        out[variant] = row
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -708,11 +1192,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from generative_models_tpu_torch.ops import build as build_mod
-    from generative_models_tpu_torch.ops import cuda_mlp, cuda_train
+    from generative_models_tpu_torch.ops import (
+        cuda_mlp, cuda_reparam, cuda_train, cuda_train_vae as ctv)
     from generative_models_tpu_torch.ops.cuda_linear import linear_cuda
     from generative_models_tpu_torch.train import step as step_lib
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    t_start = time.perf_counter()
     card = nvidia_smi_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
@@ -722,60 +1208,92 @@ def main() -> int:
     print(f"    allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_train.build],
-              build_mod.BUILD_DIR)
+    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_train.build,
+               cuda_reparam.build, ctv.build], build_mod.BUILD_DIR)
+    mods = (cuda_mlp, cuda_train, cuda_reparam, ctv)
 
     print("[3] kernels vs their plain versions on the card")
     fwd_err = check_fwd(cuda_mlp, linear_cuda, torch)
     bwd_err = check_bwd(cuda_mlp, torch)
     chunk_err = check_chunk(cuda_train, torch)
     cross_check(cuda_train, step_lib, torch)
+    reparam_err = check_reparam(cuda_reparam, torch)
+    vae_err = check_vae_chunk(ctv, torch)
+    cross_check_vae(cuda_train, ctv, step_lib, torch)
 
     print("[4] main paths (launch counts set to 0 before each, read after)")
+    paths = {}  # path name -> launch counts of that path's run
     serve_fwd, serve_err = drive_serving(cuda_mlp, cuda_train, torch)
-    cli_counts, cli_line = drive_training_cli(cuda_mlp, cuda_train, torch)
-    gen_counts, general_sps = drive_training_general(cuda_mlp, cuda_train,
-                                                     torch)
+    paths["serving_nsgan"] = {"mlp_fwd": serve_fwd}
+    cli_lines, general_sps = {}, {}
+    for variant in ("nsgan", "vae", "birvae"):
+        paths[f"cli_{variant}"], cli_lines[variant] = drive_training_cli(
+            variant, mods, torch)
+    for variant, steps in (("nsgan", 200), ("vae", 100), ("birvae", 100)):
+        paths[f"general_{variant}"], general_sps[variant] = \
+            drive_training_general(variant, steps, mods, torch)
+    vae_serve_fwd, vae_serve_err = drive_vae_serving(mods, torch)
+    paths["serving_vae"] = {"mlp_fwd": vae_serve_fwd}
+
+    def by_path(kernel):
+        return {name: c[kernel] for name, c in paths.items()
+                if c.get(kernel, 0)}
+
+    for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam", "vae_chunk",
+                   "birvae_chunk"):
+        if not by_path(kernel):
+            raise AssertionError(f"no main path launched {kernel}")
 
     print("[5] times (CUDA events, warm L2)")
     rows = time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card)
-    train_row = time_training(cuda_train, torch, card, general_sps)
+    train_row = time_training(cuda_train, torch, card, general_sps["nsgan"])
+    reparam_rows = time_reparam(cuda_reparam, torch, card)
+    vae_rows = time_vae_training(ctv, torch, card, general_sps)
 
     fwd_main = rows["mlp_fwd"][-1]   # B = 8192, the largest serving batch
     bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
+    rep_main = reparam_rows[0]       # [100, 20], the training batch
+
+    def entry(name, source, replaces, err, row, shape, **more):
+        launched = by_path(name)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(launched.values()),
+                "launches_by_path": launched, "max_abs_err": err,
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "shape": shape, **more}
+
+    chunk_shape = f"1000 steps, B={TRAIN_B}, full width"
     print(json.dumps({"kernels": [
-        {"name": "mlp_fwd", "route": "cuda", "source": cuda_mlp.SOURCE,
-         "replaces": "generative_models_tpu/ops/pallas_mlp.py:82",
-         "launches": serve_fwd + cli_counts["mlp_fwd"] + gen_counts["mlp_fwd"],
-         "launches_by_path": {"serving": serve_fwd,
-                              "training_cli": cli_counts["mlp_fwd"],
-                              "training_general": gen_counts["mlp_fwd"]},
-         "max_abs_err": max(fwd_err, serve_err),
-         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
-         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
-         "library_ms": fwd_main["library_ms"], "shape": fwd_main["shape"],
-         "per_shape": rows["mlp_fwd"], "linear_cuda": rows["linear"]},
-        {"name": "mlp_bwd", "route": "cuda", "source": cuda_mlp.BWD_SOURCE,
-         "replaces": "generative_models_tpu/ops/pallas_mlp.py:239",
-         "launches": cli_counts["mlp_bwd"] + gen_counts["mlp_bwd"],
-         "launches_by_path": {"training_cli": cli_counts["mlp_bwd"],
-                              "training_general": gen_counts["mlp_bwd"]},
-         "max_abs_err": bwd_err, "max_abs_err_is": "relative to max|ref|",
-         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
-         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
-         "library_ms": bwd_main["library_ms"], "shape": bwd_main["shape"],
-         "per_shape": rows["mlp_bwd"]},
-        {"name": "gan_chunk", "route": "cuda", "source": cuda_train.SOURCE,
-         "replaces": "generative_models_tpu/ops/pallas_train.py:487",
-         "launches": cli_counts["gan_chunk"] + gen_counts["gan_chunk"],
-         "launches_by_path": {"training_cli": cli_counts["gan_chunk"],
-                              "training_general": gen_counts["gan_chunk"]},
-         "max_abs_err": chunk_err,
-         "ms": train_row["ms"], "plain_ms": train_row["plain_ms"],
-         "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],
-         "library_ms": train_row["library_ms"],
-         "shape": f"1000 steps, B={TRAIN_B}, full width",
-         "training": train_row, "cli_run": cli_line}]}))
+        entry("mlp_fwd", cuda_mlp.SOURCE,
+              "generative_models_tpu/ops/pallas_mlp.py:82",
+              max(fwd_err, serve_err, vae_serve_err), fwd_main,
+              fwd_main["shape"], per_shape=rows["mlp_fwd"],
+              linear_cuda=rows["linear"]),
+        entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
+              "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
+              bwd_main["shape"], max_abs_err_is="relative to max|ref|",
+              per_shape=rows["mlp_bwd"]),
+        entry("gan_chunk", cuda_train.SOURCE,
+              "generative_models_tpu/ops/pallas_train.py:487", chunk_err,
+              train_row, chunk_shape, training=train_row,
+              cli_run=cli_lines["nsgan"]),
+        entry("reparam", cuda_reparam.SOURCE,
+              "generative_models_tpu/ops/pallas_reparam.py:41", reparam_err,
+              rep_main, rep_main["shape"], per_shape=reparam_rows),
+        entry("vae_chunk", ctv.SOURCE,
+              "generative_models_tpu/ops/pallas_train.py:1442", vae_err["vae"],
+              vae_rows["vae"], chunk_shape,
+              max_abs_err_is="metrics, relative to max|ref|",
+              training=vae_rows["vae"], cli_run=cli_lines["vae"]),
+        entry("birvae_chunk", ctv.SOURCE,
+              "generative_models_tpu/ops/pallas_train.py:1816",
+              vae_err["birvae"], vae_rows["birvae"], chunk_shape,
+              max_abs_err_is="metrics, relative to max|ref|",
+              training=vae_rows["birvae"], cli_run=cli_lines["birvae"]),
+    ]}))
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

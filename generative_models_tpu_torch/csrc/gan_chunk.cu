@@ -53,12 +53,8 @@
 // Widths are the true ones: no lane padding, so the TPU kernel's padded
 // lane hazards (pallas_train.py:92-102) do not arise.
 //
-// Products: 16x32 output tiles, 256 threads. The depth is split over the
-// block's 8 warps (16-deep slices, each warp's staged in its own shared
-// memory with the next slice's loads in flight), a lane keeps one column
-// of 16 rows, and the 8 partial tiles are summed in a fixed order: at
-// B = 100 the products are short and deep (K up to 784 for 100 rows),
-// so the depth, not the tile count, is what must run in parallel.
+// Products: the 16x32 split-depth tiles of chunk_common.cuh, which this
+// source shares with vae_chunk.cu.
 //
 // Bound on the H100 (SXM, 700 W data-sheet peaks), per step at B 100,
 // ds 1, flagship widths: D update 324.3 MFLOP, G update 334.2 MFLOP,
@@ -68,39 +64,13 @@
 // (no tensor cores; small tiles at B = 100 leave SMs idle in the narrow
 // phases) and about 10 grid barriers a step.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "chunk_common.cuh"
 
 namespace cg = cooperative_groups;
-
-#define CT 256               // threads a block
-#define WARPS (CT / 32)
-#define TM 16                // output tile rows
-#define TN 32                // output tile columns, one a lane
-#define SK 16                // depth of a warp's staged slice
-#define A_PER_LANE (TM * SK / 32)
-#define B_PER_LANE (SK * TN / 32)
-#define WARP_SMEM (SK * TM + SK * (TN + 1))
 
 enum { P_G_W1 = 0, P_G_B1, P_G_W2, P_G_B2, P_D_W1, P_D_B1, P_D_W2, P_D_B2,
        N_PARAMS };
 enum { EPI_RELU, EPI_LEAKY, EPI_SIGMOID, EPI_SIGD, EPI_RELUD, EPI_ADAM };
-
-struct Mat {  // element (i, j) at p[i * rs + j * cs]
-  const float* p;
-  int rs, cs;
-};
-
-struct Gemm {  // C [M, N] = A [M, K] B [K, N], then the epilogue
-  Mat a, b;
-  int M, N, K;
-  int epi;
-  const float* bias;  // EPI_RELU/LEAKY/SIGMOID
-  const float* aux;   // EPI_SIGD / EPI_RELUD: [M, ldo]
-  float* out;
-  int ldo;
-  int param;          // EPI_ADAM: which state tensor (its shape is [M, N])
-};
 
 struct Args {
   const float* xs;  // [steps*ds*B, X]
@@ -119,14 +89,6 @@ struct Args {
   int mmgan;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-
-__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ float softplus(float u) {
-  return fmaxf(u, 0.0f) + log1pf(expf(-fabsf(u)));
-}
-
 __device__ __forceinline__ float leaky(float v, float s) {
   return v >= 0.0f ? v : s * v;
 }
@@ -135,35 +97,10 @@ __device__ __forceinline__ float dleaky(float h, float s) {
   return h >= 0.0f ? 1.0f : s;
 }
 
-struct AdamT {  // one update's learning rate and bias corrections
-  float lr, bc1, bc2;
-};
-
-__device__ __forceinline__ AdamT adam_t(const Args& a, float lr, float t) {
-  AdamT r;
-  r.lr = lr;
-  r.bc1 = 1.0f - expf(t * a.log_b1);
-  r.bc2 = 1.0f - expf(t * a.log_b2);
-  return r;
-}
-
-__device__ __forceinline__ void adam(const Args& a, int q, size_t i, float g,
-                                     const AdamT& t) {
-  const float m = a.b1 * ld(a.mu[q] + i) + a.omb1 * g;
-  const float v = a.b2 * ld(a.nu[q] + i) + (a.omb2 * g) * g;
-  a.mu[q][i] = m;
-  a.nu[q][i] = v;
-  const float mhat = m / t.bc1;
-  const float vhat = v / t.bc2;
-  a.p[q][i] = ld(a.p[q] + i) - (t.lr * mhat) / (sqrtf(vhat) + a.eps);
-}
-
-__device__ __forceinline__ int tiles_of(const Gemm& g) {
-  return ((g.M + TM - 1) / TM) * ((g.N + TN - 1) / TN);
-}
-
-__device__ __forceinline__ void epilogue(const Args& a, const Gemm& g, int m,
-                                         int n, float c, const AdamT& at) {
+template <>
+__device__ __forceinline__ void epilogue<Args>(const Args& a, const Gemm& g,
+                                               int m, int n, float c,
+                                               const AdamT& at) {
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
     case EPI_RELU: g.out[o] = fmaxf(c + ld(g.bias + n), 0.0f); break;
@@ -177,117 +114,6 @@ __device__ __forceinline__ void epilogue(const Args& a, const Gemm& g, int m,
     case EPI_RELUD: g.out[o] = c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f); break;
     default: adam(a, g.param, (size_t)m * g.N + n, c, at); break;
   }
-}
-
-// One TM x TN output tile, the depth split over the block's warps: warp
-// w takes the SK-deep slices w, w + WARPS, ... (staged in its own corner
-// of shared memory, the next slice's loads in flight while it computes
-// this one), lane l keeps column n0 + l of all TM rows, and the warps'
-// partial tiles are summed in a fixed order at the end. The job is
-// copied to registers once and every load is unconditional (an element
-// past the edge reads the operand's first element and is zeroed), so
-// the loads issue back to back.
-__device__ void gemm_tile(const Args& a, const Gemm& job, int tile,
-                          const AdamT& at, float* smem) {
-  const Gemm g = job;
-  const int tiles_n = (g.N + TN - 1) / TN;
-  const int m0 = (tile / tiles_n) * TM;
-  const int n0 = (tile % tiles_n) * TN;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int lo = lane & 15, hi = lane >> 4;
-  float* const As = smem + w * WARP_SMEM;  // [SK][TM]
-  float* const Bs = As + SK * TM;          // [SK][TN + 1]
-  // this lane's A elements: q-th at row am0 + q*adm, depth ak0 + q*adk
-  const bool a_kc = g.a.cs == 1;           // A's k is contiguous
-  const int am0 = a_kc ? hi : lo, ak0 = a_kc ? lo : hi;
-  const int adm = a_kc ? 2 : 0, adk = a_kc ? 0 : 2;
-  // B elements: q-th at depth bk0 + q*bdk, column bn0 + q*bdn
-  const bool b_nc = g.b.cs == 1;           // B's n is contiguous
-  const int bk0 = b_nc ? 0 : lo, bn0 = b_nc ? lane : hi;
-  const int bdk = b_nc ? 1 : 0, bdn = b_nc ? 0 : 2;
-  const int slices = (g.K + SK - 1) / SK;
-  float ra[A_PER_LANE], rb[B_PER_LANE];
-  float acc[TM];
-#pragma unroll
-  for (int m = 0; m < TM; ++m) acc[m] = 0.0f;
-
-  auto load = [&](int s) {
-    const int k0 = s * SK;
-#pragma unroll
-    for (int q = 0; q < A_PER_LANE; ++q) {
-      const int m = m0 + am0 + q * adm, k = k0 + ak0 + q * adk;
-      const bool ok = m < g.M && k < g.K;
-      const float v = ld(g.a.p + (ok ? m * g.a.rs + k * g.a.cs : 0));
-      ra[q] = ok ? v : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < B_PER_LANE; ++q) {
-      const int k = k0 + bk0 + q * bdk, n = n0 + bn0 + q * bdn;
-      const bool ok = n < g.N && k < g.K;
-      const float v = ld(g.b.p + (ok ? k * g.b.rs + n * g.b.cs : 0));
-      rb[q] = ok ? v : 0.0f;
-    }
-  };
-
-  if (w < slices) load(w);
-  for (int s = w; s < slices; s += WARPS) {
-    __syncwarp();  // every lane is done reading the previous slice
-#pragma unroll
-    for (int q = 0; q < A_PER_LANE; ++q)
-      As[(ak0 + q * adk) * TM + am0 + q * adm] = ra[q];
-#pragma unroll
-    for (int q = 0; q < B_PER_LANE; ++q)
-      Bs[(bk0 + q * bdk) * (TN + 1) + bn0 + q * bdn] = rb[q];
-    __syncwarp();
-    if (s + WARPS < slices) load(s + WARPS);
-#pragma unroll
-    for (int kk = 0; kk < SK; ++kk) {
-      const float4* ar = reinterpret_cast<const float4*>(As + kk * TM);
-      const float bv = Bs[kk * (TN + 1) + lane];
-#pragma unroll
-      for (int q = 0; q < TM / 4; ++q) {
-        const float4 av = ar[q];
-        acc[4 * q + 0] = fmaf(av.x, bv, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(av.y, bv, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(av.z, bv, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(av.w, bv, acc[4 * q + 3]);
-      }
-    }
-  }
-
-  __syncthreads();  // the staging area becomes the partial tiles
-  float* const red = smem;  // [WARPS][TM][TN]
-#pragma unroll
-  for (int m = 0; m < TM; ++m) red[(w * TM + m) * TN + lane] = acc[m];
-  __syncthreads();
-  for (int o = threadIdx.x; o < TM * TN; o += CT) {
-    const int mm = o / TN, nn = o % TN;
-    float c = 0.0f;
-#pragma unroll
-    for (int v = 0; v < WARPS; ++v) c += red[(v * TM + mm) * TN + nn];
-    const int m = m0 + mm, n = n0 + nn;
-    if (m < g.M && n < g.N) epilogue(a, g, m, n, c, at);
-  }
-  __syncthreads();  // before the next tile stages into the same memory
-}
-
-// The phase's product tiles, spread over the grid.
-__device__ void run_gemms(const Args& a, const Gemm* jobs, int njobs,
-                          const AdamT& at, float* smem) {
-  int total = 0;
-  for (int j = 0; j < njobs; ++j) total += tiles_of(jobs[j]);
-  for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    int j = 0, s = t;
-    while (s >= tiles_of(jobs[j])) s -= tiles_of(jobs[j++]);
-    gemm_tile(a, jobs[j], s, at, smem);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // One warp per row r < rows of h [rows, Hd]: the logit h.w2d + b2d, its

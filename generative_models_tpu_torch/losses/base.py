@@ -2,8 +2,9 @@
 
 A variant is a declarative spec of functions. The port's signatures take
 a ``torch.Generator`` where the reference takes a JAX key, and an
-optional explicit noise tensor ``z`` (tests hand the same noise to both
-packages, since the two generators draw different numbers).
+optional explicit noise tensor (``z`` for the adversarial heads, ``eps``
+for a single model's loss): tests hand the same noise to both packages,
+since the two generators draw different numbers.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ class AdversarialSpec:
 class SingleModelSpec:
     name: str
     init_params: Callable  # (gen, cfg, device=) -> params
-    loss: Callable         # (params, batch, gen, cfg) -> (loss, metrics)
+    # (params, batch, gen, cfg, eps=None) -> (loss, metrics)
+    loss: Callable
     sample: Callable       # (params, gen, n, cfg, z=None) -> [n, image_dim]
     adversarial: bool = False
     batch_coupled: bool = False

@@ -26,3 +26,19 @@ def compute_noise(gen: torch.Generator, n: int, z_dim: int, device=None):
     z = torch.randn((n, z_dim), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return z if device is None else z.to(device)
+
+
+def global_moments_axis0(x, axis_name=None, eps: float = 0.0):
+    """(mean, var) of x per feature (axis 0 = batch), each [1, F]. The
+    variance is E[x^2] - E[x]^2 clamped at `eps`, as the reference takes
+    it. `axis_name` (the reference's mesh axis for data-parallel
+    moments) is refused until the port has a parallel path (ROADMAP.md
+    Queue 1 item 12)."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "moments over a mesh axis are not ported to "
+            "generative_models_tpu_torch yet (ROADMAP.md Queue 1 item 12, "
+            "parallelism)")
+    m = torch.mean(x, dim=0, keepdim=True)
+    m2 = torch.mean(x * x, dim=0, keepdim=True)
+    return m, torch.clamp_min(m2 - m * m, eps)

@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 _SPECS: Dict[str, Tuple[str, str]] = {
     "mmgan": ("generative_models_tpu_torch.losses.minimax", "MMGAN"),
     "nsgan": ("generative_models_tpu_torch.losses.minimax", "NSGAN"),
+    "vae": ("generative_models_tpu_torch.losses.vae", "VAE"),
+    "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
 }
 
 _ADVERSARIAL = "Queue 1 item 6, the other adversarial heads"
@@ -20,8 +22,6 @@ _NOT_PORTED: Dict[str, str] = {
     **{v: _ADVERSARIAL for v in ("lsgan", "cgan", "ragan", "wgan", "wgangp",
                                  "dragan", "began", "infogan", "fgan",
                                  "fishergan")},
-    "vae": "Queue 1 item 7, VAE and BIR-VAE",
-    "birvae": "Queue 1 item 7, VAE and BIR-VAE",
     "ddpm": "Queue 1 item 9, the diffusion family",
     "flow": "Queue 1 item 9, the diffusion family",
     "vqvae": "Queue 1 item 10, the VQ family",

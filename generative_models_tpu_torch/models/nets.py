@@ -1,7 +1,9 @@
 """The shared network stacks — the port of
-``generative_models_tpu/models/nets.py``, MLP generator and
-discriminator only. The generator returns images in [0, 1] (sigmoid
-head); the discriminator returns logits [B].
+``generative_models_tpu/models/nets.py``, MLP stacks only: generator
+and discriminator, and the VAE family's encoder and decoder. The
+generator returns images in [0, 1] (sigmoid head); the discriminator
+returns logits [B]; the encoder returns (mu, logvar); the decoder
+returns images, or pre-sigmoid logits with ``logits=True``.
 """
 
 from __future__ import annotations
@@ -9,7 +11,11 @@ from __future__ import annotations
 import torch
 
 from generative_models_tpu_torch.config import Config
-from generative_models_tpu_torch.models.mlp import mlp_apply, mlp_init
+from generative_models_tpu_torch.models.mlp import (
+    linear_init,
+    mlp_apply,
+    mlp_init,
+)
 
 
 def _cdt(cfg: Config):
@@ -57,3 +63,44 @@ def discriminator_apply(params, x, cfg: Config):
     out = mlp_apply(params, x, hidden_act=cfg.d_hidden_act, out_act="none",
                     slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
     return out.float()[..., 0]
+
+
+# --------------------------------------------------------------------
+# VAE encoder / decoder (Kingma & Welling 2013 MNIST MLP setup)
+# --------------------------------------------------------------------
+
+def encoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    """Trunk, mu head and logvar head, drawn in that order from `gen`."""
+    _mlp_only(cfg)
+    return {
+        "trunk": mlp_init(gen, [cfg.image_dim, cfg.vae_hidden_dim], device),
+        "mu": linear_init(gen, cfg.vae_hidden_dim, cfg.latent_dim, device),
+        "logvar": linear_init(gen, cfg.vae_hidden_dim, cfg.latent_dim,
+                              device),
+    }
+
+
+def encoder_apply(params, x, cfg: Config):
+    _mlp_only(cfg)
+    h = mlp_apply(params["trunk"], x, hidden_act="relu", out_act="relu",
+                  compute_dtype=_cdt(cfg))
+    mu = mlp_apply([params["mu"]], h, out_act="none", compute_dtype=_cdt(cfg))
+    logvar = mlp_apply([params["logvar"]], h, out_act="none",
+                       compute_dtype=_cdt(cfg))
+    return mu.float(), logvar.float()
+
+
+def decoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    _mlp_only(cfg)
+    return mlp_init(gen, [cfg.latent_dim, cfg.vae_hidden_dim, cfg.image_dim],
+                    device)
+
+
+def decoder_apply(params, z, cfg: Config, logits: bool = False):
+    """Bernoulli decoder. ``logits=True`` returns pre-sigmoid logits for
+    the numerically stable BCE."""
+    _mlp_only(cfg)
+    x = mlp_apply(params, z, hidden_act="relu",
+                  out_act="none" if logits else "sigmoid",
+                  compute_dtype=_cdt(cfg))
+    return x.float()

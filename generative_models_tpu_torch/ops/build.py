@@ -39,20 +39,21 @@ def find_nvcc() -> str:
     return path
 
 
-def build_library(name: str, sources) -> ctypes.CDLL:
+def build_library(name: str, sources, headers=()) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so
-    unless it exists, and load it. Writes the compiler's output (the
+    unless it exists, and load it; `headers` are the csrc/ files the
+    sources include, hashed with them. Writes the compiler's output (the
     ptxas register and shared-memory report) beside the library."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + [os.path.join(CSRC_DIR, s) for s in headers]:
         with open(p, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *paths]
         r = subprocess.run(cmd, capture_output=True, text=True)
         with open(lib[:-3] + ".log", "w") as f:
             f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)

@@ -1,0 +1,199 @@
+"""The fused VAE sampling kernel — the port of
+``generative_models_tpu/ops/pallas_reparam.py`` (``_reparam_kernel`` with
+``_fwd_impl`` and the custom VJP).
+
+One pass over ``mu`` and ``logvar`` [B, L] draws eps ~ N(0, 1) inside
+the kernel, writes ``z = mu + exp(logvar / 2) * eps`` and the row sums
+``kl = -1/2 sum(1 + logvar - mu^2 - exp(logvar))``, and stores no eps.
+
+The TPU kernel reads its chip's hardware generator. Here the noise is
+Philox4x32-10, a counter-based generator written out in the kernel
+(``csrc/reparam.cu``) and, with torch integer ops, in
+:func:`philox_normal_plain`: key = the call's two seed words, counter =
+(row, column pair, offset low, offset high). Each counter gives four
+words and so two normals (columns 2g and 2g + 1): two uniforms by the
+[1, 2) mantissa trick, then Box-Muller with ``log1p(-u1)``, as the TPU
+kernel. The same (seed, offset) gives the same eps in both, so the
+kernel's z is held against the plain version element by element.
+
+:func:`reparam_fwd` launches the kernel on a CUDA tensor or raises, and
+runs :func:`reparam_and_kl_plain` on a CPU tensor. :class:`ReparamFunction`
+adds the reference's analytic backward (``pallas_reparam.py:115-121``) in
+torch ops: the reference has no backward kernel here, so the port needs
+none. ``launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+SOURCE = "generative_models_tpu_torch/csrc/reparam.cu"
+
+launches = 0
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57   # Philox4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Philox key increments (Weyl)
+_MASK = 0xFFFFFFFF
+_TWO_PI = 2.0 * math.pi
+
+
+# ---------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------
+
+def _mulhilo(m: int, a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of m * a, for a 32-bit constant m and
+    32-bit values held in int64. The product is taken in 16-bit halves
+    of a, so no int64 intermediate overflows."""
+    lo16 = m * (a & 0xFFFF)
+    hi16 = m * (a >> 16)
+    low = (lo16 + ((hi16 & 0xFFFF) << 16)) & _MASK
+    high = (hi16 + (lo16 >> 16)) >> 16
+    return high, low
+
+
+def _philox4x32(c0, c1, c2, c3, k0, k1):
+    """Ten rounds of Philox4x32 on int64 tensors holding 32-bit words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _MASK
+            k1 = (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> U[0, 1): the top 23 bits as the mantissa of a
+    float32 in [1, 2), minus 1."""
+    one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return one_to_two - 1.0
+
+
+def _box_muller(u1, u2):
+    # 1 - u1 in (0, 1] keeps the log finite
+    return torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(_TWO_PI * u2)
+
+
+def _seed_words(seed, device) -> torch.Tensor:
+    s = torch.as_tensor(seed, dtype=torch.int64, device=device)
+    if s.shape != (2,):
+        raise ValueError(f"seed must hold two words, got shape {tuple(s.shape)}")
+    return s & _MASK
+
+
+def philox_normal_plain(seed, offset: int, shape, device="cpu") -> torch.Tensor:
+    """The eps [B, L] the kernel draws for (`seed`, `offset`): `seed` two
+    32-bit words (ints or an int64 tensor [2]), `offset` the call's
+    64-bit counter offset."""
+    b, l = shape
+    s = _seed_words(seed, device)
+    groups = (l + 1) // 2
+    row = torch.arange(b, dtype=torch.int64, device=device)[:, None].expand(
+        b, groups)
+    grp = torch.arange(groups, dtype=torch.int64, device=device)[None, :].expand(
+        b, groups)
+    off = int(offset) % 2 ** 64
+    c2 = torch.full_like(row, off & _MASK)
+    c3 = torch.full_like(row, off >> 32)
+    w0, w1, w2, w3 = _philox4x32(row, grp, c2, c3, s[0].expand(b, groups),
+                                 s[1].expand(b, groups))
+    even = _box_muller(_uniform(w0), _uniform(w1))
+    odd = _box_muller(_uniform(w2), _uniform(w3))
+    return torch.stack([even, odd], dim=-1).reshape(b, 2 * groups)[:, :l]
+
+
+def reparam_and_kl_plain(mu, logvar, seed, offset: int = 0):
+    """The kernel's function in plain PyTorch: ``(z [B, L], kl [B])``."""
+    eps = philox_normal_plain(seed, offset, tuple(mu.shape), mu.device)
+    z = mu + torch.exp(0.5 * logvar) * eps
+    kl = -0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar), dim=-1)
+    return z, kl
+
+
+# ---------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------
+
+@functools.cache
+def _lib():
+    from generative_models_tpu_torch.ops.build import build_library
+    lib = build_library("reparam", ["reparam.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gm_reparam.argtypes = [p, p, p, p, p, i, i, ctypes.c_ulonglong, p]
+    lib.gm_reparam.restype = i
+    return lib
+
+
+def build() -> None:
+    """Compile (or load) the kernel's library now instead of at first use."""
+    _lib()
+
+
+def reparam_fwd(mu, logvar, seed, offset: int = 0):
+    """``(z, kl)`` for float32 ``mu``, ``logvar`` [B, L] with the noise of
+    (`seed`, `offset`); `seed` is two 32-bit words, ints or an int64
+    tensor [2] (on the inputs' device it is read by the kernel without a
+    copy to the host). CPU tensors run :func:`reparam_and_kl_plain`; CUDA
+    tensors launch the kernel on the current stream or raise."""
+    global launches
+    if mu.dim() != 2 or mu.shape != logvar.shape:
+        raise ValueError(f"mu and logvar must be [B, L] alike, got "
+                         f"{tuple(mu.shape)} and {tuple(logvar.shape)}")
+    for name, t in (("mu", mu), ("logvar", logvar)):
+        if t.dtype != torch.float32 or t.device != mu.device:
+            raise TypeError(f"reparam takes float32 tensors on one device; "
+                            f"{name} is {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"reparam: {name} must be contiguous")
+    if mu.device.type == "cpu":
+        return reparam_and_kl_plain(mu, logvar, seed, offset)
+    if mu.device.type != "cuda":
+        raise ValueError(f"reparam runs on cuda or cpu tensors, not "
+                         f"{mu.device}")
+    b, l = mu.shape
+    z = torch.empty_like(mu)
+    kl = torch.empty((b,), dtype=torch.float32, device=mu.device)
+    if b == 0:
+        return z, kl
+    words = _seed_words(seed, mu.device).contiguous()
+    with torch.cuda.device(mu.device):
+        stream = torch.cuda.current_stream(mu.device).cuda_stream
+        rc = _lib().gm_reparam(mu.data_ptr(), logvar.data_ptr(),
+                               words.data_ptr(), z.data_ptr(), kl.data_ptr(),
+                               b, l, int(offset) % 2 ** 64, stream)
+    if rc != 0:
+        raise RuntimeError(f"reparam kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return z, kl
+
+
+class ReparamFunction(torch.autograd.Function):
+    """:func:`reparam_fwd` with the reference's analytic backward, eps
+    frozen by the residuals (mu, logvar, z):
+
+        dz/dmu = 1            dz/dlogvar = (z - mu) / 2
+        dkl/dmu = mu          dkl/dlogvar = -(1 - exp(logvar)) / 2
+
+    ``ReparamFunction.apply(mu, logvar, seed, offset) -> (z, kl)``."""
+
+    @staticmethod
+    def forward(ctx, mu, logvar, seed, offset):
+        z, kl = reparam_fwd(mu, logvar, seed, offset)
+        ctx.save_for_backward(mu, logvar, z)
+        return z, kl
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz, dkl):
+        mu, logvar, z = ctx.saved_tensors
+        dmu = dz + dkl[:, None] * mu
+        dlogvar = dz * 0.5 * (z - mu) - dkl[:, None] * 0.5 * (
+            1.0 - torch.exp(logvar))
+        return dmu, dlogvar, None, None

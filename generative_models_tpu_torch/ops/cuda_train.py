@@ -1,7 +1,10 @@
 """Whole-chunk G+D training in one kernel launch — the port of
 ``generative_models_tpu/ops/pallas_train.py`` for nsgan and mmgan
 (``_make_kernel`` with ``_fused_chunk_call``, ``build_fused_many_steps``,
-``fused_step_supported``, ``resolve_fused_step``).
+``fused_step_supported``, ``resolve_fused_step``). The single-model
+family's chunk kernels (vae, birvae) are in ``ops/cuda_train_vae.py``;
+the policy here covers them and :func:`build_fused_many_steps` hands
+them on.
 
 :func:`gan_chunk` runs `steps` outer steps — ``d_steps`` critic updates
 on fresh batches, then one G update against the post-update critic, Adam
@@ -38,7 +41,7 @@ from generative_models_tpu_torch.train.step import (
 )
 
 SOURCE = "generative_models_tpu_torch/csrc/gan_chunk.cu"
-FUSED_VARIANTS = ("nsgan", "mmgan")
+FUSED_VARIANTS = ("nsgan", "mmgan", "vae", "birvae")
 # resident blocks per SM of the cooperative grid (at most what fits)
 BLOCKS_PER_SM = 2
 _QUEUED = "ROADMAP.md Queue 2 item 6"
@@ -171,7 +174,8 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
 @functools.cache
 def _lib():
     from generative_models_tpu_torch.ops.build import build_library
-    lib = build_library("gan_chunk", ["gan_chunk.cu"])
+    lib = build_library("gan_chunk", ["gan_chunk.cu"],
+                        headers=["chunk_common.cuh"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gm_gan_chunk.argtypes = ([p, p, p, ctypes.POINTER(p), p, p]
                                  + [i] * 9 + [f] * 11 + [i, i, p])
@@ -259,9 +263,10 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
 # ---------------------------------------------------------------------
 
 def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
-    """(ok, reason): the chunk kernel covers nsgan and mmgan on the MLP
-    stacks with Adam, float32, the default activations, any d_steps and
-    no EMA; everything else keeps the general step."""
+    """(ok, reason): the chunk kernels cover nsgan and mmgan (the default
+    activations, any d_steps), vae (the Bernoulli decoder) and birvae
+    (mse or bce), on the MLP stacks with Adam, float32 and no EMA;
+    everything else keeps the general step."""
     if cfg.variant not in FUSED_VARIANTS:
         return False, (f"the chunk kernel covers {FUSED_VARIANTS} only so "
                        f"far; {cfg.variant} is queued ({_QUEUED})")
@@ -272,11 +277,16 @@ def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
     if cfg.dtype == "bfloat16":  # "auto" is float32 in the port
         return False, (f"the chunk kernel's bf16 path is not ported yet "
                        f"({_QUEUED})")
-    if cfg.g_hidden_act != "relu" or cfg.d_hidden_act != "leaky_relu":
+    if cfg.variant == "vae":
+        if cfg.vae_recon != "bce":
+            return False, ("the vae chunk kernel covers the Bernoulli (bce) "
+                           "decoder")
+    elif cfg.variant != "birvae" and (cfg.g_hidden_act != "relu"
+                                      or cfg.d_hidden_act != "leaky_relu"):
         return False, ("the chunk kernel hand-derives the default "
                        "activations (G relu / D leaky_relu)")
     if cfg.ema_decay > 0:
-        return False, (f"the chunk kernel's G-EMA plane is not ported yet "
+        return False, (f"the chunk kernel's EMA plane is not ported yet "
                        f"({_QUEUED})")
     if cfg.spectral_projection:
         return False, "the chunk kernel excludes the spectral projection hook"
@@ -310,7 +320,13 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
     with the same contract and the same gather and sub-chunking, so both
     see the same batches and noise: ``many_steps(state, images, labels,
     perm_stack, rel_offsets, noise) -> (state, metrics)``. The caller's
-    state is not modified (the kernel updates copies in place)."""
+    state is not modified (the kernel updates copies in place). For a
+    single-model spec (vae, birvae) this is ``ops/cuda_train_vae.py``'s
+    function, whose `noise` gives ``eps [n, B, latent]``."""
+    if not spec.adversarial:
+        from generative_models_tpu_torch.ops import cuda_train_vae
+        return cuda_train_vae.build_fused_single_many_steps(
+            spec, cfg, steps_per_epoch)
     ok, reason = fused_step_supported(spec, cfg)
     if not ok:
         raise ValueError(f"fused_step unsupported here: {reason}")

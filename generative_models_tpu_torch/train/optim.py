@@ -1,6 +1,7 @@
 """Optimizers — the port of ``generative_models_tpu/train/optim.py``
-(``make_tx``'s two rules), as plain functions on parameter lists of
-``{"w", "b"}`` tensors.
+(``make_tx``'s two rules), as plain functions on any nested tree of
+parameter tensors (``utils/tree.py``): the adversarial variants' lists
+of ``{"w", "b"}`` layers and the VAE family's nested dicts alike.
 
 - Adam in optax's convention: the count is incremented first, then
   ``m̂ / (√v̂ + eps)`` with ``m̂ = m / (1 - b1^t)``, ``v̂ = v / (1 - b2^t)``.
@@ -17,24 +18,30 @@ modified in place.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Tuple
 
 import torch
+
+from generative_models_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 RMS_DECAY = 0.99
 RMS_EPS = 1e-8
 
-Params = List[Dict[str, torch.Tensor]]
+Params = Any  # a nested dict/list tree of tensors
 
 
 def _zeros_like(params: Params) -> Params:
-    return [{k: torch.zeros_like(v) for k, v in l.items()} for l in params]
+    return tree_map(torch.zeros_like, params)
 
 
 def init_opt(cfg, params: Params) -> dict:
     """A fresh optimizer state for ``cfg.optimizer`` ("adam" | "rmsprop")."""
     if cfg.optimizer == "adam":
-        dev = params[0]["w"].device
+        dev = tree_leaves(params)[0].device
         return {"count": torch.zeros((), dtype=torch.int32, device=dev),
                 "mu": _zeros_like(params), "nu": _zeros_like(params)}
     if cfg.optimizer == "rmsprop":
@@ -51,31 +58,29 @@ def adam_update(params: Params, grads: Params, state: dict, lr: float,
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=t.device), t)
     new_p, new_mu, new_nu = [], [], []
-    for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
-        lp, lm, lv = {}, {}, {}
-        for k in p:
-            lm[k] = (1.0 - b1) * g[k] + b1 * m[k]
-            lv[k] = (1.0 - b2) * (g[k] * g[k]) + b2 * v[k]
-            upd = (lm[k] / bc1) / (torch.sqrt(lv[k] / bc2) + eps)
-            lp[k] = p[k] + (-lr) * upd
-        new_p.append(lp)
+    for p, g, m, v in zip(*map(tree_leaves, (params, grads, state["mu"],
+                                             state["nu"]))):
+        lm = (1.0 - b1) * g + b1 * m
+        lv = (1.0 - b2) * (g * g) + b2 * v
+        upd = (lm / bc1) / (torch.sqrt(lv / bc2) + eps)
+        new_p.append(p + (-lr) * upd)
         new_mu.append(lm)
         new_nu.append(lv)
-    return new_p, {"count": count, "mu": new_mu, "nu": new_nu}
+    return tree_unflatten(params, new_p), {
+        "count": count, "mu": tree_unflatten(params, new_mu),
+        "nu": tree_unflatten(params, new_nu)}
 
 
 def rmsprop_update(params: Params, grads: Params, state: dict,
                    lr: float) -> Tuple[Params, dict]:
     new_p, new_nu = [], []
-    for p, g, v in zip(params, grads, state["nu"]):
-        lp, lv = {}, {}
-        for k in p:
-            lv[k] = (1.0 - RMS_DECAY) * (g[k] * g[k]) + RMS_DECAY * v[k]
-            upd = (1.0 / (torch.sqrt(lv[k]) + RMS_EPS)) * g[k]
-            lp[k] = p[k] + (-lr) * upd
-        new_p.append(lp)
+    for p, g, v in zip(*map(tree_leaves, (params, grads, state["nu"]))):
+        lv = (1.0 - RMS_DECAY) * (g * g) + RMS_DECAY * v
+        upd = (1.0 / (torch.sqrt(lv) + RMS_EPS)) * g
+        new_p.append(p + (-lr) * upd)
         new_nu.append(lv)
-    return new_p, {"nu": new_nu}
+    return tree_unflatten(params, new_p), {
+        "nu": tree_unflatten(params, new_nu)}
 
 
 def apply_opt(cfg, params: Params, grads: Params, state: dict,

@@ -1,5 +1,6 @@
 """The train step and the multi-step chunk — the port of
-``generative_models_tpu/train/step.py`` (adversarial variants).
+``generative_models_tpu/train/step.py``: the adversarial step and the
+single-model step (the VAE family).
 
 One step runs ``d_steps`` critic updates, each on a fresh batch, then one
 G update on the LAST critic batch against the post-update critic (the
@@ -13,6 +14,15 @@ through the whole-MLP kernels (``ops/cuda_mlp.py::MLPFunction``): at
 d_steps 1 a step launches the forward kernel 5 times and the backward
 kernel 4 times.
 
+A single-model step (:func:`build_single_step`) takes one batch and one
+noise tensor ``eps [B, latent]``, differentiates ``spec.loss`` over the
+whole parameter tree, applies the optimizer at ``g_lr`` and updates the
+EMA. Given a ``torch.Generator`` in place of the noise tensor, the loss
+draws its own noise from it: on the card that is how the VAE's sampling
+kernel (``ops/cuda_reparam.py``) runs in training, and a VAE step then
+launches the forward kernel 4 times, the backward kernel 4 times and
+the sampling kernel once.
+
 :func:`build_many_steps` is the chunk: a Python loop over the chunk's
 steps that gathers each step's batches from the epoch-permutation stack
 exactly as the reference's ``gather`` does. The chunk kernel's builder
@@ -23,18 +33,25 @@ and the same noise.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from generative_models_tpu_torch.data.mnist import INV_255
 from generative_models_tpu_torch.train.optim import apply_opt, init_opt
+from generative_models_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 State = Dict[str, object]
-# noise(k0, n) -> (z_d [n, d_steps, B, z], z_g [n, B, z]) for steps
-# k0 .. k0+n-1 of a chunk
-Noise = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
+# noise(k0, n) for steps k0 .. k0+n-1 of a chunk. Adversarial: (z_d [n,
+# d_steps, B, z], z_g [n, B, z]). Single model: eps [n, B, latent], or a
+# torch.Generator from which each step's loss draws its own noise.
+Noise = Callable[[int, int], Union[Tuple[torch.Tensor, torch.Tensor],
+                                   torch.Tensor, torch.Generator]]
 
 # Cap on the bytes of the gathered batch and noise streams one chunk
 # holds at once (the reference's _STREAM_BYTES_BUDGET): a longer chunk
@@ -53,11 +70,14 @@ def pick_sub(steps: int, per_step_bytes: int) -> int:
     return 1
 
 
-def stream_bytes_per_step(cfg) -> int:
-    """float32 bytes of one step's streams: d_steps batches of images and
-    of critic noise, one batch of G noise."""
-    ds = max(cfg.d_steps, 1)
+def stream_bytes_per_step(cfg, spec=None) -> int:
+    """float32 bytes of one step's streams. Adversarial: d_steps batches
+    of images and of critic noise, one batch of G noise. Single model
+    (`spec` not adversarial): one batch of images and of latent noise."""
     b = cfg.batch_size
+    if spec is not None and not spec.adversarial:
+        return 4 * b * (cfg.image_dim + cfg.latent_dim)
+    ds = max(cfg.d_steps, 1)
     return 4 * (ds * b * (cfg.image_dim + cfg.z_dim) + b * cfg.z_dim)
 
 
@@ -79,11 +99,36 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
         "d_opt": init_opt(cfg, d_params),
         "vstate": spec.init_vstate(cfg),
         "step": 0,
-        "rng": np.array([cfg.seed % 2 ** 32, 0x5EED], dtype=np.uint32),
+        "rng": _rng_words(cfg),
     }
     if cfg.ema_decay > 0:
         st["g_ema"] = [dict(l) for l in g_params]
     return st
+
+
+def _rng_words(cfg) -> np.ndarray:
+    return np.array([cfg.seed % 2 ** 32, 0x5EED], dtype=np.uint32)
+
+
+def init_single_state(spec, cfg, gen: torch.Generator, device="cpu") -> State:
+    """The model drawn from `gen`, a fresh optimizer state at ``g_lr``,
+    step 0 and the two ``rng`` words; the EMA starts at the params."""
+    params = spec.init_params(gen, cfg, device=device)
+    st: State = {
+        "params": params,
+        "opt": init_opt(cfg, params),
+        "step": 0,
+        "rng": _rng_words(cfg),
+    }
+    if cfg.ema_decay > 0:
+        st["ema"] = tree_map(lambda t: t, params)
+    return st
+
+
+def init_state(spec, cfg, gen: torch.Generator, device="cpu") -> State:
+    if spec.adversarial:
+        return init_adversarial_state(spec, cfg, gen, device)
+    return init_single_state(spec, cfg, gen, device)
 
 
 def batches_per_step(spec, cfg) -> int:
@@ -131,9 +176,8 @@ def _leaves_requiring_grad(params):
 def _ema_update(ema, params, decay: float):
     """ema <- decay * ema + (1 - decay) * params, leafwise (float32)."""
     d = torch.tensor(decay, dtype=torch.float32,
-                     device=params[0]["w"].device)
-    return [{k: e[k] * d + p[k] * (1.0 - d) for k in p}
-            for e, p in zip(ema, params)]
+                     device=tree_leaves(params)[0].device)
+    return tree_map(lambda e, p: e * d + p * (1.0 - d), ema, params)
 
 
 def build_adversarial_step(spec, cfg):
@@ -185,6 +229,38 @@ def build_adversarial_step(spec, cfg):
     return train_step
 
 
+def build_single_step(spec, cfg):
+    """Returns ``train_step(state, batches, noise) -> (state, metrics)``;
+    `batches` holds tensors with leading dims [1, B] (uniform with the
+    adversarial layout); `noise` is ``eps [B, latent]`` or a
+    ``torch.Generator`` the loss draws from."""
+
+    def train_step(state: State, batches, noise) -> Tuple[State, Dict]:
+        batch = {k: v[0] for k, v in batches.items()}
+        params = state["params"]
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        if isinstance(noise, torch.Generator):
+            loss, metrics = spec.loss(p, batch, noise, cfg)
+        else:
+            loss, metrics = spec.loss(p, batch, None, cfg, eps=noise)
+        grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+        new_p, opt = apply_opt(cfg, params, grads, state["opt"], cfg.g_lr)
+        new_state = dict(state, params=new_p, opt=opt, step=state["step"] + 1)
+        if cfg.ema_decay > 0:
+            new_state["ema"] = _ema_update(state["ema"], new_p, cfg.ema_decay)
+        return new_state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def build_step(spec, cfg):
+    if spec.adversarial:
+        return build_adversarial_step(spec, cfg)
+    return build_single_step(spec, cfg)
+
+
 # ------------------------------------------------------------------
 # The chunk: many steps over minibatch offsets
 # ------------------------------------------------------------------
@@ -217,7 +293,7 @@ def build_many_steps(spec, cfg, steps_per_epoch: int):
       first epoch of `perm_stack`;
     - `noise`: see :data:`Noise`; called once per sub-chunk.
     """
-    train_step = build_adversarial_step(spec, cfg)
+    train_step = build_step(spec, cfg)
     nb = batches_per_step(spec, cfg)
     bsz = cfg.batch_size
     rows_per_step = nb * bsz
@@ -226,17 +302,23 @@ def build_many_steps(spec, cfg, steps_per_epoch: int):
     def many_steps(state, images, labels, perm_stack, rel_offsets,
                    noise: Noise):
         steps = rel_offsets.shape[0]
-        sub = pick_sub(steps, stream_bytes_per_step(cfg))
+        sub = pick_sub(steps, stream_bytes_per_step(cfg, spec))
         hist: Dict[str, list] = {}
         for k0 in range(0, steps, sub):
             xs, ys = gather_streams(images, labels, perm_stack,
                                     rel_offsets[k0:k0 + sub], rows_per_step,
                                     rows_per_epoch)
-            z_d, z_g = noise(k0, sub)
+            drawn = noise(k0, sub)
             for k in range(sub):
                 batches = {"image": xs[k].reshape(nb, bsz, -1),
                            "label": ys[k].reshape(nb, bsz)}
-                state, m = train_step(state, batches, z_d[k], z_g[k])
+                if spec.adversarial:
+                    state, m = train_step(state, batches, drawn[0][k],
+                                          drawn[1][k])
+                elif isinstance(drawn, torch.Generator):
+                    state, m = train_step(state, batches, drawn)
+                else:
+                    state, m = train_step(state, batches, drawn[k])
                 for key, v in m.items():
                     hist.setdefault(key, []).append(v)
         return state, {k: torch.stack(v) for k, v in hist.items()}

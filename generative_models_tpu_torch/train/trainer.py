@@ -1,7 +1,7 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
-for the ported variants (nsgan, mmgan): build G and D from
-``cfg.seed``, train, evaluate, sample, save and load checkpoints in the
-JAX package's layout.
+for the ported variants (nsgan, mmgan, vae, birvae): build the model
+from ``cfg.seed`` (G and D, or a single model's parameter tree), train,
+evaluate, sample, save and load checkpoints in the JAX package's layout.
 
 The Trainer runs on the device it is given, ``"cuda"`` by default, and
 raises when that device is missing; the CPU runs only when asked for
@@ -11,12 +11,15 @@ Training mirrors the reference: the train split is resident on the
 device, each epoch's row permutation is a function of ``cfg.seed`` and
 the epoch (so a resumed run replays the same order), and
 ``Config.scan_steps`` steps run per chunk. ``Config.fused_step`` picks
-the chunk's builder (``ops/cuda_train.py::resolve_fused_step``): the
-whole-chunk kernel (``"auto"`` on CUDA for nsgan/mmgan) or the general
-step (``train/step.py``), whose MLPs run through the forward and
-backward kernels on the card. Both builders see the same batches and
-the same noise: each sub-chunk's noise comes from a generator seeded by
-the state's two ``rng`` words and the global step it starts at.
+how a chunk runs (``ops/cuda_train.py::resolve_fused_step``): a
+whole-chunk kernel (``"auto"`` on CUDA for nsgan/mmgan/vae/birvae) or
+the general step (``train/step.py``), whose MLPs run through the forward
+and backward kernels on the card. Both see the same batches and the
+same noise: each sub-chunk's noise comes from a generator seeded
+by the state's two ``rng`` words and the global step it starts at. One
+exception: a single model's general step on the card hands that
+generator to the loss, which draws its own noise from it — for the VAE
+inside the sampling kernel (``ops/cuda_reparam.py``).
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ class Trainer:
         self._raw = data
         self.x_train = None
         # init draws on the CPU so the weights do not depend on the device
-        self.state = step_lib.init_adversarial_state(
+        self.state = step_lib.init_state(
             self.spec, cfg, torch.Generator().manual_seed(cfg.seed),
             self.device)
         self._sample_gen = torch.Generator(device=self.device).manual_seed(
@@ -140,7 +143,9 @@ class Trainer:
         if self.steps_per_epoch < 1:
             raise ValueError("dataset smaller than one training step")
         self.rows_per_epoch = self.steps_per_epoch * self.rows_per_step
-        if cuda_train.resolve_fused_step(self.spec, cfg, self.device):
+        self._fused = cuda_train.resolve_fused_step(self.spec, cfg,
+                                                    self.device)
+        if self._fused:
             self._many_steps = cuda_train.build_fused_many_steps(
                 self.spec, cfg, self.steps_per_epoch)
         else:
@@ -151,8 +156,11 @@ class Trainer:
         """Fresh optimizer states at the current cfg's learning rates,
         keeping params, step and rng — the reference's ``.train(lr)``."""
         st = dict(self.state)
-        st["g_opt"] = init_opt(self.cfg, st["g_params"])
-        st["d_opt"] = init_opt(self.cfg, st["d_params"])
+        if self.spec.adversarial:
+            st["g_opt"] = init_opt(self.cfg, st["g_params"])
+            st["d_opt"] = init_opt(self.cfg, st["d_params"])
+        else:
+            st["opt"] = init_opt(self.cfg, st["params"])
         self.state = st
         self._build_fns()
 
@@ -167,10 +175,18 @@ class Trainer:
 
     def _noise(self, first_step: int, n: int):
         """Noise of `n` steps from global step `first_step`: z_d [n,
-        d_steps, B, z] then z_g [n, B, z]."""
+        d_steps, B, z] then z_g [n, B, z]; for a single model eps [n, B,
+        latent] — or, for its general step on the card, the generator
+        itself, from which each step's loss draws (the VAE's in its
+        sampling kernel)."""
         cfg = self.cfg
         gen = step_lib.noise_generator(self.state["rng"], first_step,
                                        self.device)
+        if not self.spec.adversarial:
+            if self.device.type == "cuda" and not self._fused:
+                return gen
+            return torch.randn((n, cfg.batch_size, cfg.latent_dim),
+                               generator=gen, device=self.device)
         ds, b, z = max(cfg.d_steps, 1), cfg.batch_size, cfg.z_dim
         z_d = torch.randn((n, ds, b, z), generator=gen, device=self.device)
         z_g = torch.randn((n, b, z), generator=gen, device=self.device)
@@ -280,7 +296,8 @@ class Trainer:
                  max_batches: Optional[int] = None) -> Dict[str, float]:
         """Loss metrics on a held-out split, no parameter updates: the
         batch-averaged metrics of the D and G losses, each batch's d and g
-        losses sharing one noise draw (as the reference's one key)."""
+        losses sharing one noise draw (as the reference's one key), or of
+        a single model's loss."""
         self._load_data()
         cfg = self.cfg
         if split == "test":
@@ -309,13 +326,19 @@ class Trainer:
         for i in range(nb):
             sl = slice(i * cfg.batch_size, (i + 1) * cfg.batch_size)
             batch = {"image": x[sl], "label": y[sl]}
-            z = torch.randn((cfg.batch_size, cfg.z_dim),
-                            generator=self._sample_gen, device=self.device)
-            _, d_m = self.spec.d_loss(st["d_params"], st["g_params"], batch,
-                                      None, st["vstate"], cfg, z=z)
-            _, g_m = self.spec.g_loss(st["g_params"], st["d_params"], batch,
-                                      None, st["vstate"], cfg, z=z)
-            for k, v in {**d_m, **g_m}.items():
+            if self.spec.adversarial:
+                z = torch.randn((cfg.batch_size, cfg.z_dim),
+                                generator=self._sample_gen,
+                                device=self.device)
+                _, d_m = self.spec.d_loss(st["d_params"], st["g_params"],
+                                          batch, None, st["vstate"], cfg, z=z)
+                _, g_m = self.spec.g_loss(st["g_params"], st["d_params"],
+                                          batch, None, st["vstate"], cfg, z=z)
+                m = {**d_m, **g_m}
+            else:
+                _, m = self.spec.loss(st["params"], batch, self._sample_gen,
+                                      cfg)
+            for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         return {k: v / nb for k, v in sums.items()}
 
@@ -337,20 +360,23 @@ class Trainer:
     # --------------------------------------------------------------
     @property
     def generator_params(self):
-        """The sampling-side params: the EMA of G when
-        ``cfg.ema_decay > 0``, else G (reference ``trainer.py:524-534``)."""
-        key = "g_ema" if self.cfg.ema_decay > 0 else "g_params"
-        return self.state[key]
+        """The sampling-side params — G for an adversarial variant, the
+        whole model for the VAE family — or their EMA when
+        ``cfg.ema_decay > 0`` (reference ``trainer.py:524-534``)."""
+        if self.cfg.ema_decay > 0:
+            return self.state["g_ema" if self.spec.adversarial else "ema"]
+        return self.raw_generator_params
 
     @property
     def raw_generator_params(self):
-        """The live (non-EMA) generator params."""
-        return self.state["g_params"]
+        """The live (non-EMA) sampling-side params."""
+        return self.state["g_params" if self.spec.adversarial else "params"]
 
     @torch.no_grad()
     def sample(self, n: Optional[int] = None, z=None) -> np.ndarray:
         """n samples [n, image_dim] in [0, 1] from the generator prior, or
-        from the given noise `z` [n, z_dim] (numpy or tensor)."""
+        from the given noise `z` [n, z_dim] (numpy or tensor; [n,
+        latent_dim] for the VAE family)."""
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32,
                                 device=self.device).contiguous()
@@ -381,8 +407,8 @@ class Trainer:
                 "and writes the npz layout only")
 
     def save_model(self, path: str) -> str:
-        """Checkpoint the full train state (params, both optimizer states,
-        step, rng) in the JAX package's npz layout."""
+        """Checkpoint the full train state (params, optimizer states, step,
+        rng) in the JAX package's npz layout."""
         self._npz_only()
         return save_state(path, self.state)
 

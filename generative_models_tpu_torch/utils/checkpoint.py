@@ -10,6 +10,9 @@ and an EMA the leaves are ``['d_opt'][0].count``,
 ``['d_opt'][0].mu[i]['b'|'w']``, ``['d_opt'][0].nu[...]``,
 ``['d_params'][...]``, ``['g_ema'][...]``, ``['g_opt'][0]...``,
 ``['g_params'][...]``, ``['rng']`` (uint32 [2]) and ``['step']`` (int32).
+A single-model state (vae, birvae) holds ``['ema']`` (with an EMA),
+``['opt'][0].count``, ``['opt'][0].mu['decoder'][1]['b']`` ...,
+``['params']['encoder']['trunk'][0]['w']`` ..., ``['rng']``, ``['step']``.
 
 :func:`save_state` writes the port's state in exactly that layout, so a
 port checkpoint restores into the JAX package's ``Trainer.load_model``;
@@ -33,8 +36,14 @@ import numpy as np
 import torch
 
 from generative_models_tpu_torch.config import Config
+from generative_models_tpu_torch.utils.tree import (
+    tree_leaves_with_path,
+    tree_unflatten,
+)
 
 _META_KEY = "__meta__"
+_PARAM_KEYS = ("g_params", "d_params", "g_ema", "params", "ema")
+_OPT_KEYS = ("g_opt", "d_opt", "opt")
 
 
 def npz_path(path: str) -> str:
@@ -47,10 +56,15 @@ def exists(path: str) -> bool:
 
 def param_template(cfg: Config) -> Dict[str, Any]:
     """The param subtrees a state holds, as meta tensors (shapes only):
-    g_params, d_params, and g_ema when cfg.ema_decay > 0."""
+    g_params and d_params (and g_ema when cfg.ema_decay > 0) for an
+    adversarial variant, params (and ema) for a single model."""
     from generative_models_tpu_torch.losses.registry import get_variant
     spec = get_variant(cfg.variant)
     gen = torch.Generator()  # the draws are discarded; shapes are read
+    if not spec.adversarial:
+        params = spec.init_params(gen, cfg, device="meta")
+        return {"params": params, **({"ema": params} if cfg.ema_decay > 0
+                                     else {})}
     g = spec.init_g(gen, cfg, device="meta")
     tmpl = {"g_params": g, "d_params": spec.init_d(gen, cfg, device="meta")}
     if cfg.ema_decay > 0:
@@ -58,9 +72,11 @@ def param_template(cfg: Config) -> Dict[str, Any]:
     return tmpl
 
 
-def _param_leaves(prefix: str, params) -> List[Tuple[str, Any]]:
-    return [(f"{prefix}[{i}]['{k}']", layer[k])
-            for i, layer in enumerate(params) for k in sorted(layer)]
+def _opt_pairs(tmpl) -> List[Tuple[str, str]]:
+    """(optimizer state key, the param subtree it follows)."""
+    if "params" in tmpl:
+        return [("opt", "params")]
+    return [("g_opt", "g_params"), ("d_opt", "d_params")]
 
 
 def _opt_leaves(prefix: str, opt: Dict[str, Any]) -> List[Tuple[str, Any]]:
@@ -71,7 +87,7 @@ def _opt_leaves(prefix: str, opt: Dict[str, Any]) -> List[Tuple[str, Any]]:
     out = [(f"{p}.count", opt["count"])] if "count" in opt else []
     for slot in ("mu", "nu"):
         if slot in opt:
-            out += _param_leaves(f"{p}.{slot}", opt[slot])
+            out += tree_leaves_with_path(opt[slot], f"{p}.{slot}")
     return out
 
 
@@ -81,12 +97,10 @@ def state_leaves(state: Dict[str, Any]) -> List[Tuple[str, Any]]:
     out: List[Tuple[str, Any]] = []
     for key in sorted(state):
         v = state[key]
-        if key in ("g_opt", "d_opt"):
+        if key in _OPT_KEYS:
             out += _opt_leaves(f"['{key}']", v)
-        elif key in ("g_params", "d_params", "g_ema"):
-            out += _param_leaves(f"['{key}']", v)
-        elif key == "vstate":
-            out += [(f"['vstate']['{k}']", v[k]) for k in sorted(v)]
+        elif key in _PARAM_KEYS or key == "vstate":
+            out += tree_leaves_with_path(v, f"['{key}']")
         else:
             out.append((f"['{key}']", v))
     return out
@@ -168,9 +182,11 @@ def _want(leaf_list) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
 
 def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
     """The train state of a checkpoint as numpy arrays: ``{"g_params",
-    "d_params", ["g_ema",] "step"}``, each param subtree a list of
-    ``{"w", "b"}``, plus ``"g_opt"``/``"d_opt"`` (``{"count", "mu",
-    "nu"}`` or ``{"nu"}``) and ``"rng"`` when the file has them. Raises if
+    "d_params", ["g_ema",] "step"}`` (a single model: ``{"params",
+    ["ema",] "step"}``), each param subtree in the variant's own tree
+    shape, plus the optimizer states ``"g_opt"``/``"d_opt"`` (``"opt"``),
+    each ``{"count", "mu", "nu"}`` or ``{"nu"}``, and ``"rng"`` when the
+    file has them. Raises if
     a param leaf is missing, if any leaf has another shape or dtype than
     `cfg` implies, if the optimizer slots are partial or of another
     optimizer, or if a param subtree holds extra leaves (another depth,
@@ -180,21 +196,23 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
     mismatch = (f"variant/config mismatch (variant={cfg.variant!r}, "
                 f"ema_decay={cfg.ema_decay})")
     want = _want([lf for k in sorted(tmpl)
-                  for lf in _param_leaves(f"['{k}']", tmpl[k])])
+                  for lf in tree_leaves_with_path(tmpl[k], f"['{k}']")])
     want["['step']"] = ((), np.dtype("int32"))
     _check_leaves(path, leaves, want, mismatch)
-    subtrees = ("['g_params']", "['d_params']", "['g_ema']")
+    subtrees = tuple(f"['{k}']" for k in _PARAM_KEYS)
     extra = sorted(p for p in leaves
                    if p.startswith(subtrees) and p not in want)
     if extra:
         raise ValueError(
             f"{path}: leaves {extra[:4]} are not in the config's model — "
             f"variant/config mismatch (ema_decay={cfg.ema_decay})")
-    out: Dict[str, Any] = {
-        k: [{kk: leaves[f"['{k}'][{i}]['{kk}']"] for kk in layer}
-            for i, layer in enumerate(v)] for k, v in tmpl.items()}
+    def subtree(like, prefix):
+        return tree_unflatten(like, [leaves[p] for p, _ in
+                                     tree_leaves_with_path(like, prefix)])
+
+    out: Dict[str, Any] = {k: subtree(v, f"['{k}']") for k, v in tmpl.items()}
     out["step"] = int(leaves["['step']"])
-    for side, params in (("g_opt", "g_params"), ("d_opt", "d_params")):
+    for side, params in _opt_pairs(tmpl):
         found = sorted(p for p in leaves if p.startswith(f"['{side}']"))
         if not found:
             continue
@@ -211,9 +229,7 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
             opt["count"] = leaves[f"{p0}.count"]
         for slot in ("mu", "nu"):
             if any(p.startswith(f"{p0}.{slot}") for p in found):
-                opt[slot] = [{kk: leaves[f"{p0}.{slot}[{i}]['{kk}']"]
-                              for kk in layer}
-                             for i, layer in enumerate(tmpl[params])]
+                opt[slot] = subtree(tmpl[params], f"{p0}.{slot}")
         out[side] = opt
     if "['rng']" in leaves:
         rng = leaves["['rng']"]

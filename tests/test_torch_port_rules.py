@@ -191,5 +191,83 @@ def test_fused_step_auto_trains_the_general_step_on_cpu(monkeypatch,
 
 
 def test_training_sources_ship_with_the_package():
-    for src in ("mlp_bwd.cu", "gan_chunk.cu"):
+    for src in ("mlp_bwd.cu", "gan_chunk.cu", "reparam.cu", "vae_chunk.cu",
+                "chunk_common.cuh"):
         assert os.path.exists(os.path.join(build.CSRC_DIR, src))
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        assert "csrc/*.cuh" in f.read()
+    for src in ("gan_chunk.cu", "vae_chunk.cu"):   # the header they share
+        with open(os.path.join(build.CSRC_DIR, src)) as f:
+            assert '#include "chunk_common.cuh"' in f.read()
+
+
+def test_vae_kernel_modules_import_and_run_on_cpu_without_building():
+    code = (
+        "import sys, torch\n"
+        "from generative_models_tpu_torch.ops import cuda_reparam,"
+        " cuda_train_vae\n"
+        "from generative_models_tpu_torch.ops.reparam import reparam_and_kl\n"
+        "mu = torch.zeros(3, 5); lv = torch.zeros(3, 5)\n"
+        "z, kl = cuda_reparam.reparam_fwd(mu, lv, (1, 2))\n"
+        "assert z.shape == (3, 5) and kl.shape == (3,)\n"
+        "z, kl = reparam_and_kl(mu, lv, torch.Generator().manual_seed(0))\n"
+        "assert bool(torch.isfinite(z).all()) and float(kl.abs().max()) == 0\n"
+        "hp = cuda_train_vae.VaeHyper(1e-3, 0.5, 0.999, 1e-8)\n"
+        "shapes = ((5, 3), (3,), (3, 2), (2,), (3, 2), (2,), (2, 3), (3,),"
+        " (3, 5), (5,))\n"
+        "for fn, idx in ((cuda_train_vae.vae_chunk, range(10)),"
+        " (cuda_train_vae.birvae_chunk, (0, 1, 2, 3, 6, 7, 8, 9))):\n"
+        "    p = [torch.full(shapes[i], 0.1) for i in idx]\n"
+        "    mu_ = [torch.zeros_like(t) for t in p]\n"
+        "    nu_ = [torch.zeros_like(t) for t in p]\n"
+        "    m = fn(torch.rand(4, 5), torch.randn(4, 2), p, mu_, nu_,"
+        " steps=2, batch=2, t=0, hp=hp)\n"
+        "    assert m.shape == (2, 3) and bool(torch.isfinite(m).all())\n"
+        "assert cuda_reparam.launches == 0\n"
+        "assert cuda_train_vae.launches == 0\n"
+        "assert cuda_train_vae.birvae_launches == 0\n"
+        "assert 'generative_models_tpu_torch.ops.build' not in sys.modules\n"
+        "assert cuda_reparam._lib.cache_info().currsize == 0\n"
+        "assert cuda_train_vae._lib.cache_info().currsize == 0\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_vae_wrappers_refuse_devices_they_have_no_path_for():
+    from generative_models_tpu_torch.ops import cuda_reparam, cuda_train_vae
+    meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_reparam.reparam_fwd(meta(3, 5), meta(3, 5), (1, 2))
+    shapes = ((5, 3), (3,), (3, 2), (2,), (3, 2), (2,), (2, 3), (3,), (3, 5),
+              (5,))
+    hp = cuda_train_vae.VaeHyper(1e-3, 0.5, 0.999, 1e-8)
+    p = [meta(*s) for s in shapes]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_train_vae.vae_chunk(meta(4, 5), meta(4, 2), p, p, p, steps=2,
+                                 batch=2, t=0, hp=hp)
+    q = p[:4] + p[6:]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_train_vae.birvae_chunk(meta(4, 5), meta(4, 2), q, q, q, steps=2,
+                                    batch=2, t=0, hp=hp)
+
+
+@pytest.mark.parametrize("variant", ["vae", "birvae"])
+def test_vae_trainer_defaults_to_cuda_and_auto_is_the_general_step_on_cpu(
+        monkeypatch, tiny_data, variant):
+    from generative_models_tpu_torch.ops import cuda_train_vae
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer_mod.Trainer(variant)
+
+    def no_chunk(*a, **k):
+        raise AssertionError("the chunk ran on the CPU under 'auto'")
+    monkeypatch.setattr(cuda_train_vae, "vae_chunk", no_chunk)
+    monkeypatch.setattr(cuda_train_vae, "birvae_chunk", no_chunk)
+    t = trainer_mod.Trainer(variant, device="cpu", data=tiny_data,
+                            batch_size=16, vae_hidden_dim=32, latent_dim=4,
+                            scan_steps=2)
+    assert t.cfg.fused_step == "auto"
+    t.train(steps=2)
+    assert t.state["step"] == 2
