@@ -1,12 +1,14 @@
 """CLI — ``python -m generative_models_tpu_torch --variant nsgan --steps
-2000`` (or ``vae``, ``birvae``, ``mmgan``): the port of
+2000`` (or ``mmgan``, ``lsgan``, ``wgan``, ``fgan``, ``ragan``,
+``fishergan``, ``vae``, ``birvae``): the port of
 ``generative_models_tpu/cli.py``.
 
 Every Config field is a flag, as in the reference. A training run trains
 (``--ckpt`` with ``--resume`` restores first), appends per-step records to
 ``<out_dir>/<variant>/metrics.jsonl``, prints the reference's final JSON
 line ``{"variant", "steps", "wall_s", "steps_per_sec", "eval"}`` (``eval``
-holds the variant's metrics: ``d_loss`` ... for a GAN, ``loss``,
+holds the variant's metrics: ``d_loss``, ``g_loss`` and the head's own
+(``w_estimate``, ``f_bound``, ``ipm`` ...) for a GAN, ``loss``,
 ``recon_loss`` and ``kl_loss`` or ``latent_power`` for the VAE family), writes
 ``final.png`` and the loss plot, and with ``--ckpt`` saves and prints
 ``saved: <path>``. ``--sample-only`` loads a checkpoint written by either

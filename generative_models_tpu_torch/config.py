@@ -16,9 +16,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-# Names of the f-GAN divergences (``losses/fgan.py::DIVERGENCES`` in the
-# reference). The f-GAN head is not ported yet; validation only needs
-# the names.
+# Names of the f-GAN divergences, the keys of
+# ``losses/fgan.py::DIVERGENCES`` (kept here so that listing them imports
+# no torch).
 FGAN_DIVERGENCES: Tuple[str, ...] = (
     "total_variation", "kl", "reverse_kl", "pearson", "squared_hellinger",
     "jensen_shannon", "gan")
@@ -274,11 +274,10 @@ class Config:
                 "the AR prior is plain-conditional (ddpm_cond): it has "
                 "no guidance extrapolation — ddpm_guidance applies to "
                 "the ddpm/flow samplers only")
-        if (self.variant == "fgan"
-                and self.fgan_divergence not in FGAN_DIVERGENCES):
-            raise ValueError(
-                f"unknown f-divergence {self.fgan_divergence!r}; known: "
-                f"{sorted(FGAN_DIVERGENCES)}")
+        if self.variant == "fgan":
+            # fail at construction, not in the first step
+            from generative_models_tpu_torch.losses.fgan import get_divergence
+            get_divergence(self.fgan_divergence)
 
 
 # Per-variant overrides (the reference's table, unchanged).

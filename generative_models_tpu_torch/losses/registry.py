@@ -13,15 +13,20 @@ from typing import Dict, Tuple
 _SPECS: Dict[str, Tuple[str, str]] = {
     "mmgan": ("generative_models_tpu_torch.losses.minimax", "MMGAN"),
     "nsgan": ("generative_models_tpu_torch.losses.minimax", "NSGAN"),
+    "lsgan": ("generative_models_tpu_torch.losses.lsgan", "LSGAN"),
+    "wgan": ("generative_models_tpu_torch.losses.wgan", "WGAN"),
+    "fgan": ("generative_models_tpu_torch.losses.fgan", "FGAN"),
+    "ragan": ("generative_models_tpu_torch.losses.ragan", "RAGAN"),
+    "fishergan": ("generative_models_tpu_torch.losses.fishergan",
+                  "FISHERGAN"),
     "vae": ("generative_models_tpu_torch.losses.vae", "VAE"),
     "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
 }
 
 _ADVERSARIAL = "Queue 1 item 6, the other adversarial heads"
 _NOT_PORTED: Dict[str, str] = {
-    **{v: _ADVERSARIAL for v in ("lsgan", "cgan", "ragan", "wgan", "wgangp",
-                                 "dragan", "began", "infogan", "fgan",
-                                 "fishergan")},
+    **{v: _ADVERSARIAL for v in ("wgangp", "dragan", "cgan", "began",
+                                 "infogan")},
     "ddpm": "Queue 1 item 9, the diffusion family",
     "flow": "Queue 1 item 9, the diffusion family",
     "vqvae": "Queue 1 item 10, the VQ family",

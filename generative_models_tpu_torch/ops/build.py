@@ -39,13 +39,14 @@ def find_nvcc() -> str:
     return path
 
 
-def build_library(name: str, sources, headers=()) -> ctypes.CDLL:
+def build_library(name: str, sources, headers=(), flags=()) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so
     unless it exists, and load it; `headers` are the csrc/ files the
-    sources include, hashed with them. Writes the compiler's output (the
+    sources include, hashed with them; `flags` are further nvcc flags
+    (a source built more than once, a ``-D`` each). Writes the compiler's output (the
     ptxas register and shared-memory report) beside the library."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for p in paths + [os.path.join(CSRC_DIR, s) for s in headers]:
         with open(p, "rb") as f:
             h.update(f.read())
@@ -53,7 +54,8 @@ def build_library(name: str, sources, headers=()) -> ctypes.CDLL:
     lib = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *paths]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC_DIR, "-o", tmp,
+               *paths]
         r = subprocess.run(cmd, capture_output=True, text=True)
         with open(lib[:-3] + ".log", "w") as f:
             f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)

@@ -27,7 +27,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -35,6 +35,7 @@ from generative_models_tpu_torch.ops.cuda_train import (
     BLOCKS_PER_SM,
     _adam_,
     _softplus,
+    _watch,
     fused_step_supported,
 )
 from generative_models_tpu_torch.train.step import (
@@ -118,22 +119,29 @@ def _decoder_backward(z, hd, glg, w_d1, w_d2):
     return dw2, db2, z.t() @ dhd, dhd.sum(0), dhd @ w_d1.t()
 
 
+def _relu(u, probe):
+    _watch(probe, u)
+    return torch.clamp_min(u, 0.0)
+
+
 def vae_chunk_plain(xs, eps_n, p, mu, nu, *, steps: int, batch: int, t: int,
-                    hp: VaeHyper) -> torch.Tensor:
+                    hp: VaeHyper, probe: Optional[dict] = None) -> torch.Tensor:
     """The VAE kernel's function in plain PyTorch. Updates `p`, `mu`,
     `nu` (lists of 10 tensors, :func:`tree_planes` order) in place and
-    returns the metrics rows [steps, 3]: loss, recon_loss, kl_loss."""
+    returns the metrics rows [steps, 3]: loss, recon_loss, kl_loss. With
+    a `probe` dict, records the tie margin of the two ReLU layers
+    (``ops/cuda_train.py::_watch``)."""
     w_tr, b_tr, w_mu, b_mu, w_lv, b_lv, w_d1, b_d1, w_d2, b_d2 = p
     inv_b = 1.0 / batch
     metrics = torch.zeros((steps, 3), dtype=torch.float32, device=xs.device)
     for k in range(steps):
         x = xs[k * batch:(k + 1) * batch]
         ep = eps_n[k * batch:(k + 1) * batch]
-        henc = torch.clamp_min(x @ w_tr + b_tr, 0.0)
+        henc = _relu(x @ w_tr + b_tr, probe)
         m = henc @ w_mu + b_mu
         lv = henc @ w_lv + b_lv
         z = m + torch.exp(0.5 * lv) * ep
-        hd = torch.clamp_min(z @ w_d1 + b_d1, 0.0)
+        hd = _relu(z @ w_d1 + b_d1, probe)
         lg = hd @ w_d2 + b_d2
         recon, glg = _recon(lg, x, inv_b, "bce")
         kl = -0.5 * (1.0 + lv - m * m - torch.exp(lv)).sum() * inv_b
@@ -150,19 +158,21 @@ def vae_chunk_plain(xs, eps_n, p, mu, nu, *, steps: int, batch: int, t: int,
 
 
 def birvae_chunk_plain(xs, eps_n, p, mu, nu, *, steps: int, batch: int,
-                       t: int, hp: VaeHyper) -> torch.Tensor:
+                       t: int, hp: VaeHyper,
+                       probe: Optional[dict] = None) -> torch.Tensor:
     """The BIR-VAE kernel's function in plain PyTorch. Updates `p`, `mu`,
     `nu` (lists of 8 tensors) in place and returns the metrics rows
     [steps, 3]: loss, recon_loss (the same), latent_power. The batch
     normalisation's backward is hand-derived:
-    ``dmu = r (g - mean_B(g) - mu_hat mean_B(g mu_hat))``."""
+    ``dmu = r (g - mean_B(g) - mu_hat mean_B(g mu_hat))``. `probe`: as
+    :func:`vae_chunk_plain`."""
     w_tr, b_tr, w_mu, b_mu, w_d1, b_d1, w_d2, b_d2 = p
     inv_b = 1.0 / batch
     metrics = torch.zeros((steps, 3), dtype=torch.float32, device=xs.device)
     for k in range(steps):
         x = xs[k * batch:(k + 1) * batch]
         ep = eps_n[k * batch:(k + 1) * batch]
-        henc = torch.clamp_min(x @ w_tr + b_tr, 0.0)
+        henc = _relu(x @ w_tr + b_tr, probe)
         m = henc @ w_mu + b_mu
         mean = m.sum(0, keepdim=True) * inv_b
         var = torch.clamp_min((m * m).sum(0, keepdim=True) * inv_b
@@ -170,7 +180,7 @@ def birvae_chunk_plain(xs, eps_n, p, mu, nu, *, steps: int, batch: int,
         r = torch.rsqrt(var + BN_EPS)
         mu_hat = (m - mean) * r
         z = mu_hat + hp.sigma_n * ep
-        hd = torch.clamp_min(z @ w_d1 + b_d1, 0.0)
+        hd = _relu(z @ w_d1 + b_d1, probe)
         lg = hd @ w_d2 + b_d2
         loss, glg = _recon(lg, x, inv_b, hp.recon)
         power = (mu_hat * mu_hat).sum() * inv_b / m.shape[1]

@@ -2,11 +2,15 @@
 
     python3 -m generative_models_tpu_torch.tools.chunk_phases
 
-Builds instrumented copies of ``csrc/gan_chunk.cu`` and
-``csrc/vae_chunk.cu`` into ``build/torch_kernels/probe/`` — block 0
-reads the global timer after every grid barrier — runs an 8-step chunk
-of nsgan (d_steps 1), of the VAE and of the BIR-VAE (mse) at full width
-(B = 100) and prints the mean device time of each phase over steps 1-6,
+Builds instrumented copies of ``csrc/gan_chunk.cu`` (one per critic
+hook it times) and ``csrc/vae_chunk.cu`` into
+``build/torch_kernels/probe/`` — block 0 reads the global timer after
+every grid barrier — runs an 8-step chunk of nsgan (d_steps 1), of wgan
+(d_steps 5, RMSprop, clip: its five critic updates are phases A0..F0 to
+A4..F4), of ragan (DE and G23 split in two: the logits, then the
+gradients; G1 with 2B rows), of fishergan (DE split), of the VAE and of
+the BIR-VAE (mse) at full width (B = 100) and prints the mean device
+time of each phase over steps 1-6,
 then the cost of a bare grid barrier at 1, 2 and 3 blocks a SM, and the
 latency of a dependent load from L2 (a pointer chase over 16 MB) with
 ``ld.global.cg`` and with an ordinary load. The shipped kernels are not
@@ -21,7 +25,18 @@ import math
 import os
 import subprocess
 
-PHASES = ["A", "B", "C", "DE", "F", "G1", "G23", "G4", "G5", "G6"]
+G_PHASES = ["G1", "G23", "G4", "G5", "G6"]
+RA_G_PHASES = ["G1 (2B rows)", "G2 logits", "G3 grads", "G4", "G5", "G6"]
+D_PHASES = ["A", "B", "C", "DE", "F"]
+COUPLED_D_PHASES = ["A", "B", "C", "DE logits", "DE grads", "F"]
+# (name, hook, d_steps, ChunkHyper fields, the phases of one step)
+GAN_CASES = [
+    ("nsgan", 1, {}, D_PHASES + G_PHASES),
+    ("wgan", 5, dict(optimizer="rmsprop", clip=0.01, g_lr=5e-5, d_lr=5e-5),
+     [f"{p}{i}" for i in range(5) for p in D_PHASES] + G_PHASES),
+    ("ragan", 1, {}, COUPLED_D_PHASES + RA_G_PHASES),
+    ("fishergan", 1, dict(fisher_rho=1e-6), COUPLED_D_PHASES + G_PHASES),
+]
 # the phases of csrc/vae_chunk.cu, as its header numbers them
 VAE_PHASES = ["1 henc", "2 mu,lv", "3 z", "4 hd", "5 lg", "6 dhd",
               "7 dW2,dz", "8 dW1,g", "9 dhe", "9b dhe+,dWmu", "10 dWlv,dWtr"]
@@ -94,17 +109,18 @@ def instrumented_source(src: str) -> str:
     return src
 
 
-def _build(build, name: str, probe: str = "") -> ctypes.CDLL:
+def _build(build, name: str, probe: str = "", flags=(),
+           tag: str = "") -> ctypes.CDLL:
     """Compile an instrumented copy of csrc/<name>.cu and load it."""
     out_dir = os.path.join(build.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
         src = instrumented_source(f.read())
-    cu = os.path.join(out_dir, f"{name}_phases.cu")
-    so = os.path.join(out_dir, f"lib{name}_phases.so")
+    cu = os.path.join(out_dir, f"{name}{tag}_phases.cu")
+    so = os.path.join(out_dir, f"lib{name}{tag}_phases.so")
     with open(cu, "w") as f:
         f.write(src + _READ + probe)
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-I",
                     build.CSRC_DIR, "-o", so, cu],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(so)
@@ -126,37 +142,53 @@ def _report(np, lib, name, grid, steps, phases):
 
 
 def gan_phases(np, torch, build) -> ctypes.CDLL:
-    lib = _build(build, "gan_chunk", _PROBE)
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gm_gan_chunk.argtypes = ([p, p, p, ctypes.POINTER(p), p, p]
-                                 + [i] * 9 + [fl] * 11 + [i, i, p])
-    lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 5
-    lib.gm_gan_chunk_scratch_floats.restype = ctypes.c_longlong
-    lib.gm_gan_chunk_grid.argtypes = [i]
+    """Times each case of GAN_CASES; returns nsgan's library (it carries
+    the barrier and load probes)."""
+    from generative_models_tpu_torch.ops import cuda_train as ct
     b, steps, z, h, x = 100, 8, 128, 400, 784
-    torch.manual_seed(0)
-    shapes = ((z, h), (h,), (h, x), (x,), (x, h), (h,), (h, 1), (1,))
-    params = [torch.randn(*s, device="cuda") * 0.05 for s in shapes]
-    slots = [torch.zeros_like(t) for t in params + params]
-    xs = torch.rand(steps * b, x, device="cuda")
-    zd = torch.randn(steps * b, z, device="cuda")
-    zg = torch.randn(steps * b, z, device="cuda")
-    scratch = torch.empty(lib.gm_gan_chunk_scratch_floats(b, z, h, x, h),
-                          device="cuda")
-    metrics = torch.empty(steps, 4, device="cuda")
-    state = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in params + slots])
-    grid = lib.gm_gan_chunk_grid(2)
-    for _ in range(2):  # the second run is the one read
-        rc = lib.gm_gan_chunk(
-            xs.data_ptr(), zd.data_ptr(), zg.data_ptr(), state,
-            scratch.data_ptr(), metrics.data_ptr(), steps, 1, b, z, h, x, h,
-            0, 0, 2e-4, 2e-4, 0.5, 0.999, 0.5, 1.0 - 0.999, 1e-8,
-            math.log(0.5), math.log(0.999), 0.2, 1.0 / b, 0, grid, None)
-        torch.cuda.synchronize()
-        if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
-    _report(np, lib, "gan_chunk nsgan", grid, steps, PHASES)
-    return lib
+    first = None
+    for variant, ds, kw, phases in GAN_CASES:
+        hook = ct.HOOKS[variant]
+        lib = _build(build, "gan_chunk", _PROBE if first is None else "",
+                     flags=(f"-DGM_HOOK={ct.HOOK_IDS[hook]}",), tag=f"_{hook}")
+        first = first or lib
+        ct.bind(lib)
+        hp = ct.ChunkHyper(**{**dict(g_lr=2e-4, d_lr=2e-4, b1=0.5, b2=0.999,
+                                     eps=1e-8, slope=0.2, variant=variant),
+                              **kw})
+        torch.manual_seed(0)
+        shapes = ((z, h), (h,), (h, x), (x,), (x, h), (h,), (h, 1), (1,))
+        params = [torch.randn(*sh, device="cuda") * 0.05 for sh in shapes]
+        if hp.clip > 0:
+            params = params[:4] + [t.clamp(-hp.clip, hp.clip)
+                                   for t in params[4:]]
+        mu = [torch.zeros_like(t) for t in params]
+        nu = [torch.zeros_like(t) for t in params]
+        xs = torch.rand(steps * ds * b, x, device="cuda")
+        zd = torch.randn(steps * ds * b, z, device="cuda")
+        zg = torch.randn(steps * b, z, device="cuda")
+        scratch = torch.empty(lib.gm_gan_chunk_scratch_floats(b, z, h, x, h),
+                              device="cuda")
+        metrics = torch.zeros(steps, ct.METRIC_LANES, device="cuda")
+        lam = torch.zeros(1, device="cuda")
+        ptrs = ([t.data_ptr() for t in params]
+                + ([t.data_ptr() for t in mu] if hp.adam else [None] * 8)
+                + [t.data_ptr() for t in nu])
+        state = (ctypes.c_void_p * 24)(*ptrs)
+        grid = lib.gm_gan_chunk_grid(2, int(not hp.adam))
+        hyper = ct.hyper_struct(hp, steps=steps, ds=ds, batch=b, z=z, h=h,
+                                x=x, hd=h, t_g=0, t_d=0)
+        for _ in range(2):  # the second run is the one read
+            rc = lib.gm_gan_chunk(
+                xs.data_ptr(), zd.data_ptr(), zg.data_ptr(), state,
+                scratch.data_ptr(), metrics.data_ptr(), lam.data_ptr(),
+                ctypes.byref(hyper), grid, None)
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+        _report(np, lib, f"gan_chunk {variant} (d_steps {ds}, "
+                f"{hp.optimizer})", grid, steps, phases)
+    return first
 
 
 def vae_phases(np, torch, build) -> None:

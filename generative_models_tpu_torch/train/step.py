@@ -89,7 +89,9 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
                            device="cpu") -> State:
     """G and D drawn from `gen` (G first), fresh optimizer states, step 0
     and the two ``rng`` words (uint32) that seed the run's noise
-    (:func:`noise_generator`). The EMA of G starts at G."""
+    (:func:`noise_generator`). The variant's carried scalars (``vstate``:
+    0-dim float32 tensors) live on `device` too. The EMA of G starts at
+    G."""
     g_params = spec.init_g(gen, cfg, device=device)
     d_params = spec.init_d(gen, cfg, device=device)
     st: State = {
@@ -97,7 +99,8 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
         "d_params": d_params,
         "g_opt": init_opt(cfg, g_params),
         "d_opt": init_opt(cfg, d_params),
-        "vstate": spec.init_vstate(cfg),
+        "vstate": {k: v.to(device)
+                   for k, v in spec.init_vstate(cfg).items()},
         "step": 0,
         "rng": _rng_words(cfg),
     }

@@ -1,5 +1,6 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
-for the ported variants (nsgan, mmgan, vae, birvae): build the model
+for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
+fishergan, vae, birvae): build the model
 from ``cfg.seed`` (G and D, or a single model's parameter tree), train,
 evaluate, sample, save and load checkpoints in the JAX package's layout.
 
@@ -12,7 +13,7 @@ device, each epoch's row permutation is a function of ``cfg.seed`` and
 the epoch (so a resumed run replays the same order), and
 ``Config.scan_steps`` steps run per chunk. ``Config.fused_step`` picks
 how a chunk runs (``ops/cuda_train.py::resolve_fused_step``): a
-whole-chunk kernel (``"auto"`` on CUDA for nsgan/mmgan/vae/birvae) or
+whole-chunk kernel (``"auto"`` on CUDA for every ported variant) or
 the general step (``train/step.py``), whose MLPs run through the forward
 and backward kernels on the card. Both see the same batches and the
 same noise: each sub-chunk's noise comes from a generator seeded
@@ -407,16 +408,18 @@ class Trainer:
                 "and writes the npz layout only")
 
     def save_model(self, path: str) -> str:
-        """Checkpoint the full train state (params, optimizer states, step,
-        rng) in the JAX package's npz layout."""
+        """Checkpoint the full train state (params, optimizer states, the
+        variant's carried scalars, step, rng) in the JAX package's npz
+        layout."""
         self._npz_only()
         return save_state(path, self.state)
 
     def load_model(self, path: str) -> None:
         """Load a checkpoint written by either package's ``save_model``
         (npz layout); raises on any shape/dtype/config mismatch. The
-        optimizer slots, counts and rng words are restored when the file
-        has them, so training resumes where it stopped."""
+        optimizer slots, counts, carried scalars (fishergan's ``lam``) and
+        rng words are restored when the file has them, so training resumes
+        where it stopped."""
         self._npz_only()
         loaded = load_jax_checkpoint(path, self.cfg)
         st = dict(self.state)

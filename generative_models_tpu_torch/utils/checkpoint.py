@@ -10,6 +10,9 @@ and an EMA the leaves are ``['d_opt'][0].count``,
 ``['d_opt'][0].mu[i]['b'|'w']``, ``['d_opt'][0].nu[...]``,
 ``['d_params'][...]``, ``['g_ema'][...]``, ``['g_opt'][0]...``,
 ``['g_params'][...]``, ``['rng']`` (uint32 [2]) and ``['step']`` (int32).
+With RMSprop (wgan) an optimizer state is optax's ``ScaleByRmsState``,
+``['d_opt'][0].nu[...]`` alone, no count; fishergan adds its carried
+multiplier ``['vstate']['lam']`` (float32 scalar).
 A single-model state (vae, birvae) holds ``['ema']`` (with an EMA),
 ``['opt'][0].count``, ``['opt'][0].mu['decoder'][1]['b']`` ...,
 ``['params']['encoder']['trunk'][0]['w']`` ..., ``['rng']``, ``['step']``.
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from generative_models_tpu_torch.config import Config
+from generative_models_tpu_torch.losses.registry import get_variant
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves_with_path,
     tree_unflatten,
@@ -58,7 +62,6 @@ def param_template(cfg: Config) -> Dict[str, Any]:
     """The param subtrees a state holds, as meta tensors (shapes only):
     g_params and d_params (and g_ema when cfg.ema_decay > 0) for an
     adversarial variant, params (and ema) for a single model."""
-    from generative_models_tpu_torch.losses.registry import get_variant
     spec = get_variant(cfg.variant)
     gen = torch.Generator()  # the draws are discarded; shapes are read
     if not spec.adversarial:
@@ -185,8 +188,9 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
     "d_params", ["g_ema",] "step"}`` (a single model: ``{"params",
     ["ema",] "step"}``), each param subtree in the variant's own tree
     shape, plus the optimizer states ``"g_opt"``/``"d_opt"`` (``"opt"``),
-    each ``{"count", "mu", "nu"}`` or ``{"nu"}``, and ``"rng"`` when the
-    file has them. Raises if
+    each ``{"count", "mu", "nu"}`` (Adam) or ``{"nu"}`` (RMSprop), the
+    variant's carried scalars ``"vstate"`` (fishergan: ``{"lam"}``) and
+    ``"rng"`` when the file has them. Raises if
     a param leaf is missing, if any leaf has another shape or dtype than
     `cfg` implies, if the optimizer slots are partial or of another
     optimizer, or if a param subtree holds extra leaves (another depth,
@@ -231,6 +235,13 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
             if any(p.startswith(f"{p0}.{slot}") for p in found):
                 opt[slot] = subtree(tmpl[params], f"{p0}.{slot}")
         out[side] = opt
+    vstate = get_variant(cfg.variant).init_vstate(cfg) \
+        if "g_params" in tmpl else {}
+    if vstate and any(p.startswith("['vstate']") for p in leaves):
+        # the variant's carried scalars (fishergan: lam), all or none
+        want_vs = _want(tree_leaves_with_path(vstate, "['vstate']"))
+        _check_leaves(path, leaves, want_vs, mismatch)
+        out["vstate"] = subtree(vstate, "['vstate']")
     if "['rng']" in leaves:
         rng = leaves["['rng']"]
         if rng.shape != (2,) or rng.dtype != np.uint32:

@@ -5,8 +5,10 @@ package.
 kernel's oracle on the card — runs the same 8 steps as the TPU kernel
 ``_fused_chunk_call(..., interpret=True)``, fed the same numpy-made
 streams (padded on the JAX side as ``build_fused_many_steps`` pads them)
-and the same packed state. Params, mu, nu and the metrics rows agree to
-rtol 2e-4 / atol 2e-5, the tolerance of tests/test_fused_step.py.
+and the same packed state. Params, mu, nu and the metrics rows (all 8
+lanes) agree to rtol 2e-4 / atol 2e-5, the tolerance of
+tests/test_fused_step.py. The other variants' cases are in
+tests/test_torch_port_heads_chunk.py.
 """
 
 import jax.numpy as jnp
@@ -88,7 +90,7 @@ def _jax_chunk(cfg, p, mu, nu, t_g, t_d, xs, zd, zg, steps, ds):
             out.append(t[:, :p[q].shape[0], :p[q].shape[1]])
         else:
             out.append(t[:, 0, :p[q].shape[0]])
-    return out, np.asarray(m)[:, :4]
+    return out, np.asarray(m)[:, :8]
 
 
 @pytest.mark.parametrize("variant,ds", [("nsgan", 1), ("mmgan", 1),
@@ -206,17 +208,28 @@ def test_pick_sub_matches_jax():
 
 @pytest.mark.parametrize("overrides,supported", [
     ({}, True), ({"variant": "mmgan"}, True), ({"d_steps": 3}, True),
-    ({"variant": "wgan"}, False), ({"ema_decay": 0.5}, False),
-    ({"dtype": "bfloat16"}, False), ({"optimizer": "rmsprop"}, False),
+    ({"variant": "wgan"}, True), ({"ema_decay": 0.5}, False),
+    ({"dtype": "bfloat16"}, False), ({"optimizer": "rmsprop"}, True),
     ({"g_hidden_act": "tanh"}, False), ({"arch": "conv"}, False),
+    ({"variant": "lsgan"}, True), ({"variant": "fgan"}, True),
+    ({"variant": "ragan"}, True), ({"variant": "fishergan"}, True),
+    ({"variant": "wgan", "optimizer": "adam", "d_steps": 2}, True),
+    ({"variant": "fishergan", "optimizer": "rmsprop"}, True),
+    ({"variant": "wgangp"}, False), ({"variant": "dragan"}, False),
+    ({"variant": "cgan"}, False), ({"variant": "began"}, False),
+    ({"variant": "infogan"}, False),
+    ({"variant": "ragan", "ema_decay": 0.5}, False),
+    ({"variant": "wgan", "dtype": "bfloat16"}, False),
+    ({"variant": "vae", "optimizer": "rmsprop"}, False),
 ])
 def test_fused_step_supported(overrides, supported):
     variant = overrides.pop("variant", "nsgan")
     cfg = variant_config(variant, **overrides)
     ok, reason = cuda_train.fused_step_supported(None, cfg)
     assert ok == supported
-    if not supported and (variant != "nsgan" or "ema_decay" in overrides
-                          or "dtype" in overrides):
+    if not supported and (variant in ("wgangp", "dragan", "cgan", "began",
+                                      "infogan")
+                          or "ema_decay" in overrides or "dtype" in overrides):
         assert "ROADMAP.md Queue 2 item 6" in reason
 
 
@@ -230,3 +243,12 @@ def test_resolve_fused_step():
         None, cfg.replace(fused_step=False), "cuda")
     assert not cuda_train.resolve_fused_step(
         None, cfg.replace(ema_decay=0.5), "cuda")
+    # "auto" takes the chunk kernel wherever it is supported: no list of
+    # variants measured on another device is carried over
+    for v in ("lsgan", "wgan", "fgan", "ragan", "fishergan"):
+        assert cuda_train.resolve_fused_step(None, variant_config(v), "cuda")
+        assert not cuda_train.resolve_fused_step(None, variant_config(v),
+                                                 "cpu")
+    for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
+        assert not cuda_train.resolve_fused_step(None, variant_config(v),
+                                                 "cuda")

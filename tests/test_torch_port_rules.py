@@ -130,11 +130,11 @@ def test_training_kernel_modules_import_and_run_on_cpu_without_building():
         " (3,), (3, 1), (1,))]\n"
         "mu = [torch.zeros_like(t) for t in p]\n"
         "nu = [torch.zeros_like(t) for t in p]\n"
-        "hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, False)\n"
+        "hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, 'nsgan')\n"
         "m = cuda_train.gan_chunk(torch.rand(4, 5), torch.randn(4, 2),"
         " torch.randn(4, 2), p, mu, nu, steps=2, ds=1, batch=2, t_g=0,"
         " t_d=0, hp=hp)\n"
-        "assert m.shape == (2, 4) and bool(torch.isfinite(m).all())\n"
+        "assert m.shape == (2, 8) and bool(torch.isfinite(m).all())\n"
         "assert cuda_mlp.bwd_launches == 0 and cuda_train.launches == 0\n"
         "assert 'generative_models_tpu_torch.ops.build' not in sys.modules\n"
         "assert cuda_mlp._bwd_lib.cache_info().currsize == 0\n"
@@ -169,7 +169,7 @@ def test_training_wrappers_refuse_devices_they_have_no_path_for():
         cuda_mlp.mlp_bwd(x, [], meta(3, 2), meta(3, 2), [w], ("relu",))
     p = [meta(*s) for s in ((2, 3), (3,), (3, 5), (5,), (5, 3), (3,),
                             (3, 1), (1,))]
-    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, False)
+    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, "nsgan")
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_train.gan_chunk(meta(4, 5), meta(4, 2), meta(4, 2), p, p, p,
                              steps=2, ds=1, batch=2, t_g=0, t_d=0, hp=hp)
@@ -271,3 +271,72 @@ def test_vae_trainer_defaults_to_cuda_and_auto_is_the_general_step_on_cpu(
     assert t.cfg.fused_step == "auto"
     t.train(steps=2)
     assert t.state["step"] == 2
+
+
+@pytest.mark.parametrize("variant,optimizer", [
+    ("lsgan", "adam"), ("wgan", "rmsprop"), ("fgan", "adam"),
+    ("ragan", "adam"), ("fishergan", "adam"), ("ragan", "rmsprop")])
+def test_new_chunk_variants_run_on_cpu_without_building(variant, optimizer):
+    """A CPU tensor takes the plain version: no launch is counted and no
+    library is built or loaded, for every hook and both optimizers."""
+    from generative_models_tpu_torch.ops import cuda_train
+    p = [torch.full(s, 0.01) for s in ((2, 3), (3,), (3, 5), (5,), (5, 3),
+                                       (3,), (3, 1), (1,))]
+    mu = [torch.zeros_like(t) for t in p] if optimizer == "adam" else None
+    nu = [torch.zeros_like(t) for t in p]
+    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, variant,
+                               optimizer, 0.01 if variant == "wgan" else 0.0,
+                               fisher_rho=1e-2)
+    before = cuda_train.launches
+    m = cuda_train.gan_chunk(torch.rand(4, 5), torch.randn(4, 2),
+                             torch.randn(4, 2), p, mu, nu, steps=2, ds=1,
+                             batch=2, t_g=0, t_d=0, hp=hp, lam=0.5)
+    assert m.shape == (2, 8) and bool(torch.isfinite(m).all())
+    assert cuda_train.launches == before
+    assert cuda_train._lib.cache_info().currsize == 0
+    assert (float(m[-1, 7]) != 0.0) == (variant == "fishergan")
+
+
+def test_chunk_hooks_cover_the_ported_variants_and_refuse_the_rest():
+    from generative_models_tpu_torch.ops import cuda_train
+    assert set(cuda_train.HOOKS) == {"nsgan", "mmgan", "lsgan", "wgan",
+                                     "fgan", "ragan", "fishergan"}
+    assert set(cuda_train.HOOKS.values()) == set(cuda_train.HOOK_IDS)
+    assert sorted(cuda_train.HOOK_IDS.values()) == list(range(6))
+    with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
+        src = f.read()
+    assert "GM_HOOK" in src and "--use_fast_math" not in " ".join(
+        build.NVCC_FLAGS)
+    for bad in ("wgangp", "began"):
+        with pytest.raises(ValueError, match="gan_chunk covers"):
+            cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, bad)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, "wgan",
+                              "sgd")
+
+
+def test_rmsprop_chunk_state_has_no_mu_plane():
+    from generative_models_tpu_torch.ops import cuda_train
+    meta = lambda *s: torch.empty(s, device="meta")
+    p = [meta(*s) for s in ((2, 3), (3,), (3, 5), (5,), (5, 3), (3,),
+                            (3, 1), (1,))]
+    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, "wgan",
+                               "rmsprop", 0.01)
+    kw = dict(steps=2, ds=1, batch=2, t_g=0, t_d=0, hp=hp)
+    with pytest.raises(ValueError, match="no mu plane"):
+        cuda_train.gan_chunk(meta(4, 5), meta(4, 2), meta(4, 2), p, p, p, **kw)
+    with pytest.raises(ValueError, match="cuda or cpu"):  # never the plain
+        cuda_train.gan_chunk(meta(4, 5), meta(4, 2), meta(4, 2), p, None, p,
+                             **kw)
+
+
+def test_building_a_hook_library_without_nvcc_raises(monkeypatch):
+    import torch.utils.cpp_extension as ext
+    from generative_models_tpu_torch.ops import cuda_train
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "BUILD_DIR", os.path.join(
+        build.BUILD_DIR, "never_built"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_train.build("ra")
+    cuda_train._lib.cache_clear()

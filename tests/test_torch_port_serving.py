@@ -222,7 +222,7 @@ def test_sample_grid_png_is_byte_identical_to_jax(tmp_path):
         assert fa.read() == fb.read()
 
 
-@pytest.mark.parametrize("variant", ["wgan", "flow", "ddpm", "vqprior"])
+@pytest.mark.parametrize("variant", ["wgangp", "flow", "ddpm", "vqprior"])
 def test_unported_variants_name_their_roadmap_item(variant):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         Trainer(variant, device="cpu")

@@ -2,7 +2,9 @@
 the JAX package's, in the style of tests/test_trajectory_parity.py: the
 same initial weights, the same fixed minibatch sequence and the same
 per-step noise on both sides, 50 steps, and every step's losses must
-agree — nsgan (alternating D and G updates) and vae (one model).
+agree — nsgan (alternating D and G updates), wgan (its registry
+defaults: five critic updates a step, RMSprop, the clip after each) and
+vae (one model).
 
 The JAX step draws its noise from its key chain; the test replays the
 chain on the host (``train/step.py:158-159``, ``:234``) and either looks
@@ -21,6 +23,7 @@ import torch
 
 from generative_models_tpu.config import variant_config as jax_variant_config
 from generative_models_tpu.losses import minimax as jminimax
+from generative_models_tpu.losses import wgan as jwgan
 from generative_models_tpu.losses.registry import get_variant as jax_variant
 from generative_models_tpu.train import step as jstep
 from generative_models_tpu.train.optim import make_tx
@@ -63,26 +66,28 @@ def _assert_losses(p_hist, j_hist):
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_nsgan_50_step_trajectory_matches_jax(monkeypatch):
-    rng = np.random.default_rng(0)
+def _gan_trajectory(monkeypatch, variant, jmod, seed):
+    """50 steps of `variant` at its registry defaults on both sides."""
+    kw = dict(batch_size=B, z_dim=ZD, hidden_dim=H)
+    jcfg, jspec = jax_variant_config(variant, **kw), jax_variant(variant)
+    ds = jcfg.d_steps
+    rng = np.random.default_rng(seed)
     g_w = [_layer(rng, ZD, H), _layer(rng, H, XD)]
     d_w = [_layer(rng, XD, H), _layer(rng, H, 1)]
-    xs = rng.random((STEPS, 1, B, XD), dtype=np.float32)
-    z_d = rng.normal(size=(STEPS, 1, B, ZD)).astype(np.float32)
+    xs = rng.random((STEPS, ds, B, XD), dtype=np.float32)
+    z_d = rng.normal(size=(STEPS, ds, B, ZD)).astype(np.float32)
     z_g = rng.normal(size=(STEPS, B, ZD)).astype(np.float32)
-    kw = dict(batch_size=B, z_dim=ZD, hidden_dim=H)
 
-    jcfg, jspec = jax_variant_config("nsgan", **kw), jax_variant("nsgan")
     state = jstep.init_state(jspec, jcfg, jax.random.PRNGKey(0))
     keys, chain = [], state["rng"]
     for _ in range(STEPS):
         chain, d_key, g_key = jax.random.split(chain, 3)
-        keys += list(jax.random.split(d_key, 1)) + [g_key]
+        keys += list(jax.random.split(d_key, ds)) + [g_key]
     keys = jnp.stack(keys)
     table = jnp.asarray(np.concatenate(
         [np.concatenate([z_d[k], z_g[k][None]]) for k in range(STEPS)]))
     monkeypatch.setattr(
-        jminimax, "compute_noise", lambda key, n, z_dim: table[jnp.argmax(
+        jmod, "compute_noise", lambda key, n, z_dim: table[jnp.argmax(
             jnp.all(keys == key[None], axis=1))])
     state["g_params"] = jax.tree.map(jnp.asarray, g_w)
     state["d_params"] = jax.tree.map(jnp.asarray, d_w)
@@ -92,17 +97,17 @@ def test_nsgan_50_step_trajectory_matches_jax(monkeypatch):
     j_hist = []
     for k in range(STEPS):
         state, m = jax_train(state, {"image": jnp.asarray(xs[k]),
-                                     "label": jnp.zeros((1, B), jnp.int32)})
+                                     "label": jnp.zeros((ds, B), jnp.int32)})
         j_hist.append({n: float(v) for n, v in m.items()})
 
-    cfg, spec = variant_config("nsgan", **kw), get_variant("nsgan")
+    cfg, spec = variant_config(variant, **kw), get_variant(variant)
     pst = step_lib.init_state(spec, cfg, torch.Generator().manual_seed(0))
     pst["g_params"], pst["d_params"] = _to_torch(g_w), _to_torch(d_w)
     train = step_lib.build_step(spec, cfg)
     p_hist = []
     for k in range(STEPS):
         pst, m = train(pst, {"image": torch.from_numpy(xs[k]),
-                             "label": torch.zeros((1, B), dtype=torch.int32)},
+                             "label": torch.zeros((ds, B), dtype=torch.int32)},
                        torch.from_numpy(z_d[k]), torch.from_numpy(z_g[k]))
         p_hist.append({n: float(v) for n, v in m.items()})
 
@@ -110,6 +115,20 @@ def test_nsgan_50_step_trajectory_matches_jax(monkeypatch):
     for side in ("g_params", "d_params"):
         _assert_params(pst[side], state[side])
     assert pst["step"] == int(state["step"]) == STEPS
+    return cfg, pst
+
+
+def test_nsgan_50_step_trajectory_matches_jax(monkeypatch):
+    _gan_trajectory(monkeypatch, "nsgan", jminimax, seed=0)
+
+
+def test_wgan_50_step_trajectory_matches_jax(monkeypatch):
+    cfg, pst = _gan_trajectory(monkeypatch, "wgan", jwgan, seed=2)
+    assert (cfg.optimizer, cfg.d_steps, cfg.wgan_clip) == ("rmsprop", 5, 0.01)
+    assert set(pst["d_opt"]) == {"nu"}
+    for layer in pst["d_params"]:
+        for t in layer.values():
+            assert float(t.abs().max()) <= cfg.wgan_clip
 
 
 def test_vae_50_step_trajectory_matches_jax():
