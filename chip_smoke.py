@@ -10,9 +10,9 @@ imports nothing of JAX. Phases:
    matmuls and convolutions, so the plain versions run in true float32;
 2. builds every kernel of the serving and training paths from ``csrc/``
    (five sources — mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk;
-   gan_chunk once per critic hook, six libraries — one nvcc each, all
+   gan_chunk once per critic hook, nine libraries — one nvcc each, all
    started together; sm_90a) and prints the build time and the ptxas
-   reports;
+   reports; it fails if a chunk kernel spills registers;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -24,12 +24,15 @@ imports nothing of JAX. Phases:
      and streams, against the plain version in float64, for nsgan and
      mmgan at d_steps 1, nsgan at 2, lsgan, wgan (d_steps 5, RMSprop,
      clip), fgan (jensen_shannon; kl with the non-saturating G loss;
-     total_variation), ragan and fishergan (multiplier in and out); the
-     data of every such check is the first seed whose smallest hidden
-     pre-activation is clear of a ReLU tie (TIE_MARGIN);
+     total_variation), ragan and fishergan (multiplier in and out),
+     wgangp (d_steps 5, betas 0.5/0.9, the penalty), dragan (the penalty
+     at streamed x_hat rows) and cgan (10 label lanes); the data of every
+     such check is the first seed whose smallest hidden pre-activation
+     (the penalty's x_hat layer too) is clear of a ReLU tie (TIE_MARGIN);
    - a cross-check: 20 steps of the chunk kernel and 20 of the general
      step (which runs the forward and backward kernels) from one state,
-     for nsgan and each of lsgan, wgan, fgan, ragan, fishergan;
+     for nsgan and each of lsgan, wgan, fgan, ragan, fishergan, wgangp,
+     dragan, cgan;
    - the sampling kernel ``reparam`` at [100, 20], [8192, 20], a ragged
      [37, 20] and a wide [64, 200]: z element by element against the
      plain version's reproduced eps, the row KL, and the backward through
@@ -46,27 +49,33 @@ imports nothing of JAX. Phases:
      and ``Trainer.sample`` at n = 8192 held against the plain version;
    - training through the CLI (``fused_step="auto"``, the chunk kernel):
      nsgan, lsgan, wgan (RMSprop, d_steps 5, clip 0.01), fgan, ragan,
-     fishergan, vae and birvae, 1000 steps each in chunks of 500 at full
-     width on the 60,000-row synthetic split, 2 launches of the chunk
-     kernel each, losses finite (and for the VAE family falling: the
-     mean of the last 100 below the mean of the first 100), wgan's
-     critic inside the clip at the end, fishergan's ``vstate_lam`` in
-     ``metrics.jsonl``, ``final.png`` and ``metrics.jsonl`` written;
+     fishergan, wgangp (d_steps 5), dragan, cgan, vae and birvae, 1000
+     steps each in chunks of 500 at full width on the 60,000-row
+     synthetic split, 2 launches of the chunk kernel each, losses finite
+     (and for the VAE family falling: the mean of the last 100 below the
+     mean of the first 100), wgan's critic inside the clip at the end,
+     fishergan's ``vstate_lam`` and the penalty's ``gp`` and
+     ``grad_norm`` in ``metrics.jsonl``, ``final.png`` and
+     ``metrics.jsonl`` written;
    - training through the general step (``fused_step=False``): nsgan 200
      steps, 5 forward and 4 backward launches a step; wgan 60 steps, 17
-     and 12; ragan 100 steps, 6 and 4; vae 100 steps, 4 forward, 4
-     backward and 1 ``reparam`` launch a step; birvae 100 steps, 3
-     forward and 3 backward;
-   - ``--sample-only`` from a full-width wgan checkpoint in the JAX
-     layout;
+     and 12; wgangp 60 steps, 17 and 12 and 5 plain critic passes of the
+     penalty (``ops/penalty.py``: no kernel is twice differentiable);
+     ragan 100 steps, 6 and 4; vae 100 steps, 4 forward, 4 backward and
+     1 ``reparam`` launch a step; birvae 100 steps, 3 forward and 3
+     backward;
+   - ``--sample-only`` from full-width wgan and cgan checkpoints in the
+     JAX layout (cgan: G 138->400->784, D 794->400->1; its grid cycles
+     the classes, held against the plain version);
    - serving the VAE: ``--sample-only`` from a full-width vae checkpoint
      in the JAX layout and ``Trainer.sample`` at n = 8192 against plain;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call, and steps/s of each chunk kernel (nsgan,
-   lsgan, wgan, fgan, ragan, fishergan, vae, birvae), the general step
-   and a library step loop (addmm + autograd + ``torch.optim.Adam`` or
-   ``RMSprop`` with ``foreach=True``, which the port never calls: nsgan,
-   wgan, ragan, vae, birvae);
+   lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, vae,
+   birvae), the general step and a library step loop (addmm + autograd
+   + ``torch.optim.Adam`` or ``RMSprop`` with ``foreach=True``, which the
+   port never calls: nsgan, wgan, ragan, wgangp, dragan, cgan, vae,
+   birvae);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -137,6 +146,12 @@ CHUNK_TOL = {"metrics": 1e-4, "state": 1e-3}
 # float32 plain version's 2e-4 to 1.4e-3; a float32 sum of 100 gradient
 # rows of order 0.5 leaves ~1e-6, a tenth of which enters mu each step.
 COUPLED_ADAM_EPS = 1e-3
+# wgangp's cross-check (below) runs at it too: 100 critic updates of Adam
+# at beta2 0.9 turn the two float32 versions' rounding differences in its
+# small critic gradients into steps of order lr (at the default eps: the
+# mu plane 1.002e-2 apart in relative L2, mu.d_b1 the worst element at
+# 7.7e-2 of its max), while each version holds its float64 plain version
+# to ~1e-6 over 8 steps (phase 3c).
 RESIDUE_SLOTS = {"ragan": ("mu.d_b2", "nu.d_b2"),
                  "birvae": ("mu.mu_b", "nu.mu_b")}
 RESIDUE_ABS_TOL = {"ragan": 2e-7, "birvae": 5e-6}
@@ -155,6 +170,11 @@ LAM_TOL = 1e-6
 # ones it passed over. With ~2e6 to 5e6 pre-activations a case, one seed
 # in four (d_steps 1) to one in eighty (d_steps 5) qualifies.
 TIE_MARGIN = 1e-6
+# wgangp's case holds the most pre-activations (8 steps x 5 critic updates
+# x 4 hidden layers, x_hat's too: ~7 million), and at 1e-6 not one seed of
+# 2000 cleared the rule; half of it is still over twice the few 1e-7 of a
+# float32 sum's rounding.
+TIE_MARGIN_OF = {"wgangp": 5e-7}
 TIE_FIRST_SEED = 10
 TIE_MAX_SEEDS = 2000
 # Chunk kernel vs the general step over 20 steps, both float32 (the
@@ -162,7 +182,10 @@ TIE_MAX_SEEDS = 2000
 # order): metrics max abs error, and the worst state plane's relative L2
 # distance (params, mu or nu, its 8 tensors together) — for the reason
 # above, a few elements may differ by up to 2 lr, so the planes are held
-# by their norm.
+# by their norm; the residue slots (RESIDUE_SLOTS) by absolute error, as
+# in the 8-step checks (with them in the norm, the BIR-VAE mse case read
+# 1.29e-2 once its draws changed: nu.mu_b at 0.86 of its own max). Each
+# case draws from a seed of its own.
 CROSS_TOL = {"metrics": 2e-3, "state": 1e-2}
 
 # reparam kernel vs its plain version (the same Philox words, so the same
@@ -192,6 +215,11 @@ REPARAM_MOMENTS = 5e-3
 # off after its step, every other tensor ~1e-7).
 VAE_CHUNK_TOL = {"metrics": 2e-5, "state": 1e-3}
 BIRVAE_ADAM_EPS = 1e-3
+
+# the penalty's weight and cgan's classes (the registry defaults)
+GP_LAM, N_CLS = 10.0, 10
+PENALTY_LANES = {"wgangp": 1, "dragan": 784}
+DRAGAN_SCALE = 0.5
 
 G_DIMS = [128, 400, 784]
 G_ACTS = ("relu", "sigmoid")
@@ -229,7 +257,7 @@ def build_all(mods, build_dir):
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(fn) for fn in mods]:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk (6 hooks), reparam, "
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk (9 hooks), reparam, "
           f"vae_chunk: {len(mods)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     spills, chunk_kernels = [], 0
@@ -321,11 +349,12 @@ def check_bwd(cuda_mlp, torch):
     return worst
 
 
-def chunk_state(rng, torch, z=128, h=400, x=784):
+def chunk_state(rng, torch, z=128, h=400, x=784, n_cls=0):
     """Params and non-zero Adam slots for the 8 chunk tensors (as after
-    some training), as numpy planes."""
+    some training), as numpy planes; cgan's G takes z + n_cls lanes and
+    its D x + n_cls."""
     p = []
-    for i, o in ((z, h), (h, x), (x, h), (h, 1)):
+    for i, o in ((z + n_cls, h), (h, x), (x + n_cls, h), (h, 1)):
         bound = 1.0 / np.sqrt(i)
         p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
               rng.uniform(-bound, bound, (o,)).astype(np.float32)]
@@ -363,28 +392,55 @@ def state_err(a_planes, r_planes, names=PLANE_NAMES):
     return l2, names[worst], mx[worst]
 
 
-def tie_free_case(what, make, run_ref):
+def cross_state_err(variant, got, ref, names):
+    """state_err of two states' planes with the variant's residue slots
+    (RESIDUE_SLOTS) held apart, as phase 3c holds them: (worst plane's
+    relative L2 without them, the worst other tensor, its max error over
+    its max |ref|, the residue slots' largest absolute error)."""
+    residue = RESIDUE_SLOTS.get(variant, ())
+    it = iter(names)
+    keep_a, keep_r, kept, r_err = [], [], [], 0.0
+    for la, lr in zip(got, ref):
+        keep_a.append([])
+        keep_r.append([])
+        for a, r in zip(la, lr):
+            name = next(it)
+            if name in residue:
+                r_err = max(r_err, float((a.double() - r.double()).abs().max()))
+            else:
+                keep_a[-1].append(a)
+                keep_r[-1].append(r)
+                kept.append(name)
+    return state_err(keep_a, keep_r, kept) + (r_err,)
+
+
+def tie_free_case(what, make, run_ref, margin_at=TIE_MARGIN):
     """The tie rule (TIE_MARGIN): `make(seed)` draws a case's data with
     numpy, `run_ref(case, probe)` runs the float64 plain version on it,
-    leaving the smallest relative pre-activation under probe["margin"].
-    Returns (the first case from TIE_FIRST_SEED that clears the margin,
-    what run_ref returned for it)."""
+    leaving the smallest relative pre-activation under probe["margin"]
+    (and stopping at the first one at or below the margin). Returns (the
+    first case from TIE_FIRST_SEED that clears the margin, what run_ref
+    returned for it)."""
+    from generative_models_tpu_torch.ops.cuda_train import Tie
     passed = []
     for seed in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
         case = make(seed)
-        probe = {}
-        ref = run_ref(case, probe)
+        probe = {"stop_at": margin_at}
+        try:
+            ref = run_ref(case, probe)
+        except Tie:
+            ref = None
         margin = float(probe["margin"])
-        if margin > TIE_MARGIN:
+        if margin > margin_at:
             over = ", ".join(f"{sd} ({m:.1e})" for sd, m in passed[-6:])
             print(f"  {what}: data seed {seed}, smallest |pre-activation| / "
-                  f"rms = {margin:.2e} > {TIE_MARGIN:.0e}; passed over "
+                  f"rms = {margin:.2e} > {margin_at:.0e}; passed over "
                   f"{len(passed)} seed(s) from {TIE_FIRST_SEED}"
                   + (f", the last: {over}" if passed else ""))
             return case, ref
         passed.append((seed, margin))
     raise AssertionError(f"{what}: no seed of {TIE_MAX_SEEDS} clears the tie "
-                         f"margin {TIE_MARGIN}")
+                         f"margin {margin_at}")
 
 
 # (variant, d_steps, ChunkHyper fields beside the defaults, lam before)
@@ -398,7 +454,39 @@ CHUNK_CASES = (
     ("fgan", 1, dict(fgan_div="total_variation"), 0.0),
     ("ragan", 1, dict(eps=COUPLED_ADAM_EPS), 0.0),
     ("fishergan", 1, dict(eps=COUPLED_ADAM_EPS, fisher_rho=1e-2), 0.3),
+    ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=GP_LAM), 0.0),
+    ("dragan", 1, dict(gp_lam=GP_LAM), 0.0),
+    ("cgan", 1, dict(n_cls=N_CLS), 0.0),
 )
+
+
+def chunk_streams(rng, torch, variant, steps, ds, n_cls=0):
+    """A chunk's streams on the card, drawn with numpy: xs [rows, 784 (+
+    labels)], zd [rows, 128 (+ labels)], zg [steps*B, 128 (+ the labels
+    of each step's last critic batch)] and the penalty's xtra (wgangp:
+    eps [rows, 1]; dragan: x_hat = x + 0.5 std(x) u per critic batch;
+    else None)."""
+    rows = steps * ds * TRAIN_B
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    xs = rng.random((rows, 784), dtype=np.float32)
+    zd = rng.standard_normal((rows, 128), dtype=np.float32)
+    zg = rng.standard_normal((steps * TRAIN_B, 128), dtype=np.float32)
+    xtra = None
+    if variant in PENALTY_LANES:
+        u = rng.random((rows, PENALTY_LANES[variant]), dtype=np.float32)
+        if variant == "dragan":
+            xb = xs.reshape(steps * ds, TRAIN_B, 784)
+            std = xb.std(axis=(1, 2), keepdims=True, dtype=np.float64)
+            u = (xb + np.float32(DRAGAN_SCALE) * std.astype(np.float32)
+                 * u.reshape(xb.shape)).reshape(rows, 784)
+        xtra = cuda(np.ascontiguousarray(u))
+    if n_cls:
+        y = np.eye(n_cls, dtype=np.float32)[rng.integers(0, n_cls, rows)]
+        xs = np.concatenate([xs, y], 1)
+        zd = np.concatenate([zd, y], 1)
+        yg = y.reshape(steps, ds, TRAIN_B, n_cls)[:, -1].reshape(-1, n_cls)
+        zg = np.concatenate([zg, yg], 1)
+    return cuda(xs), cuda(zd), cuda(zg), xtra
 
 
 def chunk_hyper(cuda_train, variant, **kw):
@@ -437,17 +525,11 @@ def check_chunk(cuda_train, torch):
 
         def make(seed):
             rng = np.random.default_rng(seed)
-            p, mu, nu = chunk_state(rng, torch)
+            p, mu, nu = chunk_state(rng, torch, n_cls=hp.n_cls)
             if hp.clip > 0:  # a critic as the clip leaves it
                 p = p[:4] + [np.clip(a, -hp.clip, hp.clip) for a in p[4:]]
-            cuda = lambda a: torch.from_numpy(a).cuda()
-            return ((p, mu, nu),
-                    cuda(rng.random((steps * ds * TRAIN_B, 784),
-                                    dtype=np.float32)),
-                    cuda(rng.standard_normal((steps * ds * TRAIN_B, 128),
-                                             dtype=np.float32)),
-                    cuda(rng.standard_normal((steps * TRAIN_B, 128),
-                                             dtype=np.float32)))
+            return ((p, mu, nu),) + chunk_streams(rng, torch, variant, steps,
+                                                  ds, hp.n_cls)
 
         def planes(state, dt):
             out = [[torch.from_numpy(a.copy()).to("cuda", dt) for a in pl]
@@ -457,17 +539,18 @@ def check_chunk(cuda_train, torch):
             return out
 
         def run_ref(case, probe):
-            state, xs, zd, zg = case
+            state, xs, zd, zg, xtra = case
             ref = planes(state, torch.float64)
             m_ref = cuda_train.gan_chunk_plain(
                 xs.double(), zd.double(), zg.double(), *ref, probe=probe,
-                **kws)
+                xtra=None if xtra is None else xtra.double(), **kws)
             return ref, m_ref
 
-        (state, xs, zd, zg), (ref, m_ref) = tie_free_case(tag, make, run_ref)
+        (state, xs, zd, zg, xtra), (ref, m_ref) = tie_free_case(
+            tag, make, run_ref, TIE_MARGIN_OF.get(variant, TIE_MARGIN))
         got, f32 = planes(state, torch.float32), planes(state, torch.float32)
-        m = cuda_train.gan_chunk(xs, zd, zg, *got, **kws)
-        cuda_train.gan_chunk_plain(xs, zd, zg, *f32, **kws)
+        m = cuda_train.gan_chunk(xs, zd, zg, *got, xtra=xtra, **kws)
+        cuda_train.gan_chunk_plain(xs, zd, zg, *f32, xtra=xtra, **kws)
         torch.cuda.synchronize()
         m_err = float((m - m_ref).abs().max())
         residue = RESIDUE_SLOTS.get(variant, ())
@@ -484,6 +567,12 @@ def check_chunk(cuda_train, torch):
         if hp.clip > 0:
             ok = ok and all(float(t.abs().max()) <= hp.clip
                             for t in got[0][4:])
+        pen = ""
+        if hp.gp_lam:  # the penalty's lanes: gp, mean norm
+            ok = ok and bool((m[:, 4] > 0).all() and (m[:, 5] > 0).all())
+            pen = (f" gp {float(m[-1, 4]):.4f} (ref {float(m_ref[-1, 4]):.4f})"
+                   f" grad_norm {float(m[-1, 5]):.4f} (ref "
+                   f"{float(m_ref[-1, 5]):.4f})")
         print(f"  {tag} steps={steps} B={TRAIN_B} vs plain(float64): "
               f"metrics_max_abs_err={m_err:.3e} (tol "
               f"{CHUNK_TOL['metrics']:.0e}) state max_err/max={s_err:.3e} "
@@ -492,7 +581,7 @@ def check_chunk(cuda_train, torch):
                  f"{r_tol:.0e})" if residue else "")
               + (f" lam {lam0} -> {float(m[-1, 7]):.6f} (ref "
                  f"{float(m_ref[-1, 7]):.6f})" if variant == "fishergan"
-                 else "")
+                 else "") + pen
               + f" {'ok' if ok else 'FAIL'}; plain(float32) vs "
               f"plain(float64): max_err/max={f32_err:.3e} ({f32_name})")
         if not ok:
@@ -513,7 +602,9 @@ def synthetic_split(n, seed):
 CROSS_CASES = (("nsgan", {}), ("lsgan", {}), ("wgan", {}), ("fgan", {}),
                ("ragan", {"adam_eps": COUPLED_ADAM_EPS}),
                ("fishergan", {"adam_eps": COUPLED_ADAM_EPS,
-                              "fisher_rho": 1e-2}))
+                              "fisher_rho": 1e-2}),
+               ("wgangp", {"adam_eps": COUPLED_ADAM_EPS}), ("dragan", {}),
+               ("cgan", {}))
 
 
 def cross_check(cuda_train, step_lib, torch):
@@ -526,7 +617,8 @@ def cross_check(cuda_train, step_lib, torch):
     data = synthetic_split(2000, seed=3)
     images = torch.from_numpy(data["x_train"].reshape(2000, -1)).cuda()
     labels = torch.from_numpy(data["y_train"]).cuda()
-    for variant, kw in CROSS_CASES:
+    for n, (variant, kw) in enumerate(CROSS_CASES):
+        torch.manual_seed(n)  # each case's draws whatever ran before it
         cfg = variant_config(variant, batch_size=TRAIN_B, dtype="float32",
                              **kw)
         spec = get_variant(variant)
@@ -541,7 +633,11 @@ def cross_check(cuda_train, step_lib, torch):
         rel = torch.arange(20, device="cuda") * TRAIN_B * ds
         zd = torch.randn(20, ds, TRAIN_B, 128, device="cuda")
         zg = torch.randn(20, TRAIN_B, 128, device="cuda")
-        noise = lambda k0, n: (zd[k0:k0 + n], zg[k0:k0 + n])
+        drawn = [zd, zg]
+        if variant in PENALTY_LANES:  # the penalty's draw
+            drawn.append(torch.rand(20, ds, TRAIN_B, PENALTY_LANES[variant],
+                                    device="cuda"))
+        noise = lambda k0, n: tuple(t[k0:k0 + n] for t in drawn)
         args = (images, labels, perm, rel, noise)
         s_f, m_f = cuda_train.build_fused_many_steps(spec, cfg, per_epoch)(
             state, *args)
@@ -555,11 +651,13 @@ def cross_check(cuda_train, step_lib, torch):
         some = lambda pl: [p for p in pl if p is not None]
         names = [n for n in PLANE_NAMES
                  if cfg.optimizer == "adam" or not n.startswith("mu.")]
-        s_err, s_name, s_max = state_err(
-            some(cuda_train.state_planes(s_f)),
+        s_err, s_name, s_max, r_err = cross_state_err(
+            variant, some(cuda_train.state_planes(s_f)),
             some(cuda_train.state_planes(s_g)), names)
-        ok = m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
-        lam = ""
+        ok = (m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+              and r_err <= RESIDUE_ABS_TOL.get(variant, 0.0))
+        lam = "" if variant not in RESIDUE_SLOTS else (
+            f" residue slots abs err {r_err:.2e}")
         if variant == "fishergan":
             lf, lg = float(s_f["vstate"]["lam"]), float(s_g["vstate"]["lam"])
             ok = ok and abs(lf - lg) <= CROSS_TOL["metrics"] and lf != 0.3
@@ -734,6 +832,7 @@ def cross_check_vae(cuda_train, ctv, step_lib, torch):
     data = synthetic_split(1000, seed=3)
     images = torch.from_numpy(data["x_train"].reshape(1000, -1)).cuda()
     labels = torch.from_numpy(data["y_train"]).cuda()
+    torch.manual_seed(0)  # its draws whatever ran before it
     perm = torch.stack([torch.randperm(1000, device="cuda") for _ in range(4)])
     rel = torch.arange(20, device="cuda") * TRAIN_B
     eps = torch.randn(20, TRAIN_B, VAE_L, device="cuda")
@@ -752,28 +851,36 @@ def cross_check_vae(cuda_train, ctv, step_lib, torch):
         torch.cuda.synchronize()
         m_err = max(float((m_f[k] - m_g[k]).abs().max())
                     / float(m_g[k].abs().max()) for k in m_g)
-        s_err, s_name, s_max = state_err(
-            ctv.state_planes(s_f), ctv.state_planes(s_g),
+        s_err, s_name, s_max, r_err = cross_state_err(
+            variant, ctv.state_planes(s_f), ctv.state_planes(s_g),
             vae_plane_names(variant == "birvae"))
-        ok = m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+        ok = (m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+              and r_err <= RESIDUE_ABS_TOL.get(variant, 0.0))
         print(f"  {variant} {recon} chunk kernel vs general step, 20 steps: "
               f"metrics max_err/max={m_err:.3e} (tol "
               f"{CROSS_TOL['metrics']:.0e}) state rel L2={s_err:.3e} (tol "
               f"{CROSS_TOL['state']:.0e}; worst element {s_name} "
-              f"{s_max:.3e} of its max) {'ok' if ok else 'FAIL'}")
+              f"{s_max:.3e} of its max)"
+              + (f" residue slots {RESIDUE_SLOTS[variant]} abs err "
+                 f"{r_err:.2e} (tol {RESIDUE_ABS_TOL[variant]:.0e})"
+                 if variant in RESIDUE_SLOTS else "")
+              + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the {variant} chunk kernel and the "
                                  f"general step disagree")
 
 
-def write_jax_layout_checkpoint(path: str, seed: int) -> None:
+def write_jax_layout_checkpoint(path: str, seed: int, n_cls: int = 0) -> None:
     """A full-width G + D checkpoint (nsgan's, and wgan's: the same
-    stacks, no carried scalar) in the JAX package's npz layout
-    (leaf_NNNNN arrays + __meta__ key paths): G and D params and step,
-    random weights with torch-default init bounds."""
+    stacks, no carried scalar; cgan's with `n_cls` label lanes on both
+    inputs) in the JAX package's npz layout (leaf_NNNNN arrays + __meta__
+    key paths): G and D params and step, random weights with
+    torch-default init bounds."""
     rng = np.random.default_rng(seed)
     leaves = []
-    for key, dims in (("d_params", D_DIMS), ("g_params", G_DIMS)):
+    g_dims = [G_DIMS[0] + n_cls] + G_DIMS[1:]
+    d_dims = [D_DIMS[0] + n_cls] + D_DIMS[1:]
+    for key, dims in (("d_params", d_dims), ("g_params", g_dims)):
         for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
             bound = 1.0 / np.sqrt(k)
             leaves.append((f"['{key}'][{i}]['b']", rng.uniform(
@@ -788,6 +895,8 @@ def write_jax_layout_checkpoint(path: str, seed: int) -> None:
 
 
 def reset(*mods):
+    from generative_models_tpu_torch.ops import penalty
+    penalty.plain_passes = 0
     for m in mods:
         for name in ("launches", "bwd_launches", "birvae_launches"):
             if hasattr(m, name):
@@ -861,6 +970,49 @@ def drive_wgan_sample_only(mods):
     return launches
 
 
+def drive_cgan_sample_only(mods, torch):
+    """Phase 4f: --sample-only from a full-width cgan checkpoint in the
+    JAX layout (G 138->400->784), and Trainer.sample(n=100) against the
+    plain G on z and the class-cycled labels. Returns (mlp_fwd launches,
+    max error vs plain)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cuda_mlp = mods[0]
+    ckpt = os.path.join(OUT_DIR, "cgan_full.npz")
+    write_jax_layout_checkpoint(ckpt, seed=3, n_cls=N_CLS)
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", "cgan", "--ckpt", ckpt, "--sample-only",
+                       "--out-dir", OUT_DIR])
+    cli_launches = cuda_mlp.launches
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    t = Trainer("cgan")
+    t.load_model(ckpt)
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (TRAIN_B, 128)).astype(np.float32)).cuda()
+    reset(*mods)
+    imgs = t.sample(z=z)
+    sample_launches = cuda_mlp.launches
+    labels = torch.arange(TRAIN_B, device="cuda") % N_CLS
+    zy = torch.cat([z, torch.nn.functional.one_hot(labels, N_CLS).float()], 1)
+    g = t.generator_params
+    ref, _ = cuda_mlp.mlp_fwd_plain(zy, [l["w"] for l in g],
+                                    [l["b"] for l in g], G_ACTS, 0.2)
+    err = float(np.abs(imgs - ref.cpu().numpy()).max())
+    ok = (rc == 0 and line["variant"] == "cgan" and line["step"] == 1234
+          and cli_launches >= 1 and os.path.getsize(line["samples"]) > 0
+          and imgs.shape == (TRAIN_B, 784) and np.isfinite(imgs).all()
+          and err <= TOL["float32"] and sample_launches >= 1)
+    print(f"  cgan cli --sample-only: rc={rc} {line} mlp_fwd launches="
+          f"{cli_launches}; Trainer('cgan').sample(z) with labels i % "
+          f"{N_CLS}: launches={sample_launches} max_abs_err_vs_plain="
+          f"{err:.3e} tol={TOL['float32']:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cgan --sample-only failed its checks")
+    return cli_launches + sample_launches, err
+
+
 def launch_counts(mods):
     cuda_mlp, cuda_train, cuda_reparam, ctv = mods
     return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
@@ -871,6 +1023,9 @@ def launch_counts(mods):
 # the keys of the CLI's final `eval` dict; a metrics.jsonl record holds
 # them too, and fishergan's also the carried multiplier
 LOSS_KEYS = {"nsgan": ("d_loss", "d_real", "d_fake", "g_loss"),
+             "wgangp": ("d_loss", "w_estimate", "gp", "grad_norm", "g_loss"),
+             "dragan": ("d_loss", "gp", "grad_norm", "g_loss"),
+             "cgan": ("d_loss", "d_real", "d_fake", "g_loss"),
              "lsgan": ("d_loss", "d_real", "d_fake", "g_loss"),
              "wgan": ("d_loss", "w_estimate", "g_loss"),
              "fgan": ("d_loss", "f_bound", "g_loss"),
@@ -880,8 +1035,9 @@ LOSS_KEYS = {"nsgan": ("d_loss", "d_real", "d_fake", "g_loss"),
              "birvae": ("loss", "recon_loss", "latent_power")}
 RECORD_KEYS = dict(LOSS_KEYS, fishergan=LOSS_KEYS["fishergan"]
                    + ("vstate_lam",))
-CLI_VARIANTS = ("nsgan", "lsgan", "wgan", "fgan", "ragan", "fishergan",
-                "vae", "birvae")
+CLI_GAN = ("nsgan", "lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",
+           "dragan", "cgan")
+CLI_VARIANTS = CLI_GAN + ("vae", "birvae")
 
 
 def drive_training_cli(variant, mods, torch):
@@ -931,6 +1087,11 @@ def drive_training_cli(variant, mods, torch):
         lams = [r["vstate_lam"] for r in recs]
         ok = ok and lams[-1] != lams[0] != 0.0
         falling = f" vstate_lam {lams[0]:.3e} -> {lams[-1]:.3e}"
+    if variant in PENALTY_LANES:  # the penalty is recorded every step
+        gps = [r["gp"] for r in recs]
+        ok = ok and all(v > 0.0 for v in gps)
+        falling = (f" gp {gps[0]:.4f} -> {gps[-1]:.4f} grad_norm "
+                   f"{recs[0]['grad_norm']:.4f} -> {recs[-1]['grad_norm']:.4f}")
     if not gan:  # a GAN's losses do not fall; a VAE's must
         first = float(np.mean([r["loss"] for r in recs[:100]]))
         last = float(np.mean([r["loss"] for r in recs[-100:]]))
@@ -951,10 +1112,15 @@ def drive_training_cli(variant, mods, torch):
 # backwards, the G update 2 and 2: 5 and 4 at d_steps 1, 5 * 3 + 2 = 17
 # and 5 * 2 + 2 = 12 for wgan at d_steps 5; ragan's G loss also runs D on
 # the real batch, one more forward and no backward.
+# wgangp launches as wgan, and its penalty's critic pass (twice
+# differentiable, so plain torch ops: ops/penalty.py) runs once a critic
+# update: PENALTY_PASSES a step.
 GENERAL_LAUNCHES = {"nsgan": (5, 4, 0), "wgan": (17, 12, 0),
-                    "ragan": (6, 4, 0), "vae": (4, 4, 1), "birvae": (3, 3, 0)}
-GENERAL_STEPS = (("nsgan", 200), ("wgan", 60), ("ragan", 100), ("vae", 100),
-                 ("birvae", 100))
+                    "wgangp": (17, 12, 0), "ragan": (6, 4, 0),
+                    "vae": (4, 4, 1), "birvae": (3, 3, 0)}
+PENALTY_PASSES = {"wgangp": 5}
+GENERAL_STEPS = (("nsgan", 200), ("wgan", 60), ("wgangp", 60), ("ragan", 100),
+                 ("vae", 100), ("birvae", 100))
 
 
 def drive_training_general(variant, steps, mods, torch):
@@ -964,19 +1130,24 @@ def drive_training_general(variant, steps, mods, torch):
     t = Trainer(variant, fused_step=False, dataset="synthetic",
                 out_dir=os.path.join(OUT_DIR, "general"))
     t._load_data()  # the split's upload is set-up, not the path
+    from generative_models_tpu_torch.ops import penalty
     reset(*mods)
     hist = t.train(steps=steps)
     counts = launch_counts(mods)
+    passes = penalty.plain_passes
     finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
     fwd, bwd, rep = GENERAL_LAUNCHES[variant]
     want = {"gan_chunk": 0, "mlp_fwd": fwd * steps, "mlp_bwd": bwd * steps,
             "reparam": rep * steps, "vae_chunk": 0, "birvae_chunk": 0}
-    ok = (counts == want and finite
+    pen = PENALTY_PASSES.get(variant, 0)
+    ok = (counts == want and finite and passes == pen * steps
           and all(len(v) == steps for v in hist.values()))
     sps = steps / t.wall_time
     print(f"  Trainer({variant!r}, fused_step=False).train(steps={steps}): "
           f"launches={counts} (expect {fwd} fwd + {bwd} bwd + {rep} reparam a "
-          f"step) finite={finite} {sps:.1f} steps/s {'ok' if ok else 'FAIL'}")
+          f"step); the penalty's plain critic passes {passes} (expect {pen} "
+          f"a step) finite={finite} {sps:.1f} steps/s "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the general step's {variant} run failed")
     return counts, sps
@@ -1105,25 +1276,33 @@ def bwd_bound(dims, b):
 
 
 def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400,
-                         ragan=False):
+                         ragan=False, gp=False, n_cls=0):
     """d_steps critic updates and one G update; ragan's G update runs the
-    critic on the real batch too (one more forward pass of D)."""
-    g_fwd = 2 * b * (z * h + h * x)
-    d_pass = 2 * b * (x * hd + hd)
-    d_update = g_fwd + 2 * d_pass + 2 * (2 * b) * (x * hd + hd)
+    critic on the real batch too (one more forward pass of D); the
+    penalty (wgangp, dragan) adds four products of 2 B X Hd to each
+    critic update (hh, g, s and its part of dW1d); cgan's G and D take
+    n_cls more input lanes (G's output and dx stay X wide)."""
+    zi, xd = z + n_cls, x + n_cls
+    g_fwd = 2 * b * (zi * h + h * x)
+    d_pass = 2 * b * (xd * hd + hd)
+    d_update = (g_fwd + 2 * d_pass + 2 * (2 * b) * (xd * hd + hd)
+                + (4 * 2 * b * x * hd if gp else 0))
     g_update = (g_fwd + d_pass + 2 * b * hd * x + 2 * b * x * h
-                + 2 * b * h * x + 2 * b * z * h)
+                + 2 * b * h * x + 2 * b * zi * h)
     return ds * d_update + g_update + (d_pass if ragan else 0)
 
 
 def chunk_bound(steps, b=TRAIN_B, z=128, h=400, x=784, hd=400, ds=1,
-                ragan=False, planes=3):
-    """The streams read once, the state (params, mu, nu; RMSprop: two
-    planes) read and written once, the metrics rows written."""
-    params = z * h + h + h * x + x + x * hd + hd + hd + 1
-    nbytes = 4 * (steps * b * (ds * (x + z) + z) + 2 * planes * params
-                  + steps * 8)
-    return bound_of(steps * chunk_flops_per_step(b, ds, ragan=ragan), nbytes)
+                ragan=False, planes=3, lanes=0, n_cls=0):
+    """The streams read once (the penalty's `lanes` a critic row too), the
+    state (params, mu, nu; RMSprop: two planes) read and written once,
+    the metrics rows written."""
+    zi, xd = z + n_cls, x + n_cls
+    params = zi * h + h + h * x + x + xd * hd + hd + hd + 1
+    nbytes = 4 * (steps * b * (ds * (xd + zi + lanes) + zi)
+                  + 2 * planes * params + steps * 8)
+    return bound_of(steps * chunk_flops_per_step(
+        b, ds, ragan=ragan, gp=lanes > 0, n_cls=n_cls), nbytes)
 
 
 def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
@@ -1208,23 +1387,33 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
 def library_step_loop(torch, steps, variant="nsgan"):
     """The yardstick step the port never calls, at full width with
     torch.addmm + autograd + a foreach optimizer: nsgan (Adam), ragan
-    (Adam, the relativistic losses) or wgan (RMSprop, 5 critic updates a
-    step, each followed by the clamp). Returns steps/s (CUDA events)."""
+    (Adam, the relativistic losses), wgan (RMSprop, 5 critic updates a
+    step, each followed by the clamp), wgangp (Adam at betas 0.5/0.9, 5
+    critic updates a step, the penalty through autograd.grad with
+    create_graph), dragan (the penalty at the perturbed real batch) or
+    cgan (10 label lanes on G's and D's inputs). Returns steps/s (CUDA
+    events)."""
     F = torch.nn.functional
     rng = np.random.default_rng(5)
-    gw, gb = make_stack(rng, G_DIMS, "cuda")
-    dw, db = make_stack(rng, D_DIMS, "cuda")
+    n_cls = N_CLS if variant == "cgan" else 0
+    gw, gb = make_stack(rng, [G_DIMS[0] + n_cls] + G_DIMS[1:], "cuda")
+    dw, db = make_stack(rng, [D_DIMS[0] + n_cls] + D_DIMS[1:], "cuda")
     gp = [t.requires_grad_(True) for t in gw + gb]
     dp = [t.requires_grad_(True) for t in dw + db]
-    ds = 5 if variant == "wgan" else 1
+    ds = 5 if variant in ("wgan", "wgangp") else 1
     if variant == "wgan":
         g_opt = torch.optim.RMSprop(gp, lr=5e-5, alpha=0.99, foreach=True)
         d_opt = torch.optim.RMSprop(dp, lr=5e-5, alpha=0.99, foreach=True)
     else:
-        g_opt = torch.optim.Adam(gp, lr=2e-4, betas=(0.5, 0.999), foreach=True)
-        d_opt = torch.optim.Adam(dp, lr=2e-4, betas=(0.5, 0.999), foreach=True)
+        lr, b2 = (1e-4, 0.9) if variant == "wgangp" else (2e-4, 0.999)
+        g_opt = torch.optim.Adam(gp, lr=lr, betas=(0.5, b2), foreach=True)
+        d_opt = torch.optim.Adam(dp, lr=lr, betas=(0.5, b2), foreach=True)
     xs = torch.rand(steps, ds, TRAIN_B, 784, device="cuda")
     zs = torch.randn(steps, ds + 1, TRAIN_B, 128, device="cuda")
+    us = torch.rand(steps, ds, TRAIN_B, PENALTY_LANES.get(variant, 1),
+                    device="cuda")
+    ys = F.one_hot(torch.randint(0, max(n_cls, 1), (steps, TRAIN_B),
+                                 device="cuda"), max(n_cls, 1)).float()
     ones = torch.ones(TRAIN_B, device="cuda")
     zeros = torch.zeros(TRAIN_B, device="cuda")
     bce = F.binary_cross_entropy_with_logits
@@ -1237,9 +1426,18 @@ def library_step_loop(torch, steps, variant="nsgan"):
         return torch.addmm(db[1], F.leaky_relu(
             torch.addmm(db[0], x, dw[0]), 0.2), dw[1])[:, 0]
 
+    def with_labels(a, k):
+        return torch.cat([a, ys[k]], 1) if n_cls else a
+
+    def penalty(xh):
+        xh = xh.detach().requires_grad_(True)
+        g, = torch.autograd.grad(D(xh).sum(), xh, create_graph=True)
+        n = torch.sqrt(g.pow(2).sum(1) + 1e-12)
+        return GP_LAM * ((n - 1.0) ** 2).mean()
+
     def losses(lr, lf):
         """(d_loss, g_loss) of the variant from real and fake logits."""
-        if variant == "wgan":
+        if variant in ("wgan", "wgangp"):
             return lf.mean() - lr.mean(), -lf.mean()
         if variant == "ragan":
             dr, df = lr - lf.mean(), lf - lr.mean()
@@ -1249,9 +1447,17 @@ def library_step_loop(torch, steps, variant="nsgan"):
 
     def step(k):
         for i in range(ds):
+            x = xs[k, i]
             with torch.no_grad():
-                fake = G(zs[k, i])
-            d_loss, _ = losses(D(xs[k, i]), D(fake))
+                fake = G(with_labels(zs[k, i], k))
+            d_loss, _ = losses(D(with_labels(x, k)),
+                               D(with_labels(fake, k)))
+            if variant == "wgangp":
+                e = us[k, i]
+                d_loss = d_loss + penalty(e * x + (1.0 - e) * fake)
+            elif variant == "dragan":
+                d_loss = d_loss + penalty(
+                    x + DRAGAN_SCALE * x.std(correction=0) * us[k, i])
             d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
             d_opt.step()
@@ -1259,7 +1465,7 @@ def library_step_loop(torch, steps, variant="nsgan"):
                 with torch.no_grad():
                     torch._foreach_clamp_min_(dp, -0.01)
                     torch._foreach_clamp_max_(dp, 0.01)
-        lf = D(G(zs[k, ds]))
+        lf = D(with_labels(G(with_labels(zs[k, ds], k)), k))
         with torch.no_grad():
             lr = D(xs[k, ds - 1]) if variant == "ragan" else lf
         _, g_loss = losses(lr, lf)
@@ -1286,7 +1492,10 @@ TIMED_CASES = (
     ("wgan", 5, dict(optimizer="rmsprop", clip=0.01, g_lr=5e-5, d_lr=5e-5),
      True),
     ("fgan", 1, {}, False), ("ragan", 1, {}, True),
-    ("fishergan", 1, dict(fisher_rho=1e-6), False))
+    ("fishergan", 1, dict(fisher_rho=1e-6), False),
+    ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=GP_LAM), True),
+    ("dragan", 1, dict(gp_lam=GP_LAM), True),
+    ("cgan", 1, dict(n_cls=N_CLS), True))
 
 
 def time_training(cuda_train, torch, card, general_sps):
@@ -1299,35 +1508,45 @@ def time_training(cuda_train, torch, card, general_sps):
     out = {}
     for variant, ds, kw, with_lib in TIMED_CASES:
         hp = chunk_hyper(cuda_train, variant, **kw)
-        p, mu, nu = chunk_state(rng, torch)
+        p, mu, nu = chunk_state(rng, torch, n_cls=hp.n_cls)
         planes = [[torch.from_numpy(a.copy()).cuda() for a in pl]
                   for pl in (p, mu, nu)]
         if not hp.adam:
             planes[1] = None
-        xs = torch.rand(steps * ds * TRAIN_B, 784, device="cuda")
-        zd = torch.randn(steps * ds * TRAIN_B, 128, device="cuda")
-        zg = torch.randn(steps * TRAIN_B, 128, device="cuda")
+        rows, lanes = steps * ds * TRAIN_B, PENALTY_LANES.get(variant, 0)
+        # (the label lanes' values do not change the work)
+        xs = torch.rand(rows, 784 + hp.n_cls, device="cuda")
+        zd = torch.randn(rows, 128 + hp.n_cls, device="cuda")
+        zg = torch.randn(steps * TRAIN_B, 128 + hp.n_cls, device="cuda")
+        xtra = torch.rand(rows, lanes, device="cuda") if lanes else None
         kws = dict(ds=ds, batch=TRAIN_B, t_g=0, t_d=0, hp=hp)
-        n = 10 * ds * TRAIN_B
-        cuda_train.gan_chunk(xs[:n], zd[:n], zg[:10 * TRAIN_B], *planes,
-                             steps=10, **kws)
+
+        def rows_of(n_steps):
+            n = n_steps * ds * TRAIN_B
+            return (xs[:n], zd[:n], zg[:n_steps * TRAIN_B]), dict(
+                xtra=None if xtra is None else xtra[:n], steps=n_steps, **kws)
+
+        a10, k10 = rows_of(10)
+        cuda_train.gan_chunk(*a10, *planes, **k10)
+        a_all, k_all = rows_of(steps)
         k_ms = time_ms(torch, lambda: cuda_train.gan_chunk(
-            xs, zd, zg, *planes, steps=steps, **kws), 3)
+            *a_all, *planes, **k_all), 3)
         p_steps = 50 if ds == 1 else 20
-        n = p_steps * ds * TRAIN_B
+        a_p, k_p = rows_of(p_steps)
         p_ms = time_ms(torch, lambda: cuda_train.gan_chunk_plain(
-            xs[:n], zd[:n], zg[:p_steps * TRAIN_B], *planes, steps=p_steps,
-            **kws), 2) * steps / p_steps
+            *a_p, *planes, **k_p), 2) * steps / p_steps
         lib_sps = (library_step_loop(torch, 200 if ds == 1 else 60, variant)
                    if with_lib else None)
         b_ms, b_by = chunk_bound(steps, ds=ds, ragan=variant == "ragan",
-                                 planes=3 if hp.adam else 2)
+                                 planes=3 if hp.adam else 2, lanes=lanes,
+                                 n_cls=hp.n_cls)
         row = {"steps": steps, "d_steps": ds, "optimizer": hp.optimizer,
                "ms": k_ms, "plain_ms": p_ms,
                "library_ms": steps / lib_sps * 1e3 if lib_sps else None,
                "bound_ms": b_ms, "bound_by": b_by,
                "mflop_per_step": chunk_flops_per_step(
-                   ds=ds, ragan=variant == "ragan") / 1e6,
+                   ds=ds, ragan=variant == "ragan", gp=lanes > 0,
+                   n_cls=hp.n_cls) / 1e6,
                "steps_per_s": steps / k_ms * 1e3,
                "plain_steps_per_s": steps / p_ms * 1e3,
                "general_step_steps_per_s": general_sps.get(variant),
@@ -1551,7 +1770,9 @@ def main() -> int:
     vae_serve_fwd, vae_serve_err = drive_vae_serving(mods, torch)
     paths["serving_vae"] = {"mlp_fwd": vae_serve_fwd}
     paths["serving_wgan"] = {"mlp_fwd": drive_wgan_sample_only(mods)}
-    for variant in CLI_VARIANTS[:6]:  # every GAN variant went through it
+    cgan_fwd, cgan_err = drive_cgan_sample_only(mods, torch)
+    paths["serving_cgan"] = {"mlp_fwd": cgan_fwd}
+    for variant in CLI_GAN:  # every GAN variant went through it
         if paths[f"cli_{variant}"]["gan_chunk"] != 2:
             raise AssertionError(f"cli_{variant} did not launch gan_chunk "
                                  f"twice")
@@ -1589,7 +1810,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("mlp_fwd", cuda_mlp.SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:82",
-              max(fwd_err, serve_err, vae_serve_err), fwd_main,
+              max(fwd_err, serve_err, vae_serve_err, cgan_err), fwd_main,
               fwd_main["shape"], per_shape=rows["mlp_fwd"],
               linear_cuda=rows["linear"]),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
@@ -1600,7 +1821,7 @@ def main() -> int:
               "generative_models_tpu/ops/pallas_train.py:487", chunk_err,
               train_row, chunk_shape + ", nsgan (the other variants: "
               "per_variant)", per_variant=train_rows,
-              cli_runs={v: cli_lines[v] for v in CLI_VARIANTS[:6]}),
+              cli_runs={v: cli_lines[v] for v in CLI_GAN}),
         entry("reparam", cuda_reparam.SOURCE,
               "generative_models_tpu/ops/pallas_reparam.py:41", reparam_err,
               rep_main, rep_main["shape"], per_shape=reparam_rows),

@@ -1,15 +1,20 @@
 // Whole-chunk GAN training in one launch, for Hopper (sm_90a): nsgan,
-// mmgan, lsgan, wgan, fgan, ragan and fishergan.
+// mmgan, lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan and cgan.
 //
 // Replaces: generative_models_tpu/ops/pallas_train.py::_make_kernel with
 // ::_fused_chunk_call (the TPU chunk kernel) and the critic hooks of
 // ::_make_variant_hooks for these variants (pallas_train.py:314-353,
-// 374-391, 407-412, 422-432, 443-467, 479-481), Adam or RMSprop, wgan's
-// clip, fishergan's carried multiplier, float32, no EMA plane.
+// 374-391, 407-412, 422-432, 443-467, 479-481), the gradient penalty's
+// double backward ::_gp_backward (:227-245, math :525-535) with its xtra
+// stream, cgan's label lanes (:594-595, 669-672, 718-721), Adam or
+// RMSprop, wgan's clip, fishergan's carried multiplier, float32, no EMA
+// plane.
 //
-// One source, one library a hook: -DGM_HOOK=0..5 picks the critic (bce:
-// nsgan and mmgan; ls; w; f: all seven divergences; ra; fi) at compile
-// time, and each library holds an Adam and an RMSprop kernel, so no hot
+// One source, one library a hook: -DGM_HOOK=0..8 picks the critic (bce:
+// nsgan and mmgan; ls; w; f: all seven divergences; ra; fi; gpw: w with
+// the penalty, wgangp; gpb: bce with the penalty, dragan; cond: bce on
+// label-carrying rows, cgan) at compile time, and each library holds an
+// Adam and an RMSprop kernel (gpw: Adam only, see kernel_of), so no hot
 // loop carries a run-time switch of another variant.
 //
 // What it computes, for k = 0..steps-1 (one outer step each):
@@ -60,6 +65,26 @@
 //   G1 hf2;  G23 one warp per row: lf2, gl, dh2;  G4 dx -> gu2, g_loss
 //   G5 dhg;  G6 dW2g, dW1g with the optimizer in the epilogue; db2g, db1g
 //      one warp per column
+// The gradient penalty (gpw, gpb), per critic update, at x_hat (gpw: eps
+// x + (1 - eps) fake, formed in B's epilogue from the xtra stream's eps
+// column; gpb: streamed rows, dragan's perturbed real batch):
+//   hh = x_hat W1d + b1d -> u = leaky'(hh) * w2d^T (and leaky'(hh) kept),
+//     in the product's epilogue (gpw: phase C; gpb: phase A)
+//   g = u W1d^T [B, X] (gpw: in DE; gpb: in C)
+//   n_i = sqrt(sum g_i^2 + 1e-12), c_i = 2 lam (n_i - 1) / (B n_i), one
+//     warp a row, which writes the row c_i g_i below [x; fake] in `xin`
+//   s = g W1d [B, Hd] (beside those rows: gpw in a phase N of its own
+//     after DE, gpb in DE)
+//   dW1d += (c g)^T u: F's product runs K = 3B, [x; fake; c g]^T
+//     [dhr; dhf; u]; dw2d += sum_i c_i leaky'(hh_i) s_i in F's column loop;
+//     db1d, db2d get nothing; d_loss += gp = lam mean((n - 1)^2), lanes 4
+//     and 5 hold gp and mean(n)
+// A phase with both row warps and product tiles gives the tiles to the
+// blocks past the row warps (run_gemms_beside). cgan's rows are x + label
+// (Xd = X + n_cls wide) and z + label; fake and fake2 take the label of
+// their x row and zg row (copied in phase A), D's products run K = Xd,
+// and G4's dx covers G's X columns only: with true widths no selection
+// matrix is needed.
 // ragan's and fishergan's gradients need batch means of all 2B logits
 // (ragan: the means, then means of sigmoids of the centred logits), so
 // for them DE is two phases: the logits, a grid barrier, then every warp
@@ -102,18 +127,26 @@ namespace cg = cooperative_groups;
 #define GM_HOOK 0
 #endif
 
-enum { HOOK_BCE = 0, HOOK_LS, HOOK_W, HOOK_F, HOOK_RA, HOOK_FI };
+enum { HOOK_BCE = 0, HOOK_LS, HOOK_W, HOOK_F, HOOK_RA, HOOK_FI, HOOK_GPW,
+       HOOK_GPB, HOOK_COND };
 enum { DIV_TV = 0, DIV_KL, DIV_RKL, DIV_PEARSON, DIV_HELLINGER, DIV_JS,
        DIV_GAN };
 constexpr int HOOK = GM_HOOK;
-static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_FI, "GM_HOOK must be 0..5");
+static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_COND, "GM_HOOK must be 0..8");
+// the gradient penalty's hooks, and cgan's label lanes
+constexpr bool GP = HOOK == HOOK_GPW || HOOK == HOOK_GPB;
+constexpr bool COND = HOOK == HOOK_COND;
+// the logit rule of the critic and of G: gpw is w's, gpb and cond bce's
+constexpr int CRIT = HOOK == HOOK_GPW ? HOOK_W
+                     : (HOOK == HOOK_GPB || COND) ? HOOK_BCE : HOOK;
 // the gradient of a logit needs sums over the whole batch
 constexpr bool COUPLED_D = HOOK == HOOK_RA || HOOK == HOOK_FI;
 constexpr bool COUPLED_G = HOOK == HOOK_RA;
 
 enum { P_G_W1 = 0, P_G_B1, P_G_W2, P_G_B2, P_D_W1, P_D_B1, P_D_W2, P_D_B2,
        N_PARAMS };
-enum { EPI_RELU, EPI_LEAKY, EPI_SIGMOID, EPI_SIGD, EPI_RELUD, EPI_OPT };
+enum { EPI_RELU, EPI_LEAKY, EPI_SIGMOID, EPI_SIGD, EPI_RELUD, EPI_OPT,
+       EPI_STORE, EPI_GPU, EPI_SIGXH };  // the last three: the penalty's
 enum { LANES = 8 };  // floats of a metrics row
 
 #define RMS_DECAY 0.99f
@@ -138,6 +171,13 @@ struct Args {
   float clip, rho;
   int alt;  // bce: mmgan's saturating G loss; f: the non-saturating one
   int div;  // f: which divergence
+  // the penalty (gpw, gpb): its stream [rows, 1] (eps) or [rows, X]
+  // (x_hat), and its scratch: x_hat (gpw), g [B, X], s [B, Hd],
+  // leaky'(hh) [B, Hd], n then c [2B], this update's eps [B]
+  const float* xtra;
+  float *xh, *gbuf, *sbuf, *dph, *nrm, *epsb;
+  float gp_lam;
+  int n_cls, Xd;  // cond: the label lanes, and D's input width X + n_cls
 };
 
 // The same arguments for the RMSprop kernel: a type of its own, so that
@@ -161,6 +201,15 @@ __device__ __forceinline__ float dleaky(float h, float s) {
 __device__ __forceinline__ int fresh(int v) {
   asm volatile("" : "+r"(v));
   return v;
+}
+
+// A job count or a job's row count, which the penalty kernels take
+// through fresh(): with their extra phases, tile counts hoisted out of
+// the step loop were spilled (4 to 20 bytes). The other kernels take the
+// value as it is.
+__device__ __forceinline__ int gp_fresh(int n) {
+  if constexpr (GP) return fresh(n);
+  return n;
 }
 
 // One optimizer step on element i of state tensor q with gradient g;
@@ -191,9 +240,35 @@ __device__ __forceinline__ AdamT step_t(const Args& a, float lr, int t) {
   return adam_t(a, lr, (float)t);
 }
 
+// The penalty's epilogues: a plain store (g, s); hh -> u = leaky'(hh)
+// w2d (`aux` = w2d) with leaky'(hh) kept in `dph`; the fake with x_hat =
+// eps x + (1 - eps) fake beside it (gpw).
+__device__ __forceinline__ void gp_epi(const Args& a, const Gemm& g, int m,
+                                       int n, float c) {
+  const size_t o = (size_t)m * g.ldo + n;
+  if (g.epi == EPI_STORE) {
+    g.out[o] = c;
+  } else if (g.epi == EPI_GPU) {
+    const float d = dleaky(c + ld(g.bias + n), a.slope);
+    g.out[o] = d * ld(g.aux + n);
+    a.dph[o] = d;
+  } else {
+    const float f = sigm(c + ld(g.bias + n));
+    const float e = ld(a.epsb + m);
+    g.out[o] = f;
+    a.xh[o] = e * ld(a.xin + o) + (1.0f - e) * f;
+  }
+}
+
 template <bool RMS>
 __device__ __forceinline__ void epi(const Args& a, const Gemm& g, int m, int n,
                                     float c, const AdamT& at) {
+  if constexpr (GP) {
+    if (g.epi > EPI_OPT) {
+      gp_epi(a, g, m, n, c);
+      return;
+    }
+  }
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
     case EPI_RELU: g.out[o] = fmaxf(c + ld(g.bias + n), 0.0f); break;
@@ -275,19 +350,19 @@ __device__ __forceinline__ float f_starp(int div, float t) {
 //   bce: softplus(-lr) + softplus(lf)     ls: (lr - 1)^2/2 + lf^2/2
 //   w:   lf - lr                          f:  -g_f(lr) + f*(g_f(lf))
 __device__ __forceinline__ float d_grad(const Args& a, bool real, float l) {
-  if (HOOK == HOOK_LS) return real ? (l - 1.0f) * a.inv_b : l * a.inv_b;
-  if (HOOK == HOOK_W) return real ? -a.inv_b : a.inv_b;
-  if (HOOK == HOOK_F)
+  if (CRIT == HOOK_LS) return real ? (l - 1.0f) * a.inv_b : l * a.inv_b;
+  if (CRIT == HOOK_W) return real ? -a.inv_b : a.inv_b;
+  if (CRIT == HOOK_F)
     return real ? -f_gp(a.div, l) * a.inv_b
                 : (f_starp(a.div, f_g(a.div, l)) * f_gp(a.div, l)) * a.inv_b;
   return real ? (sigm(l) - 1.0f) * a.inv_b : sigm(l) * a.inv_b;
 }
 
 __device__ __forceinline__ float d_term(const Args& a, bool real, float l) {
-  if (HOOK == HOOK_LS)
+  if (CRIT == HOOK_LS)
     return real ? 0.5f * ((l - 1.0f) * (l - 1.0f)) : 0.5f * (l * l);
-  if (HOOK == HOOK_W) return real ? -l : l;
-  if (HOOK == HOOK_F)
+  if (CRIT == HOOK_W) return real ? -l : l;
+  if (CRIT == HOOK_F)
     return real ? -f_g(a.div, l) : f_star(a.div, f_g(a.div, l));
   return real ? softplus(-l) : softplus(l);
 }
@@ -296,18 +371,18 @@ __device__ __forceinline__ float d_term(const Args& a, bool real, float l) {
 //   nsgan softplus(-l); mmgan -softplus(l); ls (l - 1)^2/2; w, fi -l;
 //   f: -f*(g_f(l)), or -g_f(l) for the non-saturating loss
 __device__ __forceinline__ float g_grad(const Args& a, float l) {
-  if (HOOK == HOOK_LS) return (l - 1.0f) * a.inv_b;
-  if (HOOK == HOOK_W || HOOK == HOOK_FI) return -a.inv_b;
-  if (HOOK == HOOK_F)
+  if (CRIT == HOOK_LS) return (l - 1.0f) * a.inv_b;
+  if (CRIT == HOOK_W || CRIT == HOOK_FI) return -a.inv_b;
+  if (CRIT == HOOK_F)
     return a.alt ? -f_gp(a.div, l) * a.inv_b
                  : (-f_starp(a.div, f_g(a.div, l)) * f_gp(a.div, l)) * a.inv_b;
   return a.alt ? -sigm(l) * a.inv_b : (sigm(l) - 1.0f) * a.inv_b;
 }
 
 __device__ __forceinline__ float g_term(const Args& a, float l) {
-  if (HOOK == HOOK_LS) return 0.5f * ((l - 1.0f) * (l - 1.0f));
-  if (HOOK == HOOK_W || HOOK == HOOK_FI) return -l;
-  if (HOOK == HOOK_F)
+  if (CRIT == HOOK_LS) return 0.5f * ((l - 1.0f) * (l - 1.0f));
+  if (CRIT == HOOK_W || CRIT == HOOK_FI) return -l;
+  if (CRIT == HOOK_F)
     return a.alt ? -f_g(a.div, l) : -f_star(a.div, f_g(a.div, l));
   return a.alt ? -softplus(l) : softplus(-l);
 }
@@ -453,7 +528,23 @@ __device__ void critic_metrics(const Args& a, int k) {
   sp = warp_sum(sp);
   sr = warp_sum(sr);
   sf = warp_sum(sf);
-  if (lane == 0) {
+  if constexpr (GP) {  // gp = lam mean((n - 1)^2), and mean(n)
+    float q = 0.0f, sn = 0.0f;
+    for (int r = lane; r < B; r += 32) {
+      const float n = ld(a.nrm + r);
+      q = fmaf(n - 1.0f, n - 1.0f, q);
+      sn += n;
+    }
+    const float gp = a.gp_lam * warp_sum(q) * a.inv_b;
+    sn = warp_sum(sn);
+    if (lane == 0) {
+      row[0] = sp * a.inv_b + gp;
+      row[1] = sr * a.inv_b;
+      row[2] = sf * a.inv_b;
+      row[4] = gp;
+      row[5] = sn * a.inv_b;
+    }
+  } else if (lane == 0) {
     row[0] = sp * a.inv_b;
     row[1] = sr * a.inv_b;
     row[2] = sf * a.inv_b;
@@ -470,7 +561,7 @@ __device__ void g_metrics(const Args& a, int k) {
     const float l = ld(a.lf2 + r);
     if (HOOK == HOOK_RA)
       s += softplus(-(l - st.m_r)) + softplus(ld(a.lf2 + a.B + r) - st.m_f);
-    else if (HOOK == HOOK_BCE)
+    else if (CRIT == HOOK_BCE)
       s += a.alt ? softplus(l) : softplus(-l);
     else
       s += g_term(a, l);
@@ -478,7 +569,74 @@ __device__ void g_metrics(const Args& a, int k) {
   s = warp_sum(s);
   if (lane == 0)
     a.metrics[(size_t)k * LANES + 3] =
-        (HOOK == HOOK_BCE && a.alt) ? -s * a.inv_b : s * a.inv_b;
+        (CRIT == HOOK_BCE && a.alt) ? -s * a.inv_b : s * a.inv_b;
+}
+
+// The penalty's row r of g: n_r = |g_r| (with 1e-12 inside the root),
+// c_r = 2 lam (n_r - 1) / (B n_r), and the row c_r g_r at row 2B + r of
+// `xin` (below x and fake, for F's product), by one warp.
+__device__ void norm_row(const Args& a, int r) {
+  const int lane = threadIdx.x & 31;
+  const float* g = a.gbuf + (size_t)r * a.X;
+  float q = 0.0f;
+  for (int j = lane; j < a.X; j += 32) {
+    const float v = ld(g + j);
+    q = fmaf(v, v, q);
+  }
+  const float n = sqrtf(warp_sum(q) + 1e-12f);
+  const float c = ((2.0f * a.gp_lam * a.inv_b) * (n - 1.0f)) / n;
+  float* const cg = a.xin + (size_t)(2 * a.B + r) * a.X;
+  for (int j = lane; j < a.X; j += 32) cg[j] = c * ld(g + j);
+  if (lane == 0) {
+    a.nrm[r] = n;
+    a.nrm[a.B + r] = c;
+  }
+}
+
+// The penalty hooks' row phase: one warp a row, rows 0..2B-1 the logits
+// of [hr; hf] with their gradients and rows of dh, rows 2B.. (`norms` of
+// them) the penalty's norm rows.
+__device__ void gp_rows(const Args& a, int norms) {
+  const float* w2 = a.p[P_D_W2];
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * CT + threadIdx.x) >> 5;
+  const int nwarps = (gridDim.x * CT) >> 5;
+  const int B = a.B, Hd = a.Hd;
+  for (int r = warp; r < 2 * B + norms; r += nwarps) {
+    if (r >= 2 * B) {
+      norm_row(a, r - 2 * B);
+      continue;
+    }
+    const float* hr = a.hd + (size_t)r * Hd;
+    float s = 0.0f;
+    for (int j = lane; j < Hd; j += 32) s = fmaf(ld(hr + j), ld(w2 + j), s);
+    const float l = warp_sum(s) + ld(a.p[P_D_B2]);
+    const float g = d_grad(a, r < B, l);
+    if (lane == 0) {
+      a.lg[r] = l;
+      a.gl[r] = g;
+    }
+    for (int j = lane; j < Hd; j += 32)
+      a.dh[(size_t)r * Hd + j] = (g * ld(w2 + j)) * dleaky(ld(hr + j), a.slope);
+  }
+}
+
+// A phase's product tiles on the blocks past the `rows` row warps of the
+// same phase, so that both run at once; on every block, each after its
+// rows, when the grid has no blocks to spare.
+template <class A>
+__device__ void run_gemms_beside(const A& a, const Gemm* jobs, int njobs,
+                                 const AdamT& at, float* smem, int rows) {
+  int first = (rows + WARPS - 1) / WARPS;
+  if (first >= (int)gridDim.x) first = 0;
+  if ((int)blockIdx.x < first) return;
+  int total = 0;
+  for (int j = 0; j < njobs; ++j) total += tiles_of(jobs[j]);
+  for (int t = blockIdx.x - first; t < total; t += gridDim.x - first) {
+    int j = 0, s = t;
+    while (s >= tiles_of(jobs[j])) s -= tiles_of(jobs[j++]);
+    gemm_tile(a, jobs[j], s, at, smem);
+  }
 }
 
 template <class A, bool RMS>
@@ -492,41 +650,90 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
   const int nwarps = gsz >> 5;
   const int B = a.B, Z = a.Z, H = a.H, X = a.X, Hd = a.Hd;
   const AdamT none = {0.0f, 1.0f, 1.0f};
-  float* const fake = a.xin + (size_t)B * X;  // rows B..2B-1 of xin
+  // D's input width: cgan's x rows end in their label lanes
+  const int Xd = COND ? a.Xd : X;
+  float* const fake = a.xin + (size_t)B * Xd;  // rows B..2B-1 of xin
 
   for (int k = 0; k < a.steps; ++k) {
     const float* zg = a.zg + (size_t)k * B * Z;
 
     for (int i = 0; i < a.ds; ++i) {
       const size_t row0 = (size_t)(k * a.ds + i) * B;
-      const float* x = a.xs + row0 * X;
+      const float* x = a.xs + row0 * Xd;
       const float* zd = a.zd + row0 * Z;
 
-      {  // A: hgd, hr (and hg); x beside fake
-        Gemm jobs[3] = {
-            {{zd, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
-             a.p[P_G_B1], nullptr, a.hgd, H, 0},
-            {{x, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X, EPI_LEAKY,
-             a.p[P_D_B1], nullptr, a.hd, Hd, 0},
-            {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
-             a.p[P_G_B1], nullptr, a.hgg, H, 0}};
-        run_gemms(a, jobs, i == 0 ? 3 : 2, none, smem);
-        for (size_t e = gtid; e < (size_t)B * X; e += gsz) a.xin[e] = ld(x + e);
+      {  // A: hgd, hr (and hg; dragan: the penalty's hh -> u); x beside fake
+        if constexpr (HOOK == HOOK_GPB) {
+          const int B = fresh(a.B);  // (see fresh: nothing hoisted here)
+          Gemm jobs[4] = {
+              {{zd, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+               a.p[P_G_B1], nullptr, a.hgd, H, 0},
+              {{x, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X, EPI_LEAKY,
+               a.p[P_D_B1], nullptr, a.hd, Hd, 0},
+              {{a.xtra + row0 * X, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
+               EPI_GPU, a.p[P_D_B1], a.p[P_D_W2],
+               a.dh + (size_t)2 * B * Hd, Hd, 0},
+              {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+               a.p[P_G_B1], nullptr, a.hgg, H, 0}};
+          run_gemms(a, jobs, i == 0 ? 4 : 3, none, smem);
+        } else {
+          const int B = gp_fresh(a.B);
+          Gemm jobs[3] = {
+              {{zd, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+               a.p[P_G_B1], nullptr, a.hgd, H, 0},
+              {{x, Xd, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, Xd, EPI_LEAKY,
+               a.p[P_D_B1], nullptr, a.hd, Hd, 0},
+              {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+               a.p[P_G_B1], nullptr, a.hgg, H, 0}};
+          run_gemms(a, jobs, i == 0 ? 3 : 2, none, smem);
+        }
+        for (size_t e = gtid; e < (size_t)B * Xd; e += gsz) a.xin[e] = ld(x + e);
+        if constexpr (COND) {  // the labels of fake (x's) and fake2 (zg's)
+          const int nc = a.n_cls;
+          for (int e = gtid; e < B * nc; e += gsz) {
+            const int r = e / nc, j = e % nc;
+            a.xin[(size_t)(B + r) * Xd + X + j] = ld(x + (size_t)r * Xd + X + j);
+            if (i == 0)
+              a.fk2[(size_t)r * Xd + X + j] = ld(zg + (size_t)r * Z + Z - nc + j);
+          }
+        }
+        if constexpr (HOOK == HOOK_GPW)  // this update's eps
+          for (int r = gtid, n = gp_fresh(B); r < n; r += gsz)
+            a.epsb[r] = ld(a.xtra + row0 + r);
       }
       grid.sync();
-      {  // B: fake (and fake2)
+      {  // B: fake (wgangp: and x_hat beside it) (and fake2)
+        const int B = gp_fresh(a.B);
         Gemm jobs[2] = {
-            {{a.hgd, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H, EPI_SIGMOID,
-             a.p[P_G_B2], nullptr, fake, X, 0},
+            {{a.hgd, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
+             HOOK == HOOK_GPW ? EPI_SIGXH : EPI_SIGMOID, a.p[P_G_B2], nullptr,
+             fake, Xd, 0},
             {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H, EPI_SIGMOID,
-             a.p[P_G_B2], nullptr, a.fk2, X, 0}};
+             a.p[P_G_B2], nullptr, a.fk2, Xd, 0}};
         run_gemms(a, jobs, i == 0 ? 2 : 1, none, smem);
       }
       grid.sync();
-      {  // C: hf
-        Gemm job = {{fake, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X, EPI_LEAKY,
-                    a.p[P_D_B1], nullptr, a.hd + (size_t)B * Hd, Hd, 0};
-        run_gemms(a, &job, 1, none, smem);
+      {  // C: hf (wgangp: and the penalty's hh -> u; dragan: and g = u W1d^T)
+        const Gemm hf = {{fake, Xd, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, Xd,
+                         EPI_LEAKY, a.p[P_D_B1], nullptr, a.hd + (size_t)B * Hd,
+                         Hd, 0};
+        if constexpr (HOOK == HOOK_GPW) {
+          const int B = fresh(a.B);
+          Gemm jobs[2] = {hf,
+                          {{a.xh, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
+                           EPI_GPU, a.p[P_D_B1], a.p[P_D_W2],
+                           a.dh + (size_t)2 * B * Hd, Hd, 0}};
+          run_gemms(a, jobs, gp_fresh(2), none, smem);
+        } else if constexpr (HOOK == HOOK_GPB) {
+          const int B = fresh(a.B);
+          Gemm jobs[2] = {hf,
+                          {{a.dh + (size_t)2 * B * Hd, Hd, 1},
+                           {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_STORE, nullptr,
+                           nullptr, a.gbuf, X, 0}};
+          run_gemms(a, jobs, gp_fresh(2), none, smem);
+        } else {
+          run_gemms(a, &hf, 1, none, smem);
+        }
       }
       grid.sync();
       // DE: logits of [hr; hf], their gradients, dh = [dhr; dhf]
@@ -561,16 +768,37 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
             });
           }
         }
+      } else if constexpr (GP) {
+        // beside the logit rows: wgangp g = u W1d^T, then (phase N) the
+        // norm rows beside s = g W1d; dragan the norm rows and s at once
+        const int B = fresh(a.B);
+        const Gemm gj = {{a.dh + (size_t)2 * B * Hd, Hd, 1},
+                         {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_STORE, nullptr,
+                         nullptr, a.gbuf, X, 0};
+        const Gemm sj = {{a.gbuf, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
+                         EPI_STORE, nullptr, nullptr, a.sbuf, Hd, 0};
+        if constexpr (HOOK == HOOK_GPW) {
+          gp_rows(a, 0);
+          run_gemms_beside(a, &gj, gp_fresh(1), none, smem, 2 * B);
+          grid.sync();
+          for (int r = gwarp, n = gp_fresh(B); r < n; r += nwarps) norm_row(a, r);
+          run_gemms_beside(a, &sj, gp_fresh(1), none, smem, B);
+        } else {
+          gp_rows(a, B);
+          run_gemms_beside(a, &sj, gp_fresh(1), none, smem, 3 * B);
+        }
       } else {
         logit_rows(a, a.hd, 2 * B, a.lg, a.gl, a.dh,
                    [&](int r, float l) { return d_grad(a, r < B, l); });
       }
       grid.sync();
-      {  // F: dW1d = [x; fake]^T [dhr; dhf] with the optimizer; small grads
+      {  // F: dW1d = [x; fake]^T [dhr; dhf] with the optimizer (the
+         // penalty: K = 3B, [x; fake; c g]^T [dhr; dhf; u]); small grads
         const AdamT td = step_t<RMS>(a, a.d_lr, a.t_d + k * a.ds + i + 1);
-        Gemm job = {{a.xin, 1, X}, {a.dh, Hd, 1}, X, Hd, 2 * B, EPI_OPT,
-                    nullptr, nullptr, nullptr, Hd, P_D_W1};
-        run_gemms(a, &job, 1, td, smem);
+        Gemm job = {{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd,
+                    GP ? 3 * fresh(B) : 2 * B, EPI_OPT, nullptr, nullptr,
+                    nullptr, Hd, P_D_W1};
+        run_gemms(a, &job, gp_fresh(1), td, smem);
         // one warp per column (lanes over the rows, then a fixed-order
         // shuffle sum): dW2d and db1d for column v < Hd, db2d at v = Hd,
         // the critic's metrics from this (the last) update at v = Hd + 1
@@ -583,6 +811,13 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
             }
             dw = warp_sum(dw);
             db = warp_sum(db);
+            if constexpr (GP) {  // sum_i c_i leaky'(hh_i) s_i
+              float dp = 0.0f;
+              for (int r = lane; r < B; r += 32)
+                dp = fmaf(ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v),
+                          ld(a.sbuf + (size_t)r * Hd + v), dp);
+              dw += warp_sum(dp);
+            }
             if (lane == 0) {
               update<RMS>(a, P_D_W2, v, dw, td);
               update<RMS>(a, P_D_B1, v, db, td);
@@ -603,9 +838,9 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
     {  // G1: hf2 through the post-update critic; ragan: also the hidden
        // of x, whose rows follow fake2's in the scratch, so one product of
        // 2B rows gives [hf2; hr2]
-      Gemm job = {{a.fk2, X, 1}, {a.p[P_D_W1], Hd, 1}, COUPLED_G ? 2 * B : B,
-                  Hd, X, EPI_LEAKY, a.p[P_D_B1], nullptr, a.hf2, Hd, 0};
-      run_gemms(a, &job, 1, none, smem);
+      Gemm job = {{a.fk2, Xd, 1}, {a.p[P_D_W1], Hd, 1}, COUPLED_G ? 2 * B : B,
+                  Hd, Xd, EPI_LEAKY, a.p[P_D_B1], nullptr, a.hf2, Hd, 0};
+      run_gemms(a, &job, gp_fresh(1), none, smem);
     }
     grid.sync();
     // G23: lf2, gl, dh2
@@ -624,29 +859,30 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
     }
     grid.sync();
     {  // G4: dx = dh2 W1d^T -> gu2 = dx * fake2 * (1 - fake2); g_loss
+       // (cgan: G's X columns only; the label lanes carry nothing to G)
       Gemm job = {{a.dh2, Hd, 1}, {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_SIGD,
-                  nullptr, a.fk2, a.gu2, X, 0};
-      run_gemms(a, &job, 1, none, smem);
+                  nullptr, a.fk2, a.gu2, Xd, 0};
+      run_gemms(a, &job, gp_fresh(1), none, smem);
       if (gwarp == 0) g_metrics(a, k);
     }
     grid.sync();
     {  // G5: dhg = gu2 W2g^T * (hg > 0)
-      Gemm job = {{a.gu2, X, 1}, {a.p[P_G_W2], 1, X}, B, H, X, EPI_RELUD,
+      Gemm job = {{a.gu2, Xd, 1}, {a.p[P_G_W2], 1, X}, B, H, X, EPI_RELUD,
                   nullptr, a.hgg, a.dhg, H, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(a, &job, gp_fresh(1), none, smem);
     }
     grid.sync();
     {  // G6: dW2g = hg^T gu2, dW1g = zg^T dhg with the optimizer; db2g, db1g
       const AdamT tg = step_t<RMS>(a, a.g_lr, a.t_g + k + 1);
       Gemm jobs[2] = {
-          {{a.hgg, 1, H}, {a.gu2, X, 1}, H, X, B, EPI_OPT, nullptr, nullptr,
+          {{a.hgg, 1, H}, {a.gu2, Xd, 1}, H, X, B, EPI_OPT, nullptr, nullptr,
            nullptr, X, P_G_W2},
           {{zg, 1, Z}, {a.dhg, H, 1}, Z, H, B, EPI_OPT, nullptr, nullptr,
            nullptr, H, P_G_W1}};
-      run_gemms(a, jobs, COUPLED_D ? fresh(2) : 2, tg, smem);
+      run_gemms(a, jobs, COUPLED_D ? fresh(2) : gp_fresh(2), tg, smem);
       for (int v = gwarp; v < X + H; v += nwarps) {  // a warp per column
         const float* src = v < X ? a.gu2 + v : a.dhg + (v - X);
-        const int stride = v < X ? X : H;
+        const int stride = v < X ? Xd : H;
         float db = 0.0f;
         for (int r = lane; r < B; r += 32) db += ld(src + (size_t)r * stride);
         db = warp_sum(db);
@@ -660,21 +896,30 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
   }
 }
 
+// The Adam (rmsprop = 0) or RMSprop kernel; gpw (wgangp) has no RMSprop
+// kernel: that instantiation spills 4 bytes however its phases are laid
+// out, and wgangp trains with Adam (null: the launch is refused).
 static const void* kernel_of(int rmsprop) {
-  return rmsprop ? (const void*)gan_chunk_kernel<ArgsRms, true>
-                 : (const void*)gan_chunk_kernel<Args, false>;
+  if constexpr (HOOK == HOOK_GPW)
+    return rmsprop ? nullptr : (const void*)gan_chunk_kernel<Args, false>;
+  else
+    return rmsprop ? (const void*)gan_chunk_kernel<ArgsRms, true>
+                   : (const void*)gan_chunk_kernel<Args, false>;
 }
 
 // The hook this library was compiled for (GM_HOOK).
 extern "C" int gm_gan_chunk_hook() { return HOOK; }
 
 // Floats of scratch a launch needs at these widths (the wrapper
-// allocates it).
+// allocates it); Xd is D's input width (cgan: X + n_cls; else X).
 extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
-                                                 int Hd) {
+                                                 int Hd, int Xd) {
   (void)Z;
   const long long b = B;  // the layout gm_gan_chunk cuts it into
-  return 3 * b * H + 4 * b * X + 7 * b * Hd + 7 * b;
+  const long long xd = COND ? Xd : X;
+  if (GP)  // xin and dh a third block of rows; x_hat, g, s, leaky', n, c, eps
+    return 3 * b * H + 5 * b * xd + 10 * b * Hd + 10 * b + 2 * b * X;
+  return 3 * b * H + 4 * b * xd + 7 * b * Hd + 7 * b;
 }
 
 // The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel uses:
@@ -682,7 +927,7 @@ extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
 // when the query fails.
 extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
   int dev = 0, sms = 0, occ = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (!kernel_of(rmsprop) || cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
@@ -696,28 +941,35 @@ extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
 // The chunk's sizes, counts and hyperparameters, as the wrapper hands
 // them over (ops/cuda_train.py::_Hyper mirrors this field for field).
 struct GanChunkHyper {
-  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div;
+  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd;
   float g_lr, d_lr, b1, b2, omb1, omb2, eps, log_b1, log_b2, slope, inv_b,
-      clip, rho;
+      clip, rho, gp_lam;
 };
 
 // Launches one cooperative kernel on `stream` that runs `steps` outer
 // steps and updates the 8 state tensors' planes (p, mu, nu: `state` holds
 // 24 pointers, planes in that order, tensors g_w1 g_b1 g_w2 g_b2 d_w1
 // d_b1 d_w2 d_b2; with RMSprop the mu pointers are null) and `lam` (one
-// float: fishergan's multiplier) in place. Allocates nothing, does not
+// float: fishergan's multiplier) in place. `xtra` is the penalty's
+// stream (gpw: eps [rows, 1]; gpb: x_hat [rows, X]), null for the other
+// hooks; cgan's xs rows are Xd = X + n_cls wide and its zd, zg rows Z
+// (G's input, the last n_cls the label). Allocates nothing, does not
 // synchronise; returns the CUDA error code of the launch (0 = queued).
 extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
-                            void* const* state, float* scratch,
-                            float* metrics, float* lam,
+                            const float* xtra, void* const* state,
+                            float* scratch, float* metrics, float* lam,
                             const GanChunkHyper* h, int grid, void* stream) {
   if (h->steps < 1 || h->ds < 1 || h->B < 1 || h->Z < 1 || h->H < 1 ||
-      h->X < 1 || h->Hd < 1 || grid < 1)
+      h->X < 1 || h->Hd < 1 || grid < 1 || !kernel_of(h->rmsprop) ||
+      (GP && !xtra) ||
+      (COND ? h->n_cls < 1 || h->Z <= h->n_cls || h->Xd != h->X + h->n_cls
+            : h->n_cls != 0 || h->Xd != h->X))
     return (int)cudaErrorInvalidValue;
   ArgsRms a = {};
   a.xs = xs;
   a.zd = zd;
   a.zg = zg;
+  a.xtra = xtra;
   for (int q = 0; q < N_PARAMS; ++q) {
     a.p[q] = static_cast<float*>(state[q]);
     a.mu[q] = static_cast<float*>(state[N_PARAMS + q]);
@@ -728,22 +980,31 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.metrics = metrics;
   a.lam = lam;
   const size_t b = h->B;
-  const size_t H = h->H, X = h->X, Hd = h->Hd;
+  const size_t H = h->H, X = h->X, Hd = h->Hd, Xd = h->Xd;
+  const size_t rows = GP ? 3 : 2;  // xin and dh: the penalty's third block
   float* s = scratch;
   a.hgd = s; s += b * H;
   a.hgg = s; s += b * H;
-  a.fk2 = s; s += b * X;  // fake2, then [x; fake]: G1 reads [fake2; x]
-  a.xin = s; s += 2 * b * X;
+  a.fk2 = s; s += b * Xd;  // fake2, then [x; fake]: G1 reads [fake2; x]
+  a.xin = s; s += rows * b * Xd;
   a.hd = s; s += 2 * b * Hd;
   a.gl = s; s += 2 * b;
   a.lg = s; s += 2 * b;
-  a.dh = s; s += 2 * b * Hd;
+  a.dh = s; s += rows * b * Hd;
   a.hf2 = s; s += 2 * b * Hd;
   a.gl2 = s; s += b;
   a.lf2 = s; s += 2 * b;
   a.dh2 = s; s += b * Hd;
-  a.gu2 = s; s += b * X;
-  a.dhg = s;
+  a.gu2 = s; s += b * Xd;
+  a.dhg = s; s += b * H;
+  if (GP) {
+    a.xh = s; s += b * X;
+    a.gbuf = s; s += b * X;
+    a.sbuf = s; s += b * Hd;
+    a.dph = s; s += b * Hd;
+    a.nrm = s; s += 2 * b;
+    a.epsb = s;
+  }
   a.steps = h->steps;
   a.ds = h->ds;
   a.B = h->B;
@@ -768,6 +1029,9 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.rho = h->rho;
   a.alt = h->alt;
   a.div = h->div;
+  a.gp_lam = h->gp_lam;
+  a.n_cls = h->n_cls;
+  a.Xd = h->Xd;
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
       kernel_of(h->rmsprop), dim3(grid), dim3(CT), args, 0,

@@ -19,14 +19,17 @@ _SPECS: Dict[str, Tuple[str, str]] = {
     "ragan": ("generative_models_tpu_torch.losses.ragan", "RAGAN"),
     "fishergan": ("generative_models_tpu_torch.losses.fishergan",
                   "FISHERGAN"),
+    "wgangp": ("generative_models_tpu_torch.losses.wgangp", "WGANGP"),
+    "dragan": ("generative_models_tpu_torch.losses.dragan", "DRAGAN"),
+    "cgan": ("generative_models_tpu_torch.losses.cgan", "CGAN"),
     "vae": ("generative_models_tpu_torch.losses.vae", "VAE"),
     "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
 }
 
-_ADVERSARIAL = "Queue 1 item 6, the other adversarial heads"
+_ADVERSARIAL = ("Queue 1 item 6, the other adversarial heads: began and "
+                "infogan are the next slice")
 _NOT_PORTED: Dict[str, str] = {
-    **{v: _ADVERSARIAL for v in ("wgangp", "dragan", "cgan", "began",
-                                 "infogan")},
+    **{v: _ADVERSARIAL for v in ("began", "infogan")},
     "ddpm": "Queue 1 item 9, the diffusion family",
     "flow": "Queue 1 item 9, the diffusion family",
     "vqvae": "Queue 1 item 10, the VQ family",

@@ -15,7 +15,7 @@ from typing import List, Sequence
 import torch
 
 from generative_models_tpu_torch.ops.cuda_mlp import MLPFunction, acts_tuple
-from generative_models_tpu_torch.ops.linear import fused_linear
+from generative_models_tpu_torch.ops.linear import linear_plain
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -42,11 +42,14 @@ def mlp_init(gen: torch.Generator, dims: Sequence[int],
 def mlp_apply_plain(layers: List[dict], x, hidden_act: str = "relu",
                     out_act: str = "none", slope: float = 0.2,
                     compute_dtype=None):
-    """Per-layer path (the twin of the reference's ``mlp_apply_xla``)."""
+    """Per-layer torch ops on any device (the twin of the reference's
+    ``mlp_apply_xla``): twice differentiable, which the kernels are not.
+    On the card only the gradient penalty's critic pass takes it
+    (``ops/penalty.py``)."""
     n = len(layers)
     for i, layer in enumerate(layers):
         act = out_act if i == n - 1 else hidden_act
-        x = fused_linear(x, layer["w"], layer["b"], act=act, slope=slope,
+        x = linear_plain(x, layer["w"], layer["b"], act=act, slope=slope,
                          compute_dtype=compute_dtype)
     return x
 

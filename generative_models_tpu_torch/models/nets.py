@@ -1,9 +1,10 @@
 """The shared network stacks — the port of
 ``generative_models_tpu/models/nets.py``, MLP stacks only: generator
-and discriminator, and the VAE family's encoder and decoder. The
-generator returns images in [0, 1] (sigmoid head); the discriminator
-returns logits [B]; the encoder returns (mu, logvar); the decoder
-returns images, or pre-sigmoid logits with ``logits=True``.
+and discriminator, their conditional forms (cgan: a one-hot label
+concatenated to the input), and the VAE family's encoder and decoder.
+The generator returns images in [0, 1] (sigmoid head); the
+discriminator returns logits [B]; the encoder returns (mu, logvar); the
+decoder returns images, or pre-sigmoid logits with ``logits=True``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from generative_models_tpu_torch.config import Config
 from generative_models_tpu_torch.models.mlp import (
     linear_init,
     mlp_apply,
+    mlp_apply_plain,
     mlp_init,
 )
 
@@ -63,6 +65,47 @@ def discriminator_apply(params, x, cfg: Config):
     out = mlp_apply(params, x, hidden_act=cfg.d_hidden_act, out_act="none",
                     slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
     return out.float()[..., 0]
+
+
+def discriminator_apply_plain(params, x, cfg: Config):
+    """The critic through per-layer torch ops on any device: twice
+    differentiable, for the gradient penalty's pass (``ops/penalty.py``);
+    every other critic pass runs the kernels."""
+    _mlp_only(cfg)
+    out = mlp_apply_plain(params, x, hidden_act=cfg.d_hidden_act,
+                          out_act="none", slope=cfg.leaky_slope,
+                          compute_dtype=_cdt(cfg))
+    return out.float()[..., 0]
+
+
+# --------------------------------------------------------------------
+# Conditional variants (cgan): concat one-hot label to the input
+# --------------------------------------------------------------------
+
+def onehot(labels, num_classes: int):
+    return torch.nn.functional.one_hot(labels.long(), num_classes).to(
+        torch.float32)
+
+
+def cond_generator_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    return generator_init(gen, cfg, in_dim=cfg.z_dim + cfg.num_classes,
+                          device=device)
+
+
+def cond_generator_apply(params, z, labels, cfg: Config):
+    zy = torch.cat([z, onehot(labels, cfg.num_classes)], dim=-1)
+    return generator_apply(params, zy, cfg)
+
+
+def cond_discriminator_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    return discriminator_init(gen, cfg,
+                              in_dim=cfg.image_dim + cfg.num_classes,
+                              device=device)
+
+
+def cond_discriminator_apply(params, x, labels, cfg: Config):
+    xy = torch.cat([x, onehot(labels, cfg.num_classes)], dim=-1)
+    return discriminator_apply(params, xy, cfg)
 
 
 # --------------------------------------------------------------------

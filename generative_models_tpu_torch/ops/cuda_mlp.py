@@ -338,7 +338,10 @@ class MLPFunction(torch.autograd.Function):
     hiddens, the output and the weights as residuals.
 
     ``MLPFunction.apply(x, acts, slope, compute_dtype, w0, b0, w1, b1, ...)``
-    returns the stack's output. Not twice differentiable."""
+    returns the stack's output. Not twice differentiable: a backward
+    taken with ``create_graph=True`` (a gradient penalty's) raises,
+    instead of handing back a gradient with no graph; the penalty's critic
+    pass takes the plain path (``ops/penalty.py``)."""
 
     @staticmethod
     def forward(ctx, x, acts, slope, compute_dtype, *wb):
@@ -349,8 +352,13 @@ class MLPFunction(torch.autograd.Function):
         return out
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
+        if torch.is_grad_enabled():  # create_graph=True: a double backward
+            raise RuntimeError(
+                "MLPFunction is not twice differentiable (its backward is "
+                "the mlp_bwd kernel): take a double backward, such as a "
+                "gradient penalty's, through models/mlp.py::mlp_apply_plain "
+                "(ops/penalty.py)")
         acts, slope, compute_dtype, n = ctx.meta
         x, out, *rest = ctx.saved_tensors
         hid, ws = rest[:n - 1], rest[n - 1:]

@@ -1,9 +1,9 @@
 """Whole-chunk G+D training in one kernel launch — the port of
 ``generative_models_tpu/ops/pallas_train.py`` for nsgan, mmgan, lsgan,
-wgan, fgan, ragan and fishergan (``_make_kernel`` with
-``_make_variant_hooks`` and ``_fused_chunk_call``,
-``build_fused_many_steps``, ``fused_step_supported``,
-``resolve_fused_step``). The single-model family's chunk kernels (vae,
+wgan, fgan, ragan, fishergan, wgangp, dragan and cgan (``_make_kernel``
+with ``_make_variant_hooks``, ``_gp_backward``, the cgan label lanes and
+``_fused_chunk_call``, ``build_fused_many_steps``,
+``fused_step_supported``, ``resolve_fused_step``). The single-model family's chunk kernels (vae,
 birvae) are in ``ops/cuda_train_vae.py``; the policy here covers them and
 :func:`build_fused_many_steps` hands them on.
 
@@ -11,9 +11,19 @@ birvae) are in ``ops/cuda_train_vae.py``; the policy here covers them and
 on fresh batches, then one G update against the post-update critic, the
 optimizer (Adam or RMSprop) for D and then for G, wgan's clip of every
 critic tensor after each critic update, fishergan's multiplier ``lam``
-descending after each critic update, one metrics row of 8 lanes a step —
-on pre-gathered streams, and updates the 8 state tensors' planes in
-place (Adam: parameters, ``mu``, ``nu``; RMSprop: parameters and ``nu``).
+descending after each critic update, the gradient penalty's double
+backward in each critic update (wgangp, dragan), one metrics row of 8
+lanes a step — on pre-gathered streams, and updates the 8 state tensors'
+planes in place (Adam: parameters, ``mu``, ``nu``; RMSprop: parameters
+and ``nu``).
+
+The penalty variants take a fourth stream, ``xtra``, as the TPU kernel
+does: wgangp's per-row eps ``[rows, 1]`` (the kernel forms x_hat = eps x
++ (1 - eps) fake itself), dragan's perturbed real rows x_hat ``[rows,
+X]`` (formed on the device before the launch). cgan's rows carry their
+one-hot label: the x rows are ``X + n_cls`` wide (D's input width), the
+z rows ``Z + n_cls`` (G's); G's output stays X wide and the kernel
+appends the label to each fake row, so no selection matrix is needed.
 On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/gan_chunk.cu`` (one cooperative launch per call; one library per
 critic hook, built at its first use) or raises; on a CPU tensor it runs
@@ -21,18 +31,17 @@ critic hook, built at its first use) or raises; on a CPU tensor it runs
 which is also the kernel's oracle on the card. ``launches`` counts the
 kernel's launches.
 
-The metrics lanes are the TPU kernel's: 0 ``d_loss``, 1 and 2 the real
-and fake logit means (fishergan: ``ipm``, ``omega``), 3 ``g_loss``, 6
-fishergan's ``constraint``, 7 ``lam`` after the step's last critic
-update (zero elsewhere); lanes 4 and 5 belong to the gradient-penalty
-variants and stay zero.
+The metrics lanes are the TPU kernel's: 0 ``d_loss`` (with the penalty
+added), 1 and 2 the real and fake logit means (fishergan: ``ipm``,
+``omega``), 3 ``g_loss``, 4 and 5 the penalty ``gp`` and the mean input
+gradient norm (wgangp, dragan), 6 fishergan's ``constraint``, 7 ``lam``
+after the step's last critic update (zero elsewhere).
 
 The state planes are at their true widths (no 128-lane padding), so the
 TPU kernel's padded-lane hazards (``pallas_train.py:92-102``) do not
-arise. The gradient-penalty variants (wgangp, dragan), cgan, began and
-infogan, the G-EMA plane and the bf16 path are not ported yet
-(ROADMAP.md Queue 2 item 6): :func:`fused_step_supported` refuses them
-with that reason.
+arise. began and infogan, the G-EMA plane and the bf16 path are not
+ported yet (ROADMAP.md Queue 2 item 6): :func:`fused_step_supported`
+refuses them with that reason.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from generative_models_tpu_torch.models.nets import onehot
+from generative_models_tpu_torch.ops.penalty import aux_lanes
 from generative_models_tpu_torch.train.optim import RMS_DECAY, RMS_EPS
 from generative_models_tpu_torch.train.step import (
     batches_per_step,
@@ -56,10 +67,14 @@ from generative_models_tpu_torch.train.step import (
 SOURCE = "generative_models_tpu_torch/csrc/gan_chunk.cu"
 # variant -> the critic hook its kernel is compiled for (GM_HOOK in the
 # source: one library a hook, an Adam and an RMSprop kernel in each)
+# (gpw: wgan's critic with the penalty; gpb: bce's with the penalty;
+# cond: bce's on label-carrying rows)
 HOOKS: Dict[str, str] = {
     "nsgan": "bce", "mmgan": "bce", "lsgan": "ls", "wgan": "w", "fgan": "f",
-    "ragan": "ra", "fishergan": "fi"}
-HOOK_IDS = {"bce": 0, "ls": 1, "w": 2, "f": 3, "ra": 4, "fi": 5}
+    "ragan": "ra", "fishergan": "fi", "wgangp": "gpw", "dragan": "gpb",
+    "cgan": "cond"}
+HOOK_IDS = {"bce": 0, "ls": 1, "w": 2, "f": 3, "ra": 4, "fi": 5, "gpw": 6,
+            "gpb": 7, "cond": 8}
 FGAN_DIV_IDS = {"total_variation": 0, "kl": 1, "reverse_kl": 2, "pearson": 3,
                 "squared_hellinger": 4, "jensen_shannon": 5, "gan": 6}
 GAN_VARIANTS = tuple(HOOKS)
@@ -89,6 +104,8 @@ class ChunkHyper:
     fgan_div: str = "jensen_shannon"
     fgan_ns: bool = False          # fgan: the non-saturating G loss
     fisher_rho: float = 0.0
+    gp_lam: float = 0.0            # wgangp, dragan: the penalty's weight
+    n_cls: int = 0                 # cgan: the label lanes of each row
 
     def __post_init__(self):
         if self.variant not in HOOKS:
@@ -98,6 +115,8 @@ class ChunkHyper:
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.fgan_div not in FGAN_DIV_IDS:
             raise ValueError(f"unknown f-divergence {self.fgan_div!r}")
+        if (self.variant == "cgan") != (self.n_cls > 0):
+            raise ValueError("n_cls > 0 is cgan's, and cgan's only")
 
     @classmethod
     def from_config(cls, cfg) -> "ChunkHyper":
@@ -107,7 +126,9 @@ class ChunkHyper:
                    cfg.wgan_clip if v == "wgan" else 0.0,
                    cfg.fgan_divergence,
                    v == "fgan" and cfg.fgan_g_loss == "nonsaturating",
-                   cfg.fisher_rho if v == "fishergan" else 0.0)
+                   cfg.fisher_rho if v == "fishergan" else 0.0,
+                   cfg.gp_lambda if v in ("wgangp", "dragan") else 0.0,
+                   cfg.num_classes if v == "cgan" else 0)
 
     @property
     def adam(self) -> bool:
@@ -208,7 +229,7 @@ def _d_hook(hp: ChunkHyper, lr, lf, lam, inv_b: float):
     zero = torch.zeros((), dtype=lr.dtype, device=lr.device)
     lanes12 = [lr.sum() * inv_b, lf.sum() * inv_b]
     aux6 = zero
-    if v in ("nsgan", "mmgan"):
+    if v in ("nsgan", "mmgan", "dragan", "cgan"):
         glr = (torch.sigmoid(lr) - 1.0) * inv_b
         glf = torch.sigmoid(lf) * inv_b
         d_loss = (_softplus(-lr).sum() + _softplus(lf).sum()) * inv_b
@@ -216,7 +237,7 @@ def _d_hook(hp: ChunkHyper, lr, lf, lam, inv_b: float):
         glr = (lr - 1.0) * inv_b
         glf = lf * inv_b
         d_loss = (0.5 * ((lr - 1.0) ** 2).sum() + 0.5 * (lf * lf).sum()) * inv_b
-    elif v == "wgan":
+    elif v in ("wgan", "wgangp"):
         glr = torch.full_like(lr, -inv_b)
         glf = torch.full_like(lf, inv_b)
         d_loss = (lf - lr).sum() * inv_b
@@ -255,14 +276,14 @@ def _g_hook(hp: ChunkHyper, lf2, lr2, inv_b: float):
     """(dL_G/dlf2 [B, 1], g_loss) — ``_make_variant_hooks``' g_hook.
     `lr2` (ragan only): the post-update critic on the last real batch."""
     v = hp.variant
-    if v == "nsgan":
+    if v in ("nsgan", "dragan", "cgan"):
         return ((torch.sigmoid(lf2) - 1.0) * inv_b,
                 _softplus(-lf2).sum() * inv_b)
     if v == "mmgan":
         return -torch.sigmoid(lf2) * inv_b, -_softplus(lf2).sum() * inv_b
     if v == "lsgan":
         return (lf2 - 1.0) * inv_b, 0.5 * ((lf2 - 1.0) ** 2).sum() * inv_b
-    if v in ("wgan", "fishergan"):
+    if v in ("wgan", "wgangp", "fishergan"):
         return torch.full_like(lf2, -inv_b), -lf2.sum() * inv_b
     if v == "fgan":
         gf, gfp, fstar, fstarp = _FGAN_TABLE[hp.fgan_div]
@@ -280,33 +301,71 @@ def _g_hook(hp: ChunkHyper, lf2, lr2, inv_b: float):
             (_softplus(-df2).sum() + _softplus(dr2).sum()) * inv_b)
 
 
+class Tie(Exception):
+    """Raised by :func:`_watch` when a probe's margin falls to its
+    ``"stop_at"`` value: the data has a tie, and the run is cut short."""
+
+
 def _watch(probe: Optional[dict], u) -> None:
     """Tie probe: keeps the smallest |pre-activation| of a hidden layer
     relative to that layer's root mean square, as a tensor under
     ``probe["margin"]``. A ReLU / LeakyReLU input within float32 rounding
     of zero takes the other branch in another arithmetic, so a check that
     holds two versions together wants data whose margin is well above
-    that."""
+    that. With ``probe["stop_at"]`` set, raises :class:`Tie` as soon as
+    the margin is at or below it."""
     if probe is None:
         return
     m = u.abs().min() / u.pow(2).mean().sqrt()
     probe["margin"] = torch.minimum(probe["margin"], m) \
         if "margin" in probe else m
+    if "stop_at" in probe and float(probe["margin"]) <= probe["stop_at"]:
+        raise Tie(float(probe["margin"]))
+
+
+def _gp_backward(xh, w1d, b1d, w2d, *, lam: float, slope: float,
+                 inv_b: float, watch):
+    """The gradient penalty's double backward, hand-derived as the TPU
+    kernel's ``_gp_backward`` (``pallas_train.py:227-245``, math at
+    ``:525-535``). With D(x) = w2d^T leaky(W1d^T x + b1d) + b2d the input
+    gradient is g = (leaky'(hh) * w2d^T) W1d^T at hh = x_hat W1d + b1d;
+    leaky' is piecewise constant, so its derivative is 0 almost
+    everywhere, as autograd takes it through ``where``:
+        n_i = sqrt(sum g_i^2 + 1e-12),  c_i = 2 lam (n_i - 1) / (B n_i)
+        dW1d += (c * g)^T u,  u = leaky'(hh) * w2d^T
+        dw2d += sum_i c_i leaky'(hh_i) * (g W1d)_i;  db1d, db2d get nothing
+    Returns (dW1d part, dw2d part, gp, mean norm)."""
+    hh = xh @ w1d + b1d
+    watch(hh)
+    dph = torch.where(hh >= 0, 1.0, slope)
+    u = dph * w2d.t()
+    g = u @ w1d.t()
+    nrm = torch.sqrt((g * g).sum(1, keepdim=True) + 1e-12)
+    gp = lam * ((nrm - 1.0) ** 2).sum() * inv_b
+    c = (2.0 * lam * inv_b) * (nrm - 1.0) / nrm
+    s_pen = g @ w1d
+    return ((g * c).t() @ u, (c * dph * s_pen).sum(0)[:, None], gp,
+            nrm.sum() * inv_b)
 
 
 def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
                     batch: int, t_g: int, t_d: int, hp: ChunkHyper,
-                    lam=0.0, probe: Optional[dict] = None) -> torch.Tensor:
+                    lam=0.0, xtra=None, probe: Optional[dict] = None
+                    ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the dtype of its
     inputs (float32, or float64 as the kernel's oracle). Updates `p`,
     `mu`, `nu` (lists of 8 tensors, :func:`state_planes` order; `mu`
     None with RMSprop) in place and returns the metrics rows [steps, 8]
     (lanes: see the module docstring). `lam` is fishergan's multiplier
-    before the chunk; after it, it is lane 7 of the last row. With a
-    `probe` dict, records the tie margin (:func:`_watch`)."""
+    before the chunk; after it, it is lane 7 of the last row. `xtra` is
+    the penalty variants' stream (see :func:`gan_chunk`). With a `probe`
+    dict, records the tie margin (:func:`_watch`), x_hat's pre-activation
+    too."""
     w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
     inv_b = 1.0 / batch
     s = hp.slope
+    x_g = w2g.shape[1]        # G's output width; D's input is x_g + n_cls
+    z_g = zg.shape[1] - hp.n_cls
     lam = torch.as_tensor(lam, dtype=xs.dtype, device=xs.device)
 
     def leaky(u):
@@ -328,23 +387,35 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         if q >= 4 and hp.clip > 0.0:  # wgan: every critic tensor
             p[q].clamp_(-hp.clip, hp.clip)
 
-    def d_update(x, z, td, lam):
+    def d_update(x, z, xt, td, lam):
         hgd = relu(z @ w1g + b1g)
         fake = torch.sigmoid(hgd @ w2g + b2g)
+        # cgan: D sees the fake with its row's label, the x row's
+        fake_d = torch.cat([fake, x[:, x_g:]], 1) if hp.n_cls else fake
         hr = leaky(x @ w1d + b1d)
         lr = hr @ w2d + b2d
-        hf = leaky(fake @ w1d + b1d)
+        hf = leaky(fake_d @ w1d + b1d)
         lf = hf @ w2d + b2d
         glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b)
         dw2 = hr.t() @ glr + hf.t() @ glf
         db2 = (glr + glf).sum(0)
         dhr = (glr * w2d.t()) * dleaky(hr)
         dhf = (glf * w2d.t()) * dleaky(hf)
-        dw1 = x.t() @ dhr + fake.t() @ dhf
+        dw1 = x.t() @ dhr + fake_d.t() @ dhf
         db1 = (dhr + dhf).sum(0)
+        pen = [zero, zero]
+        if hp.gp_lam:
+            xh = xt if hp.variant == "dragan" else xt * x + (1.0 - xt) * fake
+            dw1_p, dw2_p, gp, gnorm = _gp_backward(
+                xh, w1d, b1d, w2d, lam=hp.gp_lam, slope=s, inv_b=inv_b,
+                watch=lambda u: _watch(probe, u))
+            dw1 = dw1 + dw1_p
+            dw2 = dw2 + dw2_p
+            row = [row[0] + gp] + row[1:]
+            pen = [gp, gnorm]
         for q, g in zip(range(4, 8), (dw1, db1, dw2, db2)):
             update(q, g, hp.d_lr, td)
-        return row, aux6, lam
+        return row, pen, aux6, lam
 
     metrics = torch.zeros((steps, METRIC_LANES), dtype=torch.float32,
                           device=xs.device)
@@ -353,19 +424,21 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         for i in range(ds):
             r0 = (k * ds + i) * batch
             x = xs[r0:r0 + batch]
-            row, aux6, lam = d_update(x, zd[r0:r0 + batch],
-                                      float(t_d + k * ds + i + 1), lam)
+            xt = None if xtra is None else xtra[r0:r0 + batch]
+            row, pen, aux6, lam = d_update(x, zd[r0:r0 + batch], xt,
+                                           float(t_d + k * ds + i + 1), lam)
         z = zg[k * batch:(k + 1) * batch]
         hg = relu(z @ w1g + b1g)
         fake2 = torch.sigmoid(hg @ w2g + b2g)
-        hf2 = leaky(fake2 @ w1d + b1d)
+        fake2_d = torch.cat([fake2, z[:, z_g:]], 1) if hp.n_cls else fake2
+        hf2 = leaky(fake2_d @ w1d + b1d)
         lf2 = hf2 @ w2d + b2d
         lr2 = None
         if hp.variant == "ragan":  # the post-update critic on the last x
             lr2 = leaky(x @ w1d + b1d) @ w2d + b2d
         gl, g_loss = _g_hook(hp, lf2, lr2, inv_b)
         dh2 = (gl * w2d.t()) * dleaky(hf2)
-        dx = dh2 @ w1d.t()
+        dx = dh2 @ w1d[:x_g].t()  # the label lanes carry nothing to G
         gu2 = (dx * fake2) * (1.0 - fake2)
         dw2g = hg.t() @ gu2
         db2g = gu2.sum(0)
@@ -374,9 +447,8 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         db1g = dhg.sum(0)
         for q, g in zip(range(4), (dw1g, db1g, dw2g, db2g)):
             update(q, g, hp.g_lr, float(t_g + k + 1))
-        metrics[k] = torch.stack(row + [g_loss, zero, zero, aux6,
-                                        lam if hp.variant == "fishergan"
-                                        else zero])
+        metrics[k] = torch.stack(row + [g_loss] + pen + [
+            aux6, lam if hp.variant == "fishergan" else zero])
     return metrics
 
 
@@ -388,18 +460,18 @@ class _Hyper(ctypes.Structure):
     """``GanChunkHyper`` of csrc/gan_chunk.cu, field for field."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "steps", "ds", "B", "Z", "H", "X", "Hd", "t_g", "t_d", "rmsprop",
-        "alt", "div")] + [(n, ctypes.c_float) for n in (
+        "alt", "div", "n_cls", "Xd")] + [(n, ctypes.c_float) for n in (
             "g_lr", "d_lr", "b1", "b2", "omb1", "omb2", "eps", "log_b1",
-            "log_b2", "slope", "inv_b", "clip", "rho")])
+            "log_b2", "slope", "inv_b", "clip", "rho", "gp_lam")])
 
 
 def bind(lib) -> None:
     """The C interface of a library built from csrc/gan_chunk.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gm_gan_chunk.argtypes = [p, p, p, ctypes.POINTER(p), p, p, p,
+    lib.gm_gan_chunk.argtypes = [p, p, p, p, ctypes.POINTER(p), p, p, p,
                                  ctypes.POINTER(_Hyper), i, p]
     lib.gm_gan_chunk.restype = i
-    lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 5
+    lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 6
     lib.gm_gan_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.gm_gan_chunk_grid.argtypes = [i, i]
     lib.gm_gan_chunk_grid.restype = i
@@ -429,9 +501,12 @@ def build(hook: Optional[str] = None) -> None:
 
 def hyper_struct(hp: ChunkHyper, *, steps, ds, batch, z, h, x, hd, t_g,
                  t_d) -> _Hyper:
-    """`hp` and the chunk's sizes and counts as the kernel takes them."""
+    """`hp` and the chunk's sizes and counts as the kernel takes them; `z`
+    is G's input width and `x` its output width (cgan: D's input is x +
+    n_cls wide)."""
     return _Hyper(
         steps=steps, ds=ds, B=batch, Z=z, H=h, X=x, Hd=hd, t_g=t_g, t_d=t_d,
+        n_cls=hp.n_cls, Xd=x + hp.n_cls, gp_lam=hp.gp_lam,
         rmsprop=int(not hp.adam),
         alt=int(hp.variant == "mmgan" or (hp.variant == "fgan"
                                           and hp.fgan_ns)),
@@ -441,7 +516,7 @@ def hyper_struct(hp: ChunkHyper, *, steps, ds, batch, z, h, x, hd, t_g,
         inv_b=1.0 / batch, clip=hp.clip, rho=hp.fisher_rho)
 
 
-def _check(xs, zd, zg, p, mu, nu, steps, ds, batch, hp):
+def _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp):
     planes = [("p", p), ("nu", nu)] + ([("mu", mu)] if hp.adam else [])
     if not hp.adam and mu is not None:
         raise ValueError("gan_chunk: an RMSprop state has no mu plane")
@@ -449,20 +524,33 @@ def _check(xs, zd, zg, p, mu, nu, steps, ds, batch, hp):
         raise ValueError("gan_chunk takes 8 tensors a state plane "
                          "(parameters, nu, and with Adam mu)")
     z, h = p[0].shape
-    x, hd = p[4].shape
-    want = [(z, h), (h,), (h, x), (x,), (x, hd), (hd,), (hd, 1), (1,)]
+    x = p[2].shape[1]
+    xd, hd = p[4].shape
+    if xd != x + hp.n_cls or z <= hp.n_cls:
+        raise ValueError(f"gan_chunk: D's input ({xd}) must be G's output "
+                         f"({x}) plus the {hp.n_cls} label lanes, and G's "
+                         f"input ({z}) wider than them")
+    want = [(z, h), (h,), (h, x), (x,), (xd, hd), (hd,), (hd, 1), (1,)]
     for name, pl in planes:
         for q, t in enumerate(pl):
             if tuple(t.shape) != want[q]:
                 raise ValueError(f"gan_chunk: {name}{q} must be {want[q]}, "
                                  f"got {tuple(t.shape)}")
     rows = steps * ds * batch
-    for name, t, shape in (("xs", xs, (rows, x)), ("zd", zd, (rows, z)),
-                           ("zg", zg, (steps * batch, z))):
+    lanes = aux_lanes(hp.variant, x)
+    if (xtra is None) != (lanes == 0):
+        raise ValueError(f"gan_chunk: {hp.variant} takes "
+                         + (f"an xtra stream [rows, {lanes}]" if lanes
+                            else "no xtra stream"))
+    streams = [("xs", xs, (rows, xd)), ("zd", zd, (rows, z)),
+               ("zg", zg, (steps * batch, z))]
+    if lanes:
+        streams.append(("xtra", xtra, (rows, lanes)))
+    for name, t, shape in streams:
         if tuple(t.shape) != shape:
             raise ValueError(f"gan_chunk: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    for t in [xs, zd, zg] + [t for _, pl in planes for t in pl]:
+    for t in [t for _, t, _ in streams] + [t for _, pl in planes for t in pl]:
         if t.dtype != torch.float32 or t.device != xs.device:
             raise TypeError(f"gan_chunk takes float32 tensors on one device; "
                             f"got {t.dtype} on {t.device}")
@@ -471,25 +559,35 @@ def _check(xs, zd, zg, p, mu, nu, steps, ds, batch, hp):
 
 
 def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
-              t_g: int, t_d: int, hp: ChunkHyper, lam=0.0) -> torch.Tensor:
-    """Run `steps` outer steps on the streams ``xs [steps*ds*B, X]``,
-    ``zd [steps*ds*B, Z]``, ``zg [steps*B, Z]``; `t_g`/`t_d` are the Adam
-    counts before the chunk (unused with RMSprop, whose `mu` is None);
-    `lam` (a float or a 0-dim tensor) is fishergan's multiplier before
-    the chunk. Updates the state planes in place and returns the metrics
-    rows [steps, 8]; lane 7 of the last row is `lam` after the chunk. CPU
-    tensors run :func:`gan_chunk_plain`; CUDA tensors launch the kernel
-    on the current stream or raise."""
+              t_g: int, t_d: int, hp: ChunkHyper, lam=0.0,
+              xtra=None) -> torch.Tensor:
+    """Run `steps` outer steps on the streams ``xs [steps*ds*B, Xd]``,
+    ``zd [steps*ds*B, Z]``, ``zg [steps*B, Z]`` (cgan: Xd = X + n_cls and
+    each x, zd and zg row ends in its one-hot label; the zg rows carry
+    the labels of the step's last critic batch; else Xd = X) and, for
+    wgangp and dragan, ``xtra [steps*ds*B, 1]`` (eps) or ``[..., X]``
+    (x_hat); `t_g`/`t_d` are the Adam counts before the chunk (unused
+    with RMSprop, whose `mu` is None); `lam` (a float or a 0-dim tensor)
+    is fishergan's multiplier before the chunk. Updates the state planes
+    in place and returns the metrics rows [steps, 8]; lane 7 of the last
+    row is `lam` after the chunk. CPU tensors run
+    :func:`gan_chunk_plain`; CUDA tensors launch the kernel on the
+    current stream or raise."""
     global launches
-    _check(xs, zd, zg, p, mu, nu, steps, ds, batch, hp)
+    _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp)
     if xs.device.type == "cpu":
         return gan_chunk_plain(xs, zd, zg, p, mu, nu, steps=steps, ds=ds,
-                               batch=batch, t_g=t_g, t_d=t_d, hp=hp, lam=lam)
+                               batch=batch, t_g=t_g, t_d=t_d, hp=hp, lam=lam,
+                               xtra=xtra)
     if xs.device.type != "cuda":
         raise ValueError(f"gan_chunk runs on cuda or cpu tensors, not "
                          f"{xs.device}")
+    if hp.variant == "wgangp" and not hp.adam:
+        raise ValueError("gan_chunk: the wgangp kernel is adam-only (its "
+                         "RMSprop instantiation spills registers)")
     z, h = p[0].shape
-    x, hd = p[4].shape
+    x = p[2].shape[1]
+    hd = p[4].shape[1]
     lib = _lib(HOOKS[hp.variant])
     with torch.cuda.device(xs.device):
         metrics = torch.zeros((steps, METRIC_LANES), dtype=torch.float32,
@@ -497,7 +595,8 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
         lam_buf = torch.as_tensor(lam, dtype=torch.float32,
                                   device=xs.device).reshape(1).clone()
         scratch = torch.empty(
-            lib.gm_gan_chunk_scratch_floats(batch, z, h, x, hd),
+            lib.gm_gan_chunk_scratch_floats(batch, z, h, x, hd,
+                                            x + hp.n_cls),
             dtype=torch.float32, device=xs.device)
         grid = lib.gm_gan_chunk_grid(BLOCKS_PER_SM, int(not hp.adam))
         if grid < 1:
@@ -510,7 +609,8 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
                              x=x, hd=hd, t_g=t_g, t_d=t_d)
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         rc = lib.gm_gan_chunk(
-            xs.data_ptr(), zd.data_ptr(), zg.data_ptr(), state,
+            xs.data_ptr(), zd.data_ptr(), zg.data_ptr(),
+            None if xtra is None else xtra.data_ptr(), state,
             scratch.data_ptr(), metrics.data_ptr(), lam_buf.data_ptr(),
             ctypes.byref(hyper), grid, stream)
     if rc != 0:
@@ -525,17 +625,18 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
 
 def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
     """(ok, reason): the chunk kernels cover nsgan, mmgan, lsgan, wgan,
-    fgan, ragan and fishergan (the default activations, Adam or RMSprop,
-    any d_steps), vae (the Bernoulli decoder) and birvae (mse or bce),
-    both with Adam, on the MLP stacks in float32 with no EMA; everything
-    else keeps the general step."""
+    fgan, ragan, fishergan, wgangp, dragan and cgan (the default
+    activations, Adam or RMSprop, any d_steps; wgangp with Adam), vae
+    (the Bernoulli decoder) and birvae (mse or bce), both with Adam, on
+    the MLP stacks in float32 with no EMA; everything else keeps the
+    general step."""
     v = cfg.variant
     if v not in FUSED_VARIANTS:
         return False, (f"the chunk kernel covers {FUSED_VARIANTS} only so "
                        f"far; {v} is queued ({_QUEUED})")
     if cfg.arch != "mlp":
         return False, "the chunk kernel covers the mlp stacks only"
-    if v in ("vae", "birvae") and cfg.optimizer != "adam":
+    if v in ("vae", "birvae", "wgangp") and cfg.optimizer != "adam":
         return False, f"the {v} chunk kernel is adam-only"
     if cfg.dtype == "bfloat16":  # "auto" is float32 in the port
         return False, (f"the chunk kernel's bf16 path is not ported yet "
@@ -594,6 +695,11 @@ def named_metrics(variant: str, m: torch.Tensor) -> Dict[str, torch.Tensor]:
     out = {"d_loss": m[:, 0], "g_loss": m[:, 3]}
     if variant == "wgan":
         out["w_estimate"] = -m[:, 0]
+    elif variant == "wgangp":  # d_loss = w + gp, w_estimate = -w
+        out.update(w_estimate=m[:, 1] - m[:, 2], gp=m[:, 4],
+                   grad_norm=m[:, 5])
+    elif variant == "dragan":
+        out.update(gp=m[:, 4], grad_norm=m[:, 5])
     elif variant == "fgan":
         out["f_bound"] = -m[:, 0]
     elif variant == "fishergan":
@@ -612,7 +718,13 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
     state is not modified (the kernel updates copies in place).
     fishergan's multiplier is seeded from ``state["vstate"]["lam"]``,
     carried from one sub-chunk to the next on the device, and returned
-    in the new state's ``vstate``. For a single-model spec (vae, birvae)
+    in the new state's ``vstate``. wgangp's `noise` gives a third tensor,
+    eps ``[n, d_steps, B, 1]``, which goes to the kernel as the ``xtra``
+    stream; dragan's gives u ``[n, d_steps, B, X]``, from which x_hat =
+    x + scale * std(x) * u is formed here on the device, per critic batch
+    (the TPU path forms it in XLA, ``pallas_train.py:1050-1070``). cgan's
+    gathered labels become one-hot lanes on the x and zd rows, and the
+    last critic batch's on the zg rows. For a single-model spec (vae, birvae)
     this is ``ops/cuda_train_vae.py``'s function, whose `noise` gives
     ``eps [n, B, latent]``."""
     if not spec.adversarial:
@@ -628,6 +740,7 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
     rows_per_epoch = steps_per_epoch * rows_per_step
     hp = ChunkHyper.from_config(cfg)
     fisher = cfg.variant == "fishergan"
+    lanes = aux_lanes(cfg.variant, cfg.image_dim)
 
     def many_steps(state, images, labels, perm_stack, rel_offsets, noise):
         steps = rel_offsets.shape[0]
@@ -644,16 +757,34 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
         lam = state["vstate"]["lam"] if fisher else 0.0
         rows = []
         for k0 in range(0, steps, sub):
-            xs, _ = gather_streams(images, labels, perm_stack,
-                                   rel_offsets[k0:k0 + sub], rows_per_step,
-                                   rows_per_epoch)
-            z_d, z_g = noise(k0, sub)
+            xs, ys = gather_streams(images, labels, perm_stack,
+                                    rel_offsets[k0:k0 + sub], rows_per_step,
+                                    rows_per_epoch)
+            drawn = noise(k0, sub)
+            xs = xs.reshape(sub * rows_per_step, -1)
+            zd = drawn[0].reshape(sub * rows_per_step, -1)
+            zg = drawn[1].reshape(sub * b, -1)
+            xtra = None
+            if lanes:
+                aux = drawn[2].reshape(sub * ds, b, lanes)
+                if cfg.variant == "dragan":  # x_hat, per critic batch
+                    xb = xs.reshape(sub * ds, b, -1)
+                    std = xb.std(dim=(1, 2), correction=0, keepdim=True)
+                    xtra = (xb + cfg.dragan_noise_scale * std * aux).reshape(
+                        sub * rows_per_step, -1)
+                else:
+                    xtra = aux.reshape(sub * rows_per_step, 1)
+            if hp.n_cls:  # the label lanes; G's from the last critic batch
+                oh = onehot(ys.reshape(-1), hp.n_cls)
+                xs = torch.cat([xs, oh], 1)
+                zd = torch.cat([zd, oh], 1)
+                zg = torch.cat([zg, oh.reshape(sub, ds, b, -1)[:, -1]
+                                .reshape(sub * b, -1)], 1)
             rows.append(gan_chunk(
-                xs.reshape(sub * rows_per_step, -1).contiguous(),
-                z_d.reshape(sub * rows_per_step, -1).contiguous(),
-                z_g.reshape(sub * b, -1).contiguous(), p, mu, nu,
+                xs.contiguous(), zd.contiguous(), zg.contiguous(), p, mu, nu,
                 steps=sub, ds=ds, batch=b, t_g=t_g + k0, t_d=t_d + k0 * ds,
-                hp=hp, lam=lam))
+                hp=hp, lam=lam,
+                xtra=None if xtra is None else xtra.contiguous()))
             if fisher:  # the multiplier rides out through lane 7
                 lam = rows[-1][-1, 7]
         if fisher:

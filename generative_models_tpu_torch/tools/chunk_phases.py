@@ -8,9 +8,12 @@ hook it times) and ``csrc/vae_chunk.cu`` into
 every grid barrier — runs an 8-step chunk of nsgan (d_steps 1), of wgan
 (d_steps 5, RMSprop, clip: its five critic updates are phases A0..F0 to
 A4..F4), of ragan (DE and G23 split in two: the logits, then the
-gradients; G1 with 2B rows), of fishergan (DE split), of the VAE and of
-the BIR-VAE (mse) at full width (B = 100) and prints the mean device
-time of each phase over steps 1-6,
+gradients; G1 with 2B rows), of fishergan (DE split), of wgangp
+(d_steps 5; the penalty's hh beside hf in C, g beside the logit rows in
+DE, a phase N of the norm rows beside s), of dragan (hh in A, g in C, the
+norm rows and s in DE), of cgan (label lanes, no extra phase), of the VAE
+and of the BIR-VAE (mse) at full width (B = 100) and prints the mean
+device time of each phase over steps 1-6,
 then the cost of a bare grid barrier at 1, 2 and 3 blocks a SM, and the
 latency of a dependent load from L2 (a pointer chase over 16 MB) with
 ``ld.global.cg`` and with an ordinary load. The shipped kernels are not
@@ -29,6 +32,8 @@ G_PHASES = ["G1", "G23", "G4", "G5", "G6"]
 RA_G_PHASES = ["G1 (2B rows)", "G2 logits", "G3 grads", "G4", "G5", "G6"]
 D_PHASES = ["A", "B", "C", "DE", "F"]
 COUPLED_D_PHASES = ["A", "B", "C", "DE logits", "DE grads", "F"]
+GPW_D_PHASES = ["A", "B (+x_hat)", "C (+hh)", "DE (+g)", "N (norms, s)", "F"]
+GPB_D_PHASES = ["A (+hh)", "B", "C (+g)", "DE (+norms, s)", "F"]
 # (name, hook, d_steps, ChunkHyper fields, the phases of one step)
 GAN_CASES = [
     ("nsgan", 1, {}, D_PHASES + G_PHASES),
@@ -36,6 +41,10 @@ GAN_CASES = [
      [f"{p}{i}" for i in range(5) for p in D_PHASES] + G_PHASES),
     ("ragan", 1, {}, COUPLED_D_PHASES + RA_G_PHASES),
     ("fishergan", 1, dict(fisher_rho=1e-6), COUPLED_D_PHASES + G_PHASES),
+    ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=10.0),
+     [f"{p}{i}" for i in range(5) for p in GPW_D_PHASES] + G_PHASES),
+    ("dragan", 1, dict(gp_lam=10.0), GPB_D_PHASES + G_PHASES),
+    ("cgan", 1, dict(n_cls=10), D_PHASES + G_PHASES),
 ]
 # the phases of csrc/vae_chunk.cu, as its header numbers them
 VAE_PHASES = ["1 henc", "2 mu,lv", "3 z", "4 hd", "5 lg", "6 dhd",
@@ -145,6 +154,7 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
     """Times each case of GAN_CASES; returns nsgan's library (it carries
     the barrier and load probes)."""
     from generative_models_tpu_torch.ops import cuda_train as ct
+    from generative_models_tpu_torch.ops.penalty import aux_lanes
     b, steps, z, h, x = 100, 8, 128, 400, 784
     first = None
     for variant, ds, kw, phases in GAN_CASES:
@@ -157,18 +167,23 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
                                      eps=1e-8, slope=0.2, variant=variant),
                               **kw})
         torch.manual_seed(0)
-        shapes = ((z, h), (h,), (h, x), (x,), (x, h), (h,), (h, 1), (1,))
+        zi, xd = z + hp.n_cls, x + hp.n_cls  # cgan: the label lanes
+        shapes = ((zi, h), (h,), (h, x), (x,), (xd, h), (h,), (h, 1), (1,))
         params = [torch.randn(*sh, device="cuda") * 0.05 for sh in shapes]
         if hp.clip > 0:
             params = params[:4] + [t.clamp(-hp.clip, hp.clip)
                                    for t in params[4:]]
         mu = [torch.zeros_like(t) for t in params]
         nu = [torch.zeros_like(t) for t in params]
-        xs = torch.rand(steps * ds * b, x, device="cuda")
-        zd = torch.randn(steps * ds * b, z, device="cuda")
-        zg = torch.randn(steps * b, z, device="cuda")
-        scratch = torch.empty(lib.gm_gan_chunk_scratch_floats(b, z, h, x, h),
-                              device="cuda")
+        xs = torch.rand(steps * ds * b, xd, device="cuda")
+        zd = torch.randn(steps * ds * b, zi, device="cuda")
+        zg = torch.randn(steps * b, zi, device="cuda")
+        lanes = aux_lanes(variant, x)
+        xtra = torch.rand(steps * ds * b, lanes, device="cuda") if lanes \
+            else None
+        scratch = torch.empty(
+            lib.gm_gan_chunk_scratch_floats(b, zi, h, x, h, xd),
+            device="cuda")
         metrics = torch.zeros(steps, ct.METRIC_LANES, device="cuda")
         lam = torch.zeros(1, device="cuda")
         ptrs = ([t.data_ptr() for t in params]
@@ -176,11 +191,12 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
                 + [t.data_ptr() for t in nu])
         state = (ctypes.c_void_p * 24)(*ptrs)
         grid = lib.gm_gan_chunk_grid(2, int(not hp.adam))
-        hyper = ct.hyper_struct(hp, steps=steps, ds=ds, batch=b, z=z, h=h,
+        hyper = ct.hyper_struct(hp, steps=steps, ds=ds, batch=b, z=zi, h=h,
                                 x=x, hd=h, t_g=0, t_d=0)
         for _ in range(2):  # the second run is the one read
             rc = lib.gm_gan_chunk(
-                xs.data_ptr(), zd.data_ptr(), zg.data_ptr(), state,
+                xs.data_ptr(), zd.data_ptr(), zg.data_ptr(),
+                None if xtra is None else xtra.data_ptr(), state,
                 scratch.data_ptr(), metrics.data_ptr(), lam.data_ptr(),
                 ctypes.byref(hyper), grid, None)
             torch.cuda.synchronize()

@@ -5,14 +5,18 @@ single-model step (the VAE family).
 One step runs ``d_steps`` critic updates, each on a fresh batch, then one
 G update on the LAST critic batch against the post-update critic (the
 reference order). The step takes its noise explicitly (``z_d [d_steps,
-B, z]``, ``z_g [B, z]``): torch cannot reproduce JAX's threefry draws, so
-tests hand the same noise to both packages, and the Trainer draws it from
-its own generators. Inside a critic update the G forward builds no graph
-(JAX differentiates ``d_params`` only there); the G update differentiates
+B, z]``, ``z_g [B, z]``, and for a gradient-penalty head the penalty's
+draw ``aux_d [d_steps, B, 1]`` (wgangp's eps) or ``[d_steps, B, X]``
+(dragan's u)): torch cannot reproduce JAX's threefry draws, so tests hand
+the same noise to both packages, and the Trainer draws it from its own
+generators. Inside a critic update the G forward builds no graph (JAX
+differentiates ``d_params`` only there); the G update differentiates
 ``g_params`` only. On the card every MLP forward and backward goes
 through the whole-MLP kernels (``ops/cuda_mlp.py::MLPFunction``): at
 d_steps 1 a step launches the forward kernel 5 times and the backward
-kernel 4 times.
+kernel 4 times. The one exception is the penalty's critic pass, which
+must be twice differentiable and runs as plain torch ops
+(``ops/penalty.py``), once per critic update.
 
 A single-model step (:func:`build_single_step`) takes one batch and one
 noise tensor ``eps [B, latent]``, differentiates ``spec.loss`` over the
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from generative_models_tpu_torch.data.mnist import INV_255
+from generative_models_tpu_torch.ops.penalty import aux_lanes
 from generative_models_tpu_torch.train.optim import apply_opt, init_opt
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
@@ -48,8 +53,11 @@ from generative_models_tpu_torch.utils.tree import (
 
 State = Dict[str, object]
 # noise(k0, n) for steps k0 .. k0+n-1 of a chunk. Adversarial: (z_d [n,
-# d_steps, B, z], z_g [n, B, z]). Single model: eps [n, B, latent], or a
-# torch.Generator from which each step's loss draws its own noise.
+# d_steps, B, z], z_g [n, B, z]), and for a gradient-penalty head a third
+# tensor, the penalty's draw aux_d [n, d_steps, B, lanes] (ops/penalty.py
+# aux_lanes).
+# Single model: eps [n, B, latent], or a torch.Generator from which each
+# step's loss draws its own noise.
 Noise = Callable[[int, int], Union[Tuple[torch.Tensor, torch.Tensor],
                                    torch.Tensor, torch.Generator]]
 
@@ -71,14 +79,19 @@ def pick_sub(steps: int, per_step_bytes: int) -> int:
 
 
 def stream_bytes_per_step(cfg, spec=None) -> int:
-    """float32 bytes of one step's streams. Adversarial: d_steps batches
-    of images and of critic noise, one batch of G noise. Single model
-    (`spec` not adversarial): one batch of images and of latent noise."""
+    """float32 bytes of one step's streams as the chunk kernel takes them.
+    Adversarial: d_steps batches of images and of critic noise, one batch
+    of G noise (cgan: each row with its one-hot label), and a penalty
+    head's draw per critic batch. Single model (`spec` not adversarial):
+    one batch of images and of latent noise."""
     b = cfg.batch_size
     if spec is not None and not spec.adversarial:
         return 4 * b * (cfg.image_dim + cfg.latent_dim)
     ds = max(cfg.d_steps, 1)
-    return 4 * (ds * b * (cfg.image_dim + cfg.z_dim) + b * cfg.z_dim)
+    n_cls = cfg.num_classes if cfg.variant == "cgan" else 0
+    zin = cfg.z_dim + n_cls
+    lanes = aux_lanes(cfg.variant, cfg.image_dim)
+    return 4 * (ds * b * (cfg.image_dim + n_cls + zin + lanes) + b * zin)
 
 
 # ------------------------------------------------------------------
@@ -184,14 +197,16 @@ def _ema_update(ema, params, decay: float):
 
 
 def build_adversarial_step(spec, cfg):
-    """Returns ``train_step(state, d_batches, z_d, z_g) -> (state,
-    metrics)``; `d_batches` holds tensors with leading dims [d_steps, B]."""
+    """Returns ``train_step(state, d_batches, z_d, z_g, aux_d=None) ->
+    (state, metrics)``; `d_batches` holds tensors with leading dims
+    [d_steps, B]; `aux_d` is a penalty head's draw [d_steps, B, lanes]."""
     d_steps = max(cfg.d_steps, 1)
 
-    def d_update(d_params, d_opt, vstate, g_params, batch, z):
+    def d_update(d_params, d_opt, vstate, g_params, batch, z, aux):
         dp = _leaves_requiring_grad(d_params)
+        extra = {} if aux is None else {"aux": aux}
         loss, metrics = spec.d_loss(dp, g_params, batch, None, vstate, cfg,
-                                    z=z)
+                                    z=z, **extra)
         grads = _unflat(list(torch.autograd.grad(loss, _flat(dp))))
         d_params, d_opt = apply_opt(cfg, d_params, grads, d_opt, cfg.d_lr)
         d_params = spec.d_post(d_params, cfg)
@@ -199,14 +214,16 @@ def build_adversarial_step(spec, cfg):
         return d_params, d_opt, spec.d_state_update(vstate, metrics, cfg), \
             metrics
 
-    def train_step(state: State, d_batches, z_d, z_g) -> Tuple[State, Dict]:
+    def train_step(state: State, d_batches, z_d, z_g,
+                   aux_d=None) -> Tuple[State, Dict]:
         g_params = state["g_params"]
         d_params, d_opt, vstate = (state["d_params"], state["d_opt"],
                                    state["vstate"])
         for i in range(d_steps):
             batch = {k: v[i] for k, v in d_batches.items()}
             d_params, d_opt, vstate, d_metrics = d_update(
-                d_params, d_opt, vstate, g_params, batch, z_d[i])
+                d_params, d_opt, vstate, g_params, batch, z_d[i],
+                None if aux_d is None else aux_d[i])
 
         g_batch = {k: v[-1] for k, v in d_batches.items()}
         gp = _leaves_requiring_grad(g_params)
@@ -316,8 +333,8 @@ def build_many_steps(spec, cfg, steps_per_epoch: int):
                 batches = {"image": xs[k].reshape(nb, bsz, -1),
                            "label": ys[k].reshape(nb, bsz)}
                 if spec.adversarial:
-                    state, m = train_step(state, batches, drawn[0][k],
-                                          drawn[1][k])
+                    state, m = train_step(state, batches,
+                                          *[d[k] for d in drawn])
                 elif isinstance(drawn, torch.Generator):
                     state, m = train_step(state, batches, drawn)
                 else:

@@ -1,6 +1,6 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
 for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
-fishergan, vae, birvae): build the model
+fishergan, wgangp, dragan, cgan, vae, birvae): build the model
 from ``cfg.seed`` (G and D, or a single model's parameter tree), train,
 evaluate, sample, save and load checkpoints in the JAX package's layout.
 
@@ -41,6 +41,7 @@ from generative_models_tpu_torch.data.mnist import (
 from generative_models_tpu_torch.data.pipeline import make_perm
 from generative_models_tpu_torch.losses.registry import get_variant
 from generative_models_tpu_torch.ops import cuda_train
+from generative_models_tpu_torch.ops.penalty import aux_draw, aux_lanes
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
 from generative_models_tpu_torch.utils.checkpoint import (
@@ -175,11 +176,13 @@ class Trainer:
             for e in range(e0, e0 + win)])
 
     def _noise(self, first_step: int, n: int):
-        """Noise of `n` steps from global step `first_step`: z_d [n,
-        d_steps, B, z] then z_g [n, B, z]; for a single model eps [n, B,
-        latent] — or, for its general step on the card, the generator
-        itself, from which each step's loss draws (the VAE's in its
-        sampling kernel)."""
+        """Noise of `n` steps from global step `first_step`, drawn from one
+        generator in this order: z_d [n, d_steps, B, z]; for a
+        gradient-penalty head the penalty's uniform draw aux_d [n,
+        d_steps, B, lanes] (wgangp's eps, 1 lane; dragan's u, image_dim);
+        then z_g [n, B, z]. For a single model eps [n, B, latent] — or,
+        for its general step on the card, the generator itself, from which
+        each step's loss draws (the VAE's in its sampling kernel)."""
         cfg = self.cfg
         gen = step_lib.noise_generator(self.state["rng"], first_step,
                                        self.device)
@@ -190,8 +193,11 @@ class Trainer:
                                generator=gen, device=self.device)
         ds, b, z = max(cfg.d_steps, 1), cfg.batch_size, cfg.z_dim
         z_d = torch.randn((n, ds, b, z), generator=gen, device=self.device)
+        lanes = aux_lanes(cfg.variant, cfg.image_dim)
+        aux_d = (torch.rand((n, ds, b, lanes), generator=gen,
+                            device=self.device) if lanes else None)
         z_g = torch.randn((n, b, z), generator=gen, device=self.device)
-        return z_d, z_g
+        return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
 
     # --------------------------------------------------------------
     def train(self, num_epochs: Optional[int] = None,
@@ -331,8 +337,13 @@ class Trainer:
                 z = torch.randn((cfg.batch_size, cfg.z_dim),
                                 generator=self._sample_gen,
                                 device=self.device)
+                extra = {}
+                if aux_lanes(cfg.variant, cfg.image_dim):
+                    extra["aux"] = aux_draw(self._sample_gen, cfg.batch_size,
+                                            cfg, self.device)
                 _, d_m = self.spec.d_loss(st["d_params"], st["g_params"],
-                                          batch, None, st["vstate"], cfg, z=z)
+                                          batch, None, st["vstate"], cfg, z=z,
+                                          **extra)
                 _, g_m = self.spec.g_loss(st["g_params"], st["d_params"],
                                           batch, None, st["vstate"], cfg, z=z)
                 m = {**d_m, **g_m}

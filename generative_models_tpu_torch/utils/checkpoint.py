@@ -12,7 +12,11 @@ and an EMA the leaves are ``['d_opt'][0].count``,
 ``['g_params'][...]``, ``['rng']`` (uint32 [2]) and ``['step']`` (int32).
 With RMSprop (wgan) an optimizer state is optax's ``ScaleByRmsState``,
 ``['d_opt'][0].nu[...]`` alone, no count; fishergan adds its carried
-multiplier ``['vstate']['lam']`` (float32 scalar).
+multiplier ``['vstate']['lam']`` (float32 scalar). cgan's stacks take
+the one-hot label as further input lanes: ``['g_params'][0]['w']`` is
+[z_dim + num_classes, hidden], ``['d_params'][0]['w']`` [image_dim +
+num_classes, hidden]; the shapes come from the variant's own init, so
+both directions hold them.
 A single-model state (vae, birvae) holds ``['ema']`` (with an EMA),
 ``['opt'][0].count``, ``['opt'][0].mu['decoder'][1]['b']`` ...,
 ``['params']['encoder']['trunk'][0]['w']`` ..., ``['rng']``, ``['step']``.

@@ -215,9 +215,12 @@ def test_pick_sub_matches_jax():
     ({"variant": "ragan"}, True), ({"variant": "fishergan"}, True),
     ({"variant": "wgan", "optimizer": "adam", "d_steps": 2}, True),
     ({"variant": "fishergan", "optimizer": "rmsprop"}, True),
-    ({"variant": "wgangp"}, False), ({"variant": "dragan"}, False),
-    ({"variant": "cgan"}, False), ({"variant": "began"}, False),
+    ({"variant": "wgangp"}, True), ({"variant": "dragan"}, True),
+    ({"variant": "cgan"}, True), ({"variant": "began"}, False),
     ({"variant": "infogan"}, False),
+    ({"variant": "wgangp", "optimizer": "rmsprop"}, False),
+    ({"variant": "dragan", "optimizer": "rmsprop"}, True),
+    ({"variant": "cgan", "ema_decay": 0.5}, False),
     ({"variant": "ragan", "ema_decay": 0.5}, False),
     ({"variant": "wgan", "dtype": "bfloat16"}, False),
     ({"variant": "vae", "optimizer": "rmsprop"}, False),
@@ -227,8 +230,7 @@ def test_fused_step_supported(overrides, supported):
     cfg = variant_config(variant, **overrides)
     ok, reason = cuda_train.fused_step_supported(None, cfg)
     assert ok == supported
-    if not supported and (variant in ("wgangp", "dragan", "cgan", "began",
-                                      "infogan")
+    if not supported and (variant in ("began", "infogan")
                           or "ema_decay" in overrides or "dtype" in overrides):
         assert "ROADMAP.md Queue 2 item 6" in reason
 
@@ -245,10 +247,11 @@ def test_resolve_fused_step():
         None, cfg.replace(ema_decay=0.5), "cuda")
     # "auto" takes the chunk kernel wherever it is supported: no list of
     # variants measured on another device is carried over
-    for v in ("lsgan", "wgan", "fgan", "ragan", "fishergan"):
+    for v in ("lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",
+              "dragan", "cgan"):
         assert cuda_train.resolve_fused_step(None, variant_config(v), "cuda")
         assert not cuda_train.resolve_fused_step(None, variant_config(v),
                                                  "cpu")
-    for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
+    for v in ("began", "infogan"):
         assert not cuda_train.resolve_fused_step(None, variant_config(v),
                                                  "cuda")

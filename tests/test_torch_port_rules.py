@@ -300,14 +300,15 @@ def test_new_chunk_variants_run_on_cpu_without_building(variant, optimizer):
 def test_chunk_hooks_cover_the_ported_variants_and_refuse_the_rest():
     from generative_models_tpu_torch.ops import cuda_train
     assert set(cuda_train.HOOKS) == {"nsgan", "mmgan", "lsgan", "wgan",
-                                     "fgan", "ragan", "fishergan"}
+                                     "fgan", "ragan", "fishergan", "wgangp",
+                                     "dragan", "cgan"}
     assert set(cuda_train.HOOKS.values()) == set(cuda_train.HOOK_IDS)
-    assert sorted(cuda_train.HOOK_IDS.values()) == list(range(6))
+    assert sorted(cuda_train.HOOK_IDS.values()) == list(range(9))
     with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
         src = f.read()
     assert "GM_HOOK" in src and "--use_fast_math" not in " ".join(
         build.NVCC_FLAGS)
-    for bad in ("wgangp", "began"):
+    for bad in ("began", "infogan"):
         with pytest.raises(ValueError, match="gan_chunk covers"):
             cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, bad)
     with pytest.raises(ValueError, match="unknown optimizer"):
@@ -340,3 +341,73 @@ def test_building_a_hook_library_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_train.build("ra")
     cuda_train._lib.cache_clear()
+
+
+def test_registry_refuses_only_the_heads_and_families_still_queued():
+    from generative_models_tpu_torch.config import VARIANTS
+    from generative_models_tpu_torch.losses.registry import (
+        available_variants,
+        get_variant,
+    )
+    queued = {"began": "Queue 1 item 6", "infogan": "Queue 1 item 6",
+              "ddpm": "Queue 1 item 9", "flow": "Queue 1 item 9",
+              "vqvae": "Queue 1 item 10", "vqprior": "Queue 1 item 10"}
+    assert set(available_variants()) == set(VARIANTS) - set(queued)
+    for v in ("wgangp", "dragan", "cgan"):
+        assert get_variant(v).name == v
+    for v, item in queued.items():
+        with pytest.raises(NotImplementedError, match=item):
+            get_variant(v)
+
+
+def test_fused_step_takes_the_penalty_and_label_variants_only():
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.ops import cuda_train
+    for v in ("wgangp", "dragan", "cgan"):
+        assert cuda_train.fused_step_supported(None, variant_config(v)) == (
+            True, "")
+        for bad in ({"ema_decay": 0.5}, {"dtype": "bfloat16"}):
+            ok, reason = cuda_train.fused_step_supported(
+                None, variant_config(v, **bad))
+            assert not ok and "Queue 2 item 6" in reason
+    for v in ("began", "infogan"):
+        ok, reason = cuda_train.fused_step_supported(None, variant_config(v))
+        assert not ok and "Queue 2 item 6" in reason
+    ok, reason = cuda_train.fused_step_supported(
+        None, variant_config("wgangp", optimizer="rmsprop"))
+    assert not ok and "adam-only" in reason
+
+
+def test_penalty_and_label_kernels_run_on_cpu_without_building():
+    """wgangp, dragan and cgan's CPU tensors take the plain version (the
+    penalty's lanes 4 and 5 filled): no launch is counted and no library
+    is built or loaded; a CUDA-less device has no path."""
+    from generative_models_tpu_torch.ops import cuda_train
+    before = cuda_train.launches
+    for v, lanes, n_cls in (("wgangp", 1, 0), ("dragan", 5, 0),
+                            ("cgan", 0, 2)):
+        p = [torch.full(s, 0.05) for s in (
+            (2 + n_cls, 3), (3,), (3, 5), (5,), (5 + n_cls, 3), (3,),
+            (3, 1), (1,))]
+        mu = [torch.zeros_like(t) for t in p]
+        nu = [torch.zeros_like(t) for t in p]
+        hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.9, 1e-8, 0.2, v,
+                                   gp_lam=10.0 if lanes else 0.0, n_cls=n_cls)
+        xtra = torch.rand(4, lanes) if lanes else None
+        m = cuda_train.gan_chunk(torch.rand(4, 5 + n_cls),
+                                 torch.randn(4, 2 + n_cls),
+                                 torch.randn(4, 2 + n_cls), p, mu, nu,
+                                 steps=2, ds=1, batch=2, t_g=0, t_d=0, hp=hp,
+                                 xtra=xtra)
+        assert m.shape == (2, 8) and bool(torch.isfinite(m).all())
+        assert bool((m[:, 4] > 0).all()) == (lanes > 0)
+        meta = lambda t: None if t is None else torch.empty(t.shape,
+                                                            device="meta")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            cuda_train.gan_chunk(
+                meta(torch.rand(4, 5 + n_cls)), meta(torch.rand(4, 2 + n_cls)),
+                meta(torch.rand(4, 2 + n_cls)), [meta(t) for t in p],
+                [meta(t) for t in mu], [meta(t) for t in nu], steps=2, ds=1,
+                batch=2, t_g=0, t_d=0, hp=hp, xtra=meta(xtra))
+    assert cuda_train.launches == before
+    assert cuda_train._lib.cache_info().currsize == 0
