@@ -10,7 +10,7 @@ imports nothing of JAX. Phases:
    matmuls and convolutions, so the plain versions run in true float32;
 2. builds every kernel of the serving and training paths from ``csrc/``
    (five sources — mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk;
-   gan_chunk once per critic hook, nine libraries — one nvcc each, all
+   gan_chunk once per critic hook, eleven libraries — one nvcc each, all
    started together; sm_90a) and prints the build time and the ptxas
    reports; it fails if a chunk kernel spills registers;
 3. holds each kernel against its plain PyTorch version on the card:
@@ -26,13 +26,18 @@ imports nothing of JAX. Phases:
      clip), fgan (jensen_shannon; kl with the non-saturating G loss;
      total_variation), ragan and fishergan (multiplier in and out),
      wgangp (d_steps 5, betas 0.5/0.9, the penalty), dragan (the penalty
-     at streamed x_hat rows) and cgan (10 label lanes); the data of every
-     such check is the first seed whose smallest hidden pre-activation
-     (the penalty's x_hat layer too) is clear of a ReLU tie (TIE_MARGIN);
+     at streamed x_hat rows), cgan (10 label lanes), infogan (the 15-lane
+     D + Q head, codes on the z rows, both MI lanes) and began (the
+     784-400-784 autoencoder critic, k_t in and out, M); the data of
+     every such check is the first seed whose smallest hidden
+     pre-activation (the penalty's x_hat layer too; began's |pixel -
+     reconstruction| as well) is clear of a tie (TIE_MARGIN);
    - a cross-check: 20 steps of the chunk kernel and 20 of the general
      step (which runs the forward and backward kernels) from one state,
      for nsgan and each of lsgan, wgan, fgan, ragan, fishergan, wgangp,
-     dragan, cgan;
+     dragan, cgan, infogan, began; and wgangp, ragan and fishergan at the
+     default Adam eps, each path against a float64 run of the chunk's
+     plain version over the same 20 steps;
    - the sampling kernel ``reparam`` at [100, 20], [8192, 20], a ragged
      [37, 20] and a wide [64, 200]: z element by element against the
      plain version's reproduced eps, the row KL, and the backward through
@@ -49,33 +54,35 @@ imports nothing of JAX. Phases:
      and ``Trainer.sample`` at n = 8192 held against the plain version;
    - training through the CLI (``fused_step="auto"``, the chunk kernel):
      nsgan, lsgan, wgan (RMSprop, d_steps 5, clip 0.01), fgan, ragan,
-     fishergan, wgangp (d_steps 5), dragan, cgan, vae and birvae, 1000
-     steps each in chunks of 500 at full width on the 60,000-row
-     synthetic split, 2 launches of the chunk kernel each, losses finite
-     (and for the VAE family falling: the mean of the last 100 below the
-     mean of the first 100), wgan's critic inside the clip at the end,
-     fishergan's ``vstate_lam`` and the penalty's ``gp`` and
-     ``grad_norm`` in ``metrics.jsonl``, ``final.png`` and
+     fishergan, wgangp (d_steps 5), dragan, cgan, began, infogan, vae and
+     birvae, 1000 steps each in chunks of 500 at full width on the
+     60,000-row synthetic split, 2 launches of the chunk kernel each,
+     losses finite (and for the VAE family falling: the mean of the last
+     100 below the mean of the first 100), wgan's critic inside the clip
+     at the end, fishergan's ``vstate_lam``, began's ``vstate_k`` (in [0,
+     1]) and ``vstate_m``, infogan's ``g_mi_loss`` and the penalty's
+     ``gp`` and ``grad_norm`` in ``metrics.jsonl``, ``final.png`` and
      ``metrics.jsonl`` written;
    - training through the general step (``fused_step=False``): nsgan 200
      steps, 5 forward and 4 backward launches a step; wgan 60 steps, 17
      and 12; wgangp 60 steps, 17 and 12 and 5 plain critic passes of the
      penalty (``ops/penalty.py``: no kernel is twice differentiable);
-     ragan 100 steps, 6 and 4; vae 100 steps, 4 forward, 4 backward and
-     1 ``reparam`` launch a step; birvae 100 steps, 3 forward and 3
-     backward;
-   - ``--sample-only`` from full-width wgan and cgan checkpoints in the
-     JAX layout (cgan: G 138->400->784, D 794->400->1; its grid cycles
-     the classes, held against the plain version);
+     ragan 100 steps, 6 and 4; began and infogan 100 steps, 5 and 4; vae
+     100 steps, 4 forward, 4 backward and 1 ``reparam`` launch a step;
+     birvae 100 steps, 3 forward and 3 backward;
+   - ``--sample-only`` from full-width wgan, cgan, began and infogan
+     checkpoints in the JAX layout (cgan: G 138->400->784, D
+     794->400->1; began: D 784->400->784; infogan: G 140->400->784, D's
+     trunk and two heads; cgan's and infogan's grids cycle the classes,
+     held against the plain version);
    - serving the VAE: ``--sample-only`` from a full-width vae checkpoint
      in the JAX layout and ``Trainer.sample`` at n = 8192 against plain;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call, and steps/s of each chunk kernel (nsgan,
-   lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, vae,
-   birvae), the general step and a library step loop (addmm + autograd
-   + ``torch.optim.Adam`` or ``RMSprop`` with ``foreach=True``, which the
-   port never calls: nsgan, wgan, ragan, wgangp, dragan, cgan, vae,
-   birvae);
+   lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, infogan,
+   began, vae, birvae), the general step and a library step loop (addmm
+   + autograd + ``torch.optim.Adam`` or ``RMSprop`` with
+   ``foreach=True``, which the port never calls: every one of them);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -151,7 +158,12 @@ COUPLED_ADAM_EPS = 1e-3
 # small critic gradients into steps of order lr (at the default eps: the
 # mu plane 1.002e-2 apart in relative L2, mu.d_b1 the worst element at
 # 7.7e-2 of its max), while each version holds its float64 plain version
-# to ~1e-6 over 8 steps (phase 3c).
+# to ~1e-6 over 8 steps (phase 3c). infogan's too: from a fresh state its
+# D logit's bias gradient nearly cancels (mean sig(lr) - 1 + mean sig(lf)
+# ~ 0), and at the default eps the general step's mu plane read 2.8e-2
+# from a float64 run after 20 steps in a CPU run of this phase (the
+# chunk's plain version 3.6e-7; G's lr is 1e-3), 1.8e-2 even at a G lr of
+# 2e-4, and 4.2e-3 at 1e-3 (see F64_CASES).
 RESIDUE_SLOTS = {"ragan": ("mu.d_b2", "nu.d_b2"),
                  "birvae": ("mu.mu_b", "nu.mu_b")}
 RESIDUE_ABS_TOL = {"ragan": 2e-7, "birvae": 5e-6}
@@ -218,6 +230,25 @@ BIRVAE_ADAM_EPS = 1e-3
 
 # the penalty's weight and cgan's classes (the registry defaults)
 GP_LAM, N_CLS = 10.0, 10
+# infogan's codes and MI weight, began's k_t law and autoencoder hidden
+# width (the registry defaults)
+INFO_CAT, INFO_CONT, INFO_LAM = 10, 2, 1.0
+INFO_L = 1 + INFO_CAT + 2 * INFO_CONT
+BEGAN_GAMMA, BEGAN_LK, BEGAN_HD = 0.75, 1e-3, 400
+# began's k_t before the 8-step check: above 0, so that the fake rows'
+# gradient (-k times theirs) is held too. |.| is differentiated through
+# its sign, so a pixel within rounding of its reconstruction flips its
+# term's sign in one version and not the other; with G's output and the
+# autoencoder's both near 0.5 (random weights) about 25 of the 1.9
+# million |fake - AE(fake)| a case holds fall within 5e-7. So the check
+# shifts G's output bias up and the autoencoder's down by BEGAN_SHIFT
+# (fakes ~0.88, reconstructions ~0.12, r (1 - r) ~ 0.1, far from
+# saturated), takes 0/1 pixels for x, and holds |v - r| to the tie rule.
+# The cross-check (phase 3d) takes the same shift and 0/1 pixels: from a
+# fresh state (G's output and the reconstructions both near 0.5) its two
+# float32 paths read 1.6e-2 apart on the card (mu.g_w2 0.26 of its max).
+BEGAN_K0 = 0.3
+BEGAN_SHIFT = 2.0
 PENALTY_LANES = {"wgangp": 1, "dragan": 784}
 DRAGAN_SCALE = 0.5
 
@@ -257,8 +288,8 @@ def build_all(mods, build_dir):
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(fn) for fn in mods]:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk (9 hooks), reparam, "
-          f"vae_chunk: {len(mods)} libraries in "
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk ({len(mods) - 4} hooks), "
+          f"reparam, vae_chunk: {len(mods)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     spills, chunk_kernels = [], 0
     for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
@@ -349,12 +380,15 @@ def check_bwd(cuda_mlp, torch):
     return worst
 
 
-def chunk_state(rng, torch, z=128, h=400, x=784, n_cls=0):
+def chunk_state(rng, torch, z=128, h=400, x=784, n_cls=0, codes=0, hd=400,
+                out=1):
     """Params and non-zero Adam slots for the 8 chunk tensors (as after
     some training), as numpy planes; cgan's G takes z + n_cls lanes and
-    its D x + n_cls."""
+    its D x + n_cls; infogan's G takes z + its `codes` lanes and its
+    critic's head is `out` (INFO_L) wide; began's critic is x -> hd -> x
+    (`out` = x)."""
     p = []
-    for i, o in ((z + n_cls, h), (h, x), (x + n_cls, h), (h, 1)):
+    for i, o in ((z + n_cls + codes, h), (h, x), (x + n_cls, hd), (hd, out)):
         bound = 1.0 / np.sqrt(i)
         p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
               rng.uniform(-bound, bound, (o,)).astype(np.float32)]
@@ -418,7 +452,9 @@ def tie_free_case(what, make, run_ref, margin_at=TIE_MARGIN):
     """The tie rule (TIE_MARGIN): `make(seed)` draws a case's data with
     numpy, `run_ref(case, probe)` runs the float64 plain version on it,
     leaving the smallest relative pre-activation under probe["margin"]
-    (and stopping at the first one at or below the margin). Returns (the
+    (and stopping at the first one at or below the margin), and for began
+    the smallest relative |pixel - reconstruction| where r (1 - r) >
+    1e-3 under probe["abs_margin"] (the same margin). Returns (the
     first case from TIE_FIRST_SEED that clears the margin, what run_ref
     returned for it)."""
     from generative_models_tpu_torch.ops.cuda_train import Tie
@@ -430,7 +466,9 @@ def tie_free_case(what, make, run_ref, margin_at=TIE_MARGIN):
             ref = run_ref(case, probe)
         except Tie:
             ref = None
-        margin = float(probe["margin"])
+        # began: |pixel - reconstruction| by the same rule (sign flips)
+        margin = min(float(probe["margin"]),
+                     float(probe.get("abs_margin", math.inf)))
         if margin > margin_at:
             over = ", ".join(f"{sd} ({m:.1e})" for sd, m in passed[-6:])
             print(f"  {what}: data seed {seed}, smallest |pre-activation| / "
@@ -457,7 +495,33 @@ CHUNK_CASES = (
     ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=GP_LAM), 0.0),
     ("dragan", 1, dict(gp_lam=GP_LAM), 0.0),
     ("cgan", 1, dict(n_cls=N_CLS), 0.0),
+    ("infogan", 1, dict(g_lr=1e-3, info_cat=INFO_CAT, info_cont=INFO_CONT,
+                        info_lam=INFO_LAM), 0.0),
+    ("began", 1, dict(began_gamma=BEGAN_GAMMA, began_lambda_k=BEGAN_LK),
+     BEGAN_K0),
+    # the two hooks' RMSprop kernels
+    ("infogan", 1, dict(optimizer="rmsprop", g_lr=1e-3, info_cat=INFO_CAT,
+                        info_cont=INFO_CONT, info_lam=INFO_LAM), 0.0),
+    ("began", 1, dict(optimizer="rmsprop", began_gamma=BEGAN_GAMMA,
+                      began_lambda_k=BEGAN_LK), BEGAN_K0),
 )
+
+
+def chunk_dims(hp):
+    """chunk_state's keywords for a case's hyperparameters."""
+    if hp.variant == "infogan":
+        return dict(n_cls=0, codes=INFO_CAT + INFO_CONT, out=INFO_L)
+    if hp.variant == "began":
+        return dict(n_cls=0, hd=BEGAN_HD, out=784)
+    return dict(n_cls=hp.n_cls)
+
+
+def code_rows_np(rng, n):
+    """infogan's z rows as numpy: z ⊕ onehot(cat) ⊕ cont."""
+    return np.concatenate([
+        rng.standard_normal((n, 128), dtype=np.float32),
+        np.eye(INFO_CAT, dtype=np.float32)[rng.integers(0, INFO_CAT, n)],
+        rng.uniform(-1, 1, (n, INFO_CONT)).astype(np.float32)], 1)
 
 
 def chunk_streams(rng, torch, variant, steps, ds, n_cls=0):
@@ -465,12 +529,19 @@ def chunk_streams(rng, torch, variant, steps, ds, n_cls=0):
     labels)], zd [rows, 128 (+ labels)], zg [steps*B, 128 (+ the labels
     of each step's last critic batch)] and the penalty's xtra (wgangp:
     eps [rows, 1]; dragan: x_hat = x + 0.5 std(x) u per critic batch;
-    else None)."""
+    else None); infogan's zd and zg rows are its code rows; began's x
+    pixels are 0 or 1, as MNIST's nearly are (a real pixel then never
+    ties with its reconstruction)."""
     rows = steps * ds * TRAIN_B
     cuda = lambda a: torch.from_numpy(a).cuda()
     xs = rng.random((rows, 784), dtype=np.float32)
-    zd = rng.standard_normal((rows, 128), dtype=np.float32)
-    zg = rng.standard_normal((steps * TRAIN_B, 128), dtype=np.float32)
+    if variant == "began":
+        xs = (xs < 0.25).astype(np.float32)
+    if variant == "infogan":
+        zd, zg = code_rows_np(rng, rows), code_rows_np(rng, steps * TRAIN_B)
+    else:
+        zd = rng.standard_normal((rows, 128), dtype=np.float32)
+        zg = rng.standard_normal((steps * TRAIN_B, 128), dtype=np.float32)
     xtra = None
     if variant in PENALTY_LANES:
         u = rng.random((rows, PENALTY_LANES[variant]), dtype=np.float32)
@@ -525,7 +596,11 @@ def check_chunk(cuda_train, torch):
 
         def make(seed):
             rng = np.random.default_rng(seed)
-            p, mu, nu = chunk_state(rng, torch, n_cls=hp.n_cls)
+            p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
+            if variant == "began":  # fakes near 0.88, reconstructions
+                # near 0.12: no |v - r| near 0, r (1 - r) ~ 0.1 (BEGAN_SHIFT)
+                p[3] = p[3] + np.float32(BEGAN_SHIFT)
+                p[7] = p[7] - np.float32(BEGAN_SHIFT)
             if hp.clip > 0:  # a critic as the clip leaves it
                 p = p[:4] + [np.clip(a, -hp.clip, hp.clip) for a in p[4:]]
             return ((p, mu, nu),) + chunk_streams(rng, torch, variant, steps,
@@ -564,6 +639,11 @@ def check_chunk(cuda_train, torch):
               and bool(torch.isfinite(m).all()))
         if variant == "fishergan":  # the multiplier moved, and came out
             ok = ok and abs(float(m[-1, 7]) - lam0) > 1e-3
+        if variant == "began":  # k_t moved and came out; M in lane 6
+            ok = ok and float(m[-1, 7]) != lam0 and bool((m[:, 6] > 0).all())
+        if variant == "infogan":  # both MI terms, lane 2 zero
+            ok = ok and bool((m[:, 1] > 0).all() and (m[:, 6] > 0).all()
+                             and (m[:, 2] == 0).all())
         if hp.clip > 0:
             ok = ok and all(float(t.abs().max()) <= hp.clip
                             for t in got[0][4:])
@@ -580,7 +660,14 @@ def check_chunk(cuda_train, torch):
               + (f" residue slots {residue} abs err {r_err:.2e} (tol "
                  f"{r_tol:.0e})" if residue else "")
               + (f" lam {lam0} -> {float(m[-1, 7]):.6f} (ref "
-                 f"{float(m_ref[-1, 7]):.6f})" if variant == "fishergan"
+                 f"{float(m_ref[-1, 7]):.6f})" if variant in ("fishergan",
+                                                               "began")
+                 else "")
+              + (f" M {float(m[-1, 6]):.6f} (ref {float(m_ref[-1, 6]):.6f})"
+                 if variant == "began" else "")
+              + (f" mi {float(m[-1, 1]):.6f} (ref {float(m_ref[-1, 1]):.6f})"
+                 f" g_mi {float(m[-1, 6]):.6f} (ref "
+                 f"{float(m_ref[-1, 6]):.6f})" if variant == "infogan"
                  else "") + pen
               + f" {'ok' if ok else 'FAIL'}; plain(float32) vs "
               f"plain(float64): max_err/max={f32_err:.3e} ({f32_name})")
@@ -604,21 +691,59 @@ CROSS_CASES = (("nsgan", {}), ("lsgan", {}), ("wgan", {}), ("fgan", {}),
                ("fishergan", {"adam_eps": COUPLED_ADAM_EPS,
                               "fisher_rho": 1e-2}),
                ("wgangp", {"adam_eps": COUPLED_ADAM_EPS}), ("dragan", {}),
-               ("cgan", {}))
+               ("cgan", {}), ("began", {}))
+# The same three at the default eps (1e-8), where the two float32 paths
+# drift apart by more than CROSS_TOL (see COUPLED_ADAM_EPS): each path,
+# kernel and general step, is held to a float64 run of the chunk's plain
+# version over the same 20 steps, streams and noise instead, by the same
+# limits. infogan too (at COUPLED_ADAM_EPS): the two float32 paths read
+# 1.08e-2 apart on the card; a CPU run of this phase saw its general
+# step's mu plane jump away from the float64 run at steps 5, 7, 8, 15 and
+# 19 (from 1e-6 to 4.5e-3 relative L2), a hidden unit flipping at each,
+# while the chunk's plain version stayed within 3.5e-7 of it.
+F64_CASES = (("wgangp", {}), ("ragan", {}),
+             ("fishergan", {"fisher_rho": 1e-2}),
+             ("infogan", {"adam_eps": COUPLED_ADAM_EPS}))
+
+
+@contextlib.contextmanager
+def chunk_in_float64(cuda_train, torch):
+    """Within it, build_fused_many_steps's kernel call runs the plain version
+    in float64 on float64 copies of the streams and planes (one sub-chunk
+    a chunk here), rounding the planes back to float32 at its end."""
+    kernel = cuda_train.gan_chunk
+
+    def plain64(xs, zd, zg, p, mu, nu, *, xtra=None, lam=0.0, **kw):
+        pl64 = [None if pl is None else [t.double() for t in pl]
+                for pl in (p, mu, nu)]
+        m = cuda_train.gan_chunk_plain(
+            xs.double(), zd.double(), zg.double(), *pl64, lam=lam,
+            xtra=None if xtra is None else xtra.double(), **kw)
+        for pl, pl_ref in zip((p, mu, nu), pl64):
+            for t, r in zip(pl or [], pl_ref or []):
+                t.copy_(r)
+        return m
+    cuda_train.gan_chunk = plain64
+    try:
+        yield
+    finally:
+        cuda_train.gan_chunk = kernel
 
 
 def cross_check(cuda_train, step_lib, torch):
     """Phase 3d: 20 steps of the chunk kernel vs 20 of the general step
     (mlp_fwd/mlp_bwd + the optimizer's torch ops) from one state, batches
     and noise, per variant (wgan at its registry defaults: RMSprop,
-    d_steps 5, clip)."""
+    d_steps 5, clip); and, for F64_CASES at the default eps, each of the
+    two against a float64 run of the chunk's plain version."""
     from generative_models_tpu_torch.config import variant_config
     from generative_models_tpu_torch.losses.registry import get_variant
     data = synthetic_split(2000, seed=3)
     images = torch.from_numpy(data["x_train"].reshape(2000, -1)).cuda()
     labels = torch.from_numpy(data["y_train"]).cuda()
-    for n, (variant, kw) in enumerate(CROSS_CASES):
-        torch.manual_seed(n)  # each case's draws whatever ran before it
+    cases = [(v, kw, False) for v, kw in CROSS_CASES] + [
+        (v, kw, True) for v, kw in F64_CASES]
+    for n, (variant, kw, f64) in enumerate(cases):
         cfg = variant_config(variant, batch_size=TRAIN_B, dtype="float32",
                              **kw)
         spec = get_variant(variant)
@@ -627,50 +752,83 @@ def cross_check(cuda_train, step_lib, torch):
             spec, cfg, torch.Generator().manual_seed(0), "cuda")
         if variant == "fishergan":
             state["vstate"] = {"lam": torch.tensor(0.3, device="cuda")}
+        x_all = images
+        if variant == "began":  # a k_t above 0: the fake term trains too;
+            # no pixel near its reconstruction (BEGAN_SHIFT): 0/1 pixels,
+            # fakes near 0.88, reconstructions near 0.12
+            state["vstate"] = {"k": torch.tensor(BEGAN_K0, device="cuda"),
+                               "m": torch.tensor(0.0, device="cuda")}
+            state["g_params"][1]["b"] = state["g_params"][1]["b"] + BEGAN_SHIFT
+            state["d_params"][1]["b"] = state["d_params"][1]["b"] - BEGAN_SHIFT
+            x_all = (images > 0.5).float()
         per_epoch = 2000 // (TRAIN_B * ds)
+        rel = torch.arange(20, device="cuda") * TRAIN_B * ds
+
+        torch.manual_seed(n)  # each case's draws whatever ran before it
         perm = torch.stack([torch.randperm(2000, device="cuda")
                             for _ in range(20 // per_epoch + 2)])
-        rel = torch.arange(20, device="cuda") * TRAIN_B * ds
-        zd = torch.randn(20, ds, TRAIN_B, 128, device="cuda")
-        zg = torch.randn(20, TRAIN_B, 128, device="cuda")
+        if variant == "infogan":  # code rows
+            gen = torch.Generator(device="cuda").manual_seed(n)
+            zd = step_lib.draw_z(gen, (20, ds, TRAIN_B), cfg, "cuda")
+            zg = step_lib.draw_z(gen, (20, TRAIN_B), cfg, "cuda")
+        else:
+            zd = torch.randn(20, ds, TRAIN_B, 128, device="cuda")
+            zg = torch.randn(20, TRAIN_B, 128, device="cuda")
         drawn = [zd, zg]
         if variant in PENALTY_LANES:  # the penalty's draw
             drawn.append(torch.rand(20, ds, TRAIN_B, PENALTY_LANES[variant],
                                     device="cuda"))
         noise = lambda k0, n: tuple(t[k0:k0 + n] for t in drawn)
-        args = (images, labels, perm, rel, noise)
+        args = (x_all, labels, perm, rel, noise)
         s_f, m_f = cuda_train.build_fused_many_steps(spec, cfg, per_epoch)(
             state, *args)
         s_g, m_g = step_lib.build_many_steps(spec, cfg, per_epoch)(
             state, *args)
+        pairs = [("chunk kernel", "general step", s_f, m_f, s_g, m_g)]
+        if f64:
+            with chunk_in_float64(cuda_train, torch):
+                s_64, m_64 = cuda_train.build_fused_many_steps(
+                    spec, cfg, per_epoch)(state, *args)
+            pairs = [(what, "plain(float64)", s, m, s_64, m_64)
+                     for what, s, m in (("chunk kernel", s_f, m_f),
+                                        ("general step", s_g, m_g))]
         torch.cuda.synchronize()
         if set(m_f) != set(m_g):
             raise AssertionError(f"{variant}: metric keys {sorted(m_f)} vs "
                                  f"{sorted(m_g)}")
-        m_err = max(float((m_f[k] - m_g[k]).abs().max()) for k in m_g)
-        some = lambda pl: [p for p in pl if p is not None]
-        names = [n for n in PLANE_NAMES
-                 if cfg.optimizer == "adam" or not n.startswith("mu.")]
-        s_err, s_name, s_max, r_err = cross_state_err(
-            variant, some(cuda_train.state_planes(s_f)),
-            some(cuda_train.state_planes(s_g)), names)
-        ok = (m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
-              and r_err <= RESIDUE_ABS_TOL.get(variant, 0.0))
-        lam = "" if variant not in RESIDUE_SLOTS else (
-            f" residue slots abs err {r_err:.2e}")
-        if variant == "fishergan":
-            lf, lg = float(s_f["vstate"]["lam"]), float(s_g["vstate"]["lam"])
-            ok = ok and abs(lf - lg) <= CROSS_TOL["metrics"] and lf != 0.3
-            lam = f" lam 0.3 -> {lf:.6f} / {lg:.6f}"
-        print(f"  {variant} chunk kernel vs general step, 20 steps "
-              f"(d_steps {ds}, {cfg.optimizer}): metrics_max_abs_err="
-              f"{m_err:.3e} (tol {CROSS_TOL['metrics']:.0e}) state rel L2="
-              f"{s_err:.3e} (tol {CROSS_TOL['state']:.0e}; worst element "
-              f"{s_name} {s_max:.3e} of its max){lam} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"the {variant} chunk kernel and the general "
-                                 f"step disagree")
+        for what, ref_name, s_a, m_a, s_r, m_r in pairs:
+            check_cross_pair(cuda_train, variant, cfg, ds, what, ref_name,
+                             s_a, m_a, s_r, m_r)
+
+
+def check_cross_pair(cuda_train, variant, cfg, ds, what, ref_name, s_a, m_a,
+                     s_r, m_r):
+    """One cross-check comparison: `what`'s 20-step state and metrics
+    against the reference's, by CROSS_TOL and the residue slots."""
+    m_err = max(float((m_a[k] - m_r[k]).abs().max()) for k in m_r)
+    some = lambda pl: [p for p in pl if p is not None]
+    names = [n for n in PLANE_NAMES
+             if cfg.optimizer == "adam" or not n.startswith("mu.")]
+    s_err, s_name, s_max, r_err = cross_state_err(
+        variant, some(cuda_train.state_planes(s_a)),
+        some(cuda_train.state_planes(s_r)), names)
+    ok = (m_err <= CROSS_TOL["metrics"] and s_err <= CROSS_TOL["state"]
+          and r_err <= RESIDUE_ABS_TOL.get(variant, 0.0))
+    lam = "" if variant not in RESIDUE_SLOTS else (
+        f" residue slots abs err {r_err:.2e}")
+    for key, start in (("lam", 0.3), ("k", BEGAN_K0)):
+        if key in s_r["vstate"]:  # the carried scalar moved, alike
+            la, lr = float(s_a["vstate"][key]), float(s_r["vstate"][key])
+            ok = ok and abs(la - lr) <= CROSS_TOL["metrics"] and la != start
+            lam = f" {key} {start} -> {la:.6f} / {lr:.6f}"
+    print(f"  {variant} {what} vs {ref_name}, 20 steps (d_steps {ds}, "
+          f"{cfg.optimizer}, adam_eps {cfg.adam_eps:g}): metrics_max_abs_err="
+          f"{m_err:.3e} (tol {CROSS_TOL['metrics']:.0e}) state rel L2="
+          f"{s_err:.3e} (tol {CROSS_TOL['state']:.0e}; worst element "
+          f"{s_name} {s_max:.3e} of its max){lam} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {variant} {what} and the {ref_name} "
+                             f"disagree")
 
 
 def check_reparam(cuda_reparam, torch):
@@ -870,28 +1028,39 @@ def cross_check_vae(cuda_train, ctv, step_lib, torch):
                                  f"general step disagree")
 
 
-def write_jax_layout_checkpoint(path: str, seed: int, n_cls: int = 0) -> None:
-    """A full-width G + D checkpoint (nsgan's, and wgan's: the same
-    stacks, no carried scalar; cgan's with `n_cls` label lanes on both
-    inputs) in the JAX package's npz layout (leaf_NNNNN arrays + __meta__
-    key paths): G and D params and step, random weights with
-    torch-default init bounds."""
+def write_layout_checkpoint(path: str, seed: int, leaves_shapes,
+                            step: int) -> None:
+    """A checkpoint in the JAX package's npz layout from (key path, shape,
+    fan-in) triples (listed in jax.tree_util's order: dict keys sorted),
+    random weights drawn in that order with torch-default init bounds
+    (1/sqrt of the fan-in), and `step`."""
     rng = np.random.default_rng(seed)
     leaves = []
-    g_dims = [G_DIMS[0] + n_cls] + G_DIMS[1:]
-    d_dims = [D_DIMS[0] + n_cls] + D_DIMS[1:]
-    for key, dims in (("d_params", d_dims), ("g_params", g_dims)):
-        for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
-            bound = 1.0 / np.sqrt(k)
-            leaves.append((f"['{key}'][{i}]['b']", rng.uniform(
-                -bound, bound, (n,)).astype(np.float32)))
-            leaves.append((f"['{key}'][{i}]['w']", rng.uniform(
-                -bound, bound, (k, n)).astype(np.float32)))
-    leaves.append(("['step']", np.array(1234, dtype=np.int32)))
+    for path_, shape, fan_in in leaves_shapes:
+        bound = 1.0 / np.sqrt(fan_in)
+        leaves.append((path_, rng.uniform(-bound, bound, shape).astype(
+            np.float32)))
+    leaves.append(("['step']", np.array(step, dtype=np.int32)))
     flat = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}
     meta = json.dumps([{"path": p, "shape": list(a.shape), "dtype": str(a.dtype)}
                        for p, a in leaves])
     np.savez(path, **flat, __meta__=np.array(meta))
+
+
+def layer_leaves(prefix, k, n):
+    return [(f"{prefix}['b']", (n,), k), (f"{prefix}['w']", (k, n), k)]
+
+
+def write_jax_layout_checkpoint(path: str, seed: int, n_cls: int = 0) -> None:
+    """A full-width G + D checkpoint (nsgan's, and wgan's: the same
+    stacks, no carried scalar; cgan's with `n_cls` label lanes on both
+    inputs) in the JAX package's npz layout: G and D params and step."""
+    g_dims = [G_DIMS[0] + n_cls] + G_DIMS[1:]
+    d_dims = [D_DIMS[0] + n_cls] + D_DIMS[1:]
+    write_layout_checkpoint(path, seed, [
+        lf for key, dims in (("d_params", d_dims), ("g_params", g_dims))
+        for i, (k, n) in enumerate(zip(dims[:-1], dims[1:]))
+        for lf in layer_leaves(f"['{key}'][{i}]", k, n)], 1234)
 
 
 def reset(*mods):
@@ -1013,6 +1182,67 @@ def drive_cgan_sample_only(mods, torch):
     return cli_launches + sample_launches, err
 
 
+def drive_began_infogan_sample_only(mods, torch):
+    """Phase 4g: --sample-only from full-width began (D 784->400->784) and
+    infogan (G 140->400->784; D trunk 784->400, d_head 400->1, q_head
+    400->14) checkpoints in the JAX layout; infogan's Trainer.sample(z)
+    grid (class i % 10, cont 0) against the plain G on those code rows.
+    Returns ({variant: mlp_fwd launches}, max error vs plain)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cuda_mlp = mods[0]
+    g = lambda zin: (layer_leaves("['g_params'][0]", zin, 400)
+                     + layer_leaves("['g_params'][1]", 400, 784))
+    shapes = {
+        "began": (layer_leaves("['d_params'][0]", 784, BEGAN_HD)
+                  + layer_leaves("['d_params'][1]", BEGAN_HD, 784) + g(128)),
+        "infogan": (layer_leaves("['d_params']['d_head']", 400, 1)
+                    + layer_leaves("['d_params']['q_head']", 400, INFO_L - 1)
+                    + layer_leaves("['d_params']['trunk'][0]", 784, 400)
+                    + g(128 + INFO_CAT + INFO_CONT))}
+    launches, err = {}, 0.0
+    for n, variant in enumerate(("began", "infogan")):
+        ckpt = os.path.join(OUT_DIR, f"{variant}_full.npz")
+        write_layout_checkpoint(ckpt, 5 + n, shapes[variant], 1234)
+        buf = io.StringIO()
+        reset(*mods)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--variant", variant, "--ckpt", ckpt,
+                           "--sample-only", "--out-dir", OUT_DIR])
+        launches[variant] = cuda_mlp.launches
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        ok = (rc == 0 and line["variant"] == variant and line["step"] == 1234
+              and launches[variant] >= 1
+              and os.path.getsize(line["samples"]) > 0)
+        if variant == "infogan":
+            t = Trainer("infogan")
+            t.load_model(ckpt)
+            z = torch.from_numpy(np.random.default_rng(8).standard_normal(
+                (TRAIN_B, 128)).astype(np.float32)).cuda()
+            reset(*mods)
+            imgs = t.sample(z=z)
+            launches[variant] += cuda_mlp.launches
+            cat = torch.arange(TRAIN_B, device="cuda") % INFO_CAT
+            zc = torch.cat([z, torch.nn.functional.one_hot(cat, INFO_CAT)
+                            .float(), torch.zeros(TRAIN_B, INFO_CONT,
+                                                  device="cuda")], 1)
+            gp = t.generator_params
+            ref, _ = cuda_mlp.mlp_fwd_plain(zc, [l["w"] for l in gp],
+                                            [l["b"] for l in gp], G_ACTS, 0.2)
+            err = float(np.abs(imgs - ref.cpu().numpy()).max())
+            ok = (ok and imgs.shape == (TRAIN_B, 784)
+                  and np.isfinite(imgs).all() and err <= TOL["float32"])
+        print(f"  {variant} cli --sample-only: rc={rc} {line} mlp_fwd "
+              f"launches={launches[variant]}"
+              + (f"; Trainer('infogan').sample(z), class i % {INFO_CAT}, "
+                 f"cont 0: max_abs_err_vs_plain={err:.3e} tol="
+                 f"{TOL['float32']:.0e}" if variant == "infogan" else "")
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{variant} --sample-only failed its checks")
+    return launches, err
+
+
 def launch_counts(mods):
     cuda_mlp, cuda_train, cuda_reparam, ctv = mods
     return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
@@ -1031,12 +1261,16 @@ LOSS_KEYS = {"nsgan": ("d_loss", "d_real", "d_fake", "g_loss"),
              "fgan": ("d_loss", "f_bound", "g_loss"),
              "ragan": ("d_loss", "g_loss"),
              "fishergan": ("d_loss", "ipm", "omega", "constraint", "g_loss"),
+             "began": ("d_loss", "began_l_real", "began_l_fake_d", "g_loss",
+                       "began_l_fake_g"),
+             "infogan": ("d_loss", "mi_loss", "g_loss", "g_mi_loss"),
              "vae": ("loss", "recon_loss", "kl_loss"),
              "birvae": ("loss", "recon_loss", "latent_power")}
 RECORD_KEYS = dict(LOSS_KEYS, fishergan=LOSS_KEYS["fishergan"]
-                   + ("vstate_lam",))
+                   + ("vstate_lam",),
+                   began=LOSS_KEYS["began"] + ("vstate_k", "vstate_m"))
 CLI_GAN = ("nsgan", "lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",
-           "dragan", "cgan")
+           "dragan", "cgan", "began", "infogan")
 CLI_VARIANTS = CLI_GAN + ("vae", "birvae")
 
 
@@ -1087,6 +1321,16 @@ def drive_training_cli(variant, mods, torch):
         lams = [r["vstate_lam"] for r in recs]
         ok = ok and lams[-1] != lams[0] != 0.0
         falling = f" vstate_lam {lams[0]:.3e} -> {lams[-1]:.3e}"
+    if variant == "began":  # k_t in [0, 1] and M recorded every step
+        ks = [r["vstate_k"] for r in recs]
+        ok = ok and all(0.0 <= v <= 1.0 for v in ks)
+        falling = (f" vstate_k {ks[0]:.3e} -> {ks[-1]:.3e} vstate_m "
+                   f"{recs[0]['vstate_m']:.4f} -> {recs[-1]['vstate_m']:.4f}")
+    if variant == "infogan":  # G's MI term recorded every step
+        ok = ok and all(r["g_mi_loss"] > 0.0 for r in recs)
+        falling = (f" mi_loss {recs[0]['mi_loss']:.4f} -> "
+                   f"{recs[-1]['mi_loss']:.4f} g_mi_loss "
+                   f"{recs[0]['g_mi_loss']:.4f} -> {recs[-1]['g_mi_loss']:.4f}")
     if variant in PENALTY_LANES:  # the penalty is recorded every step
         gps = [r["gp"] for r in recs]
         ok = ok and all(v > 0.0 for v in gps)
@@ -1115,12 +1359,17 @@ def drive_training_cli(variant, mods, torch):
 # wgangp launches as wgan, and its penalty's critic pass (twice
 # differentiable, so plain torch ops: ops/penalty.py) runs once a critic
 # update: PENALTY_PASSES a step.
+# began's critic (the autoencoder) and infogan's (trunk and both heads as
+# one stack; its MI term reads the fake's pass of the D loss) launch as
+# nsgan's.
 GENERAL_LAUNCHES = {"nsgan": (5, 4, 0), "wgan": (17, 12, 0),
                     "wgangp": (17, 12, 0), "ragan": (6, 4, 0),
+                    "began": (5, 4, 0), "infogan": (5, 4, 0),
                     "vae": (4, 4, 1), "birvae": (3, 3, 0)}
 PENALTY_PASSES = {"wgangp": 5}
 GENERAL_STEPS = (("nsgan", 200), ("wgan", 60), ("wgangp", 60), ("ragan", 100),
-                 ("vae", 100), ("birvae", 100))
+                 ("began", 100), ("infogan", 100), ("vae", 100),
+                 ("birvae", 100))
 
 
 def drive_training_general(variant, steps, mods, torch):
@@ -1155,27 +1404,14 @@ def drive_training_general(variant, steps, mods, torch):
 
 def write_vae_checkpoint(path: str, seed: int) -> None:
     """A full-width vae checkpoint in the JAX package's npz layout (key
-    paths as jax.tree_util.keystr prints them, dict keys sorted), random
-    weights with torch-default init bounds."""
-    rng = np.random.default_rng(seed)
+    paths as jax.tree_util.keystr prints them, dict keys sorted)."""
     x, h, l = VAE_X, VAE_H, VAE_L
-
-    def layer(prefix, k, n):
-        bound = 1.0 / np.sqrt(k)
-        return [(f"{prefix}['b']", rng.uniform(-bound, bound, (n,)).astype(
-            np.float32)), (f"{prefix}['w']", rng.uniform(
-                -bound, bound, (k, n)).astype(np.float32))]
-
-    leaves = (layer("['params']['decoder'][0]", l, h)
-              + layer("['params']['decoder'][1]", h, x)
-              + layer("['params']['encoder']['logvar']", h, l)
-              + layer("['params']['encoder']['mu']", h, l)
-              + layer("['params']['encoder']['trunk'][0]", x, h)
-              + [("['step']", np.array(4321, dtype=np.int32))])
-    flat = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}
-    meta = json.dumps([{"path": p, "shape": list(a.shape), "dtype": str(a.dtype)}
-                       for p, a in leaves])
-    np.savez(path, **flat, __meta__=np.array(meta))
+    write_layout_checkpoint(path, seed, (
+        layer_leaves("['params']['decoder'][0]", l, h)
+        + layer_leaves("['params']['decoder'][1]", h, x)
+        + layer_leaves("['params']['encoder']['logvar']", h, l)
+        + layer_leaves("['params']['encoder']['mu']", h, l)
+        + layer_leaves("['params']['encoder']['trunk'][0]", x, h)), 4321)
 
 
 def drive_vae_serving(mods, torch):
@@ -1276,33 +1512,48 @@ def bwd_bound(dims, b):
 
 
 def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400,
-                         ragan=False, gp=False, n_cls=0):
+                         ragan=False, gp=False, n_cls=0, codes=0, l=1):
     """d_steps critic updates and one G update; ragan's G update runs the
     critic on the real batch too (one more forward pass of D); the
     penalty (wgangp, dragan) adds four products of 2 B X Hd to each
     critic update (hh, g, s and its part of dW1d); cgan's G and D take
-    n_cls more input lanes (G's output and dx stay X wide)."""
-    zi, xd = z + n_cls, x + n_cls
+    n_cls more input lanes (G's output and dx stay X wide), infogan's G
+    its `codes` lanes. A critic head `l` lanes wide (infogan 15, began's
+    autoencoder X) costs 2 B Hd l a pass, and its gradient's row of dh
+    (dh = gl W2d^T) 2 B Hd l more in each update, which a one-logit head's
+    row warps make negligible."""
+    zi, xd = z + n_cls + codes, x + n_cls
     g_fwd = 2 * b * (zi * h + h * x)
-    d_pass = 2 * b * (xd * hd + hd)
-    d_update = (g_fwd + 2 * d_pass + 2 * (2 * b) * (xd * hd + hd)
-                + (4 * 2 * b * x * hd if gp else 0))
-    g_update = (g_fwd + d_pass + 2 * b * hd * x + 2 * b * x * h
+    d_pass = 2 * b * (xd * hd + hd * l)
+    dh = (2 * b * hd * l) if l > 1 else 0  # a pass's dh = gl W2d^T
+    d_update = (g_fwd + 2 * d_pass + 2 * (2 * b) * (xd * hd + hd * l)
+                + 2 * dh + (4 * 2 * b * x * hd if gp else 0))
+    g_update = (g_fwd + d_pass + dh + 2 * b * hd * x + 2 * b * x * h
                 + 2 * b * h * x + 2 * b * zi * h)
     return ds * d_update + g_update + (d_pass if ragan else 0)
 
 
 def chunk_bound(steps, b=TRAIN_B, z=128, h=400, x=784, hd=400, ds=1,
-                ragan=False, planes=3, lanes=0, n_cls=0):
+                ragan=False, planes=3, lanes=0, n_cls=0, codes=0, l=1):
     """The streams read once (the penalty's `lanes` a critic row too), the
     state (params, mu, nu; RMSprop: two planes) read and written once,
     the metrics rows written."""
-    zi, xd = z + n_cls, x + n_cls
-    params = zi * h + h + h * x + x + xd * hd + hd + hd + 1
+    zi, xd = z + n_cls + codes, x + n_cls
+    params = zi * h + h + h * x + x + xd * hd + hd + hd * l + l
     nbytes = 4 * (steps * b * (ds * (xd + zi + lanes) + zi)
                   + 2 * planes * params + steps * 8)
     return bound_of(steps * chunk_flops_per_step(
-        b, ds, ragan=ragan, gp=lanes > 0, n_cls=n_cls), nbytes)
+        b, ds, z, h, x, hd, ragan=ragan, gp=lanes > 0, n_cls=n_cls,
+        codes=codes, l=l), nbytes)
+
+
+def chunk_shape_kw(variant):
+    """chunk_flops_per_step's and chunk_bound's shape keywords."""
+    if variant == "infogan":
+        return dict(codes=INFO_CAT + INFO_CONT, l=INFO_L)
+    if variant == "began":
+        return dict(hd=BEGAN_HD, l=784)
+    return {}
 
 
 def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
@@ -1390,14 +1641,20 @@ def library_step_loop(torch, steps, variant="nsgan"):
     (Adam, the relativistic losses), wgan (RMSprop, 5 critic updates a
     step, each followed by the clamp), wgangp (Adam at betas 0.5/0.9, 5
     critic updates a step, the penalty through autograd.grad with
-    create_graph), dragan (the penalty at the perturbed real batch) or
-    cgan (10 label lanes on G's and D's inputs). Returns steps/s (CUDA
+    create_graph), dragan (the penalty at the perturbed real batch), cgan
+    (10 label lanes on G's and D's inputs), lsgan, fgan (jensen_shannon)
+    and fishergan (the IPM with the multiplier), began (the autoencoder's
+    L1 energies and the k_t law) or infogan (the 15-lane head, the codes
+    on G's input, the MI bound in both losses). Returns steps/s (CUDA
     events)."""
     F = torch.nn.functional
     rng = np.random.default_rng(5)
     n_cls = N_CLS if variant == "cgan" else 0
-    gw, gb = make_stack(rng, [G_DIMS[0] + n_cls] + G_DIMS[1:], "cuda")
-    dw, db = make_stack(rng, [D_DIMS[0] + n_cls] + D_DIMS[1:], "cuda")
+    codes = INFO_CAT + INFO_CONT if variant == "infogan" else 0
+    d_dims = {"began": [784, BEGAN_HD, 784],
+              "infogan": [784, 400, INFO_L]}.get(variant, D_DIMS)
+    gw, gb = make_stack(rng, [G_DIMS[0] + n_cls + codes] + G_DIMS[1:], "cuda")
+    dw, db = make_stack(rng, [d_dims[0] + n_cls] + d_dims[1:], "cuda")
     gp = [t.requires_grad_(True) for t in gw + gb]
     dp = [t.requires_grad_(True) for t in dw + db]
     ds = 5 if variant in ("wgan", "wgangp") else 1
@@ -1414,6 +1671,12 @@ def library_step_loop(torch, steps, variant="nsgan"):
                     device="cuda")
     ys = F.one_hot(torch.randint(0, max(n_cls, 1), (steps, TRAIN_B),
                                  device="cuda"), max(n_cls, 1)).float()
+    cs = torch.cat([F.one_hot(torch.randint(0, INFO_CAT, (steps, ds + 1,
+                                                          TRAIN_B),
+                                            device="cuda"), INFO_CAT).float(),
+                    torch.rand(steps, ds + 1, TRAIN_B, INFO_CONT,
+                               device="cuda") * 2 - 1], -1)
+    k_t = torch.zeros((), device="cuda")
     ones = torch.ones(TRAIN_B, device="cuda")
     zeros = torch.zeros(TRAIN_B, device="cuda")
     bce = F.binary_cross_entropy_with_logits
@@ -1423,11 +1686,27 @@ def library_step_loop(torch, steps, variant="nsgan"):
             torch.addmm(gb[0], z, gw[0])), gw[1]))
 
     def D(x):
-        return torch.addmm(db[1], F.leaky_relu(
-            torch.addmm(db[0], x, dw[0]), 0.2), dw[1])[:, 0]
+        out = torch.addmm(db[1], F.leaky_relu(
+            torch.addmm(db[0], x, dw[0]), 0.2), dw[1])
+        if variant == "began":  # the reconstruction
+            return torch.sigmoid(out)
+        return out if variant == "infogan" else out[:, 0]
 
     def with_labels(a, k):
         return torch.cat([a, ys[k]], 1) if n_cls else a
+
+    def with_codes(z, k, i):
+        return torch.cat([z, cs[k, i]], 1) if codes else z
+
+    def mi(q, c):
+        """infogan's CE + fixed-variance NLL of head outputs q."""
+        return (-(F.log_softmax(q[:, 1:1 + INFO_CAT], 1)
+                  * c[:, :INFO_CAT]).sum(1).mean()
+                + 0.5 * ((c[:, INFO_CAT:] - q[:, 1 + INFO_CAT:1 + INFO_CAT
+                                                + INFO_CONT]) ** 2).mean())
+
+    def energy(v):
+        return (v - D(v)).abs().mean()
 
     def penalty(xh):
         xh = xh.detach().requires_grad_(True)
@@ -1439,6 +1718,18 @@ def library_step_loop(torch, steps, variant="nsgan"):
         """(d_loss, g_loss) of the variant from real and fake logits."""
         if variant in ("wgan", "wgangp"):
             return lf.mean() - lr.mean(), -lf.mean()
+        if variant == "lsgan":
+            return (0.5 * ((lr - 1.0) ** 2).mean() + 0.5 * (lf ** 2).mean(),
+                    0.5 * ((lf - 1.0) ** 2).mean())
+        if variant == "fgan":  # jensen_shannon: g_f = log 2 - softplus(-v)
+            t_f = math.log(2.0) - F.softplus(-lf)
+            f_star = -torch.log(2.0 - torch.exp(t_f))
+            return ((F.softplus(-lr) - math.log(2.0)).mean() + f_star.mean(),
+                    -f_star.mean())
+        if variant == "fishergan":  # lam held at 0 (rho 1e-6 here)
+            omega = 0.5 * (lr ** 2).mean() + 0.5 * (lf ** 2).mean()
+            c = 1.0 - omega
+            return -(lr.mean() - lf.mean() - 0.5e-6 * c * c), -lf.mean()
         if variant == "ragan":
             dr, df = lr - lf.mean(), lf - lr.mean()
             return bce(dr, ones) + bce(df, zeros), \
@@ -1446,12 +1737,21 @@ def library_step_loop(torch, steps, variant="nsgan"):
         return bce(lr, ones) + bce(lf, zeros), bce(lf, ones)
 
     def step(k):
+        nonlocal k_t
         for i in range(ds):
             x = xs[k, i]
             with torch.no_grad():
-                fake = G(with_labels(zs[k, i], k))
-            d_loss, _ = losses(D(with_labels(x, k)),
-                               D(with_labels(fake, k)))
+                fake = G(with_codes(with_labels(zs[k, i], k), k, i))
+            if variant == "began":
+                l_real = energy(x)
+                d_loss = l_real - k_t * energy(fake)
+            elif variant == "infogan":
+                qf = D(fake)
+                d_loss = (bce(D(x)[:, 0], ones) + bce(qf[:, 0], zeros)
+                          + INFO_LAM * mi(qf, cs[k, i]))
+            else:
+                d_loss, _ = losses(D(with_labels(x, k)),
+                                   D(with_labels(fake, k)))
             if variant == "wgangp":
                 e = us[k, i]
                 d_loss = d_loss + penalty(e * x + (1.0 - e) * fake)
@@ -1465,10 +1765,19 @@ def library_step_loop(torch, steps, variant="nsgan"):
                 with torch.no_grad():
                     torch._foreach_clamp_min_(dp, -0.01)
                     torch._foreach_clamp_max_(dp, 0.01)
-        lf = D(with_labels(G(with_labels(zs[k, ds], k)), k))
-        with torch.no_grad():
-            lr = D(xs[k, ds - 1]) if variant == "ragan" else lf
-        _, g_loss = losses(lr, lf)
+        if variant == "began":
+            g_loss = energy(G(zs[k, ds]))
+            with torch.no_grad():  # the k_t law
+                k_t = torch.clamp(k_t + BEGAN_LK * (
+                    BEGAN_GAMMA * l_real - g_loss), 0.0, 1.0)
+        elif variant == "infogan":
+            qf = D(G(with_codes(zs[k, ds], k, ds)))
+            g_loss = bce(qf[:, 0], ones) + INFO_LAM * mi(qf, cs[k, ds])
+        else:
+            lf = D(with_labels(G(with_labels(zs[k, ds], k)), k))
+            with torch.no_grad():
+                lr = D(xs[k, ds - 1]) if variant == "ragan" else lf
+            _, g_loss = losses(lr, lf)
         g_opt.zero_grad(set_to_none=True)
         g_loss.backward()
         g_opt.step()
@@ -1488,14 +1797,18 @@ def library_step_loop(torch, steps, variant="nsgan"):
 
 # phase 5b's cases: (variant, d_steps, ChunkHyper fields, library loop?)
 TIMED_CASES = (
-    ("nsgan", 1, {}, True), ("lsgan", 1, {}, False),
+    ("nsgan", 1, {}, True), ("lsgan", 1, {}, True),
     ("wgan", 5, dict(optimizer="rmsprop", clip=0.01, g_lr=5e-5, d_lr=5e-5),
      True),
-    ("fgan", 1, {}, False), ("ragan", 1, {}, True),
-    ("fishergan", 1, dict(fisher_rho=1e-6), False),
+    ("fgan", 1, {}, True), ("ragan", 1, {}, True),
+    ("fishergan", 1, dict(fisher_rho=1e-6), True),
     ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=GP_LAM), True),
     ("dragan", 1, dict(gp_lam=GP_LAM), True),
-    ("cgan", 1, dict(n_cls=N_CLS), True))
+    ("cgan", 1, dict(n_cls=N_CLS), True),
+    ("infogan", 1, dict(g_lr=1e-3, info_cat=INFO_CAT, info_cont=INFO_CONT,
+                        info_lam=INFO_LAM), True),
+    ("began", 1, dict(began_gamma=BEGAN_GAMMA, began_lambda_k=BEGAN_LK),
+     True))
 
 
 def time_training(cuda_train, torch, card, general_sps):
@@ -1508,16 +1821,22 @@ def time_training(cuda_train, torch, card, general_sps):
     out = {}
     for variant, ds, kw, with_lib in TIMED_CASES:
         hp = chunk_hyper(cuda_train, variant, **kw)
-        p, mu, nu = chunk_state(rng, torch, n_cls=hp.n_cls)
+        p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
         planes = [[torch.from_numpy(a.copy()).cuda() for a in pl]
                   for pl in (p, mu, nu)]
         if not hp.adam:
             planes[1] = None
         rows, lanes = steps * ds * TRAIN_B, PENALTY_LANES.get(variant, 0)
-        # (the label lanes' values do not change the work)
+        # (the label lanes' values do not change the work; infogan's
+        # codes are one-hot and uniform, as its stream's)
+        zw = p[0].shape[0]
         xs = torch.rand(rows, 784 + hp.n_cls, device="cuda")
-        zd = torch.randn(rows, 128 + hp.n_cls, device="cuda")
-        zg = torch.randn(steps * TRAIN_B, 128 + hp.n_cls, device="cuda")
+        if variant == "infogan":
+            zd = torch.from_numpy(code_rows_np(rng, rows)).cuda()
+            zg = torch.from_numpy(code_rows_np(rng, steps * TRAIN_B)).cuda()
+        else:
+            zd = torch.randn(rows, zw, device="cuda")
+            zg = torch.randn(steps * TRAIN_B, zw, device="cuda")
         xtra = torch.rand(rows, lanes, device="cuda") if lanes else None
         kws = dict(ds=ds, batch=TRAIN_B, t_g=0, t_d=0, hp=hp)
 
@@ -1539,14 +1858,14 @@ def time_training(cuda_train, torch, card, general_sps):
                    if with_lib else None)
         b_ms, b_by = chunk_bound(steps, ds=ds, ragan=variant == "ragan",
                                  planes=3 if hp.adam else 2, lanes=lanes,
-                                 n_cls=hp.n_cls)
+                                 n_cls=hp.n_cls, **chunk_shape_kw(variant))
         row = {"steps": steps, "d_steps": ds, "optimizer": hp.optimizer,
                "ms": k_ms, "plain_ms": p_ms,
                "library_ms": steps / lib_sps * 1e3 if lib_sps else None,
                "bound_ms": b_ms, "bound_by": b_by,
                "mflop_per_step": chunk_flops_per_step(
                    ds=ds, ragan=variant == "ragan", gp=lanes > 0,
-                   n_cls=hp.n_cls) / 1e6,
+                   n_cls=hp.n_cls, **chunk_shape_kw(variant)) / 1e6,
                "steps_per_s": steps / k_ms * 1e3,
                "plain_steps_per_s": steps / p_ms * 1e3,
                "general_step_steps_per_s": general_sps.get(variant),
@@ -1772,6 +2091,9 @@ def main() -> int:
     paths["serving_wgan"] = {"mlp_fwd": drive_wgan_sample_only(mods)}
     cgan_fwd, cgan_err = drive_cgan_sample_only(mods, torch)
     paths["serving_cgan"] = {"mlp_fwd": cgan_fwd}
+    bi_fwd, info_err = drive_began_infogan_sample_only(mods, torch)
+    for variant, n in bi_fwd.items():
+        paths[f"serving_{variant}"] = {"mlp_fwd": n}
     for variant in CLI_GAN:  # every GAN variant went through it
         if paths[f"cli_{variant}"]["gan_chunk"] != 2:
             raise AssertionError(f"cli_{variant} did not launch gan_chunk "
@@ -1810,7 +2132,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("mlp_fwd", cuda_mlp.SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:82",
-              max(fwd_err, serve_err, vae_serve_err, cgan_err), fwd_main,
+              max(fwd_err, serve_err, vae_serve_err, cgan_err, info_err),
+              fwd_main,
               fwd_main["shape"], per_shape=rows["mlp_fwd"],
               linear_cuda=rows["linear"]),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,

@@ -1,21 +1,24 @@
 // Whole-chunk GAN training in one launch, for Hopper (sm_90a): nsgan,
-// mmgan, lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan and cgan.
+// mmgan, lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan,
+// infogan and began.
 //
 // Replaces: generative_models_tpu/ops/pallas_train.py::_make_kernel with
 // ::_fused_chunk_call (the TPU chunk kernel) and the critic hooks of
-// ::_make_variant_hooks for these variants (pallas_train.py:314-353,
-// 374-391, 407-412, 422-432, 443-467, 479-481), the gradient penalty's
+// ::_make_variant_hooks (pallas_train.py:271-484), the gradient penalty's
 // double backward ::_gp_backward (:227-245, math :525-535) with its xtra
-// stream, cgan's label lanes (:594-595, 669-672, 718-721), Adam or
-// RMSprop, wgan's clip, fishergan's carried multiplier, float32, no EMA
-// plane.
+// stream, cgan's label lanes (:594-595, 669-672, 718-721), infogan's Q
+// head (:271-310, 392-406, 468-478, lane 6 :735-736), began's
+// autoencoder critic, its direct L1 path into G (dx_extra, :740-741) and
+// its k_t law (:764-772), Adam or RMSprop, wgan's clip, the carried
+// scalar (fishergan's multiplier, began's k_t), float32, no EMA plane.
 //
-// One source, one library a hook: -DGM_HOOK=0..8 picks the critic (bce:
+// One source, one library a hook: -DGM_HOOK=0..10 picks the critic (bce:
 // nsgan and mmgan; ls; w; f: all seven divergences; ra; fi; gpw: w with
 // the penalty, wgangp; gpb: bce with the penalty, dragan; cond: bce on
-// label-carrying rows, cgan) at compile time, and each library holds an
-// Adam and an RMSprop kernel (gpw: Adam only, see kernel_of), so no hot
-// loop carries a run-time switch of another variant.
+// label-carrying rows, cgan; info: bce with the Q head, infogan; be: the
+// autoencoder, began) at compile time, and each library holds an Adam
+// and an RMSprop kernel (gpw: Adam only, see kernel_of), so no hot loop
+// carries a run-time switch of another variant.
 //
 // What it computes, for k = 0..steps-1 (one outer step each):
 //   for i = 0..ds-1 (a critic update on a fresh batch; td = t_d+k*ds+i+1):
@@ -104,6 +107,37 @@
 // L1, in the SASS nvcc 12.8 emits — so a line written in an earlier
 // phase is read afresh. (A dependent L2 load on an H100: 220 ns with
 // ld.global.cg, 146 ns without; tools/chunk_phases.py measures both.)
+// infogan: the critic's head is L = 1 + cat + 2 cont wide (lane 0 the D
+// logit, then Q's categorical logits, means and log-variances: the
+// d_head and q_head side by side in W2d [Hd, L]), and the z rows are G's
+// code rows z ⊕ onehot(cat) ⊕ cont (Z wide, the codes in the last cat +
+// cont lanes), so the MI targets are read straight from the rows: no
+// selection matrix. DE and G23 stay one warp a row: the lanes take the L
+// outputs (up to 4 a lane), a warp's max and sums give the softmax over
+// the cat lanes, and the gradient vector
+//   lane 0 the bce rule; cat lanes lam (softmax - onehot)/B; mean lanes
+//   lam (mu - c)/(B cont); log-variance lanes 0 (the fixed variance)
+// is parked in the warp's corner of shared memory for its row of dh.
+// F's dW2d is then a product ([hr; hf]^T gl, K = 2B) with the optimizer
+// in its epilogue; each row's MI term goes to the metrics warps (lane 1
+// the critic's, lane 6 G's).
+// began: the critic is an autoencoder, W2d [Hd, X] with a sigmoid, so
+// its head is products, not row warps. Per critic update:
+//   R  rec = sigmoid([hr; hf] W2d + b2d); the epilogue writes the logit
+//      gradient sign(r - v) r (1 - r)/(B X) (fake rows: times -k) with v
+//      the row's pixel of [x; fake], and |v - r|
+//   E  dh = g W2d^T * leaky'(h), beside it one warp a row sums |v - r|
+//   F  dW1d, dW2d = [hr; hf]^T g (K = 2B) with the optimizer; db1d, db2d
+//      one warp a column
+// and for G: G2 rf2 = sigmoid(hf2 W2d + b2d), whose epilogue writes gl =
+// -s2 rf2 (1 - rf2) and d2 = fake2 - rf2 (s2 = sign(d2)/(B X)); G3 dh2 =
+// gl W2d^T * leaky'(hf2), beside it the rows of |d2|; G4's epilogue adds
+// s2 to dx (the direct path) before the sigmoid's derivative; its one
+// metrics warp then applies the k_t law k <- clip(k + lambda_k (gamma
+// L(x) - L(G(z))), 0, 1), M = L(x) + |gamma L(x) - L(G(z))|, L(x) from
+// the step's last critic update. k is a device scalar like fishergan's
+// multiplier. |.| is differentiated through sign (0 at 0), as the TPU
+// kernel does.
 // Widths are the true ones: no lane padding, so the TPU kernel's padded
 // lane hazards (pallas_train.py:92-102) and its lane0/rowm/xcols masks
 // have no counterpart.
@@ -128,17 +162,26 @@ namespace cg = cooperative_groups;
 #endif
 
 enum { HOOK_BCE = 0, HOOK_LS, HOOK_W, HOOK_F, HOOK_RA, HOOK_FI, HOOK_GPW,
-       HOOK_GPB, HOOK_COND };
+       HOOK_GPB, HOOK_COND, HOOK_INFO, HOOK_BEGAN };
 enum { DIV_TV = 0, DIV_KL, DIV_RKL, DIV_PEARSON, DIV_HELLINGER, DIV_JS,
        DIV_GAN };
 constexpr int HOOK = GM_HOOK;
-static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_COND, "GM_HOOK must be 0..8");
-// the gradient penalty's hooks, and cgan's label lanes
+static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_BEGAN,
+              "GM_HOOK must be 0..10");
+// the gradient penalty's hooks, cgan's label lanes, infogan's Q head,
+// began's autoencoder
 constexpr bool GP = HOOK == HOOK_GPW || HOOK == HOOK_GPB;
 constexpr bool COND = HOOK == HOOK_COND;
-// the logit rule of the critic and of G: gpw is w's, gpb and cond bce's
+constexpr bool INFO = HOOK == HOOK_INFO;
+constexpr bool BEGAN = HOOK == HOOK_BEGAN;
+// the logit rule of the critic and of G: gpw is w's, gpb, cond and info
+// (lane 0) bce's
 constexpr int CRIT = HOOK == HOOK_GPW ? HOOK_W
-                     : (HOOK == HOOK_GPB || COND) ? HOOK_BCE : HOOK;
+                     : (HOOK == HOOK_GPB || COND || INFO) ? HOOK_BCE : HOOK;
+// infogan: head outputs a lane keeps (L <= 32 * QPL), and the columns a
+// row warp sums at once
+constexpr int QPL = 4;
+constexpr int QC = 16;
 // the gradient of a logit needs sums over the whole batch
 constexpr bool COUPLED_D = HOOK == HOOK_RA || HOOK == HOOK_FI;
 constexpr bool COUPLED_G = HOOK == HOOK_RA;
@@ -146,7 +189,8 @@ constexpr bool COUPLED_G = HOOK == HOOK_RA;
 enum { P_G_W1 = 0, P_G_B1, P_G_W2, P_G_B2, P_D_W1, P_D_B1, P_D_W2, P_D_B2,
        N_PARAMS };
 enum { EPI_RELU, EPI_LEAKY, EPI_SIGMOID, EPI_SIGD, EPI_RELUD, EPI_OPT,
-       EPI_STORE, EPI_GPU, EPI_SIGXH };  // the last three: the penalty's
+       EPI_STORE, EPI_GPU, EPI_SIGXH,          // the penalty's
+       EPI_BGR, EPI_BGD, EPI_BGG, EPI_BGX };   // began's
 enum { LANES = 8 };  // floats of a metrics row
 
 #define RMS_DECAY 0.99f
@@ -161,8 +205,9 @@ struct Args {
   float* mu[N_PARAMS];  // null with RMSprop
   float* nu[N_PARAMS];
   float* metrics;   // [steps, LANES]
-  float* lam;       // fishergan's multiplier, in and out
-  // scratch; hf2 and lf2 hold 2B rows (ragan: the fake rows, then x's)
+  float* lam;       // fishergan's multiplier, began's k_t: in and out
+  // scratch; hf2 and lf2 hold 2B rows (ragan: the fake rows, then x's);
+  // gl [2B, L] and gl2 [B, L] the head's gradients
   float *hgd, *hgg, *xin, *fk2, *hd, *gl, *lg, *dh, *hf2, *gl2, *lf2, *dh2,
       *gu2, *dhg;
   int steps, ds, B, Z, H, X, Hd;
@@ -178,6 +223,17 @@ struct Args {
   float *xh, *gbuf, *sbuf, *dph, *nrm, *epsb;
   float gp_lam;
   int n_cls, Xd;  // cond: the label lanes, and D's input width X + n_cls
+  // the critic head's width: 1; infogan 1 + cat + 2 cont; began X
+  int L;
+  // infogan: the code lanes, where they start in a z row, the MI weight,
+  // and each row's MI term (critic: the fake rows; G: its rows)
+  int n_cat, n_cont, Zc;
+  float info_lam;
+  float *mib, *mib2;
+  // began: gamma, lambda_k, 1/(B X); |v - r| [2B, X], d2 = fake2 - rf2
+  // [B, X], and their row sums [2B], [B]
+  float gamma, lambda_k, inv_bx;
+  float *ab, *d2, *erow, *erow2;
 };
 
 // The same arguments for the RMSprop kernel: a type of its own, so that
@@ -260,12 +316,55 @@ __device__ __forceinline__ void gp_epi(const Args& a, const Gemm& g, int m,
   }
 }
 
+__device__ __forceinline__ float sgn(float v) {
+  return (float)(v > 0.0f) - (float)(v < 0.0f);
+}
+
+// began's epilogues (`out` at row stride ldo):
+//   BGR: the logit gradient of rec = sigmoid(c + b2d) against v = aux
+//        ([x; fake]): sign(r - v) r (1 - r)/(B X), fake rows (m >= B)
+//        times -k; |v - r| to `ab`
+//   BGD: c * leaky'(aux)  (dh, dh2)
+//   BGG: rf2 = sigmoid(c + b2d) against f = aux (fake2): d2 = f - rf2 to
+//        `d2`, gl = -sign(d2)/(B X) rf2 (1 - rf2)
+//   BGX: (c + sign(d2)/(B X)) f (1 - f), f = aux (fake2): gu2 with the
+//        direct L1 path
+__device__ __forceinline__ void be_epi(const Args& a, const Gemm& g, int m,
+                                       int n, float c) {
+  const size_t o = (size_t)m * g.ldo + n;
+  if (g.epi == EPI_BGR) {
+    const float r = sigm(c + ld(g.bias + n));
+    const float v = ld(g.aux + o);
+    float gr = ((sgn(r - v) * r) * (1.0f - r)) * a.inv_bx;
+    if (m >= a.B) gr = -ld(a.lam) * gr;
+    g.out[o] = gr;
+    a.ab[o] = fabsf(v - r);
+  } else if (g.epi == EPI_BGD) {
+    g.out[o] = c * dleaky(ld(g.aux + o), a.slope);
+  } else if (g.epi == EPI_BGG) {
+    const float r = sigm(c + ld(g.bias + n));
+    const float d = ld(g.aux + o) - r;
+    a.d2[o] = d;
+    g.out[o] = ((-(sgn(d) * a.inv_bx) * r) * (1.0f - r));
+  } else {
+    const float f = ld(g.aux + o);
+    const float dx = c + sgn(ld(a.d2 + o)) * a.inv_bx;
+    g.out[o] = (dx * f) * (1.0f - f);
+  }
+}
+
 template <bool RMS>
 __device__ __forceinline__ void epi(const Args& a, const Gemm& g, int m, int n,
                                     float c, const AdamT& at) {
   if constexpr (GP) {
     if (g.epi > EPI_OPT) {
       gp_epi(a, g, m, n, c);
+      return;
+    }
+  }
+  if constexpr (BEGAN) {
+    if (g.epi > EPI_OPT) {
+      be_epi(a, g, m, n, c);
       return;
     }
   }
@@ -493,12 +592,136 @@ __device__ void logit_rows(const Args& a, const float* h, int rows,
   }
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// infogan: one warp for row r of h [., Hd] (a real row of the critic's,
+// a fake row of the critic's with its code row `zrow`, or a row of G's
+// with its code row): the L head outputs o = h W2d + b2d (then lane l
+// keeps outputs l, l + 32, ...), the gradient vector into glo[r L ..], the
+// logit o_0 into logit[r], the row's MI term (fake rows) into *mi, and
+// the row of dh = gl W2d^T * leaky'(h):
+//   lane 0: critic real (sig - 1)/B, critic fake sig/B, G (sig - 1)/B
+//   cat lanes: lam (softmax - onehot)/B; mean lanes: lam (mu - c)/(B cont)
+//   MI term: -sum_cat onehot log softmax + sum_mean (c - mu)^2 / (2 cont)
+// The gradient vector is parked in the warp's corner of shared memory
+// (`gs`, idle in this phase) for the row of dh.
+__device__ void info_row(const Args& a, const float* h, int r, bool real,
+                         bool toward_real, const float* zrow, float* glo,
+                         float* logit, float* dh, float* mi, float* gs) {
+  const float* w2 = a.p[P_D_W2];
+  const float* b2 = a.p[P_D_B2];
+  const int lane = threadIdx.x & 31;
+  const int L = a.L, Hd = a.Hd, nc = a.n_cat, nm = a.n_cont;
+  const float* hr = h + (size_t)r * Hd;
+  // the outputs, QC at a time: the lanes stride the hidden units (each
+  // load of h once, the row of W2d's QC columns beside it), then a warp
+  // sum a column, parked in gs
+  for (int c0 = 0; c0 < L; c0 += QC) {
+    float acc[QC];
+#pragma unroll
+    for (int c = 0; c < QC; ++c) acc[c] = 0.0f;
+    for (int j = lane; j < Hd; j += 32) {
+      const float hj = ld(hr + j);
+      const float* wj = w2 + (size_t)j * L + c0;
+#pragma unroll
+      for (int c = 0; c < QC; ++c)
+        if (c0 + c < L) acc[c] = fmaf(hj, ld(wj + c), acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < QC; ++c) {
+      const float v = warp_sum(acc[c]);
+      if (lane == c && c0 + c < L) gs[c0 + c] = v + ld(b2 + c0 + c);
+    }
+  }
+  __syncwarp();
+  float o[QPL];
+#pragma unroll
+  for (int q = 0; q < QPL; ++q) {
+    const int c = lane + 32 * q;
+    o[q] = c < L ? gs[c] : 0.0f;
+  }
+  // the softmax over the cat lanes 1 .. nc
+  float mx = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < QPL; ++q) {
+    const int c = lane + 32 * q;
+    if (c >= 1 && c <= nc) mx = fmaxf(mx, o[q]);
+  }
+  mx = warp_max(mx);
+  float se = 0.0f;
+#pragma unroll
+  for (int q = 0; q < QPL; ++q) {
+    const int c = lane + 32 * q;
+    if (c >= 1 && c <= nc) se += expf(o[q] - mx);
+  }
+  se = warp_sum(se);
+  const float lse = logf(se);
+  const float inv_bc = a.inv_b / (float)(nm > 0 ? nm : 1);
+  float term = 0.0f;
+#pragma unroll
+  for (int q = 0; q < QPL; ++q) {
+    const int c = lane + 32 * q;
+    float g = 0.0f;
+    if (c == 0) {
+      g = (real || toward_real) ? (sigm(o[q]) - 1.0f) * a.inv_b
+                                : sigm(o[q]) * a.inv_b;
+    } else if (!real && c <= nc + nm) {
+      const float t = ld(zrow + a.Zc + c - 1);
+      if (c <= nc) {
+        g = (a.info_lam * (expf(o[q] - mx) / se - t)) * a.inv_b;
+        term -= ((o[q] - mx) - lse) * t;
+      } else {
+        const float d = o[q] - t;
+        g = (a.info_lam * d) * inv_bc;
+        term += (0.5f * (d * d)) / (float)nm;
+      }
+    }
+    if (c < L) {
+      gs[c] = g;
+      glo[(size_t)r * L + c] = g;
+    }
+  }
+  term = warp_sum(term);
+  if (lane == 0) {
+    logit[r] = o[0];
+    if (!real) *mi = term;
+  }
+  __syncwarp();
+  for (int j = lane; j < Hd; j += 32) {
+    const float* wj = w2 + (size_t)j * L;
+    float acc = 0.0f;
+    for (int c = 0; c < L; ++c) acc = fmaf(gs[c], ld(wj + c), acc);
+    dh[(size_t)r * Hd + j] = acc * dleaky(ld(hr + j), a.slope);
+  }
+  __syncwarp();  // every lane is done with gs before the next row's
+}
+
 // The critic's lanes of step k's metrics row, by one warp, from the 2B
 // logits of this critic update; fishergan's lam descends here.
 __device__ void critic_metrics(const Args& a, int k) {
   const int lane = threadIdx.x & 31;
   const int B = a.B;
   float* row = a.metrics + (size_t)k * LANES;
+  if constexpr (BEGAN) {  // the energies L(x), L(G(z)); k_t before G
+    float er = 0.0f, ef = 0.0f;
+    for (int r = lane; r < B; r += 32) {
+      er += ld(a.erow + r);
+      ef += ld(a.erow + B + r);
+    }
+    er = warp_sum(er) * a.inv_bx;
+    ef = warp_sum(ef) * a.inv_bx;
+    if (lane == 0) {
+      row[0] = er - ld(a.lam) * ef;
+      row[1] = er;
+      row[2] = ef;
+    }
+    return;
+  }
   if (HOOK == HOOK_FI) {
     float ipm, omega;
     fi_stats(a, a.lg, a.lg + B, ipm, omega);
@@ -544,6 +767,15 @@ __device__ void critic_metrics(const Args& a, int k) {
       row[4] = gp;
       row[5] = sn * a.inv_b;
     }
+  } else if constexpr (INFO) {  // d_loss = bce + lam mi; lane 1 = mi
+    float mi = 0.0f;
+    for (int r = lane; r < B; r += 32) mi += ld(a.mib + r);
+    mi = warp_sum(mi) * a.inv_b;
+    if (lane == 0) {
+      row[0] = sp * a.inv_b + a.info_lam * mi;
+      row[1] = mi;
+      row[2] = 0.0f;
+    }
   } else if (lane == 0) {
     row[0] = sp * a.inv_b;
     row[1] = sr * a.inv_b;
@@ -551,9 +783,28 @@ __device__ void critic_metrics(const Args& a, int k) {
   }
 }
 
-// g_loss of step k, by one warp, from the B logits lf2 (ragan: and lr2).
+// g_loss of step k, by one warp, from the B logits lf2 (ragan: and lr2;
+// infogan: and G's MI terms, lane 6); began: from the rows of |d2|, then
+// the k_t law (lanes 6 and 7, and k itself).
 __device__ void g_metrics(const Args& a, int k) {
   const int lane = threadIdx.x & 31;
+  if constexpr (BEGAN) {
+    float e = 0.0f;
+    for (int r = lane; r < a.B; r += 32) e += ld(a.erow2 + r);
+    e = warp_sum(e) * a.inv_bx;
+    if (lane == 0) {
+      float* row = a.metrics + (size_t)k * LANES;
+      const float l_real = ld(row + 1);
+      const float bal = a.gamma * l_real - e;
+      const float kn =
+          fminf(fmaxf(ld(a.lam) + a.lambda_k * bal, 0.0f), 1.0f);
+      row[3] = e;
+      row[6] = l_real + fabsf(bal);
+      row[7] = kn;
+      a.lam[0] = kn;
+    }
+    return;
+  }
   RaStats st = {};
   if (HOOK == HOOK_RA) st = ra_stats(a, a.lf2 + a.B, a.lf2, 0.0f);
   float s = 0.0f;
@@ -567,6 +818,16 @@ __device__ void g_metrics(const Args& a, int k) {
       s += g_term(a, l);
   }
   s = warp_sum(s);
+  if constexpr (INFO) {  // g_loss = bce + lam mi2; lane 6 = mi2
+    float mi = 0.0f;
+    for (int r = lane; r < a.B; r += 32) mi += ld(a.mib2 + r);
+    mi = warp_sum(mi) * a.inv_b;
+    if (lane == 0) {
+      a.metrics[(size_t)k * LANES + 3] = s * a.inv_b + a.info_lam * mi;
+      a.metrics[(size_t)k * LANES + 6] = mi;
+    }
+    return;
+  }
   if (lane == 0)
     a.metrics[(size_t)k * LANES + 3] =
         (CRIT == HOOK_BCE && a.alt) ? -s * a.inv_b : s * a.inv_b;
@@ -787,12 +1048,61 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
           gp_rows(a, B);
           run_gemms_beside(a, &sj, gp_fresh(1), none, smem, 3 * B);
         }
+      } else if constexpr (INFO) {  // the head's L outputs a row
+        float* const gs = smem + (threadIdx.x >> 5) * WARP_SMEM;
+        for (int r = gwarp; r < 2 * B; r += nwarps)
+          info_row(a, a.hd, r, r < B, false,
+                   r < B ? nullptr : zd + (size_t)(r - B) * Z, a.gl, a.lg,
+                   a.dh, r < B ? nullptr : a.mib + (r - B), gs);
+      } else if constexpr (BEGAN) {
+        {  // R: rec of [hr; hf], the logit gradient and |v - r|
+          const Gemm rj = {{a.hd, Hd, 1}, {a.p[P_D_W2], X, 1}, 2 * B, X, Hd,
+                           EPI_BGR, a.p[P_D_B2], a.xin, a.gl, X, 0};
+          run_gemms(a, &rj, fresh(1), none, smem);
+        }
+        grid.sync();
+        {  // E: dh = g W2d^T * leaky'(h); beside it the rows of |v - r|
+          const Gemm ej = {{a.gl, X, 1}, {a.p[P_D_W2], 1, X}, 2 * B, Hd, X,
+                           EPI_BGD, nullptr, a.hd, a.dh, Hd, 0};
+          for (int r = gwarp; r < 2 * B; r += nwarps) {
+            float e = 0.0f;
+            for (int n = lane; n < X; n += 32) e += ld(a.ab + (size_t)r * X + n);
+            e = warp_sum(e);
+            if (lane == 0) a.erow[r] = e;
+          }
+          run_gemms_beside(a, &ej, fresh(1), none, smem, 2 * B);
+        }
       } else {
         logit_rows(a, a.hd, 2 * B, a.lg, a.gl, a.dh,
                    [&](int r, float l) { return d_grad(a, r < B, l); });
       }
       grid.sync();
-      {  // F: dW1d = [x; fake]^T [dhr; dhf] with the optimizer (the
+      if constexpr (INFO || BEGAN) {  // F: dW1d and dW2d = [hr; hf]^T gl
+        // with the optimizer; db1d, db2d one warp a column; the metrics
+        const AdamT td = step_t<RMS>(a, a.d_lr, a.t_d + k * a.ds + i + 1);
+        const int L = fresh(a.L);
+        Gemm jobs[2] = {{{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd, 2 * B, EPI_OPT,
+                         nullptr, nullptr, nullptr, Hd, P_D_W1},
+                        {{a.hd, 1, Hd}, {a.gl, L, 1}, Hd, L, 2 * B, EPI_OPT,
+                         nullptr, nullptr, nullptr, L, P_D_W2}};
+        run_gemms(a, jobs, fresh(2), td, smem);
+        for (int v = gwarp; v < Hd + L + 1; v += nwarps) {
+          if (v < Hd + L) {
+            const float* src = v < Hd ? a.dh + v : a.gl + (v - Hd);
+            const int stride = v < Hd ? Hd : L;
+            float db = 0.0f;
+            for (int r = lane; r < 2 * B; r += 32)
+              db += ld(src + (size_t)r * stride);
+            db = warp_sum(db);
+            if (lane == 0) {
+              if (v < Hd) update<RMS>(a, P_D_B1, v, db, td);
+              else update<RMS>(a, P_D_B2, v - Hd, db, td);
+            }
+          } else {
+            critic_metrics(a, k);
+          }
+        }
+      } else {  // F: dW1d = [x; fake]^T [dhr; dhf] with the optimizer (the
          // penalty: K = 3B, [x; fake; c g]^T [dhr; dhf; u]); small grads
         const AdamT td = step_t<RMS>(a, a.d_lr, a.t_d + k * a.ds + i + 1);
         Gemm job = {{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd,
@@ -853,15 +1163,40 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
           return ((sigm(l - st.m_r) - 1.0f) - st.s_r) * a.inv_b;
         });
       }
+    } else if constexpr (INFO) {  // G's rows: bce toward 1 and the MI
+      float* const gs = smem + (threadIdx.x >> 5) * WARP_SMEM;
+      for (int r = gwarp; r < B; r += nwarps)
+        info_row(a, a.hf2, r, false, true, zg + (size_t)r * Z, a.gl2, a.lf2,
+                 a.dh2, a.mib2 + r, gs);
+    } else if constexpr (BEGAN) {
+      {  // G2: rf2 of hf2; gl = -s2 rf2 (1 - rf2) and d2 = fake2 - rf2
+        const Gemm rj = {{a.hf2, Hd, 1}, {a.p[P_D_W2], X, 1}, B, X, Hd,
+                         EPI_BGG, a.p[P_D_B2], a.fk2, a.gl2, X, 0};
+        run_gemms(a, &rj, fresh(1), none, smem);
+      }
+      grid.sync();
+      {  // G3: dh2 = gl W2d^T * leaky'(hf2); beside it the rows of |d2|
+        const Gemm ej = {{a.gl2, X, 1}, {a.p[P_D_W2], 1, X}, B, Hd, X,
+                         EPI_BGD, nullptr, a.hf2, a.dh2, Hd, 0};
+        for (int r = gwarp; r < B; r += nwarps) {
+          float e = 0.0f;
+          for (int n = lane; n < X; n += 32)
+            e += fabsf(ld(a.d2 + (size_t)r * X + n));
+          e = warp_sum(e);
+          if (lane == 0) a.erow2[r] = e;
+        }
+        run_gemms_beside(a, &ej, fresh(1), none, smem, B);
+      }
     } else {
       logit_rows(a, a.hf2, B, a.lf2, a.gl2, a.dh2,
                  [&](int, float l) { return g_grad(a, l); });
     }
     grid.sync();
     {  // G4: dx = dh2 W1d^T -> gu2 = dx * fake2 * (1 - fake2); g_loss
-       // (cgan: G's X columns only; the label lanes carry nothing to G)
-      Gemm job = {{a.dh2, Hd, 1}, {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_SIGD,
-                  nullptr, a.fk2, a.gu2, Xd, 0};
+       // (cgan: G's X columns only; the label lanes carry nothing to G;
+       // began: dx + s2, the direct L1 path, then the k_t law)
+      Gemm job = {{a.dh2, Hd, 1}, {a.p[P_D_W1], 1, Hd}, B, X, Hd,
+                  BEGAN ? EPI_BGX : EPI_SIGD, nullptr, a.fk2, a.gu2, Xd, 0};
       run_gemms(a, &job, gp_fresh(1), none, smem);
       if (gwarp == 0) g_metrics(a, k);
     }
@@ -911,15 +1246,20 @@ static const void* kernel_of(int rmsprop) {
 extern "C" int gm_gan_chunk_hook() { return HOOK; }
 
 // Floats of scratch a launch needs at these widths (the wrapper
-// allocates it); Xd is D's input width (cgan: X + n_cls; else X).
+// allocates it); Xd is D's input width (cgan: X + n_cls; else X), L the
+// critic head's (1; infogan 1 + cat + 2 cont; began X).
 extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
-                                                 int Hd, int Xd) {
+                                                 int Hd, int Xd, int L) {
   (void)Z;
   const long long b = B;  // the layout gm_gan_chunk cuts it into
   const long long xd = COND ? Xd : X;
+  const long long base = 3 * b * H + 4 * b * xd + 7 * b * Hd + 3 * b * L +
+                         4 * b;
   if (GP)  // xin and dh a third block of rows; x_hat, g, s, leaky', n, c, eps
-    return 3 * b * H + 5 * b * xd + 10 * b * Hd + 10 * b + 2 * b * X;
-  return 3 * b * H + 4 * b * xd + 7 * b * Hd + 7 * b;
+    return base + b * xd + 3 * b * Hd + 3 * b + 2 * b * X;
+  if (INFO) return base + 2 * b;           // the rows' MI terms
+  if (BEGAN) return base + 3 * b * X + 3 * b;  // |v - r|, d2, row sums
+  return base;
 }
 
 // The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel uses:
@@ -941,19 +1281,23 @@ extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
 // The chunk's sizes, counts and hyperparameters, as the wrapper hands
 // them over (ops/cuda_train.py::_Hyper mirrors this field for field).
 struct GanChunkHyper {
-  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd;
+  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd, L,
+      n_cat, n_cont;
   float g_lr, d_lr, b1, b2, omb1, omb2, eps, log_b1, log_b2, slope, inv_b,
-      clip, rho, gp_lam;
+      clip, rho, gp_lam, info_lam, gamma, lambda_k;
 };
 
 // Launches one cooperative kernel on `stream` that runs `steps` outer
 // steps and updates the 8 state tensors' planes (p, mu, nu: `state` holds
 // 24 pointers, planes in that order, tensors g_w1 g_b1 g_w2 g_b2 d_w1
 // d_b1 d_w2 d_b2; with RMSprop the mu pointers are null) and `lam` (one
-// float: fishergan's multiplier) in place. `xtra` is the penalty's
+// float: fishergan's multiplier, began's k_t) in place. `xtra` is the penalty's
 // stream (gpw: eps [rows, 1]; gpb: x_hat [rows, X]), null for the other
 // hooks; cgan's xs rows are Xd = X + n_cls wide and its zd, zg rows Z
-// (G's input, the last n_cls the label). Allocates nothing, does not
+// (G's input, the last n_cls the label); infogan's zd, zg rows are Z
+// wide code rows (the last n_cat + n_cont lanes the codes), its W2d
+// [Hd, L] the D and Q heads side by side; began's W2d is [Hd, X] (L = X).
+// Allocates nothing, does not
 // synchronise; returns the CUDA error code of the launch (0 = queued).
 extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
                             const float* xtra, void* const* state,
@@ -963,7 +1307,11 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
       h->X < 1 || h->Hd < 1 || grid < 1 || !kernel_of(h->rmsprop) ||
       (GP && !xtra) ||
       (COND ? h->n_cls < 1 || h->Z <= h->n_cls || h->Xd != h->X + h->n_cls
-            : h->n_cls != 0 || h->Xd != h->X))
+            : h->n_cls != 0 || h->Xd != h->X) ||
+      (INFO ? h->n_cat < 1 || h->n_cont < 0 ||
+                  h->L != 1 + h->n_cat + 2 * h->n_cont || h->L > 32 * QPL ||
+                  h->Z <= h->n_cat + h->n_cont
+            : BEGAN ? h->L != h->X : h->L != 1))
     return (int)cudaErrorInvalidValue;
   ArgsRms a = {};
   a.xs = xs;
@@ -980,7 +1328,7 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.metrics = metrics;
   a.lam = lam;
   const size_t b = h->B;
-  const size_t H = h->H, X = h->X, Hd = h->Hd, Xd = h->Xd;
+  const size_t H = h->H, X = h->X, Hd = h->Hd, Xd = h->Xd, L = h->L;
   const size_t rows = GP ? 3 : 2;  // xin and dh: the penalty's third block
   float* s = scratch;
   a.hgd = s; s += b * H;
@@ -988,11 +1336,11 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.fk2 = s; s += b * Xd;  // fake2, then [x; fake]: G1 reads [fake2; x]
   a.xin = s; s += rows * b * Xd;
   a.hd = s; s += 2 * b * Hd;
-  a.gl = s; s += 2 * b;
+  a.gl = s; s += 2 * b * L;
   a.lg = s; s += 2 * b;
   a.dh = s; s += rows * b * Hd;
   a.hf2 = s; s += 2 * b * Hd;
-  a.gl2 = s; s += b;
+  a.gl2 = s; s += b * L;
   a.lf2 = s; s += 2 * b;
   a.dh2 = s; s += b * Hd;
   a.gu2 = s; s += b * Xd;
@@ -1004,6 +1352,16 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
     a.dph = s; s += b * Hd;
     a.nrm = s; s += 2 * b;
     a.epsb = s;
+  }
+  if (INFO) {
+    a.mib = s; s += b;
+    a.mib2 = s;
+  }
+  if (BEGAN) {
+    a.ab = s; s += 2 * b * X;
+    a.d2 = s; s += b * X;
+    a.erow = s; s += 2 * b;
+    a.erow2 = s;
   }
   a.steps = h->steps;
   a.ds = h->ds;
@@ -1032,6 +1390,14 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.gp_lam = h->gp_lam;
   a.n_cls = h->n_cls;
   a.Xd = h->Xd;
+  a.L = h->L;
+  a.n_cat = h->n_cat;
+  a.n_cont = h->n_cont;
+  a.Zc = h->Z - h->n_cat - h->n_cont;
+  a.info_lam = h->info_lam;
+  a.gamma = h->gamma;
+  a.lambda_k = h->lambda_k;
+  a.inv_bx = h->inv_b / (float)h->X;
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
       kernel_of(h->rmsprop), dim3(grid), dim3(CT), args, 0,

@@ -22,14 +22,13 @@ _SPECS: Dict[str, Tuple[str, str]] = {
     "wgangp": ("generative_models_tpu_torch.losses.wgangp", "WGANGP"),
     "dragan": ("generative_models_tpu_torch.losses.dragan", "DRAGAN"),
     "cgan": ("generative_models_tpu_torch.losses.cgan", "CGAN"),
+    "began": ("generative_models_tpu_torch.losses.began", "BEGAN"),
+    "infogan": ("generative_models_tpu_torch.losses.infogan", "INFOGAN"),
     "vae": ("generative_models_tpu_torch.losses.vae", "VAE"),
     "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
 }
 
-_ADVERSARIAL = ("Queue 1 item 6, the other adversarial heads: began and "
-                "infogan are the next slice")
 _NOT_PORTED: Dict[str, str] = {
-    **{v: _ADVERSARIAL for v in ("began", "infogan")},
     "ddpm": "Queue 1 item 9, the diffusion family",
     "flow": "Queue 1 item 9, the diffusion family",
     "vqvae": "Queue 1 item 10, the VQ family",

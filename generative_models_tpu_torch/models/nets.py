@@ -1,10 +1,14 @@
 """The shared network stacks — the port of
 ``generative_models_tpu/models/nets.py``, MLP stacks only: generator
 and discriminator, their conditional forms (cgan: a one-hot label
-concatenated to the input), and the VAE family's encoder and decoder.
-The generator returns images in [0, 1] (sigmoid head); the
-discriminator returns logits [B]; the encoder returns (mu, logvar); the
-decoder returns images, or pre-sigmoid logits with ``logits=True``.
+concatenated to the input), began's autoencoder critic, infogan's
+critic with its Q head and its code-taking generator, and the VAE
+family's encoder and decoder. The generator returns images in [0, 1]
+(sigmoid head); the discriminator returns logits [B]; began's critic
+returns reconstructions in [0, 1]; infogan's returns (d logit, Q's
+categorical logits, means, log-variances); the encoder returns (mu,
+logvar); the decoder returns images, or pre-sigmoid logits with
+``logits=True``.
 """
 
 from __future__ import annotations
@@ -106,6 +110,73 @@ def cond_discriminator_init(gen: torch.Generator, cfg: Config, device="cpu"):
 def cond_discriminator_apply(params, x, labels, cfg: Config):
     xy = torch.cat([x, onehot(labels, cfg.num_classes)], dim=-1)
     return discriminator_apply(params, xy, cfg)
+
+
+# --------------------------------------------------------------------
+# BEGAN autoencoder critic: images -> h -> images (Berthelot 2017)
+# --------------------------------------------------------------------
+
+def began_d_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    _mlp_only(cfg)
+    return mlp_init(gen, [cfg.image_dim, cfg.began_ae_hidden, cfg.image_dim],
+                    device)
+
+
+def began_d_apply(params, x, cfg: Config):
+    """The autoencoder's reconstruction of x, in [0, 1]."""
+    _mlp_only(cfg)
+    out = mlp_apply(params, x, hidden_act=cfg.d_hidden_act, out_act="sigmoid",
+                    slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
+    return out.float()
+
+
+# --------------------------------------------------------------------
+# InfoGAN critic: a shared trunk, the D head (one logit) and the Q head
+# (categorical logits, continuous means and log-variances); Chen 2016
+# --------------------------------------------------------------------
+
+def infogan_d_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    """``{"trunk": [layer], "d_head": layer, "q_head": layer}``, the
+    reference's layout, drawn in that order from `gen`."""
+    _mlp_only(cfg)
+    q_out = cfg.info_cat_dim + 2 * cfg.info_cont_dim
+    return {
+        "trunk": mlp_init(gen, [cfg.image_dim, cfg.hidden_dim], device),
+        "d_head": linear_init(gen, cfg.hidden_dim, 1, device),
+        "q_head": linear_init(gen, cfg.hidden_dim, q_out, device),
+    }
+
+
+def infogan_head(params) -> dict:
+    """The D head and the Q head side by side as one layer [hidden, 1 +
+    q_out]: lane 0 the D logit, then Q's lanes (the chunk kernel's head)."""
+    return {"w": torch.cat([params["d_head"]["w"], params["q_head"]["w"]], 1),
+            "b": torch.cat([params["d_head"]["b"], params["q_head"]["b"]])}
+
+
+def infogan_d_apply(params, x, cfg: Config):
+    """(d_logit [B], q_cat_logits [B, cat], q_mu [B, cont], q_logvar [B,
+    cont]). The trunk and both heads run as one two-layer stack (one
+    launch of each MLP kernel on the card), the heads' weights side by
+    side (:func:`infogan_head`)."""
+    _mlp_only(cfg)
+    out = mlp_apply([params["trunk"][0], infogan_head(params)], x,
+                    hidden_act=cfg.d_hidden_act, out_act="none",
+                    slope=cfg.leaky_slope, compute_dtype=_cdt(cfg)).float()
+    cat, cont = cfg.info_cat_dim, cfg.info_cont_dim
+    return (out[..., 0], out[..., 1:1 + cat], out[..., 1 + cat:1 + cat + cont],
+            out[..., 1 + cat + cont:])
+
+
+def infogan_g_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    return generator_init(
+        gen, cfg, in_dim=cfg.z_dim + cfg.info_cat_dim + cfg.info_cont_dim,
+        device=device)
+
+
+def infogan_g_apply(params, z, c_cat_onehot, c_cont, cfg: Config):
+    return generator_apply(params, torch.cat([z, c_cat_onehot, c_cont], -1),
+                           cfg)
 
 
 # --------------------------------------------------------------------

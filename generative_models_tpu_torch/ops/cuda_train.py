@@ -1,8 +1,9 @@
 """Whole-chunk G+D training in one kernel launch — the port of
 ``generative_models_tpu/ops/pallas_train.py`` for nsgan, mmgan, lsgan,
-wgan, fgan, ragan, fishergan, wgangp, dragan and cgan (``_make_kernel``
-with ``_make_variant_hooks``, ``_gp_backward``, the cgan label lanes and
-``_fused_chunk_call``, ``build_fused_many_steps``,
+wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, infogan and began
+(``_make_kernel`` with ``_make_variant_hooks``, ``_gp_backward``, the
+cgan label lanes, infogan's Q head, began's autoencoder critic and k_t
+law, and ``_fused_chunk_call``, ``build_fused_many_steps``,
 ``fused_step_supported``, ``resolve_fused_step``). The single-model family's chunk kernels (vae,
 birvae) are in ``ops/cuda_train_vae.py``; the policy here covers them and
 :func:`build_fused_many_steps` hands them on.
@@ -12,10 +13,21 @@ on fresh batches, then one G update against the post-update critic, the
 optimizer (Adam or RMSprop) for D and then for G, wgan's clip of every
 critic tensor after each critic update, fishergan's multiplier ``lam``
 descending after each critic update, the gradient penalty's double
-backward in each critic update (wgangp, dragan), one metrics row of 8
-lanes a step — on pre-gathered streams, and updates the 8 state tensors'
-planes in place (Adam: parameters, ``mu``, ``nu``; RMSprop: parameters
-and ``nu``).
+backward in each critic update (wgangp, dragan), began's k_t law after
+each G update, one metrics row of 8 lanes a step — on pre-gathered
+streams, and updates the 8 state tensors' planes in place (Adam:
+parameters, ``mu``, ``nu``; RMSprop: parameters and ``nu``).
+
+The critic's head ``W2d [Hd, L]`` is one logit wide (L = 1) but for two
+heads: infogan's holds the D head and the Q head side by side (L = 1 +
+cat + 2 cont: the logit, the categorical logits, the means, the
+log-variances; its z rows are G's code rows z ⊕ onehot(cat) ⊕ cont, from
+which the MI targets are read), and began's critic is an autoencoder
+(``W1d [X, Hd]``, ``W2d [Hd, X]``, a sigmoid on the reconstruction).
+began's |.| is differentiated through ``sign`` (0 at 0) here and in the
+kernel, as the TPU kernel does (``pallas_train.py:366-371, 439``); its
+general step takes JAX autodiff's rule (``losses/began.py``), so the two
+paths part only at an exact tie of a pixel and its reconstruction.
 
 The penalty variants take a fourth stream, ``xtra``, as the TPU kernel
 does: wgangp's per-row eps ``[rows, 1]`` (the kernel forms x_hat = eps x
@@ -33,15 +45,19 @@ kernel's launches.
 
 The metrics lanes are the TPU kernel's: 0 ``d_loss`` (with the penalty
 added), 1 and 2 the real and fake logit means (fishergan: ``ipm``,
-``omega``), 3 ``g_loss``, 4 and 5 the penalty ``gp`` and the mean input
-gradient norm (wgangp, dragan), 6 fishergan's ``constraint``, 7 ``lam``
-after the step's last critic update (zero elsewhere).
+``omega``; began: the energies L(x) and L(G(z)) of the critic; infogan:
+lane 1 the critic's MI term, lane 2 zero), 3 ``g_loss``, 4 and 5 the
+penalty ``gp`` and the mean input gradient norm (wgangp, dragan), 6
+fishergan's ``constraint`` (began: the convergence measure M; infogan:
+G's MI term), 7 the carried scalar after the step (fishergan's ``lam``
+after its last critic update, began's k_t after the step's G update;
+zero elsewhere).
 
 The state planes are at their true widths (no 128-lane padding), so the
 TPU kernel's padded-lane hazards (``pallas_train.py:92-102``) do not
-arise. began and infogan, the G-EMA plane and the bf16 path are not
-ported yet (ROADMAP.md Queue 2 item 6): :func:`fused_step_supported`
-refuses them with that reason.
+arise. The G-EMA plane and the bf16 path are not ported yet (ROADMAP.md
+Queue 2 item 6): :func:`fused_step_supported` refuses them with that
+reason.
 """
 
 from __future__ import annotations
@@ -54,13 +70,14 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from generative_models_tpu_torch.models.nets import onehot
+from generative_models_tpu_torch.models.nets import infogan_head, onehot
 from generative_models_tpu_torch.ops.penalty import aux_lanes
 from generative_models_tpu_torch.train.optim import RMS_DECAY, RMS_EPS
 from generative_models_tpu_torch.train.step import (
     batches_per_step,
     gather_streams,
     pick_sub,
+    noise_lanes,
     stream_bytes_per_step,
 )
 
@@ -68,18 +85,24 @@ SOURCE = "generative_models_tpu_torch/csrc/gan_chunk.cu"
 # variant -> the critic hook its kernel is compiled for (GM_HOOK in the
 # source: one library a hook, an Adam and an RMSprop kernel in each)
 # (gpw: wgan's critic with the penalty; gpb: bce's with the penalty;
-# cond: bce's on label-carrying rows)
+# cond: bce's on label-carrying rows; info: bce's with the Q head; be:
+# the autoencoder)
 HOOKS: Dict[str, str] = {
     "nsgan": "bce", "mmgan": "bce", "lsgan": "ls", "wgan": "w", "fgan": "f",
     "ragan": "ra", "fishergan": "fi", "wgangp": "gpw", "dragan": "gpb",
-    "cgan": "cond"}
+    "cgan": "cond", "infogan": "info", "began": "be"}
 HOOK_IDS = {"bce": 0, "ls": 1, "w": 2, "f": 3, "ra": 4, "fi": 5, "gpw": 6,
-            "gpb": 7, "cond": 8}
+            "gpb": 7, "cond": 8, "info": 9, "be": 10}
 FGAN_DIV_IDS = {"total_variation": 0, "kl": 1, "reverse_kl": 2, "pearson": 3,
                 "squared_hellinger": 4, "jensen_shannon": 5, "gan": 6}
 GAN_VARIANTS = tuple(HOOKS)
 FUSED_VARIANTS = GAN_VARIANTS + ("vae", "birvae")
 METRIC_LANES = 8
+# infogan: the widest head the kernel keeps in one warp's lanes (4 a lane)
+INFO_MAX_LANES = 128
+# variant -> its carried scalar (the vstate key) that rides in and out
+# through lane 7
+CARRIED = {"fishergan": "lam", "began": "k"}
 # resident blocks per SM of the cooperative grid (at most what fits)
 BLOCKS_PER_SM = 2
 _QUEUED = "ROADMAP.md Queue 2 item 6"
@@ -106,6 +129,11 @@ class ChunkHyper:
     fisher_rho: float = 0.0
     gp_lam: float = 0.0            # wgangp, dragan: the penalty's weight
     n_cls: int = 0                 # cgan: the label lanes of each row
+    info_cat: int = 0              # infogan: the codes' lanes and weight
+    info_cont: int = 0
+    info_lam: float = 0.0
+    began_gamma: float = 0.0       # began: the k_t law
+    began_lambda_k: float = 0.0
 
     def __post_init__(self):
         if self.variant not in HOOKS:
@@ -117,6 +145,8 @@ class ChunkHyper:
             raise ValueError(f"unknown f-divergence {self.fgan_div!r}")
         if (self.variant == "cgan") != (self.n_cls > 0):
             raise ValueError("n_cls > 0 is cgan's, and cgan's only")
+        if (self.variant == "infogan") != (self.info_cat > 0):
+            raise ValueError("info_cat > 0 is infogan's, and infogan's only")
 
     @classmethod
     def from_config(cls, cfg) -> "ChunkHyper":
@@ -128,20 +158,51 @@ class ChunkHyper:
                    v == "fgan" and cfg.fgan_g_loss == "nonsaturating",
                    cfg.fisher_rho if v == "fishergan" else 0.0,
                    cfg.gp_lambda if v in ("wgangp", "dragan") else 0.0,
-                   cfg.num_classes if v == "cgan" else 0)
+                   cfg.num_classes if v == "cgan" else 0,
+                   cfg.info_cat_dim if v == "infogan" else 0,
+                   cfg.info_cont_dim if v == "infogan" else 0,
+                   cfg.info_lambda if v == "infogan" else 0.0,
+                   cfg.began_gamma if v == "began" else 0.0,
+                   cfg.began_lambda_k if v == "began" else 0.0)
 
     @property
     def adam(self) -> bool:
         return self.optimizer == "adam"
+
+    def head_width(self, x: int) -> int:
+        """The critic head's lanes L: infogan 1 + cat + 2 cont, began the
+        image width `x`, else 1."""
+        if self.variant == "infogan":
+            return 1 + self.info_cat + 2 * self.info_cont
+        return x if self.variant == "began" else 1
+
+
+def _d_layers(d):
+    """The critic as the kernel's two layers: infogan's trunk and its two
+    heads side by side (new tensors), else its own layers."""
+    return [d["trunk"][0], infogan_head(d)] if isinstance(d, dict) else d
+
+
+def _d_params(like, layers):
+    """The critic in `like`'s tree from the kernel's two layers (infogan:
+    the head split back into the D and Q heads)."""
+    if not isinstance(like, dict):
+        return layers
+    w, b = layers[1]["w"], layers[1]["b"]
+    return {"trunk": [layers[0]],
+            "d_head": {"w": w[:, :1].contiguous(), "b": b[:1].clone()},
+            "q_head": {"w": w[:, 1:].contiguous(), "b": b[1:].clone()}}
 
 
 def state_planes(state) -> Tuple[List[torch.Tensor],
                                  Optional[List[torch.Tensor]],
                                  List[torch.Tensor]]:
     """(params, mu, nu): 8 tensors each, in the kernel's order g_w1 g_b1
-    g_w2 g_b2 d_w1 d_b1 d_w2 d_b2; `mu` is None for an RMSprop state."""
+    g_w2 g_b2 d_w1 d_b1 d_w2 d_b2; `mu` is None for an RMSprop state.
+    The state's own tensors, but infogan's critic head, which is packed
+    (``models/nets.py::infogan_head``) into new ones."""
     def flat(g, d):
-        return [l[k] for l in list(g) + list(d) for k in ("w", "b")]
+        return [l[k] for l in list(g) + _d_layers(d) for k in ("w", "b")]
     g_opt, d_opt = state["g_opt"], state["d_opt"]
     return (flat(state["g_params"], state["d_params"]),
             flat(g_opt["mu"], d_opt["mu"]) if "mu" in g_opt else None,
@@ -220,15 +281,54 @@ _FGAN_TABLE = {
 }
 
 
-def _d_hook(hp: ChunkHyper, lr, lf, lam, inv_b: float):
-    """dL_D/dlogit of the real and fake logits [B, 1] and the critic's
-    metrics (``_make_variant_hooks``' d_hook): returns (glr, glf,
+def _info_q(hp: ChunkHyper, o, zrow, inv_b: float):
+    """infogan's MI part on a batch of head outputs o [B, L] with its code
+    rows `zrow` (``q_grads_loss``, ``pallas_train.py:294-310``): (its
+    gradient [B, L], zero on lane 0 and the log-variance lanes; the MI
+    term, CE + the fixed-variance NLL)."""
+    nc, nm = hp.info_cat, hp.info_cont
+    t = zrow[:, zrow.shape[1] - nc - nm:]
+    t_cat, t_mu = t[:, :nc], t[:, nc:]
+    q, mu = o[:, 1:1 + nc], o[:, 1 + nc:1 + nc + nm]
+    inv_bc = inv_b / max(nm, 1)
+    logsm = torch.log_softmax(q, dim=1)
+    mi = -(logsm * t_cat).sum() * inv_b + 0.5 * ((t_mu - mu) ** 2).sum() \
+        * inv_bc
+    g = torch.zeros_like(o)
+    g[:, 1:1 + nc] = hp.info_lam * (torch.softmax(q, dim=1) - t_cat) * inv_b
+    g[:, 1 + nc:1 + nc + nm] = hp.info_lam * (mu - t_mu) * inv_bc
+    return g, mi
+
+
+def _d_hook(hp: ChunkHyper, lr, lf, lam, inv_b: float, x=None, fake=None,
+            zrow=None):
+    """dL_D/dhead of the real and fake head outputs [B, L] and the
+    critic's metrics (``_make_variant_hooks``' d_hook): returns (glr, glf,
     [d_loss, lane 1, lane 2], lane 6, lam after this update). `lam` is
-    fishergan's multiplier before the update."""
+    the carried scalar before the update (fishergan's multiplier, began's
+    k_t); `x`, `fake` (began: the pixels the reconstructions are held to)
+    and `zrow` (infogan: the fake rows' codes) as the hook reads them."""
     v = hp.variant
     zero = torch.zeros((), dtype=lr.dtype, device=lr.device)
     lanes12 = [lr.sum() * inv_b, lf.sum() * inv_b]
     aux6 = zero
+    if v == "began":  # lr, lf: reconstruction logits [B, X]; d|.| = sign,
+        # 0 at 0, the TPU kernel's (jnp.sign)
+        inv_bx = inv_b / x.shape[1]
+        rr, rf = torch.sigmoid(lr), torch.sigmoid(lf)
+        l_real = (x - rr).abs().sum() * inv_bx
+        l_fake = (fake - rf).abs().sum() * inv_bx
+        glr = torch.sign(rr - x) * rr * (1.0 - rr) * inv_bx
+        glf = -lam * (torch.sign(rf - fake) * rf * (1.0 - rf) * inv_bx)
+        return glr, glf, [l_real - lam * l_fake, l_real, l_fake], aux6, lam
+    if v == "infogan":  # bce on lane 0 plus the MI bound on Q's lanes
+        gq, mi = _info_q(hp, lf, zrow, inv_b)
+        glr = torch.zeros_like(lr)
+        glr[:, :1] = (torch.sigmoid(lr[:, :1]) - 1.0) * inv_b
+        glf = gq
+        glf[:, :1] = torch.sigmoid(lf[:, :1]) * inv_b
+        bce = (_softplus(-lr[:, 0]).sum() + _softplus(lf[:, 0]).sum()) * inv_b
+        return glr, glf, [bce + hp.info_lam * mi, mi, zero], aux6, lam
     if v in ("nsgan", "mmgan", "dragan", "cgan"):
         glr = (torch.sigmoid(lr) - 1.0) * inv_b
         glf = torch.sigmoid(lf) * inv_b
@@ -272,33 +372,50 @@ def _d_hook(hp: ChunkHyper, lr, lf, lam, inv_b: float):
     return glr, glf, [d_loss] + lanes12, aux6, lam
 
 
-def _g_hook(hp: ChunkHyper, lf2, lr2, inv_b: float):
-    """(dL_G/dlf2 [B, 1], g_loss) — ``_make_variant_hooks``' g_hook.
-    `lr2` (ragan only): the post-update critic on the last real batch."""
+def _g_hook(hp: ChunkHyper, lf2, lr2, inv_b: float, fake2=None, zrow=None):
+    """(dL_G/dhead [B, L], g_loss, lane 6, dx_extra) —
+    ``_make_variant_hooks``' g_hook. `lr2` (ragan only): the post-update
+    critic on the last real batch; `fake2` (began) G's output; `zrow`
+    (infogan) its code rows. dx_extra: began's direct L1 path into the
+    fake pixels (None elsewhere); lane 6: infogan's G MI term (None
+    elsewhere)."""
     v = hp.variant
+    if v == "began":  # lf2: reconstruction logits [B, X]
+        rf2 = torch.sigmoid(lf2)
+        s2 = torch.sign(fake2 - rf2) * (inv_b / fake2.shape[1])
+        g_loss = (fake2 - rf2).abs().sum() * (inv_b / fake2.shape[1])
+        return -s2 * rf2 * (1.0 - rf2), g_loss, None, s2
+    if v == "infogan":
+        gq2, mi2 = _info_q(hp, lf2, zrow, inv_b)
+        gq2[:, :1] = (torch.sigmoid(lf2[:, :1]) - 1.0) * inv_b
+        return (gq2, _softplus(-lf2[:, 0]).sum() * inv_b + hp.info_lam * mi2,
+                mi2, None)
     if v in ("nsgan", "dragan", "cgan"):
-        return ((torch.sigmoid(lf2) - 1.0) * inv_b,
-                _softplus(-lf2).sum() * inv_b)
-    if v == "mmgan":
-        return -torch.sigmoid(lf2) * inv_b, -_softplus(lf2).sum() * inv_b
-    if v == "lsgan":
-        return (lf2 - 1.0) * inv_b, 0.5 * ((lf2 - 1.0) ** 2).sum() * inv_b
-    if v in ("wgan", "wgangp", "fishergan"):
-        return torch.full_like(lf2, -inv_b), -lf2.sum() * inv_b
-    if v == "fgan":
+        gl, g_loss = ((torch.sigmoid(lf2) - 1.0) * inv_b,
+                      _softplus(-lf2).sum() * inv_b)
+    elif v == "mmgan":
+        gl, g_loss = -torch.sigmoid(lf2) * inv_b, -_softplus(lf2).sum() * inv_b
+    elif v == "lsgan":
+        gl, g_loss = (lf2 - 1.0) * inv_b, 0.5 * ((lf2 - 1.0) ** 2).sum() * inv_b
+    elif v in ("wgan", "wgangp", "fishergan"):
+        gl, g_loss = torch.full_like(lf2, -inv_b), -lf2.sum() * inv_b
+    elif v == "fgan":
         gf, gfp, fstar, fstarp = _FGAN_TABLE[hp.fgan_div]
         t_f2 = gf(lf2)
         if hp.fgan_ns:
-            return -gfp(lf2) * inv_b, -t_f2.sum() * inv_b
-        return (-fstarp(t_f2) * gfp(lf2) * inv_b,
-                -fstar(t_f2).sum() * inv_b)
-    # ragan: only lf2 depends on G:
-    # dL_G/dlf2_k = (sig(df2_k) - 1)/B - mean(sig(dr2))/B
-    dr2 = lr2 - lf2.sum() * inv_b
-    df2 = lf2 - lr2.sum() * inv_b
-    abar = torch.sigmoid(dr2).sum() * inv_b
-    return (((torch.sigmoid(df2) - 1.0) - abar) * inv_b,
-            (_softplus(-df2).sum() + _softplus(dr2).sum()) * inv_b)
+            gl, g_loss = -gfp(lf2) * inv_b, -t_f2.sum() * inv_b
+        else:
+            gl, g_loss = (-fstarp(t_f2) * gfp(lf2) * inv_b,
+                          -fstar(t_f2).sum() * inv_b)
+    else:
+        # ragan: only lf2 depends on G:
+        # dL_G/dlf2_k = (sig(df2_k) - 1)/B - mean(sig(dr2))/B
+        dr2 = lr2 - lf2.sum() * inv_b
+        df2 = lf2 - lr2.sum() * inv_b
+        abar = torch.sigmoid(dr2).sum() * inv_b
+        gl, g_loss = (((torch.sigmoid(df2) - 1.0) - abar) * inv_b,
+                      (_softplus(-df2).sum() + _softplus(dr2).sum()) * inv_b)
+    return gl, g_loss, None, None
 
 
 class Tie(Exception):
@@ -360,10 +477,13 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
     before the chunk; after it, it is lane 7 of the last row. `xtra` is
     the penalty variants' stream (see :func:`gan_chunk`). With a `probe`
     dict, records the tie margin (:func:`_watch`), x_hat's pre-activation
-    too."""
+    too; for began also the smallest |pixel - reconstruction| relative to
+    the layer's root mean square over the pixels where r (1 - r) > 1e-3
+    (a |.| tie: sign flips there), under ``probe["abs_margin"]``."""
     w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
     inv_b = 1.0 / batch
     s = hp.slope
+    began = hp.variant == "began"
     x_g = w2g.shape[1]        # G's output width; D's input is x_g + n_cls
     z_g = zg.shape[1] - hp.n_cls
     lam = torch.as_tensor(lam, dtype=xs.dtype, device=xs.device)
@@ -387,6 +507,17 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         if q >= 4 and hp.clip > 0.0:  # wgan: every critic tensor
             p[q].clamp_(-hp.clip, hp.clip)
 
+    def watch_abs(v, logits):
+        if probe is None:
+            return
+        r = torch.sigmoid(logits)
+        d = (v - r)[r * (1.0 - r) > 1e-3]
+        if d.numel() == 0:
+            return
+        m = d.abs().min() / (v - r).pow(2).mean().sqrt()
+        probe["abs_margin"] = torch.minimum(probe["abs_margin"], m) \
+            if "abs_margin" in probe else m
+
     def d_update(x, z, xt, td, lam):
         hgd = relu(z @ w1g + b1g)
         fake = torch.sigmoid(hgd @ w2g + b2g)
@@ -396,11 +527,15 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         lr = hr @ w2d + b2d
         hf = leaky(fake_d @ w1d + b1d)
         lf = hf @ w2d + b2d
-        glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b)
+        if began:
+            watch_abs(x, lr)
+            watch_abs(fake, lf)
+        glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b, x=x,
+                                           fake=fake_d, zrow=z)
         dw2 = hr.t() @ glr + hf.t() @ glf
         db2 = (glr + glf).sum(0)
-        dhr = (glr * w2d.t()) * dleaky(hr)
-        dhf = (glf * w2d.t()) * dleaky(hf)
+        dhr = (glr @ w2d.t()) * dleaky(hr)
+        dhf = (glf @ w2d.t()) * dleaky(hf)
         dw1 = x.t() @ dhr + fake_d.t() @ dhf
         db1 = (dhr + dhf).sum(0)
         pen = [zero, zero]
@@ -436,9 +571,14 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         lr2 = None
         if hp.variant == "ragan":  # the post-update critic on the last x
             lr2 = leaky(x @ w1d + b1d) @ w2d + b2d
-        gl, g_loss = _g_hook(hp, lf2, lr2, inv_b)
-        dh2 = (gl * w2d.t()) * dleaky(hf2)
+        if began:
+            watch_abs(fake2, lf2)
+        gl, g_loss, g6, dx_extra = _g_hook(hp, lf2, lr2, inv_b, fake2=fake2,
+                                           zrow=z)
+        dh2 = (gl @ w2d.t()) * dleaky(hf2)
         dx = dh2 @ w1d[:x_g].t()  # the label lanes carry nothing to G
+        if dx_extra is not None:  # began: the direct L1 path into fake2
+            dx = dx + dx_extra
         gu2 = (dx * fake2) * (1.0 - fake2)
         dw2g = hg.t() @ gu2
         db2g = gu2.sum(0)
@@ -447,8 +587,14 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         db1g = dhg.sum(0)
         for q, g in zip(range(4), (dw1g, db1g, dw2g, db2g)):
             update(q, g, hp.g_lr, float(t_g + k + 1))
+        if g6 is not None:  # infogan: G's MI term
+            aux6 = g6
+        if began:  # the k_t law, with the last critic update's L(x)
+            bal = hp.began_gamma * row[1] - g_loss
+            lam = torch.clamp(lam + hp.began_lambda_k * bal, 0.0, 1.0)
+            aux6 = row[1] + bal.abs()
         metrics[k] = torch.stack(row + [g_loss] + pen + [
-            aux6, lam if hp.variant == "fishergan" else zero])
+            aux6, lam if hp.variant in CARRIED else zero])
     return metrics
 
 
@@ -460,9 +606,11 @@ class _Hyper(ctypes.Structure):
     """``GanChunkHyper`` of csrc/gan_chunk.cu, field for field."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "steps", "ds", "B", "Z", "H", "X", "Hd", "t_g", "t_d", "rmsprop",
-        "alt", "div", "n_cls", "Xd")] + [(n, ctypes.c_float) for n in (
-            "g_lr", "d_lr", "b1", "b2", "omb1", "omb2", "eps", "log_b1",
-            "log_b2", "slope", "inv_b", "clip", "rho", "gp_lam")])
+        "alt", "div", "n_cls", "Xd", "L", "n_cat", "n_cont")] + [
+            (n, ctypes.c_float) for n in (
+                "g_lr", "d_lr", "b1", "b2", "omb1", "omb2", "eps", "log_b1",
+                "log_b2", "slope", "inv_b", "clip", "rho", "gp_lam",
+                "info_lam", "gamma", "lambda_k")])
 
 
 def bind(lib) -> None:
@@ -471,7 +619,7 @@ def bind(lib) -> None:
     lib.gm_gan_chunk.argtypes = [p, p, p, p, ctypes.POINTER(p), p, p, p,
                                  ctypes.POINTER(_Hyper), i, p]
     lib.gm_gan_chunk.restype = i
-    lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 6
+    lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 7
     lib.gm_gan_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.gm_gan_chunk_grid.argtypes = [i, i]
     lib.gm_gan_chunk_grid.restype = i
@@ -507,6 +655,9 @@ def hyper_struct(hp: ChunkHyper, *, steps, ds, batch, z, h, x, hd, t_g,
     return _Hyper(
         steps=steps, ds=ds, B=batch, Z=z, H=h, X=x, Hd=hd, t_g=t_g, t_d=t_d,
         n_cls=hp.n_cls, Xd=x + hp.n_cls, gp_lam=hp.gp_lam,
+        L=hp.head_width(x), n_cat=hp.info_cat, n_cont=hp.info_cont,
+        info_lam=hp.info_lam, gamma=hp.began_gamma,
+        lambda_k=hp.began_lambda_k,
         rmsprop=int(not hp.adam),
         alt=int(hp.variant == "mmgan" or (hp.variant == "fgan"
                                           and hp.fgan_ns)),
@@ -526,11 +677,17 @@ def _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp):
     z, h = p[0].shape
     x = p[2].shape[1]
     xd, hd = p[4].shape
-    if xd != x + hp.n_cls or z <= hp.n_cls:
+    codes = hp.n_cls + hp.info_cat + hp.info_cont
+    if xd != x + hp.n_cls or z <= codes:
         raise ValueError(f"gan_chunk: D's input ({xd}) must be G's output "
                          f"({x}) plus the {hp.n_cls} label lanes, and G's "
-                         f"input ({z}) wider than them")
-    want = [(z, h), (h,), (h, x), (x,), (xd, hd), (hd,), (hd, 1), (1,)]
+                         f"input ({z}) wider than its {codes} label or code "
+                         f"lanes")
+    nl = hp.head_width(x)
+    if hp.variant == "infogan" and nl > INFO_MAX_LANES:
+        raise ValueError(f"gan_chunk: infogan's head is {nl} lanes, the "
+                         f"kernel keeps at most {INFO_MAX_LANES}")
+    want = [(z, h), (h,), (h, x), (x,), (xd, hd), (hd,), (hd, nl), (nl,)]
     for name, pl in planes:
         for q, t in enumerate(pl):
             if tuple(t.shape) != want[q]:
@@ -566,11 +723,14 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
     each x, zd and zg row ends in its one-hot label; the zg rows carry
     the labels of the step's last critic batch; else Xd = X) and, for
     wgangp and dragan, ``xtra [steps*ds*B, 1]`` (eps) or ``[..., X]``
-    (x_hat); `t_g`/`t_d` are the Adam counts before the chunk (unused
-    with RMSprop, whose `mu` is None); `lam` (a float or a 0-dim tensor)
-    is fishergan's multiplier before the chunk. Updates the state planes
-    in place and returns the metrics rows [steps, 8]; lane 7 of the last
-    row is `lam` after the chunk. CPU tensors run
+    (x_hat); infogan's zd and zg rows are G's code rows [., Z] (z ⊕
+    onehot(cat) ⊕ cont) and its W2d [Hd, L] the D and Q heads side by
+    side; began's critic is W1d [X, Hd], W2d [Hd, X]. `t_g`/`t_d` are the
+    Adam counts before the chunk (unused with RMSprop, whose `mu` is
+    None); `lam` (a float or a 0-dim tensor) is the carried scalar before
+    the chunk (fishergan's multiplier, began's k_t). Updates the state
+    planes in place and returns the metrics rows [steps, 8]; lane 7 of the
+    last row is `lam` after the chunk. CPU tensors run
     :func:`gan_chunk_plain`; CUDA tensors launch the kernel on the
     current stream or raise."""
     global launches
@@ -596,7 +756,7 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
                                   device=xs.device).reshape(1).clone()
         scratch = torch.empty(
             lib.gm_gan_chunk_scratch_floats(batch, z, h, x, hd,
-                                            x + hp.n_cls),
+                                            x + hp.n_cls, hp.head_width(x)),
             dtype=torch.float32, device=xs.device)
         grid = lib.gm_gan_chunk_grid(BLOCKS_PER_SM, int(not hp.adam))
         if grid < 1:
@@ -625,7 +785,8 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
 
 def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
     """(ok, reason): the chunk kernels cover nsgan, mmgan, lsgan, wgan,
-    fgan, ragan, fishergan, wgangp, dragan and cgan (the default
+    fgan, ragan, fishergan, wgangp, dragan, cgan, infogan (the fixed
+    variance, a head of at most 128 lanes) and began (the default
     activations, Adam or RMSprop, any d_steps; wgangp with Adam), vae
     (the Bernoulli decoder) and birvae (mse or bce), both with Adam, on
     the MLP stacks in float32 with no EMA; everything else keeps the
@@ -649,6 +810,14 @@ def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
                             or cfg.d_hidden_act != "leaky_relu"):
         return False, ("the chunk kernel hand-derives the default "
                        "activations (G relu / D leaky_relu)")
+    if v == "infogan":
+        if not cfg.info_cont_fixed_var:
+            return False, ("the infogan chunk kernel hand-derives the fixed-"
+                           "variance Gaussian NLL (the default); the learned-"
+                           "variance head keeps the general step")
+        if 1 + cfg.info_cat_dim + 2 * cfg.info_cont_dim > INFO_MAX_LANES:
+            return False, (f"the infogan chunk kernel's head is at most "
+                           f"{INFO_MAX_LANES} lanes")
     if cfg.ema_decay > 0:
         return False, (f"the chunk kernel's EMA plane is not ported yet "
                        f"({_QUEUED})")
@@ -676,17 +845,23 @@ def resolve_fused_step(spec, cfg, device) -> bool:
             and fused_step_supported(spec, cfg)[0])
 
 
-def _clone(params):
-    return [{k: v.clone() for k, v in l.items()} for l in params]
+def _with_planes(state, p, mu, nu, g_updates: int, d_updates: int):
+    """The params and optimizer states of `state`'s trees holding the
+    chunk's planes (:func:`state_planes` order; infogan's head split back
+    into its two heads), the Adam counts advanced by the updates."""
+    def trees(plane):
+        layers = [{"w": plane[i], "b": plane[i + 1]} for i in range(0, 8, 2)]
+        return layers[:2], _d_params(state["d_params"], layers[2:])
 
-
-def _clone_opt(opt, updates: int):
-    """A copy of an optimizer state for the kernel to update in place,
-    its count (Adam's) advanced by the chunk's updates."""
-    new = {k: _clone(opt[k]) for k in ("mu", "nu") if k in opt}
-    if "count" in opt:
-        new["count"] = opt["count"] + updates
-    return new
+    out = dict(zip(("g_params", "d_params"), trees(p)))
+    opts = {"g_opt": {}, "d_opt": {}}
+    for slot, plane in (("mu", mu), ("nu", nu)):
+        if slot in state["g_opt"]:
+            opts["g_opt"][slot], opts["d_opt"][slot] = trees(plane)
+    if "count" in state["g_opt"]:
+        opts["g_opt"]["count"] = state["g_opt"]["count"] + g_updates
+        opts["d_opt"]["count"] = state["d_opt"]["count"] + d_updates
+    return dict(out, **opts)
 
 
 def named_metrics(variant: str, m: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -705,6 +880,12 @@ def named_metrics(variant: str, m: torch.Tensor) -> Dict[str, torch.Tensor]:
     elif variant == "fishergan":
         out.update(ipm=m[:, 1], omega=m[:, 2], constraint=m[:, 6],
                    vstate_lam=m[:, 7])
+    elif variant == "began":
+        out.update(began_l_real=m[:, 1], began_l_fake_d=m[:, 2],
+                   began_l_fake_g=m[:, 3], vstate_m=m[:, 6],
+                   vstate_k=m[:, 7])
+    elif variant == "infogan":
+        out.update(mi_loss=m[:, 1], g_mi_loss=m[:, 6])
     elif variant != "ragan":
         out.update(d_real=m[:, 1], d_fake=m[:, 2])
     return out
@@ -718,7 +899,10 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
     state is not modified (the kernel updates copies in place).
     fishergan's multiplier is seeded from ``state["vstate"]["lam"]``,
     carried from one sub-chunk to the next on the device, and returned
-    in the new state's ``vstate``. wgangp's `noise` gives a third tensor,
+    in the new state's ``vstate``; began's k_t likewise (``vstate["k"]``,
+    with ``vstate["m"]`` from the last step's lane 6). infogan's `noise`
+    gives code rows (``train/step.py::draw_z``), which are its zd and zg
+    streams as they are. wgangp's `noise` gives a third tensor,
     eps ``[n, d_steps, B, 1]``, which goes to the kernel as the ``xtra``
     stream; dragan's gives u ``[n, d_steps, B, X]``, from which x_hat =
     x + scale * std(x) * u is formed here on the device, per critic batch
@@ -739,22 +923,19 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
     rows_per_step = batches_per_step(spec, cfg) * b
     rows_per_epoch = steps_per_epoch * rows_per_step
     hp = ChunkHyper.from_config(cfg)
-    fisher = cfg.variant == "fishergan"
+    carried = CARRIED.get(cfg.variant)
     lanes = aux_lanes(cfg.variant, cfg.image_dim)
 
     def many_steps(state, images, labels, perm_stack, rel_offsets, noise):
         steps = rel_offsets.shape[0]
         sub = pick_sub(steps, stream_bytes_per_step(cfg))
         g_opt, d_opt = state["g_opt"], state["d_opt"]
-        new = dict(state, g_params=_clone(state["g_params"]),
-                   d_params=_clone(state["d_params"]),
-                   g_opt=_clone_opt(g_opt, steps),
-                   d_opt=_clone_opt(d_opt, steps * ds),
-                   step=state["step"] + steps)
-        p, mu, nu = state_planes(new)
+        # copies of the planes, for the kernel to update in place
+        p, mu, nu = [None if pl is None else [t.clone() for t in pl]
+                     for pl in state_planes(state)]
         t_g, t_d = ((int(g_opt["count"]), int(d_opt["count"])) if hp.adam
                     else (0, 0))
-        lam = state["vstate"]["lam"] if fisher else 0.0
+        lam = state["vstate"][carried] if carried else 0.0
         rows = []
         for k0 in range(0, steps, sub):
             xs, ys = gather_streams(images, labels, perm_stack,
@@ -785,10 +966,14 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
                 steps=sub, ds=ds, batch=b, t_g=t_g + k0, t_d=t_d + k0 * ds,
                 hp=hp, lam=lam,
                 xtra=None if xtra is None else xtra.contiguous()))
-            if fisher:  # the multiplier rides out through lane 7
+            if carried:  # the scalar rides out through lane 7
                 lam = rows[-1][-1, 7]
-        if fisher:
+        new = dict(state, step=state["step"] + steps,
+                   **_with_planes(state, p, mu, nu, steps, steps * ds))
+        if carried == "lam":
             new["vstate"] = {"lam": lam.clone()}
+        elif carried == "k":
+            new["vstate"] = {"k": lam.clone(), "m": rows[-1][-1, 6].clone()}
         return new, named_metrics(cfg.variant, torch.cat(rows))
 
     return many_steps

@@ -9,7 +9,10 @@ from ``PYTHONPATH`` and the same script times both: it speaks the
 interface of every version of ``ops/cuda_train.py`` so far (the first,
 nsgan and mmgan only, took a boolean where later ones take the variant).
 Each argument after the tag is ``variant[:optimizer]``; wgan runs at
-d_steps 5 with the clip. For each it builds that version's kernel, runs a
+d_steps 5 with the clip; cgan with its label lanes; infogan with its
+codes on G's input and a
+15-lane head, began with its 784-400-784 autoencoder critic (versions
+without their hooks print "not in this version"). For each it builds that version's kernel, runs a
 1000-step chunk at full width (B = 100) three times to warm up and prints
 five CUDA-event timings in ms, then that build's ptxas lines on registers
 and spills. Alternate the checkouts (A B B A) within one session; compare
@@ -35,18 +38,25 @@ def main(argv) -> int:
         variant, _, optimizer = spec.partition(":")
         optimizer = optimizer or "adam"
         ds = 5 if variant == "wgan" else 1
-        if hasattr(ct, "HOOKS"):
+        extra = {"infogan": dict(info_cat=10, info_cont=2, info_lam=1.0),
+                 "began": dict(began_gamma=0.75, began_lambda_k=1e-3),
+                 "cgan": dict(n_cls=10)}
+        if hasattr(ct, "HOOKS") and variant in ct.HOOKS:
             hp = ct.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, variant,
                                optimizer, 0.01 if variant == "wgan" else 0.0,
-                               fisher_rho=1e-6)
+                               fisher_rho=1e-6, **extra.get(variant, {}))
         elif (variant, optimizer) == ("nsgan", "adam"):
             hp = ct.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, False)
         else:
             print(f"AB {tag} {spec}: not in this version")
             continue
         rng = np.random.default_rng(6)
+        # cgan's 10 label lanes on G's and D's inputs, infogan's 12 codes
+        z = {"infogan": 140, "cgan": 138}.get(variant, 128)
+        xd = 794 if variant == "cgan" else 784
+        out = {"infogan": 15, "began": 784}.get(variant, 1)
         p = []
-        for i, o in ((128, 400), (400, 784), (784, 400), (400, 1)):
+        for i, o in ((z, 400), (400, 784), (xd, 400), (400, out)):
             bound = 1.0 / np.sqrt(i)
             p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
                   rng.uniform(-bound, bound, (o,)).astype(np.float32)]
@@ -56,9 +66,9 @@ def main(argv) -> int:
                   for pl in (p, mu, nu)]
         if optimizer != "adam":
             planes[1] = None
-        xs = torch.rand(steps * ds * b, 784, device="cuda")
-        zd = torch.randn(steps * ds * b, 128, device="cuda")
-        zg = torch.randn(steps * b, 128, device="cuda")
+        xs = torch.rand(steps * ds * b, xd, device="cuda")
+        zd = torch.randn(steps * ds * b, z, device="cuda")
+        zg = torch.randn(steps * b, z, device="cuda")
         run = lambda: ct.gan_chunk(xs, zd, zg, *planes, steps=steps, ds=ds,
                                    batch=b, t_g=0, t_d=0, hp=hp)
         for _ in range(3):

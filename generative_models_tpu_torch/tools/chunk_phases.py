@@ -11,8 +11,10 @@ A4..F4), of ragan (DE and G23 split in two: the logits, then the
 gradients; G1 with 2B rows), of fishergan (DE split), of wgangp
 (d_steps 5; the penalty's hh beside hf in C, g beside the logit rows in
 DE, a phase N of the norm rows beside s), of dragan (hh in A, g in C, the
-norm rows and s in DE), of cgan (label lanes, no extra phase), of the VAE
-and of the BIR-VAE (mse) at full width (B = 100) and prints the mean
+norm rows and s in DE), of cgan (label lanes, no extra phase), of infogan
+(the 15-lane D + Q head in DE and G23, dW2d a product in F), of began
+(the autoencoder's head as the product phases R and E, G2 and G3), of the
+VAE and of the BIR-VAE (mse) at full width (B = 100) and prints the mean
 device time of each phase over steps 1-6,
 then the cost of a bare grid barrier at 1, 2 and 3 blocks a SM, and the
 latency of a dependent load from L2 (a pointer chase over 16 MB) with
@@ -34,6 +36,8 @@ D_PHASES = ["A", "B", "C", "DE", "F"]
 COUPLED_D_PHASES = ["A", "B", "C", "DE logits", "DE grads", "F"]
 GPW_D_PHASES = ["A", "B (+x_hat)", "C (+hh)", "DE (+g)", "N (norms, s)", "F"]
 GPB_D_PHASES = ["A (+hh)", "B", "C (+g)", "DE (+norms, s)", "F"]
+BEGAN_PHASES = ["A", "B", "C", "R rec", "E dh (+energy rows)", "F", "G1",
+                "G2 rf2", "G3 dh2 (+|d2| rows)", "G4 (+s2, k_t)", "G5", "G6"]
 # (name, hook, d_steps, ChunkHyper fields, the phases of one step)
 GAN_CASES = [
     ("nsgan", 1, {}, D_PHASES + G_PHASES),
@@ -45,6 +49,9 @@ GAN_CASES = [
      [f"{p}{i}" for i in range(5) for p in GPW_D_PHASES] + G_PHASES),
     ("dragan", 1, dict(gp_lam=10.0), GPB_D_PHASES + G_PHASES),
     ("cgan", 1, dict(n_cls=10), D_PHASES + G_PHASES),
+    ("infogan", 1, dict(g_lr=1e-3, info_cat=10, info_cont=2, info_lam=1.0),
+     D_PHASES + G_PHASES),
+    ("began", 1, dict(began_gamma=0.75, began_lambda_k=1e-3), BEGAN_PHASES),
 ]
 # the phases of csrc/vae_chunk.cu, as its header numbers them
 VAE_PHASES = ["1 henc", "2 mu,lv", "3 z", "4 hd", "5 lg", "6 dhd",
@@ -167,8 +174,10 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
                                      eps=1e-8, slope=0.2, variant=variant),
                               **kw})
         torch.manual_seed(0)
-        zi, xd = z + hp.n_cls, x + hp.n_cls  # cgan: the label lanes
-        shapes = ((zi, h), (h,), (h, x), (x,), (xd, h), (h,), (h, 1), (1,))
+        # cgan: the label lanes; infogan: the codes on G's input
+        zi = z + hp.n_cls + hp.info_cat + hp.info_cont
+        xd, l = x + hp.n_cls, hp.head_width(x)
+        shapes = ((zi, h), (h,), (h, x), (x,), (xd, h), (h,), (h, l), (l,))
         params = [torch.randn(*sh, device="cuda") * 0.05 for sh in shapes]
         if hp.clip > 0:
             params = params[:4] + [t.clamp(-hp.clip, hp.clip)
@@ -182,7 +191,7 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
         xtra = torch.rand(steps * ds * b, lanes, device="cuda") if lanes \
             else None
         scratch = torch.empty(
-            lib.gm_gan_chunk_scratch_floats(b, zi, h, x, h, xd),
+            lib.gm_gan_chunk_scratch_floats(b, zi, h, x, h, xd, l),
             device="cuda")
         metrics = torch.zeros(steps, ct.METRIC_LANES, device="cuda")
         lam = torch.zeros(1, device="cuda")

@@ -7,9 +7,13 @@ G update on the LAST critic batch against the post-update critic (the
 reference order). The step takes its noise explicitly (``z_d [d_steps,
 B, z]``, ``z_g [B, z]``, and for a gradient-penalty head the penalty's
 draw ``aux_d [d_steps, B, 1]`` (wgangp's eps) or ``[d_steps, B, X]``
-(dragan's u)): torch cannot reproduce JAX's threefry draws, so tests hand
-the same noise to both packages, and the Trainer draws it from its own
-generators. Inside a critic update the G forward builds no graph (JAX
+(dragan's u)); infogan's z rows are its code rows, z ⊕ onehot(cat) ⊕
+cont (``losses/infogan.py``): torch cannot reproduce JAX's threefry
+draws, so tests hand the same noise to both packages, and the Trainer
+draws it from its own generators, on a fixed grid of blocks
+(:func:`grid_noise`) so that each step's noise is a function of the
+run's ``rng`` words and the global step alone. Inside a critic update
+the G forward builds no graph (JAX
 differentiates ``d_params`` only there); the G update differentiates
 ``g_params`` only. On the card every MLP forward and backward goes
 through the whole-MLP kernels (``ops/cuda_mlp.py::MLPFunction``): at
@@ -21,7 +25,8 @@ must be twice differentiable and runs as plain torch ops
 A single-model step (:func:`build_single_step`) takes one batch and one
 noise tensor ``eps [B, latent]``, differentiates ``spec.loss`` over the
 whole parameter tree, applies the optimizer at ``g_lr`` and updates the
-EMA. Given a ``torch.Generator`` in place of the noise tensor, the loss
+EMA. Given a ``torch.Generator`` in place of the noise tensor (one a
+step, seeded from the run's ``rng`` words and the global step), the loss
 draws its own noise from it: on the card that is how the VAE's sampling
 kernel (``ops/cuda_reparam.py``) runs in training, and a VAE step then
 launches the forward kernel 4 times, the backward kernel 4 times and
@@ -37,7 +42,7 @@ and the same noise.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,10 +61,13 @@ State = Dict[str, object]
 # d_steps, B, z], z_g [n, B, z]), and for a gradient-penalty head a third
 # tensor, the penalty's draw aux_d [n, d_steps, B, lanes] (ops/penalty.py
 # aux_lanes).
-# Single model: eps [n, B, latent], or a torch.Generator from which each
-# step's loss draws its own noise.
-Noise = Callable[[int, int], Union[Tuple[torch.Tensor, torch.Tensor],
-                                   torch.Tensor, torch.Generator]]
+# Single model: eps [n, B, latent], or a list of n torch.Generators, one
+# a step, from which that step's loss draws its own noise.
+Noise = Callable[[int, int], Union[Tuple[torch.Tensor, ...], torch.Tensor,
+                                   List[torch.Generator]]]
+
+# Steps of noise a block of the noise grid holds (grid_noise).
+NOISE_BLOCK = 64
 
 # Cap on the bytes of the gathered batch and noise streams one chunk
 # holds at once (the reference's _STREAM_BYTES_BUDGET): a longer chunk
@@ -81,15 +89,16 @@ def pick_sub(steps: int, per_step_bytes: int) -> int:
 def stream_bytes_per_step(cfg, spec=None) -> int:
     """float32 bytes of one step's streams as the chunk kernel takes them.
     Adversarial: d_steps batches of images and of critic noise, one batch
-    of G noise (cgan: each row with its one-hot label), and a penalty
-    head's draw per critic batch. Single model (`spec` not adversarial):
+    of G noise (cgan: each row with its one-hot label; infogan: with its
+    codes), and a penalty head's draw per critic batch. Single model
+    (`spec` not adversarial):
     one batch of images and of latent noise."""
     b = cfg.batch_size
     if spec is not None and not spec.adversarial:
         return 4 * b * (cfg.image_dim + cfg.latent_dim)
     ds = max(cfg.d_steps, 1)
     n_cls = cfg.num_classes if cfg.variant == "cgan" else 0
-    zin = cfg.z_dim + n_cls
+    zin = noise_lanes(cfg) + n_cls
     lanes = aux_lanes(cfg.variant, cfg.image_dim)
     return 4 * (ds * b * (cfg.image_dim + n_cls + zin + lanes) + b * zin)
 
@@ -163,30 +172,74 @@ def decode_images(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def noise_generator(rng_words, first_step: int, device) -> torch.Generator:
-    """The generator of a sub-chunk's noise: seeded from the state's two
-    ``rng`` words and the global step the sub-chunk starts at, so a run
-    resumed from a checkpoint draws the noise the uninterrupted run drew."""
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser: every output bit depends on every input bit."""
+    x = (x + 0x9E3779B97F4A7C15) % 2 ** 64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) % 2 ** 64
+    return x ^ (x >> 31)
+
+
+def noise_generator(rng_words, index: int, device) -> torch.Generator:
+    """A generator seeded from the state's two ``rng`` words and `index`
+    (a block of the noise grid, or a step). The seed is mixed so that its
+    low 32 bits, all the CPU generator keeps, depend on both words and the
+    index."""
     w = [int(v) for v in np.asarray(rng_words, dtype=np.uint32)]
-    seed = ((w[0] << 32) | w[1]) ^ ((first_step * 0x9E3779B97F4A7C15)
-                                    % 2 ** 64)
+    seed = _mix64(((w[0] << 32) | w[1]) ^ _mix64(index % 2 ** 64))
+    seed ^= seed >> 32
     return torch.Generator(device=device).manual_seed(seed % 2 ** 63)
+
+
+def grid_noise(rng_words, first_step: int, n: int, device, draw):
+    """The noise of global steps first_step .. first_step+n-1 on a fixed
+    grid: block j holds steps j*NOISE_BLOCK .. (j+1)*NOISE_BLOCK-1 and is
+    drawn whole by ``draw(gen, NOISE_BLOCK)`` (a tensor, or a tuple of
+    tensors, each with a leading dim of one row a step) from
+    ``noise_generator(rng_words, j)``; the blocks that overlap the steps
+    are drawn and the steps sliced out. So a step's noise depends on
+    (rng, step) alone, not on where its chunk or sub-chunk starts: a run
+    split into two ``train`` calls, or resumed at any step, draws the
+    numbers the uninterrupted run drew."""
+    s = NOISE_BLOCK
+    j0, j1 = first_step // s, (first_step + n - 1) // s
+    blocks = [draw(noise_generator(rng_words, j, device), s)
+              for j in range(j0, j1 + 1)]
+    lo = first_step - j0 * s
+    if isinstance(blocks[0], torch.Tensor):
+        return torch.cat(blocks)[lo:lo + n]
+    return tuple(torch.cat(parts)[lo:lo + n] for parts in zip(*blocks))
+
+
+def noise_lanes(cfg) -> int:
+    """Lanes of a z row: z_dim, and infogan's codes after it."""
+    if cfg.variant == "infogan":
+        return cfg.z_dim + cfg.info_cat_dim + cfg.info_cont_dim
+    return cfg.z_dim
+
+
+def draw_z(gen: torch.Generator, lead, cfg, device) -> torch.Tensor:
+    """z rows [*lead, noise_lanes(cfg)] from `gen`: N(0, I), or infogan's
+    code rows (``losses/infogan.py::draw_codes``)."""
+    if cfg.variant == "infogan":
+        from generative_models_tpu_torch.losses.infogan import draw_codes
+        return draw_codes(gen, lead, cfg, device)
+    return torch.randn(tuple(lead) + (cfg.z_dim,), generator=gen,
+                       device=gen.device).to(device)
 
 
 # ------------------------------------------------------------------
 # The step
 # ------------------------------------------------------------------
 
-def _flat(params):
-    return [l[k] for l in params for k in ("w", "b")]
-
-
-def _unflat(flat):
-    return [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
-
-
 def _leaves_requiring_grad(params):
-    return _unflat([t.detach().requires_grad_(True) for t in _flat(params)])
+    return tree_unflatten(params, [t.detach().requires_grad_(True)
+                                   for t in tree_leaves(params)])
+
+
+def _grads(loss, params):
+    return tree_unflatten(params, list(torch.autograd.grad(
+        loss, tree_leaves(params))))
 
 
 def _ema_update(ema, params, decay: float):
@@ -207,8 +260,8 @@ def build_adversarial_step(spec, cfg):
         extra = {} if aux is None else {"aux": aux}
         loss, metrics = spec.d_loss(dp, g_params, batch, None, vstate, cfg,
                                     z=z, **extra)
-        grads = _unflat(list(torch.autograd.grad(loss, _flat(dp))))
-        d_params, d_opt = apply_opt(cfg, d_params, grads, d_opt, cfg.d_lr)
+        d_params, d_opt = apply_opt(cfg, d_params, _grads(loss, dp), d_opt,
+                                    cfg.d_lr)
         d_params = spec.d_post(d_params, cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return d_params, d_opt, spec.d_state_update(vstate, metrics, cfg), \
@@ -229,9 +282,8 @@ def build_adversarial_step(spec, cfg):
         gp = _leaves_requiring_grad(g_params)
         g_loss, g_metrics = spec.g_loss(gp, d_params, g_batch, None, vstate,
                                         cfg, z=z_g)
-        grads = _unflat(list(torch.autograd.grad(g_loss, _flat(gp))))
-        new_g, g_opt = apply_opt(cfg, g_params, grads, state["g_opt"],
-                                 cfg.g_lr)
+        new_g, g_opt = apply_opt(cfg, g_params, _grads(g_loss, gp),
+                                 state["g_opt"], cfg.g_lr)
         g_metrics = {k: v.detach() for k, v in g_metrics.items()}
         vstate = spec.step_state_update(vstate, d_metrics, g_metrics, cfg)
 
@@ -335,8 +387,6 @@ def build_many_steps(spec, cfg, steps_per_epoch: int):
                 if spec.adversarial:
                     state, m = train_step(state, batches,
                                           *[d[k] for d in drawn])
-                elif isinstance(drawn, torch.Generator):
-                    state, m = train_step(state, batches, drawn)
                 else:
                     state, m = train_step(state, batches, drawn[k])
                 for key, v in m.items():

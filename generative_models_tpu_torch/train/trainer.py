@@ -1,6 +1,7 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
 for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
-fishergan, wgangp, dragan, cgan, vae, birvae): build the model
+fishergan, wgangp, dragan, cgan, began, infogan, vae, birvae): build the
+model
 from ``cfg.seed`` (G and D, or a single model's parameter tree), train,
 evaluate, sample, save and load checkpoints in the JAX package's layout.
 
@@ -16,11 +17,14 @@ how a chunk runs (``ops/cuda_train.py::resolve_fused_step``): a
 whole-chunk kernel (``"auto"`` on CUDA for every ported variant) or
 the general step (``train/step.py``), whose MLPs run through the forward
 and backward kernels on the card. Both see the same batches and the
-same noise: each sub-chunk's noise comes from a generator seeded
-by the state's two ``rng`` words and the global step it starts at. One
-exception: a single model's general step on the card hands that
-generator to the loss, which draws its own noise from it — for the VAE
-inside the sampling kernel (``ops/cuda_reparam.py``).
+same noise: a step's noise is a function of the state's two ``rng``
+words and its global step alone (drawn on a fixed grid of blocks,
+``train/step.py::grid_noise``), so a run split into two ``train`` calls,
+or resumed from a checkpoint at any step, trains on the numbers of the
+uninterrupted run. One exception: a single model's general step on the
+card hands each step a generator seeded from the ``rng`` words and the
+step, from which the loss draws its own noise — for the VAE inside the
+sampling kernel (``ops/cuda_reparam.py``).
 """
 
 from __future__ import annotations
@@ -176,28 +180,39 @@ class Trainer:
             for e in range(e0, e0 + win)])
 
     def _noise(self, first_step: int, n: int):
-        """Noise of `n` steps from global step `first_step`, drawn from one
-        generator in this order: z_d [n, d_steps, B, z]; for a
-        gradient-penalty head the penalty's uniform draw aux_d [n,
-        d_steps, B, lanes] (wgangp's eps, 1 lane; dragan's u, image_dim);
-        then z_g [n, B, z]. For a single model eps [n, B, latent] — or,
-        for its general step on the card, the generator itself, from which
-        each step's loss draws (the VAE's in its sampling kernel)."""
-        cfg = self.cfg
-        gen = step_lib.noise_generator(self.state["rng"], first_step,
-                                       self.device)
+        """Noise of `n` steps from global step `first_step`, on the noise
+        grid (``train/step.py::grid_noise``: a block of NOISE_BLOCK steps
+        drawn whole from one generator seeded by the state's ``rng``
+        words and the block's index). A block's adversarial streams, in
+        this order: z_d [S, d_steps, B, z] (infogan: code rows, z then
+        the cat indices then cont); for a gradient-penalty head the
+        penalty's uniform draw aux_d [S, d_steps, B, lanes] (wgangp's eps,
+        1 lane; dragan's u, image_dim); then z_g [S, B, z] (infogan: code
+        rows). A single model's: eps [S, B, latent]; for its general step
+        on the card, one generator a step instead, seeded from the
+        ``rng`` words and the step, from which that step's loss draws
+        (the VAE's in its sampling kernel)."""
+        cfg, dev, rng = self.cfg, self.device, self.state["rng"]
         if not self.spec.adversarial:
-            if self.device.type == "cuda" and not self._fused:
-                return gen
-            return torch.randn((n, cfg.batch_size, cfg.latent_dim),
-                               generator=gen, device=self.device)
-        ds, b, z = max(cfg.d_steps, 1), cfg.batch_size, cfg.z_dim
-        z_d = torch.randn((n, ds, b, z), generator=gen, device=self.device)
+            if dev.type == "cuda" and not self._fused:
+                # (indices past every grid block: no seed is shared)
+                return [step_lib.noise_generator(rng, ~(first_step + k), dev)
+                        for k in range(n)]
+            return step_lib.grid_noise(
+                rng, first_step, n, dev,
+                lambda gen, s: torch.randn((s, cfg.batch_size,
+                                            cfg.latent_dim),
+                                           generator=gen, device=dev))
+        ds, b = max(cfg.d_steps, 1), cfg.batch_size
         lanes = aux_lanes(cfg.variant, cfg.image_dim)
-        aux_d = (torch.rand((n, ds, b, lanes), generator=gen,
-                            device=self.device) if lanes else None)
-        z_g = torch.randn((n, b, z), generator=gen, device=self.device)
-        return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
+
+        def draw(gen, s):
+            z_d = step_lib.draw_z(gen, (s, ds, b), cfg, dev)
+            aux_d = (torch.rand((s, ds, b, lanes), generator=gen,
+                                device=dev) if lanes else None)
+            z_g = step_lib.draw_z(gen, (s, b), cfg, dev)
+            return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
+        return step_lib.grid_noise(rng, first_step, n, dev, draw)
 
     # --------------------------------------------------------------
     def train(self, num_epochs: Optional[int] = None,
@@ -334,9 +349,8 @@ class Trainer:
             sl = slice(i * cfg.batch_size, (i + 1) * cfg.batch_size)
             batch = {"image": x[sl], "label": y[sl]}
             if self.spec.adversarial:
-                z = torch.randn((cfg.batch_size, cfg.z_dim),
-                                generator=self._sample_gen,
-                                device=self.device)
+                z = step_lib.draw_z(self._sample_gen, (cfg.batch_size,),
+                                    cfg, self.device)
                 extra = {}
                 if aux_lanes(cfg.variant, cfg.image_dim):
                     extra["aux"] = aux_draw(self._sample_gen, cfg.batch_size,
@@ -428,7 +442,8 @@ class Trainer:
     def load_model(self, path: str) -> None:
         """Load a checkpoint written by either package's ``save_model``
         (npz layout); raises on any shape/dtype/config mismatch. The
-        optimizer slots, counts, carried scalars (fishergan's ``lam``) and
+        optimizer slots, counts, carried scalars (fishergan's ``lam``, began's
+        ``k`` and ``m``) and
         rng words are restored when the file has them, so training resumes
         where it stopped."""
         self._npz_only()

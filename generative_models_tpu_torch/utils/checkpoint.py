@@ -12,7 +12,13 @@ and an EMA the leaves are ``['d_opt'][0].count``,
 ``['g_params'][...]``, ``['rng']`` (uint32 [2]) and ``['step']`` (int32).
 With RMSprop (wgan) an optimizer state is optax's ``ScaleByRmsState``,
 ``['d_opt'][0].nu[...]`` alone, no count; fishergan adds its carried
-multiplier ``['vstate']['lam']`` (float32 scalar). cgan's stacks take
+multiplier ``['vstate']['lam']`` (float32 scalar), began its ``['vstate']['k']``
+and ``['vstate']['m']``; began's critic is an autoencoder
+(``['d_params'][0]['w']`` [image_dim, began_ae_hidden], ``[1]['w']``
+[began_ae_hidden, image_dim]), and infogan's a dict,
+``['d_params']['d_head']['b']`` ... ``['d_params']['q_head']['w']``,
+``['d_params']['trunk'][0]['w']`` (keys sorted), with G taking z_dim +
+cat + cont lanes. cgan's stacks take
 the one-hot label as further input lanes: ``['g_params'][0]['w']`` is
 [z_dim + num_classes, hidden], ``['d_params'][0]['w']`` [image_dim +
 num_classes, hidden]; the shapes come from the variant's own init, so
@@ -193,7 +199,8 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
     ["ema",] "step"}``), each param subtree in the variant's own tree
     shape, plus the optimizer states ``"g_opt"``/``"d_opt"`` (``"opt"``),
     each ``{"count", "mu", "nu"}`` (Adam) or ``{"nu"}`` (RMSprop), the
-    variant's carried scalars ``"vstate"`` (fishergan: ``{"lam"}``) and
+    variant's carried scalars ``"vstate"`` (fishergan: ``{"lam"}``; began:
+    ``{"k", "m"}``) and
     ``"rng"`` when the file has them. Raises if
     a param leaf is missing, if any leaf has another shape or dtype than
     `cfg` implies, if the optimizer slots are partial or of another

@@ -216,8 +216,9 @@ def test_pick_sub_matches_jax():
     ({"variant": "wgan", "optimizer": "adam", "d_steps": 2}, True),
     ({"variant": "fishergan", "optimizer": "rmsprop"}, True),
     ({"variant": "wgangp"}, True), ({"variant": "dragan"}, True),
-    ({"variant": "cgan"}, True), ({"variant": "began"}, False),
-    ({"variant": "infogan"}, False),
+    ({"variant": "cgan"}, True), ({"variant": "began"}, True),
+    ({"variant": "infogan"}, True),
+    ({"variant": "infogan", "info_cont_fixed_var": False}, False),
     ({"variant": "wgangp", "optimizer": "rmsprop"}, False),
     ({"variant": "dragan", "optimizer": "rmsprop"}, True),
     ({"variant": "cgan", "ema_decay": 0.5}, False),
@@ -230,9 +231,10 @@ def test_fused_step_supported(overrides, supported):
     cfg = variant_config(variant, **overrides)
     ok, reason = cuda_train.fused_step_supported(None, cfg)
     assert ok == supported
-    if not supported and (variant in ("began", "infogan")
-                          or "ema_decay" in overrides or "dtype" in overrides):
+    if not supported and ("ema_decay" in overrides or "dtype" in overrides):
         assert "ROADMAP.md Queue 2 item 6" in reason
+    if "info_cont_fixed_var" in overrides:  # the reference's own reason
+        assert "learned-variance" in reason
 
 
 def test_resolve_fused_step():
@@ -248,10 +250,9 @@ def test_resolve_fused_step():
     # "auto" takes the chunk kernel wherever it is supported: no list of
     # variants measured on another device is carried over
     for v in ("lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",
-              "dragan", "cgan"):
+              "dragan", "cgan", "began", "infogan"):
         assert cuda_train.resolve_fused_step(None, variant_config(v), "cuda")
         assert not cuda_train.resolve_fused_step(None, variant_config(v),
                                                  "cpu")
-    for v in ("began", "infogan"):
-        assert not cuda_train.resolve_fused_step(None, variant_config(v),
-                                                 "cuda")
+    assert not cuda_train.resolve_fused_step(
+        None, variant_config("infogan", info_cont_fixed_var=False), "cuda")

@@ -301,14 +301,14 @@ def test_chunk_hooks_cover_the_ported_variants_and_refuse_the_rest():
     from generative_models_tpu_torch.ops import cuda_train
     assert set(cuda_train.HOOKS) == {"nsgan", "mmgan", "lsgan", "wgan",
                                      "fgan", "ragan", "fishergan", "wgangp",
-                                     "dragan", "cgan"}
+                                     "dragan", "cgan", "infogan", "began"}
     assert set(cuda_train.HOOKS.values()) == set(cuda_train.HOOK_IDS)
-    assert sorted(cuda_train.HOOK_IDS.values()) == list(range(9))
+    assert sorted(cuda_train.HOOK_IDS.values()) == list(range(11))
     with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
         src = f.read()
     assert "GM_HOOK" in src and "--use_fast_math" not in " ".join(
         build.NVCC_FLAGS)
-    for bad in ("began", "infogan"):
+    for bad in ("ddpm", "vqvae"):
         with pytest.raises(ValueError, match="gan_chunk covers"):
             cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, bad)
     with pytest.raises(ValueError, match="unknown optimizer"):
@@ -349,11 +349,11 @@ def test_registry_refuses_only_the_heads_and_families_still_queued():
         available_variants,
         get_variant,
     )
-    queued = {"began": "Queue 1 item 6", "infogan": "Queue 1 item 6",
-              "ddpm": "Queue 1 item 9", "flow": "Queue 1 item 9",
+    queued = {"ddpm": "Queue 1 item 9", "flow": "Queue 1 item 9",
               "vqvae": "Queue 1 item 10", "vqprior": "Queue 1 item 10"}
     assert set(available_variants()) == set(VARIANTS) - set(queued)
-    for v in ("wgangp", "dragan", "cgan"):
+    assert len(available_variants()) == 14
+    for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
         assert get_variant(v).name == v
     for v, item in queued.items():
         with pytest.raises(NotImplementedError, match=item):
@@ -363,16 +363,23 @@ def test_registry_refuses_only_the_heads_and_families_still_queued():
 def test_fused_step_takes_the_penalty_and_label_variants_only():
     from generative_models_tpu_torch.config import variant_config
     from generative_models_tpu_torch.ops import cuda_train
-    for v in ("wgangp", "dragan", "cgan"):
+    for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
         assert cuda_train.fused_step_supported(None, variant_config(v)) == (
             True, "")
         for bad in ({"ema_decay": 0.5}, {"dtype": "bfloat16"}):
             ok, reason = cuda_train.fused_step_supported(
                 None, variant_config(v, **bad))
             assert not ok and "Queue 2 item 6" in reason
-    for v in ("began", "infogan"):
-        ok, reason = cuda_train.fused_step_supported(None, variant_config(v))
-        assert not ok and "Queue 2 item 6" in reason
+    # infogan: the fixed variance only, a head of at most 128 lanes
+    ok, reason = cuda_train.fused_step_supported(
+        None, variant_config("infogan", info_cont_fixed_var=False))
+    assert not ok and "learned-variance" in reason
+    ok, reason = cuda_train.fused_step_supported(
+        None, variant_config("infogan", info_cat_dim=120, info_cont_dim=4))
+    assert not ok and "128 lanes" in reason
+    assert cuda_train.fused_step_supported(
+        None, variant_config("infogan", info_cat_dim=119, info_cont_dim=4)) \
+        == (True, "")
     ok, reason = cuda_train.fused_step_supported(
         None, variant_config("wgangp", optimizer="rmsprop"))
     assert not ok and "adam-only" in reason
@@ -411,3 +418,48 @@ def test_penalty_and_label_kernels_run_on_cpu_without_building():
                 batch=2, t_g=0, t_d=0, hp=hp, xtra=meta(xtra))
     assert cuda_train.launches == before
     assert cuda_train._lib.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("variant,optimizer", [
+    ("infogan", "adam"), ("infogan", "rmsprop"), ("began", "adam"),
+    ("began", "rmsprop")])
+def test_began_and_infogan_hooks_run_on_cpu_without_building(variant,
+                                                            optimizer):
+    """infogan's head (1 + cat + 2 cont lanes, code rows on z) and began's
+    autoencoder (W2d [Hd, X], k_t in and out) on CPU tensors take the
+    plain version: no launch is counted and no library is built or
+    loaded; lanes 6 and 7 are theirs."""
+    from generative_models_tpu_torch.ops import cuda_train
+    info = variant == "infogan"
+    z, x, hd = (2 + 3 + 1, 5, 3) if info else (2, 5, 4)
+    out = 1 + 3 + 2 if info else x
+    p = [torch.full(s, 0.05) for s in ((z, 3), (3,), (3, x), (x,), (x, hd),
+                                       (hd,), (hd, out), (out,))]
+    mu = [torch.zeros_like(t) for t in p] if optimizer == "adam" else None
+    nu = [torch.zeros_like(t) for t in p]
+    kw = (dict(info_cat=3, info_cont=1, info_lam=1.0) if info
+          else dict(began_gamma=0.75, began_lambda_k=1e-2))
+    hp = cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, variant,
+                               optimizer, **kw)
+    zs = torch.randn(4, z)
+    if info:  # the code rows: one-hot cat lanes, then cont
+        zs[:, 2:5] = torch.eye(3)[torch.tensor([0, 2, 1, 1])]
+    before = cuda_train.launches
+    m = cuda_train.gan_chunk(torch.rand(4, x), zs, zs.clone(), p, mu, nu,
+                             steps=2, ds=1, batch=2, t_g=0, t_d=0, hp=hp,
+                             lam=0.5)
+    assert m.shape == (2, 8) and bool(torch.isfinite(m).all())
+    assert cuda_train.launches == before
+    assert cuda_train._lib.cache_info().currsize == 0
+    assert bool((m[:, 6] > 0).all())           # g_mi_loss / M
+    if info:
+        assert bool((m[:, 1] > 0).all()) and float(m[-1, 7]) == 0.0
+    else:  # k_t moved from 0.5 and rides out in lane 7
+        assert 0.0 <= float(m[-1, 7]) <= 1.0 and float(m[-1, 7]) != 0.5
+    with pytest.raises(ValueError, match=r"must be \("):  # the head's width
+        bad = [t.clone() for t in p]
+        bad[6], bad[7] = torch.zeros(hd, 1), torch.zeros(1)
+        cuda_train.gan_chunk(torch.rand(4, x), zs, zs.clone(), bad, None
+                             if mu is None else [t.clone() for t in mu],
+                             [t.clone() for t in nu], steps=2, ds=1, batch=2,
+                             t_g=0, t_d=0, hp=hp)
