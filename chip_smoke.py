@@ -10,9 +10,11 @@ imports nothing of JAX. Phases:
    matmuls and convolutions, so the plain versions run in true float32;
 2. builds every kernel of the serving and training paths from ``csrc/``
    (five sources — mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk;
-   gan_chunk once per critic hook, eleven libraries — one nvcc each, all
-   started together; sm_90a) and prints the build time and the ptxas
-   reports; it fails if a chunk kernel spills registers;
+   gan_chunk once per critic hook, eleven libraries, and once per
+   data-parallel hook with -DGM_PHASE=1, nine ``gan_phase`` libraries —
+   one nvcc each, all started together, in this process before any rank
+   starts; sm_90a) and prints the build time and the ptxas reports; it
+   fails if a chunk or phase kernel spills registers;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -47,6 +49,11 @@ imports nothing of JAX. Phases:
      width (784-400-20), B 100, against their plain versions in float64;
      and 20 steps of each against the general step from one state with
      the same eps;
+   - the data-parallel phase kernels (3h): each of the nine hooks' D and
+     G phase against its plain version in float64 at b = 100 and 50 (a
+     rank's rows at world 1 and 2), each gradient tensor by its max abs
+     error over its max |ref|, the metrics lanes by abs error, data by
+     the tie rule;
 4. drives the port's main paths, each with the launch counts set to 0
    just before it and read just after:
    - serving: a full-width nsgan checkpoint in the JAX package's npz
@@ -77,12 +84,23 @@ imports nothing of JAX. Phases:
      held against the plain version);
    - serving the VAE: ``--sample-only`` from a full-width vae checkpoint
      in the JAX layout and ``Trainer.sample`` at n = 8192 against plain;
+   - data-parallel training (4f): a group of one rank over NCCL on the
+     card, ``Trainer(fused_step=True, group)`` (the phase kernels: d_steps
+     + 1 launches a step, no chunk launch) against ``fused_step=False``
+     (the general DP step) for nsgan and wgangp, 20 steps from one seed,
+     held like the cross-check, with d_steps + 1 all-reduces a step;
+     then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
+     same pair on nsgan, the two ranks' states equal;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call, and steps/s of each chunk kernel (nsgan,
    lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, infogan,
    began, vae, birvae), the general step and a library step loop (addmm
    + autograd + ``torch.optim.Adam`` or ``RMSprop`` with
    ``foreach=True``, which the port never calls: every one of them);
+   each hook's phase kernels at b = 100 and 50 beside their float32
+   plain versions, their bounds and (nsgan) one ``autograd.grad`` call,
+   and steps/s of both DP routes at world 1 and on two ranks sharing the
+   card, with the all-reduce's time;
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -288,8 +306,8 @@ def build_all(mods, build_dir):
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(fn) for fn in mods]:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk ({len(mods) - 4} hooks), "
-          f"reparam, vae_chunk: {len(mods)} libraries in "
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk and gan_phase (one library "
+          f"a hook each), reparam, vae_chunk: {len(mods)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     spills, chunk_kernels = [], 0
     for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
@@ -298,13 +316,15 @@ def build_all(mods, build_dir):
         print("    " + text.replace("\n", "\n    "))
         lines = [l for l in text.splitlines() if "bytes spill" in l]
         name = os.path.basename(log).split("-")[0][3:]
-        chunk_kernels += len(lines) if "chunk" in name else 0
+        trained = "chunk" in name or "phase" in name
+        chunk_kernels += len(lines) if trained else 0
         spills += [f"{name}: {l.strip()}" for l in lines
                    if "0 bytes spill stores, 0 bytes spill loads" not in l]
-    print(f"    ptxas: {chunk_kernels} chunk kernel instantiations; kernels "
-          f"with register spills: {spills or 'none'}")
-    if any("chunk" in sp for sp in spills):
-        raise AssertionError(f"a chunk kernel spills registers: {spills}")
+    print(f"    ptxas: {chunk_kernels} chunk and phase kernel instantiations; "
+          f"kernels with register spills: {spills or 'none'}")
+    if any("chunk" in sp or "phase" in sp for sp in spills):
+        raise AssertionError(f"a chunk or phase kernel spills registers: "
+                             f"{spills}")
 
 
 def check_fwd(cuda_mlp, linear_cuda, torch):
@@ -1511,6 +1531,21 @@ def bwd_bound(dims, b):
     return bound_of(4.0 * b * mats, nbytes)
 
 
+def phase_flops(b=TRAIN_B, z=128, h=400, x=784, hd=400, gp=False, n_cls=0,
+                codes=0, l=1):
+    """(one critic update's FLOPs, one G update's): see
+    chunk_flops_per_step."""
+    zi, xd = z + n_cls + codes, x + n_cls
+    g_fwd = 2 * b * (zi * h + h * x)
+    d_pass = 2 * b * (xd * hd + hd * l)
+    dh = (2 * b * hd * l) if l > 1 else 0  # a pass's dh = gl W2d^T
+    d_update = (g_fwd + 2 * d_pass + 2 * (2 * b) * (xd * hd + hd * l)
+                + 2 * dh + (4 * 2 * b * x * hd if gp else 0))
+    g_update = (g_fwd + d_pass + dh + 2 * b * hd * x + 2 * b * x * h
+                + 2 * b * h * x + 2 * b * zi * h)
+    return d_update, g_update
+
+
 def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400,
                          ragan=False, gp=False, n_cls=0, codes=0, l=1):
     """d_steps critic updates and one G update; ragan's G update runs the
@@ -1522,14 +1557,8 @@ def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400,
     autoencoder X) costs 2 B Hd l a pass, and its gradient's row of dh
     (dh = gl W2d^T) 2 B Hd l more in each update, which a one-logit head's
     row warps make negligible."""
-    zi, xd = z + n_cls + codes, x + n_cls
-    g_fwd = 2 * b * (zi * h + h * x)
-    d_pass = 2 * b * (xd * hd + hd * l)
-    dh = (2 * b * hd * l) if l > 1 else 0  # a pass's dh = gl W2d^T
-    d_update = (g_fwd + 2 * d_pass + 2 * (2 * b) * (xd * hd + hd * l)
-                + 2 * dh + (4 * 2 * b * x * hd if gp else 0))
-    g_update = (g_fwd + d_pass + dh + 2 * b * hd * x + 2 * b * x * h
-                + 2 * b * h * x + 2 * b * zi * h)
+    d_update, g_update = phase_flops(b, z, h, x, hd, gp, n_cls, codes, l)
+    d_pass = 2 * b * ((x + n_cls) * hd + hd * l)
     return ds * d_update + g_update + (d_pass if ragan else 0)
 
 
@@ -2032,6 +2061,358 @@ def time_vae_training(ctv, torch, card, general_sps):
     return out
 
 
+# ---------------------------------------------------------------------
+# Data-parallel training: the phase kernels (ops/cuda_dp.py)
+# ---------------------------------------------------------------------
+
+# Phase kernel vs its plain version in float64 on the same float32
+# inputs, one update's gradients: each gradient tensor by max abs error
+# over its max |ref|, the metrics lanes by max abs error. No optimizer
+# sits between them (as in the chunk checks, whose 1e-3 covers Adam's
+# division by sqrt(v-hat)), so a gradient is a float32 sum of up to 2B
+# (penalty: 3B) products of float32 sums of up to 784: a few 1e-7 of the
+# tensor's max, far inside 1e-4. wgan's db2d is 0 in exact arithmetic
+# (-1/B and +1/B a row): it is held by its absolute error instead.
+PHASE_TOL = {"grad": 1e-4, "metrics": 1e-4, "zero": 1e-6}
+PHASE_BATCHES = (TRAIN_B, TRAIN_B // 2)
+# one variant a critic hook of the nine phase libraries
+PHASE_CASES = (("nsgan", {}), ("lsgan", {}), ("wgan", {}),
+               ("fgan", dict(fgan_div="jensen_shannon")),
+               ("wgangp", dict(gp_lam=GP_LAM)), ("dragan", dict(gp_lam=GP_LAM)),
+               ("cgan", dict(n_cls=N_CLS)),
+               ("infogan", dict(info_cat=INFO_CAT, info_cont=INFO_CONT,
+                                info_lam=INFO_LAM)),
+               ("began", dict(began_gamma=BEGAN_GAMMA,
+                              began_lambda_k=BEGAN_LK)))
+PHASE_NAMES = {"d": ("d_w1", "d_b1", "d_w2", "d_b2"),
+               "g": ("g_w1", "g_b1", "g_w2", "g_b2")}
+# the DP training runs: steps held against the general DP step, and the
+# steps of the timed runs
+DP_CHECK_STEPS, DP_TIMED_STEPS = 20, 200
+DP_CASES = (("nsgan", {}), ("wgangp", {"adam_eps": COUPLED_ADAM_EPS}))
+# nsgan's D phase buffer: dW1d, db1d, dW2d, db2d and the metrics row
+DP_REDUCE_FLOATS = 784 * 400 + 400 + 400 + 1 + 8
+
+
+def phase_split(flat, like):
+    """A phase's flat buffer as its four gradient tensors and its
+    metrics row."""
+    parts = flat.split([t.numel() for t in like] + [8])
+    return [q.view(t.shape) for q, t in zip(parts, like)], parts[4]
+
+
+def phase_case(cuda_train, torch, variant, hp, b, seed):
+    """A phase check's data from `seed`: the 8 parameters on the card
+    (chunk_state's draw; began shifted as its chunk check) and b rows of
+    each stream (chunk_streams' draw at one step)."""
+    rng = np.random.default_rng(seed)
+    p = chunk_state(rng, torch, **chunk_dims(hp))[0]
+    if variant == "began":
+        p[3] = p[3] + np.float32(BEGAN_SHIFT)
+        p[7] = p[7] - np.float32(BEGAN_SHIFT)
+    xs, zd, zg, xtra = chunk_streams(rng, torch, variant, 1, 1, hp.n_cls)
+    cut = lambda t: None if t is None else t[:b].contiguous()
+    return ([torch.from_numpy(a).cuda() for a in p], cut(xs), cut(zd),
+            cut(zg), cut(xtra))
+
+
+def check_phases(cuda_dp, cuda_train, torch):
+    """Phase 3h: each hook's D and G phase kernels against their plain
+    versions in float64, at b = 100 and 50 (a rank's rows at world 1 and
+    2). Returns the worst metrics error."""
+    worst = 0.0
+    for variant, kw in PHASE_CASES:
+        hp = chunk_hyper(cuda_train, variant, **kw)
+        lam = BEGAN_K0 if variant == "began" else 0.0
+        for b in PHASE_BATCHES:
+            tag = f"gan_phase {variant} ({cuda_train.HOOKS[variant]}) b={b}"
+
+            def run_ref(case, probe):
+                p, x, zd, zg, xt = case
+                p64 = [t.double() for t in p]
+                return (cuda_dp.d_phase_plain(
+                    x.double(), zd.double(),
+                    None if xt is None else xt.double(), p64[:4], p64[4:],
+                    lam, hp, probe),
+                    cuda_dp.g_phase_plain(zg.double(), p64[:4], p64[4:], hp,
+                                          probe))
+
+            case, (d_ref, g_ref) = tie_free_case(
+                tag, lambda seed: phase_case(cuda_train, torch, variant, hp,
+                                             b, seed),
+                run_ref, TIE_MARGIN_OF.get(variant, TIE_MARGIN))
+            p, x, zd, zg, xt = case
+            got = {"d": cuda_dp.d_phase(x, zd, xt, p[:4], p[4:], lam, hp),
+                   "g": cuda_dp.g_phase(zg, p[:4], p[4:], hp)}
+            torch.cuda.synchronize()
+            ok, errs, m_err = True, [], 0.0
+            for mode, ref, like in (("d", d_ref, p[4:]), ("g", g_ref, p[:4])):
+                gs, m = phase_split(got[mode], like)
+                rs, mr = phase_split(ref, like)
+                m_err = max(m_err, float((m.double() - mr).abs().max()))
+                for name, a, r in zip(PHASE_NAMES[mode], gs, rs):
+                    top = float(r.abs().max())
+                    e = float((a.double() - r).abs().max())
+                    if top < PHASE_TOL["zero"]:  # 0 in exact arithmetic
+                        ok = ok and e <= PHASE_TOL["zero"]
+                        errs.append((f"{name} (abs)", e))
+                    else:
+                        ok = ok and e / top <= PHASE_TOL["grad"]
+                        errs.append((name, e / top))
+            ok = ok and m_err <= PHASE_TOL["metrics"] and all(
+                bool(torch.isfinite(t).all()) for t in got.values())
+            name, err = max(errs, key=lambda ne: ne[1])
+            print(f"  {tag} vs plain(float64): grads max_err/max={err:.3e} "
+                  f"({name}; tol {PHASE_TOL['grad']:.0e}) metrics "
+                  f"max_abs_err={m_err:.3e} (tol {PHASE_TOL['metrics']:.0e})"
+                  f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"gan_phase disagrees with its plain "
+                                     f"version: {tag}")
+            worst = max(worst, m_err)
+    return worst
+
+
+def dp_counts(cuda_dp, cuda_train, mesh):
+    return {"d_phase": cuda_dp.d_launches, "g_phase": cuda_dp.g_launches,
+            "gan_chunk": cuda_train.launches, "all_reduce": mesh.all_reduces}
+
+
+def dp_cfg(variant, kw, fused):
+    from generative_models_tpu_torch.config import variant_config
+    return variant_config(variant, batch_size=TRAIN_B, dtype="float32",
+                          fused_step=fused, **kw)
+
+
+def check_dp_pair(variant, cfg, what, s_f, h_f, s_g, h_g):
+    """The fused DP path's state and metrics after DP_CHECK_STEPS steps
+    against the general DP step's, as the cross-check holds the chunk
+    (CROSS_TOL; states as numpy by key path)."""
+    import torch
+    m_err = max(float(np.abs(np.asarray(h_f[k]) - np.asarray(h_g[k])).max())
+                for k in h_g)
+    names = [n for n in PLANE_NAMES
+             if cfg.optimizer == "adam" or not n.startswith("mu.")]
+
+    def planes(st):
+        keys = [k for k in st if k.startswith(("['g_params']", "['d_params']",
+                                               "['g_opt']", "['d_opt']"))
+                and not k.endswith(".count")]
+        return [torch.from_numpy(st[k]) for k in keys]
+    a, r = planes(s_f), planes(s_g)
+    l2 = float(sum(float((x - y).double().pow(2).sum()) for x, y in zip(a, r))
+               ** 0.5 / sum(float(y.double().pow(2).sum()) for y in r) ** 0.5)
+    ok = (m_err <= CROSS_TOL["metrics"] and l2 <= CROSS_TOL["state"]
+          and set(h_f) == set(h_g))
+    print(f"  {variant} {what}: fused DP vs general DP step, "
+          f"{DP_CHECK_STEPS} steps: metrics_max_abs_err={m_err:.3e} (tol "
+          f"{CROSS_TOL['metrics']:.0e}) state rel L2={l2:.3e} (tol "
+          f"{CROSS_TOL['state']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{variant} {what}: the fused DP path and the "
+                             f"general DP step disagree")
+
+
+def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
+    """Phase 4f: a data group of one rank over NCCL on the card:
+    Trainer(fused_step=True, group) against Trainer(fused_step=False,
+    group) for DP_CASES, DP_CHECK_STEPS steps each from one seed, with
+    the launch counts of each run; then DP_TIMED_STEPS more of each
+    (nsgan) for steps/s. Returns ({path: counts}, {route: steps/s})."""
+    from generative_models_tpu_torch.parallel import mesh
+    from generative_models_tpu_torch.parallel.runs import state_numpy
+    from generative_models_tpu_torch.train.trainer import Trainer
+    store = os.path.join(OUT_DIR, "dp_world1_store")
+    if os.path.exists(store):
+        os.remove(store)
+    group = mesh.init_data_group(1, 0, "cuda", store_path=store)
+    if group.backend != "nccl":
+        raise AssertionError(f"world 1 on the card took {group.backend}")
+    data = synthetic_split(2000, seed=5)
+    paths, sps = {}, {}
+    try:
+        for variant, kw in DP_CASES:
+            ds = max(dp_cfg(variant, kw, True).d_steps, 1)
+            runs = {}
+            for fused in (True, False):
+                t = Trainer(config=dp_cfg(variant, kw, fused), group=group,
+                            data=data)
+                t._load_data()
+                reset(*mods)
+                cuda_dp.d_launches = cuda_dp.g_launches = 0
+                mesh.all_reduces = 0
+                t.train(steps=DP_CHECK_STEPS)
+                torch.cuda.synchronize()
+                counts = dict(launch_counts(mods),
+                              **dp_counts(cuda_dp, cuda_train, mesh))
+                name = f"dp1_{'fused' if fused else 'general'}_{variant}"
+                paths[name] = counts
+                runs[fused] = (t, state_numpy(t.state), t.history)
+                n = DP_CHECK_STEPS
+                want = ({"d_phase": ds * n, "g_phase": n, "gan_chunk": 0}
+                        if fused else {"d_phase": 0, "g_phase": 0,
+                                       "gan_chunk": 0})
+                got = {k: counts[k] for k in want}
+                ok = got == want and counts["all_reduce"] == (ds + 1) * n
+                print(f"  {name}: Trainer(fused_step={fused}, group of 1, "
+                      f"nccl).train({n}): launches={counts} (expect {want}, "
+                      f"{ds + 1} all-reduces a step) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name}: wrong launch counts")
+            check_dp_pair(variant, runs[True][0].cfg,
+                          "world 1 (nccl)", runs[True][1], runs[True][2],
+                          runs[False][1], runs[False][2])
+            if variant == "nsgan":
+                for fused in (True, False):
+                    t = runs[fused][0]
+                    t.train(steps=DP_TIMED_STEPS)
+                    sps[f"world1_{'fused' if fused else 'general'}"] = (
+                        DP_TIMED_STEPS / t.wall_time)
+        flat = torch.zeros(DP_REDUCE_FLOATS, device="cuda")
+        sps["world1_all_reduce_ms"] = time_ms(
+            torch, lambda: group.all_reduce_mean_(flat), 50)
+    finally:
+        mesh.close_data_group()
+    print(f"  world 1 (nccl) nsgan steps/s: fused DP "
+          f"{sps['world1_fused']:.1f}, general DP step "
+          f"{sps['world1_general']:.1f}; all-reduce of the D phase's buffer "
+          f"{sps['world1_all_reduce_ms']:.4f} ms  [{card}]")
+    return paths, sps
+
+
+def drive_dp_shared_card(card):
+    """Phase 4g: two ranks sharing the card over gloo (NCCL refuses two
+    ranks on one device), b = 50 a rank: the fused DP path against the
+    general DP step on nsgan, DP_CHECK_STEPS steps, then DP_TIMED_STEPS
+    of each for steps/s. Each rank counts its own launches. Returns
+    ({path: counts}, {route: steps/s})."""
+    from generative_models_tpu_torch.parallel.mesh import run_ranks
+    from generative_models_tpu_torch.parallel.runs import trainer_rank
+    runs = [(dp_cfg("nsgan", {}, f), n) for n in (DP_CHECK_STEPS,
+                                                   DP_TIMED_STEPS)
+            for f in (True, False)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(trainer_rank, 2, "cuda",
+                      args=(runs, 2000, 0, DP_REDUCE_FLOATS),
+                      ranks_share_card=True, timeout=300)
+    reduce_ms = max(r["all_reduce_ms"] for r in ranks)
+    ranks = [r["runs"] for r in ranks]
+    print(f"  two ranks on the card (gloo), b={TRAIN_B // 2} a rank: "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    paths, sps = {}, {}
+    for rank, res in enumerate(ranks):
+        for (cfg, n), r in zip(runs, res):
+            fused = cfg.fused_step is True
+            want = ({"d_phase": n, "g_phase": n, "gan_chunk": 0} if fused
+                    else {"d_phase": 0, "g_phase": 0, "gan_chunk": 0})
+            got = {k: r["launches"][k] for k in want}
+            ok = got == want and r["launches"]["all_reduce"] == 2 * n
+            name = f"dp2_{'fused' if fused else 'general'}_nsgan_{n}"
+            print(f"  rank {rank} {name}: launches={r['launches']} (expect "
+                  f"{want}, 2 all-reduces a step) "
+                  f"{r['steps_per_s']:.1f} steps/s {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} rank {rank}: wrong counts")
+            if rank == 0:
+                paths[name] = r["launches"]
+                if n == DP_TIMED_STEPS:
+                    sps[f"shared2_{'fused' if fused else 'general'}"] = \
+                        r["steps_per_s"]
+    f, g = ranks[0][0], ranks[0][1]
+    if not all(np.array_equal(f["state"][k], ranks[1][0]["state"][k])
+               for k in f["state"]):
+        raise AssertionError("the two ranks' fused DP states differ")
+    check_dp_pair("nsgan", runs[0][0], "2 ranks on one card (gloo)",
+                  f["state"], f["history"], g["state"], g["history"])
+    sps["shared2_all_reduce_ms"] = reduce_ms
+    print(f"  two ranks on one card nsgan steps/s: fused DP "
+          f"{sps['shared2_fused']:.1f}, general DP step "
+          f"{sps['shared2_general']:.1f}; all-reduce of the D phase's "
+          f"buffer (gloo, CUDA tensors) {reduce_ms:.4f} ms  [{card}]")
+    return paths, sps
+
+
+def phase_bound(mode, b, variant, hp):
+    """The bound of one phase launch: its FLOPs (phase_flops) at the
+    float32 peak, or its bytes (the 8 parameters and its streams read,
+    its gradients and metrics row written) at the HBM rate."""
+    kw = chunk_shape_kw(variant)
+    d_f, g_f = phase_flops(b, gp=hp.gp_lam > 0, n_cls=hp.n_cls, **kw)
+    zi = 128 + hp.n_cls + kw.get("codes", 0)
+    xd, hd, l = 784 + hp.n_cls, kw.get("hd", 400), kw.get("l", 1)
+    g_n = zi * 400 + 400 + 400 * 784 + 784
+    d_n = xd * hd + hd + hd * l + l
+    if mode == "d":
+        lanes = PENALTY_LANES.get(variant, 0)
+        nbytes = 4 * (g_n + d_n + b * (xd + zi + lanes) + d_n + 8)
+        return bound_of(d_f, nbytes)
+    return bound_of(g_f, 4 * (g_n + d_n + b * zi + g_n + 8))
+
+
+def time_phases(cuda_dp, cuda_train, torch, card):
+    """Phase 5e: each hook's phase kernels at b = 100 and 50 beside their
+    float32 plain versions on the card, their bounds, and (nsgan) the
+    library's same gradients (torch.autograd.grad through addmm)."""
+    rows = []
+    for variant, kw in PHASE_CASES:
+        hp = chunk_hyper(cuda_train, variant, **kw)
+        lam = BEGAN_K0 if variant == "began" else 0.0
+        for b in PHASE_BATCHES:
+            p, x, zd, zg, xt = phase_case(cuda_train, torch, variant, hp, b,
+                                          seed=7)
+            g, d = p[:4], p[4:]
+            calls = {"d": (lambda: cuda_dp.d_phase(x, zd, xt, g, d, lam, hp),
+                           lambda: cuda_dp.d_phase_plain(x, zd, xt, g, d, lam,
+                                                         hp)),
+                     "g": (lambda: cuda_dp.g_phase(zg, g, d, hp),
+                           lambda: cuda_dp.g_phase_plain(zg, g, d, hp))}
+            lib = library_phases(torch, x, zd, zg, g, d) if (
+                variant == "nsgan") else {}
+            for mode, (kern, plain) in calls.items():
+                b_ms, b_by = phase_bound(mode, b, variant, hp)
+                row = {"kernel": f"gan_phase_{mode}", "variant": variant,
+                       "hook": cuda_train.HOOKS[variant], "b": b,
+                       "ms": time_ms(torch, kern, 50),
+                       "device_ms": kernel_device_ms(torch, kern,
+                                                    "gan_chunk_kernel"),
+                       "plain_ms": time_ms(torch, plain, 10),
+                       "library_ms": (time_ms(torch, lib[mode], 50)
+                                      if lib else None),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                dev = row["device_ms"]
+                print(f"  gan_phase_{mode} {variant:7s} b={b:3d} kernel "
+                      f"{row['ms']:.4f} ms"
+                      + (f" (device {dev:.4f})" if dev else "")
+                      + f"  plain {row['plain_ms']:.4f}"
+                      + (f"  library {row['library_ms']:.4f}" if lib else "")
+                      + f"  bound {b_ms:.5f} ({b_by})  [{card}]")
+    return rows
+
+
+def library_phases(torch, x, zd, zg, g, d):
+    """nsgan's two phases as one library call each: addmm forwards and
+    torch.autograd.grad of the loss (the port never calls these)."""
+    lk = lambda u: torch.nn.functional.leaky_relu(u, 0.2)
+    sp = torch.nn.functional.softplus
+
+    def d_grads():
+        dd = [t.detach().requires_grad_(True) for t in d]
+        fake = torch.sigmoid(torch.addmm(g[3], torch.relu(
+            torch.addmm(g[1], zd, g[0])), g[2]))
+        lr = torch.addmm(dd[3], lk(torch.addmm(dd[1], x, dd[0])), dd[2])
+        lf = torch.addmm(dd[3], lk(torch.addmm(dd[1], fake, dd[0])), dd[2])
+        return torch.autograd.grad(sp(-lr).mean() + sp(lf).mean(), dd)
+
+    def g_grads():
+        gg = [t.detach().requires_grad_(True) for t in g]
+        fake = torch.sigmoid(torch.addmm(gg[3], torch.relu(
+            torch.addmm(gg[1], zg, gg[0])), gg[2]))
+        lf = torch.addmm(d[3], lk(torch.addmm(d[1], fake, d[0])), d[2])
+        return torch.autograd.grad(sp(-lf).mean(), gg)
+    return {"d": d_grads, "g": g_grads}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2045,7 +2426,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from generative_models_tpu_torch.ops import build as build_mod
     from generative_models_tpu_torch.ops import (
-        cuda_mlp, cuda_reparam, cuda_train, cuda_train_vae as ctv)
+        cuda_dp, cuda_mlp, cuda_reparam, cuda_train, cuda_train_vae as ctv)
     from generative_models_tpu_torch.ops.cuda_linear import linear_cuda
     from generative_models_tpu_torch.train import step as step_lib
 
@@ -2062,7 +2443,9 @@ def main() -> int:
 
     build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_reparam.build,
                ctv.build] + [functools.partial(cuda_train.build, hook)
-                             for hook in cuda_train.HOOK_IDS],
+                             for hook in cuda_train.HOOK_IDS]
+              + [functools.partial(cuda_dp.build, hook)
+                 for hook in cuda_dp.DP_HOOKS],
               build_mod.BUILD_DIR)
     mods = (cuda_mlp, cuda_train, cuda_reparam, ctv)
 
@@ -2074,6 +2457,7 @@ def main() -> int:
     reparam_err = check_reparam(cuda_reparam, torch)
     vae_err = check_vae_chunk(ctv, torch)
     cross_check_vae(cuda_train, ctv, step_lib, torch)
+    phase_err = check_phases(cuda_dp, cuda_train, torch)
 
     print("[4] main paths (launch counts set to 0 before each, read after)")
     paths = {}  # path name -> launch counts of that path's run
@@ -2098,13 +2482,18 @@ def main() -> int:
         if paths[f"cli_{variant}"]["gan_chunk"] != 2:
             raise AssertionError(f"cli_{variant} did not launch gan_chunk "
                                  f"twice")
+    dp_paths, dp_sps = drive_dp_world1(cuda_dp, cuda_train, mods, torch, card)
+    paths.update(dp_paths)
+    dp_paths, shared_sps = drive_dp_shared_card(card)
+    paths.update(dp_paths)
+    dp_sps.update(shared_sps)
 
     def by_path(kernel):
         return {name: c[kernel] for name, c in paths.items()
                 if c.get(kernel, 0)}
 
     for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam", "vae_chunk",
-                   "birvae_chunk"):
+                   "birvae_chunk", "d_phase", "g_phase"):
         if not by_path(kernel):
             raise AssertionError(f"no main path launched {kernel}")
 
@@ -2114,13 +2503,17 @@ def main() -> int:
     train_row = train_rows["nsgan"]
     reparam_rows = time_reparam(cuda_reparam, torch, card)
     vae_rows = time_vae_training(ctv, torch, card, general_sps)
+    phase_rows = time_phases(cuda_dp, cuda_train, torch, card)
+    phase_main = {m: next(r for r in phase_rows if r["kernel"] ==
+                          f"gan_phase_{m}" and r["variant"] == "nsgan"
+                          and r["b"] == TRAIN_B) for m in "dg"}
 
     fwd_main = rows["mlp_fwd"][-1]   # B = 8192, the largest serving batch
     bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
     rep_main = reparam_rows[0]       # [100, 20], the training batch
 
-    def entry(name, source, replaces, err, row, shape, **more):
-        launched = by_path(name)
+    def entry(name, source, replaces, err, row, shape, counted=None, **more):
+        launched = by_path(counted or name)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launched.values()),
                 "launches_by_path": launched, "max_abs_err": err,
@@ -2158,7 +2551,13 @@ def main() -> int:
               vae_err["birvae"], vae_rows["birvae"], chunk_shape,
               max_abs_err_is="metrics, relative to max|ref|",
               training=vae_rows["birvae"], cli_run=cli_lines["birvae"]),
-    ]}))
+    ] + [entry(f"gan_phase_{m}", cuda_dp.SOURCE + " (-DGM_PHASE=1)",
+               "generative_models_tpu/ops/pallas_dp.py:"
+               + ("107" if m == "d" else "195"), phase_err, phase_main[m],
+               f"nsgan b={TRAIN_B} (world 1), full width", counted=f"{m}_phase",
+               per_hook=[r for r in phase_rows
+                         if r["kernel"] == f"gan_phase_{m}"],
+               dp_steps_per_s=dp_sps) for m in "dg"]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

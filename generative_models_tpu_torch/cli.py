@@ -12,7 +12,12 @@ holds the variant's metrics: ``d_loss``, ``g_loss`` and the head's own
 GAN, ``loss``,
 ``recon_loss`` and ``kl_loss`` or ``latent_power`` for the VAE family), writes
 ``final.png`` and the loss plot, and with ``--ckpt`` saves and prints
-``saved: <path>``. ``--sample-only`` loads a checkpoint written by either
+``saved: <path>``. ``--dp N`` trains data-parallel: N ranks
+(``parallel/mesh.py::run_ranks``), one a card over NCCL, or with
+``--device cpu`` N gloo ranks on the CPU; ``--batch-size`` stays the
+global batch, ``--fused-step`` takes the phase kernels
+(``ops/cuda_dp.py``) and ``--dp-impl`` either value the general DP step
+(``parallel/dp.py``); rank 0 alone writes and prints. ``--sample-only`` loads a checkpoint written by either
 package and writes a sample grid (cgan's cycles the classes: row i has
 label i % num_classes), printing ``{"variant", "step", "samples"}``. The
 flags whose paths are not ported yet exit with a usage error that names
@@ -76,6 +81,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _config(args) -> Config:
+    overrides = {
+        f.name: getattr(args, f.name)
+        for f in dataclasses.fields(Config)
+        if f.name != "variant" and getattr(args, f.name, None) is not None
+    }
+    return variant_config(args.variant, **overrides)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -83,21 +97,45 @@ def main(argv=None) -> int:
         if getattr(args, name):
             parser.error(f"--{name.replace('_', '-')} is not ported to "
                          f"generative_models_tpu_torch yet (ROADMAP.md {item})")
-    overrides = {
-        f.name: getattr(args, f.name)
-        for f in dataclasses.fields(Config)
-        if f.name != "variant" and getattr(args, f.name, None) is not None
-    }
-    cfg = variant_config(args.variant, **overrides)
+    cfg = _config(args)
 
-    if not args.sample_only and (cfg.dp > 1 or cfg.tp > 1):
-        parser.error("data- and tensor-parallel training (--dp/--tp > 1) "
-                     "is not ported to generative_models_tpu_torch yet "
-                     "(ROADMAP.md Queue 1 item 12, parallelism)")
+    if not args.sample_only and cfg.tp > 1:
+        parser.error("tensor-parallel training (--tp > 1) is not ported to "
+                     "generative_models_tpu_torch yet (ROADMAP.md Queue 1 "
+                     "item 12, parallelism)")
+    if not args.sample_only and cfg.dp > 1:
+        import torch
 
+        from generative_models_tpu_torch.parallel.mesh import run_ranks
+        if torch.device(args.device).type == "cuda":
+            have = (torch.cuda.device_count() if torch.cuda.is_available()
+                    else 0)
+            if have < cfg.dp:
+                parser.error(f"--dp {cfg.dp} needs {cfg.dp} CUDA devices, one "
+                             f"a rank, but only {have} are present "
+                             "(--device cpu runs the ranks on the CPU)")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        lines = run_ranks(_train_rank, cfg.dp, args.device, args=(argv,))
+        for line in lines[0]:  # rank 0's
+            print(line)
+        return 0
+    return _run(args, cfg, print)
+
+
+def _train_rank(group, argv) -> list:
+    """One rank of ``--dp N``: trains in `group` and returns the lines
+    rank 0 prints (the other ranks print nothing)."""
+    args = build_parser().parse_args(argv)
+    out: list = []
+    _run(args, _config(args), out.append if group.rank == 0
+         else (lambda line: None), group)
+    return out
+
+
+def _run(args, cfg, say, group=None) -> int:
     from generative_models_tpu_torch.train.trainer import Trainer
     from generative_models_tpu_torch.utils.checkpoint import exists
-    t = Trainer(config=cfg, device=args.device)
+    t = Trainer(config=cfg, device=args.device, group=group)
     if args.sample_only:
         if not args.ckpt or not exists(args.ckpt):
             print("--sample-only needs an existing --ckpt", file=sys.stderr)
@@ -105,15 +143,16 @@ def main(argv=None) -> int:
         t.load_model(args.ckpt)
         step = t.state["step"]
         path = t.generate_images(tag=f"samples_step{step:06d}")
-        print(json.dumps({"variant": cfg.variant, "step": step,
-                          "samples": path}))
+        say(json.dumps({"variant": cfg.variant, "step": step,
+                        "samples": path}))
         return 0
     if args.ckpt and cfg.resume and exists(args.ckpt):
         t.load_model(args.ckpt)
-        print(f"resumed from {args.ckpt} at step {t.state['step']}")
+        say(f"resumed from {args.ckpt} at step {t.state['step']}")
 
     run_dir = os.path.join(cfg.out_dir, cfg.variant)
-    os.makedirs(run_dir, exist_ok=True)
+    if t.writes:
+        os.makedirs(run_dir, exist_ok=True)
     t.train(num_epochs=cfg.epochs,
             steps=None if cfg.epochs else cfg.steps,
             log_path=os.path.join(run_dir, "metrics.jsonl"),
@@ -121,7 +160,7 @@ def main(argv=None) -> int:
             ckpt_path=args.ckpt)  # periodic when cfg.ckpt_every > 0
     sps = t.steps_done / t.wall_time
     eval_metrics = t.evaluate("test", max_batches=10)
-    print(json.dumps({
+    say(json.dumps({
         "variant": cfg.variant,
         "steps": t.steps_done,
         "wall_s": round(t.wall_time, 3),
@@ -131,7 +170,7 @@ def main(argv=None) -> int:
     t.generate_images(tag="final")
     t.viz_loss()
     if args.ckpt:
-        print("saved:", t.save_model(args.ckpt))
+        say(f"saved: {t.save_model(args.ckpt)}")
     return 0
 
 

@@ -19,6 +19,10 @@
 // autoencoder, began) at compile time, and each library holds an Adam
 // and an RMSprop kernel (gpw: Adam only, see kernel_of), so no hot loop
 // carries a run-time switch of another variant.
+// Built with -DGM_PHASE=1, a hook's library holds instead its two phase
+// kernels for data-parallel training (see gm_gan_phase): one critic
+// update's gradients and one G update's, which the caller all-reduces
+// before its optimizer runs.
 //
 // What it computes, for k = 0..steps-1 (one outer step each):
 //   for i = 0..ds-1 (a critic update on a fresh batch; td = t_d+k*ds+i+1):
@@ -160,12 +164,21 @@ namespace cg = cooperative_groups;
 #ifndef GM_HOOK
 #define GM_HOOK 0
 #endif
+// GM_PHASE=1 builds the data-parallel phase kernels of the hook instead of
+// its chunk kernels (see "Phase kernels" below).
+#ifndef GM_PHASE
+#define GM_PHASE 0
+#endif
 
 enum { HOOK_BCE = 0, HOOK_LS, HOOK_W, HOOK_F, HOOK_RA, HOOK_FI, HOOK_GPW,
        HOOK_GPB, HOOK_COND, HOOK_INFO, HOOK_BEGAN };
 enum { DIV_TV = 0, DIV_KL, DIV_RKL, DIV_PEARSON, DIV_HELLINGER, DIV_JS,
        DIV_GAN };
 constexpr int HOOK = GM_HOOK;
+constexpr bool PHASE = GM_PHASE != 0;
+// what a kernel runs: the whole chunk, or (PHASE) one critic update's or
+// one G update's gradients
+enum { M_CHUNK = 0, M_D, M_G };
 static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_BEGAN,
               "GM_HOOK must be 0..10");
 // the gradient penalty's hooks, cgan's label lanes, infogan's Q head,
@@ -234,6 +247,9 @@ struct Args {
   // [B, X], and their row sums [2B], [B]
   float gamma, lambda_k, inv_bx;
   float *ab, *d2, *erow, *erow2;
+  // the phase kernels: where each state tensor's gradient goes (segments
+  // of one flat buffer), in place of its optimizer step
+  float* gr[N_PARAMS];
 };
 
 // The same arguments for the RMSprop kernel: a type of its own, so that
@@ -273,6 +289,10 @@ __device__ __forceinline__ int gp_fresh(int n) {
 template <bool RMS>
 __device__ __forceinline__ void update(const Args& a, int q, size_t i,
                                        float g, const AdamT& t) {
+  if constexpr (PHASE) {  // the gradient itself; the optimizer runs after
+    a.gr[q][i] = g;       // the all-reduce, outside the kernel
+    return;
+  }
   if (RMS) {
     const float v = RMS_DECAY * ld(a.nu[q] + i) + (RMS_OMD * g) * g;
     a.nu[q][i] = v;
@@ -707,6 +727,8 @@ __device__ void critic_metrics(const Args& a, int k) {
   const int lane = threadIdx.x & 31;
   const int B = a.B;
   float* row = a.metrics + (size_t)k * LANES;
+  if constexpr (PHASE)  // the carried scalar the update read (began's k)
+    if (lane == 0) row[7] = ld(a.lam);
   if constexpr (BEGAN) {  // the energies L(x), L(G(z)); k_t before G
     float er = 0.0f, ef = 0.0f;
     for (int r = lane; r < B; r += 32) {
@@ -792,6 +814,10 @@ __device__ void g_metrics(const Args& a, int k) {
     float e = 0.0f;
     for (int r = lane; r < a.B; r += 32) e += ld(a.erow2 + r);
     e = warp_sum(e) * a.inv_bx;
+    if constexpr (PHASE) {  // g_loss only: the k_t law runs after the
+      if (lane == 0) a.metrics[(size_t)k * LANES + 3] = e;  // all-reduce
+      return;
+    }
     if (lane == 0) {
       float* row = a.metrics + (size_t)k * LANES;
       const float l_real = ld(row + 1);
@@ -900,7 +926,7 @@ __device__ void run_gemms_beside(const A& a, const Gemm* jobs, int njobs,
   }
 }
 
-template <class A, bool RMS>
+template <class A, bool RMS, int MODE = M_CHUNK>
 __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
   __shared__ __align__(16) float smem[WARPS * WARP_SMEM];
   cg::grid_group grid = cg::this_grid();
@@ -918,10 +944,33 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
   for (int k = 0; k < a.steps; ++k) {
     const float* zg = a.zg + (size_t)k * B * Z;
 
-    for (int i = 0; i < a.ds; ++i) {
+    if constexpr (MODE == M_G) {  // hg, then fake2 (cgan: its label lanes)
+      {
+        const Gemm job = {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+                          a.p[P_G_B1], nullptr, a.hgg, H, 0};
+        run_gemms(a, &job, 1, none, smem);
+        if constexpr (COND)
+          for (int e = gtid; e < B * a.n_cls; e += gsz) {
+            const int r = e / a.n_cls, j = e % a.n_cls;
+            a.fk2[(size_t)r * Xd + X + j] =
+                ld(zg + (size_t)r * Z + Z - a.n_cls + j);
+          }
+      }
+      grid.sync();
+      {
+        const Gemm job = {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
+                          EPI_SIGMOID, a.p[P_G_B2], nullptr, a.fk2, Xd, 0};
+        run_gemms(a, &job, 1, none, smem);
+      }
+      grid.sync();
+    }
+
+    for (int i = 0; i < (MODE == M_G ? 0 : a.ds); ++i) {
       const size_t row0 = (size_t)(k * a.ds + i) * B;
       const float* x = a.xs + row0 * Xd;
       const float* zd = a.zd + row0 * Z;
+      // the chunk computes G's hidden and fake2 beside the first update
+      const bool g0 = MODE == M_CHUNK && i == 0;
 
       {  // A: hgd, hr (and hg; dragan: the penalty's hh -> u); x beside fake
         if constexpr (HOOK == HOOK_GPB) {
@@ -936,7 +985,7 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
                a.dh + (size_t)2 * B * Hd, Hd, 0},
               {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
                a.p[P_G_B1], nullptr, a.hgg, H, 0}};
-          run_gemms(a, jobs, i == 0 ? 4 : 3, none, smem);
+          run_gemms(a, jobs, g0 ? 4 : 3, none, smem);
         } else {
           const int B = gp_fresh(a.B);
           Gemm jobs[3] = {
@@ -946,7 +995,7 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
                a.p[P_D_B1], nullptr, a.hd, Hd, 0},
               {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
                a.p[P_G_B1], nullptr, a.hgg, H, 0}};
-          run_gemms(a, jobs, i == 0 ? 3 : 2, none, smem);
+          run_gemms(a, jobs, g0 ? 3 : 2, none, smem);
         }
         for (size_t e = gtid; e < (size_t)B * Xd; e += gsz) a.xin[e] = ld(x + e);
         if constexpr (COND) {  // the labels of fake (x's) and fake2 (zg's)
@@ -954,7 +1003,7 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
           for (int e = gtid; e < B * nc; e += gsz) {
             const int r = e / nc, j = e % nc;
             a.xin[(size_t)(B + r) * Xd + X + j] = ld(x + (size_t)r * Xd + X + j);
-            if (i == 0)
+            if (g0)
               a.fk2[(size_t)r * Xd + X + j] = ld(zg + (size_t)r * Z + Z - nc + j);
           }
         }
@@ -971,7 +1020,7 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
              fake, Xd, 0},
             {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H, EPI_SIGMOID,
              a.p[P_G_B2], nullptr, a.fk2, Xd, 0}};
-        run_gemms(a, jobs, i == 0 ? 2 : 1, none, smem);
+        run_gemms(a, jobs, g0 ? 2 : 1, none, smem);
       }
       grid.sync();
       {  // C: hf (wgangp: and the penalty's hh -> u; dragan: and g = u W1d^T)
@@ -1144,6 +1193,7 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
       }
       grid.sync();
     }
+    if constexpr (MODE == M_D) continue;  // the critic's gradients only
 
     {  // G1: hf2 through the post-update critic; ragan: also the hidden
        // of x, whose rows follow fake2's in the scratch, so one product of
@@ -1231,27 +1281,20 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
   }
 }
 
-// The Adam (rmsprop = 0) or RMSprop kernel; gpw (wgangp) has no RMSprop
-// kernel: that instantiation spills 4 bytes however its phases are laid
-// out, and wgangp trains with Adam (null: the launch is refused).
-static const void* kernel_of(int rmsprop) {
-  if constexpr (HOOK == HOOK_GPW)
-    return rmsprop ? nullptr : (const void*)gan_chunk_kernel<Args, false>;
-  else
-    return rmsprop ? (const void*)gan_chunk_kernel<ArgsRms, true>
-                   : (const void*)gan_chunk_kernel<Args, false>;
-}
+// The chunk's sizes, counts and hyperparameters, as the wrapper hands
+// them over (ops/cuda_train.py::_Hyper mirrors this field for field).
+struct GanChunkHyper {
+  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd, L,
+      n_cat, n_cont;
+  float g_lr, d_lr, b1, b2, omb1, omb2, eps, log_b1, log_b2, slope, inv_b,
+      clip, rho, gp_lam, info_lam, gamma, lambda_k;
+};
 
-// The hook this library was compiled for (GM_HOOK).
-extern "C" int gm_gan_chunk_hook() { return HOOK; }
-
-// Floats of scratch a launch needs at these widths (the wrapper
-// allocates it); Xd is D's input width (cgan: X + n_cls; else X), L the
-// critic head's (1; infogan 1 + cat + 2 cont; began X).
-extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
-                                                 int Hd, int Xd, int L) {
-  (void)Z;
-  const long long b = B;  // the layout gm_gan_chunk cuts it into
+// Floats of scratch a launch needs at these widths; Xd is D's input width
+// (cgan: X + n_cls; else X), L the critic head's (1; infogan 1 + cat + 2
+// cont; began X).
+static long long scratch_floats(int B, int H, int X, int Hd, int Xd, int L) {
+  const long long b = B;  // the layout set_args cuts it into
   const long long xd = COND ? Xd : X;
   const long long base = 3 * b * H + 4 * b * xd + 7 * b * Hd + 3 * b * L +
                          4 * b;
@@ -1262,69 +1305,26 @@ extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
   return base;
 }
 
-// The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel uses:
-// every SM's co-resident blocks, at most blocks_per_sm each. Returns 0
-// when the query fails.
-extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
-  int dev = 0, sms = 0, occ = 0;
-  if (!kernel_of(rmsprop) || cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, kernel_of(rmsprop), CT, 0) != cudaSuccess)
-    return 0;
-  if (occ > blocks_per_sm) occ = blocks_per_sm;
-  return occ * sms;
-}
-
-// The chunk's sizes, counts and hyperparameters, as the wrapper hands
-// them over (ops/cuda_train.py::_Hyper mirrors this field for field).
-struct GanChunkHyper {
-  int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd, L,
-      n_cat, n_cont;
-  float g_lr, d_lr, b1, b2, omb1, omb2, eps, log_b1, log_b2, slope, inv_b,
-      clip, rho, gp_lam, info_lam, gamma, lambda_k;
-};
-
-// Launches one cooperative kernel on `stream` that runs `steps` outer
-// steps and updates the 8 state tensors' planes (p, mu, nu: `state` holds
-// 24 pointers, planes in that order, tensors g_w1 g_b1 g_w2 g_b2 d_w1
-// d_b1 d_w2 d_b2; with RMSprop the mu pointers are null) and `lam` (one
-// float: fishergan's multiplier, began's k_t) in place. `xtra` is the penalty's
-// stream (gpw: eps [rows, 1]; gpb: x_hat [rows, X]), null for the other
-// hooks; cgan's xs rows are Xd = X + n_cls wide and its zd, zg rows Z
-// (G's input, the last n_cls the label); infogan's zd, zg rows are Z
-// wide code rows (the last n_cat + n_cont lanes the codes), its W2d
-// [Hd, L] the D and Q heads side by side; began's W2d is [Hd, X] (L = X).
-// Allocates nothing, does not
-// synchronise; returns the CUDA error code of the launch (0 = queued).
-extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
-                            const float* xtra, void* const* state,
-                            float* scratch, float* metrics, float* lam,
-                            const GanChunkHyper* h, int grid, void* stream) {
+// Everything of `a` but the state planes, from the streams and `h`, with
+// `scratch` cut into its buffers. False when the sizes do not fit the
+// hook (or a penalty hook that needs it has no xtra stream).
+static bool set_args(ArgsRms& a, const float* xs, const float* zd,
+                     const float* zg, const float* xtra, float* scratch,
+                     float* metrics, float* lam, const GanChunkHyper* h,
+                     bool needs_xtra) {
   if (h->steps < 1 || h->ds < 1 || h->B < 1 || h->Z < 1 || h->H < 1 ||
-      h->X < 1 || h->Hd < 1 || grid < 1 || !kernel_of(h->rmsprop) ||
-      (GP && !xtra) ||
+      h->X < 1 || h->Hd < 1 || (GP && needs_xtra && !xtra) ||
       (COND ? h->n_cls < 1 || h->Z <= h->n_cls || h->Xd != h->X + h->n_cls
             : h->n_cls != 0 || h->Xd != h->X) ||
       (INFO ? h->n_cat < 1 || h->n_cont < 0 ||
                   h->L != 1 + h->n_cat + 2 * h->n_cont || h->L > 32 * QPL ||
                   h->Z <= h->n_cat + h->n_cont
             : BEGAN ? h->L != h->X : h->L != 1))
-    return (int)cudaErrorInvalidValue;
-  ArgsRms a = {};
+    return false;
   a.xs = xs;
   a.zd = zd;
   a.zg = zg;
   a.xtra = xtra;
-  for (int q = 0; q < N_PARAMS; ++q) {
-    a.p[q] = static_cast<float*>(state[q]);
-    a.mu[q] = static_cast<float*>(state[N_PARAMS + q]);
-    a.nu[q] = static_cast<float*>(state[2 * N_PARAMS + q]);
-    if (!a.p[q] || !a.nu[q] || (!h->rmsprop && !a.mu[q]))
-      return (int)cudaErrorInvalidValue;
-  }
   a.metrics = metrics;
   a.lam = lam;
   const size_t b = h->B;
@@ -1398,10 +1398,153 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
   a.gamma = h->gamma;
   a.lambda_k = h->lambda_k;
   a.inv_bx = h->inv_b / (float)h->X;
+  return true;
+}
+
+// Every SM's co-resident blocks of `kernel`, at most blocks_per_sm each;
+// 0 when the query fails.
+static int grid_of(const void* kernel, int blocks_per_sm) {
+  int dev = 0, sms = 0, occ = 0;
+  if (!kernel || cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, CT, 0) !=
+      cudaSuccess)
+    return 0;
+  if (occ > blocks_per_sm) occ = blocks_per_sm;
+  return occ * sms;
+}
+
+// One cooperative launch of `kernel` on `stream` (the grid no larger than
+// what is co-resident, or the launch is refused); the CUDA error code.
+static int launch(const void* kernel, ArgsRms& a, int grid, void* stream) {
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(h->rmsprop), dim3(grid), dim3(CT), args, 0,
-      static_cast<cudaStream_t>(stream));
+      kernel, dim3(grid), dim3(CT), args, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#if GM_PHASE
+// Phase kernels (the data-parallel path, ops/cuda_dp.py). Replaces:
+// generative_models_tpu/ops/pallas_dp.py::_make_d_phase_kernel (:107,
+// launched at :324) and ::_make_g_phase_kernel (:195, launched at :337).
+// The same phases as the chunk, one update a launch on the rank's local
+// rows (B = b, steps = ds = 1, no optimizer, no state written):
+//   M_D: one critic update, phases A-F; where the chunk steps the
+//     optimizer, the kernel writes the gradient (dW1d, db1d, dW2d, db2d)
+//     into `gr`, and the critic's metrics row (lanes 0, 1, 2, 4, 5; lane 7
+//     the carried k it read)
+//   M_G: hg and fake2, then G1-G6 through the critic it is given, the G
+//     gradients (dW1g, db1g, dW2g, db2g) into `gr`, lane 3 g_loss (infogan:
+//     lane 6 its MI term); began's k_t law is left to the caller
+// The all-reduce, the optimizer, wgan's clip and began's law run after
+// the launch, as the TPU path runs them outside its kernels. RMS = true
+// only selects the step_t that reads no Adam constants.
+static const void* phase_kernel_of(int mode) {
+  if (mode == M_D) return (const void*)gan_chunk_kernel<ArgsRms, true, M_D>;
+  if (mode == M_G) return (const void*)gan_chunk_kernel<ArgsRms, true, M_G>;
+  return nullptr;
+}
+
+// The hook this library was compiled for (GM_HOOK).
+extern "C" int gm_gan_phase_hook() { return HOOK; }
+
+extern "C" long long gm_gan_phase_scratch_floats(int B, int H, int X, int Hd,
+                                                 int Xd, int L) {
+  return scratch_floats(B, H, X, Hd, Xd, L);
+}
+
+// The grid a launch of the D (mode 1) or G (mode 2) phase kernel uses.
+extern "C" int gm_gan_phase_grid(int blocks_per_sm, int mode) {
+  return grid_of(phase_kernel_of(mode), blocks_per_sm);
+}
+
+// Launches one phase kernel on `stream`: mode 1 the critic update's
+// gradients from x [B, Xd], zd [B, Z] (and xtra: gpw eps [B, 1], gpb
+// x_hat [B, X]), mode 2 G's from zg [B, Z]. `params` holds the 8
+// parameter pointers (g_w1 g_b1 g_w2 g_b2 d_w1 d_b1 d_w2 d_b2), read
+// only, `grads` the 8 gradient pointers (mode 1 writes the last four,
+// mode 2 the first four), `metrics` one row of 8 floats that the caller
+// has zeroed, `lam` began's k (read only). h->steps and h->ds must be 1.
+// Allocates nothing, does not synchronise; returns the CUDA error code of
+// the launch (0 = queued).
+extern "C" int gm_gan_phase(int mode, const float* x, const float* zd,
+                            const float* zg, const float* xtra,
+                            void* const* params, void* const* grads,
+                            float* scratch, float* metrics, float* lam,
+                            const GanChunkHyper* h, int grid, void* stream) {
+  ArgsRms a = {};
+  if (!phase_kernel_of(mode) || grid < 1 || h->steps != 1 || h->ds != 1 ||
+      !set_args(a, x, zd, zg, xtra, scratch, metrics, lam, h, mode == M_D))
+    return (int)cudaErrorInvalidValue;
+  const int q0 = mode == M_D ? P_D_W1 : P_G_W1;
+  for (int q = 0; q < N_PARAMS; ++q) {
+    a.p[q] = static_cast<float*>(params[q]);
+    a.gr[q] = static_cast<float*>(grads[q]);
+    if (!a.p[q] || (q >= q0 && q < q0 + 4 && !a.gr[q]))
+      return (int)cudaErrorInvalidValue;
+  }
+  return launch(phase_kernel_of(mode), a, grid, stream);
+}
+#else
+// The Adam (rmsprop = 0) or RMSprop kernel; gpw (wgangp) has no RMSprop
+// kernel: that instantiation spills 4 bytes however its phases are laid
+// out, and wgangp trains with Adam (null: the launch is refused).
+static const void* kernel_of(int rmsprop) {
+  if constexpr (HOOK == HOOK_GPW)
+    return rmsprop ? nullptr : (const void*)gan_chunk_kernel<Args, false>;
+  else
+    return rmsprop ? (const void*)gan_chunk_kernel<ArgsRms, true>
+                   : (const void*)gan_chunk_kernel<Args, false>;
+}
+
+// The hook this library was compiled for (GM_HOOK).
+extern "C" int gm_gan_chunk_hook() { return HOOK; }
+
+// Floats of scratch a launch needs at these widths (the wrapper
+// allocates it); see scratch_floats.
+extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
+                                                 int Hd, int Xd, int L) {
+  (void)Z;
+  return scratch_floats(B, H, X, Hd, Xd, L);
+}
+
+// The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel uses:
+// every SM's co-resident blocks, at most blocks_per_sm each. Returns 0
+// when the query fails.
+extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
+  return grid_of(kernel_of(rmsprop), blocks_per_sm);
+}
+
+// Launches one cooperative kernel on `stream` that runs `steps` outer
+// steps and updates the 8 state tensors' planes (p, mu, nu: `state` holds
+// 24 pointers, planes in that order, tensors g_w1 g_b1 g_w2 g_b2 d_w1
+// d_b1 d_w2 d_b2; with RMSprop the mu pointers are null) and `lam` (one
+// float: fishergan's multiplier, began's k_t) in place. `xtra` is the penalty's
+// stream (gpw: eps [rows, 1]; gpb: x_hat [rows, X]), null for the other
+// hooks; cgan's xs rows are Xd = X + n_cls wide and its zd, zg rows Z
+// (G's input, the last n_cls the label); infogan's zd, zg rows are Z
+// wide code rows (the last n_cat + n_cont lanes the codes), its W2d
+// [Hd, L] the D and Q heads side by side; began's W2d is [Hd, X] (L = X).
+// Allocates nothing, does not
+// synchronise; returns the CUDA error code of the launch (0 = queued).
+extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
+                            const float* xtra, void* const* state,
+                            float* scratch, float* metrics, float* lam,
+                            const GanChunkHyper* h, int grid, void* stream) {
+  ArgsRms a = {};
+  if (grid < 1 || !kernel_of(h->rmsprop) ||
+      !set_args(a, xs, zd, zg, xtra, scratch, metrics, lam, h, true))
+    return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < N_PARAMS; ++q) {
+    a.p[q] = static_cast<float*>(state[q]);
+    a.mu[q] = static_cast<float*>(state[N_PARAMS + q]);
+    a.nu[q] = static_cast<float*>(state[2 * N_PARAMS + q]);
+    if (!a.p[q] || !a.nu[q] || (!h->rmsprop && !a.mu[q]))
+      return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel_of(h->rmsprop), a, grid, stream);
+}
+#endif

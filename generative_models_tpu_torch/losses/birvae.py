@@ -47,10 +47,10 @@ def noise_sigma(cfg) -> float:
     return float(4.0 ** (-cfg.birvae_bits / cfg.latent_dim)) ** 0.5
 
 
-def loss(params, batch, gen, cfg, eps=None, axis_name=None):
+def loss(params, batch, gen, cfg, eps=None, group=None):
     x = batch["image"]
     mu = encode(params, x, cfg)
-    mean, var = global_moments_axis0(mu, axis_name)
+    mean, var = global_moments_axis0(mu, group)
     mu_hat = (mu - mean) * torch.rsqrt(var + BN_EPS)
     if eps is None:
         eps = torch.randn(mu_hat.shape, generator=gen, device=gen.device,

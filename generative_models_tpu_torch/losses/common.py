@@ -28,29 +28,24 @@ def compute_noise(gen: torch.Generator, n: int, z_dim: int, device=None):
     return z if device is None else z.to(device)
 
 
-def _refuse_axis(what: str, axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh axis are not ported to "
-            "generative_models_tpu_torch yet (ROADMAP.md Queue 1 item 12, "
-            "parallelism)")
+def global_mean(x, group=None):
+    """Scalar mean of x over all samples of the global batch: under data
+    parallelism (`group`, ``parallel/mesh.py::DataGroup``, in place of
+    the reference's mesh axis) each rank's mean of its shard is averaged
+    over the ranks, differentiably; equal shard sizes make that the exact
+    global mean."""
+    from generative_models_tpu_torch.parallel.mesh import all_reduce_mean
+    return all_reduce_mean(torch.mean(x), group)
 
 
-def global_mean(x, axis_name=None):
-    """Scalar mean of x over all samples of the batch. `axis_name` (the
-    reference's mesh axis, over which a data-parallel shard's mean is
-    averaged) is refused until the port has a parallel path."""
-    _refuse_axis("means", axis_name)
-    return torch.mean(x)
-
-
-def global_moments_axis0(x, axis_name=None, eps: float = 0.0):
-    """(mean, var) of x per feature (axis 0 = batch), each [1, F]. The
-    variance is E[x^2] - E[x]^2 clamped at `eps`, as the reference takes
-    it. `axis_name` (the reference's mesh axis for data-parallel
-    moments) is refused until the port has a parallel path (ROADMAP.md
-    Queue 1 item 12)."""
-    _refuse_axis("moments", axis_name)
+def global_moments_axis0(x, group=None, eps: float = 0.0):
+    """(mean, var) of x per feature (axis 0 = batch), each [1, F], over
+    the global batch (`group`: as :func:`global_mean`). The variance is
+    E[x^2] - E[x]^2 clamped at `eps`, as the reference takes it, so it
+    needs one all-reduce of the two moments."""
+    from generative_models_tpu_torch.parallel.mesh import all_reduce_mean
     m = torch.mean(x, dim=0, keepdim=True)
     m2 = torch.mean(x * x, dim=0, keepdim=True)
+    if group is not None:
+        m, m2 = all_reduce_mean(torch.cat([m, m2]), group).split(1)
     return m, torch.clamp_min(m2 - m * m, eps)

@@ -25,15 +25,15 @@ from generative_models_tpu_torch.models import nets
 
 
 def _d_loss(d_params, g_params, batch, gen, vstate, cfg, z=None,
-            axis_name=None):
+            group=None):
     x = batch["image"]
     z = _noise(gen, x.shape[0], cfg, g_params, z)
     fake = nets.generator_apply(g_params, z, cfg)
     f_real = nets.discriminator_apply(d_params, x, cfg)
     f_fake = nets.discriminator_apply(d_params, fake, cfg)
-    ipm = global_mean(f_real, axis_name) - global_mean(f_fake, axis_name)
-    omega = 0.5 * global_mean(f_real ** 2, axis_name) + \
-        0.5 * global_mean(f_fake ** 2, axis_name)
+    ipm = global_mean(f_real, group) - global_mean(f_fake, group)
+    omega = 0.5 * global_mean(f_real ** 2, group) + \
+        0.5 * global_mean(f_fake ** 2, group)
     constraint = 1.0 - omega
     lam = vstate["lam"]
     lagrangian = ipm + lam * constraint - 0.5 * cfg.fisher_rho * constraint ** 2
@@ -47,11 +47,11 @@ def _d_state_update(vstate, d_metrics, cfg):
 
 
 def _g_loss(g_params, d_params, batch, gen, vstate, cfg, z=None,
-            axis_name=None):
+            group=None):
     z = _noise(gen, batch["image"].shape[0], cfg, g_params, z)
     fake = nets.generator_apply(g_params, z, cfg)
     loss = -global_mean(nets.discriminator_apply(d_params, fake, cfg),
-                        axis_name)
+                        group)
     return loss, {"g_loss": loss}
 
 

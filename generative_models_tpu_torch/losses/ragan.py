@@ -25,30 +25,30 @@ from generative_models_tpu_torch.losses.minimax import _noise, _sample
 from generative_models_tpu_torch.models import nets
 
 
-def _rel_logits(d_params, g_params, batch, gen, cfg, z, axis_name=None):
+def _rel_logits(d_params, g_params, batch, gen, cfg, z, group=None):
     x = batch["image"]
     z = _noise(gen, x.shape[0], cfg, g_params, z)
     fake = nets.generator_apply(g_params, z, cfg)
     c_real = nets.discriminator_apply(d_params, x, cfg)
     c_fake = nets.discriminator_apply(d_params, fake, cfg)
-    d_real = c_real - global_mean(c_fake, axis_name)
-    d_fake = c_fake - global_mean(c_real, axis_name)
+    d_real = c_real - global_mean(c_fake, group)
+    d_fake = c_fake - global_mean(c_real, group)
     return d_real, d_fake
 
 
 def _d_loss(d_params, g_params, batch, gen, vstate, cfg, z=None,
-            axis_name=None):
+            group=None):
     d_real, d_fake = _rel_logits(d_params, g_params, batch, gen, cfg, z,
-                                 axis_name)
+                                 group)
     loss = bce_logits_mean(d_real, torch.ones_like(d_real)) + \
         bce_logits_mean(d_fake, torch.zeros_like(d_fake))
     return loss, {"d_loss": loss}
 
 
 def _g_loss(g_params, d_params, batch, gen, vstate, cfg, z=None,
-            axis_name=None):
+            group=None):
     d_real, d_fake = _rel_logits(d_params, g_params, batch, gen, cfg, z,
-                                 axis_name)
+                                 group)
     loss = bce_logits_mean(d_fake, torch.ones_like(d_fake)) + \
         bce_logits_mean(d_real, torch.zeros_like(d_real))
     return loss, {"g_loss": loss}

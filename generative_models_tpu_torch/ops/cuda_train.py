@@ -465,6 +465,121 @@ def _gp_backward(xh, w1d, b1d, w2d, *, lam: float, slope: float,
             nrm.sum() * inv_b)
 
 
+def _watch_abs(probe: Optional[dict], v, logits) -> None:
+    """began's |.| tie probe: the smallest |v - sigmoid(logits)| relative
+    to its root mean square, where r (1 - r) > 1e-3, under
+    ``probe["abs_margin"]``."""
+    if probe is None:
+        return
+    r = torch.sigmoid(logits)
+    d = (v - r)[r * (1.0 - r) > 1e-3]
+    if d.numel() == 0:
+        return
+    m = d.abs().min() / (v - r).pow(2).mean().sqrt()
+    probe["abs_margin"] = torch.minimum(probe["abs_margin"], m) \
+        if "abs_margin" in probe else m
+
+
+def _acts(hp: ChunkHyper, probe: Optional[dict]):
+    """(leaky, relu, leaky') of the kernel, the first two watched for
+    ties."""
+    s = hp.slope
+
+    def leaky(u):
+        _watch(probe, u)
+        return torch.where(u >= 0, u, s * u)
+
+    def relu(u):
+        _watch(probe, u)
+        return torch.clamp_min(u, 0.0)
+
+    return leaky, relu, lambda h: torch.where(h >= 0, 1.0, s)
+
+
+def critic_grads(hp: ChunkHyper, p, x, z, xt, lam, inv_b: float,
+                 probe: Optional[dict] = None):
+    """One critic update's gradients by the kernel's hand-derived math
+    (phases A-F): G's fake from the z rows `z`, the critic on the rows
+    `x` and on the fake (cgan: with x's label lanes), the hook, the
+    backward, and for a penalty hook its double backward at x_hat from
+    `xt` (wgangp's eps rows, dragan's x_hat rows). `p` holds the 8
+    parameters (:func:`state_planes` order); `lam` the carried scalar
+    before the update. Returns ([dW1d, db1d, dW2d, db2d], [d_loss (with
+    the penalty), lane 1, lane 2], [gp, mean norm] (zeros without a
+    penalty), lane 6, lam after the update)."""
+    w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
+    leaky, relu, dleaky = _acts(hp, probe)
+    x_g = w2g.shape[1]        # G's output width; D's input is x_g + n_cls
+    hgd = relu(z @ w1g + b1g)
+    fake = torch.sigmoid(hgd @ w2g + b2g)
+    # cgan: D sees the fake with its row's label, the x row's
+    fake_d = torch.cat([fake, x[:, x_g:]], 1) if hp.n_cls else fake
+    hr = leaky(x @ w1d + b1d)
+    lr = hr @ w2d + b2d
+    hf = leaky(fake_d @ w1d + b1d)
+    lf = hf @ w2d + b2d
+    if hp.variant == "began":
+        _watch_abs(probe, x, lr)
+        _watch_abs(probe, fake, lf)
+    glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b, x=x,
+                                       fake=fake_d, zrow=z)
+    dw2 = hr.t() @ glr + hf.t() @ glf
+    db2 = (glr + glf).sum(0)
+    dhr = (glr @ w2d.t()) * dleaky(hr)
+    dhf = (glf @ w2d.t()) * dleaky(hf)
+    dw1 = x.t() @ dhr + fake_d.t() @ dhf
+    db1 = (dhr + dhf).sum(0)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    pen = [zero, zero]
+    if hp.gp_lam:
+        xh = xt if hp.variant == "dragan" else xt * x + (1.0 - xt) * fake
+        dw1_p, dw2_p, gp, gnorm = _gp_backward(
+            xh, w1d, b1d, w2d, lam=hp.gp_lam, slope=hp.slope, inv_b=inv_b,
+            watch=lambda u: _watch(probe, u))
+        dw1 = dw1 + dw1_p
+        dw2 = dw2 + dw2_p
+        row = [row[0] + gp] + row[1:]
+        pen = [gp, gnorm]
+    return [dw1, db1, dw2, db2], row, pen, aux6, lam
+
+
+def g_grads(hp: ChunkHyper, p, z, inv_b: float, x_last=None,
+            probe: Optional[dict] = None):
+    """One G update's gradients through the critic in `p` by the
+    kernel's hand-derived math (phases G1-G6) from the z rows `z` (cgan:
+    ending in their label lanes; infogan: code rows). `x_last` (ragan
+    only) is the last critic batch, which its G loss reads. Returns
+    ([dW1g, db1g, dW2g, db2g], g_loss, lane 6 (infogan's G MI term; None
+    elsewhere))."""
+    w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
+    leaky, relu, dleaky = _acts(hp, probe)
+    x_g = w2g.shape[1]
+    z_g = z.shape[1] - hp.n_cls
+    hg = relu(z @ w1g + b1g)
+    fake2 = torch.sigmoid(hg @ w2g + b2g)
+    fake2_d = torch.cat([fake2, z[:, z_g:]], 1) if hp.n_cls else fake2
+    hf2 = leaky(fake2_d @ w1d + b1d)
+    lf2 = hf2 @ w2d + b2d
+    lr2 = None
+    if hp.variant == "ragan":  # the post-update critic on the last x
+        lr2 = leaky(x_last @ w1d + b1d) @ w2d + b2d
+    if hp.variant == "began":
+        _watch_abs(probe, fake2, lf2)
+    gl, g_loss, g6, dx_extra = _g_hook(hp, lf2, lr2, inv_b, fake2=fake2,
+                                       zrow=z)
+    dh2 = (gl @ w2d.t()) * dleaky(hf2)
+    dx = dh2 @ w1d[:x_g].t()  # the label lanes carry nothing to G
+    if dx_extra is not None:  # began: the direct L1 path into fake2
+        dx = dx + dx_extra
+    gu2 = (dx * fake2) * (1.0 - fake2)
+    dw2g = hg.t() @ gu2
+    db2g = gu2.sum(0)
+    dhg = (gu2 @ w2g.t()) * (hg > 0).to(z.dtype)
+    dw1g = z.t() @ dhg
+    db1g = dhg.sum(0)
+    return [dw1g, db1g, dw2g, db2g], g_loss, g6
+
+
 def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
                     batch: int, t_g: int, t_d: int, hp: ChunkHyper,
                     lam=0.0, xtra=None, probe: Optional[dict] = None
@@ -480,24 +595,9 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
     too; for began also the smallest |pixel - reconstruction| relative to
     the layer's root mean square over the pixels where r (1 - r) > 1e-3
     (a |.| tie: sign flips there), under ``probe["abs_margin"]``."""
-    w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
     inv_b = 1.0 / batch
-    s = hp.slope
     began = hp.variant == "began"
-    x_g = w2g.shape[1]        # G's output width; D's input is x_g + n_cls
-    z_g = zg.shape[1] - hp.n_cls
     lam = torch.as_tensor(lam, dtype=xs.dtype, device=xs.device)
-
-    def leaky(u):
-        _watch(probe, u)
-        return torch.where(u >= 0, u, s * u)
-
-    def relu(u):
-        _watch(probe, u)
-        return torch.clamp_min(u, 0.0)
-
-    def dleaky(h):
-        return torch.where(h >= 0, 1.0, s)
 
     def update(q, g, lr, t):
         if hp.adam:
@@ -507,51 +607,6 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
         if q >= 4 and hp.clip > 0.0:  # wgan: every critic tensor
             p[q].clamp_(-hp.clip, hp.clip)
 
-    def watch_abs(v, logits):
-        if probe is None:
-            return
-        r = torch.sigmoid(logits)
-        d = (v - r)[r * (1.0 - r) > 1e-3]
-        if d.numel() == 0:
-            return
-        m = d.abs().min() / (v - r).pow(2).mean().sqrt()
-        probe["abs_margin"] = torch.minimum(probe["abs_margin"], m) \
-            if "abs_margin" in probe else m
-
-    def d_update(x, z, xt, td, lam):
-        hgd = relu(z @ w1g + b1g)
-        fake = torch.sigmoid(hgd @ w2g + b2g)
-        # cgan: D sees the fake with its row's label, the x row's
-        fake_d = torch.cat([fake, x[:, x_g:]], 1) if hp.n_cls else fake
-        hr = leaky(x @ w1d + b1d)
-        lr = hr @ w2d + b2d
-        hf = leaky(fake_d @ w1d + b1d)
-        lf = hf @ w2d + b2d
-        if began:
-            watch_abs(x, lr)
-            watch_abs(fake, lf)
-        glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b, x=x,
-                                           fake=fake_d, zrow=z)
-        dw2 = hr.t() @ glr + hf.t() @ glf
-        db2 = (glr + glf).sum(0)
-        dhr = (glr @ w2d.t()) * dleaky(hr)
-        dhf = (glf @ w2d.t()) * dleaky(hf)
-        dw1 = x.t() @ dhr + fake_d.t() @ dhf
-        db1 = (dhr + dhf).sum(0)
-        pen = [zero, zero]
-        if hp.gp_lam:
-            xh = xt if hp.variant == "dragan" else xt * x + (1.0 - xt) * fake
-            dw1_p, dw2_p, gp, gnorm = _gp_backward(
-                xh, w1d, b1d, w2d, lam=hp.gp_lam, slope=s, inv_b=inv_b,
-                watch=lambda u: _watch(probe, u))
-            dw1 = dw1 + dw1_p
-            dw2 = dw2 + dw2_p
-            row = [row[0] + gp] + row[1:]
-            pen = [gp, gnorm]
-        for q, g in zip(range(4, 8), (dw1, db1, dw2, db2)):
-            update(q, g, hp.d_lr, td)
-        return row, pen, aux6, lam
-
     metrics = torch.zeros((steps, METRIC_LANES), dtype=torch.float32,
                           device=xs.device)
     zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
@@ -560,32 +615,13 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
             r0 = (k * ds + i) * batch
             x = xs[r0:r0 + batch]
             xt = None if xtra is None else xtra[r0:r0 + batch]
-            row, pen, aux6, lam = d_update(x, zd[r0:r0 + batch], xt,
-                                           float(t_d + k * ds + i + 1), lam)
-        z = zg[k * batch:(k + 1) * batch]
-        hg = relu(z @ w1g + b1g)
-        fake2 = torch.sigmoid(hg @ w2g + b2g)
-        fake2_d = torch.cat([fake2, z[:, z_g:]], 1) if hp.n_cls else fake2
-        hf2 = leaky(fake2_d @ w1d + b1d)
-        lf2 = hf2 @ w2d + b2d
-        lr2 = None
-        if hp.variant == "ragan":  # the post-update critic on the last x
-            lr2 = leaky(x @ w1d + b1d) @ w2d + b2d
-        if began:
-            watch_abs(fake2, lf2)
-        gl, g_loss, g6, dx_extra = _g_hook(hp, lf2, lr2, inv_b, fake2=fake2,
-                                           zrow=z)
-        dh2 = (gl @ w2d.t()) * dleaky(hf2)
-        dx = dh2 @ w1d[:x_g].t()  # the label lanes carry nothing to G
-        if dx_extra is not None:  # began: the direct L1 path into fake2
-            dx = dx + dx_extra
-        gu2 = (dx * fake2) * (1.0 - fake2)
-        dw2g = hg.t() @ gu2
-        db2g = gu2.sum(0)
-        dhg = (gu2 @ w2g.t()) * (hg > 0).to(xs.dtype)
-        dw1g = z.t() @ dhg
-        db1g = dhg.sum(0)
-        for q, g in zip(range(4), (dw1g, db1g, dw2g, db2g)):
+            grads, row, pen, aux6, lam = critic_grads(
+                hp, p, x, zd[r0:r0 + batch], xt, lam, inv_b, probe)
+            for q, g in zip(range(4, 8), grads):
+                update(q, g, hp.d_lr, float(t_d + k * ds + i + 1))
+        grads, g_loss, g6 = g_grads(hp, p, zg[k * batch:(k + 1) * batch],
+                                    inv_b, x_last=x, probe=probe)
+        for q, g in zip(range(4), grads):
             update(q, g, hp.g_lr, float(t_g + k + 1))
         if g6 is not None:  # infogan: G's MI term
             aux6 = g6

@@ -9,7 +9,8 @@ from ``PYTHONPATH`` and the same script times both: it speaks the
 interface of every version of ``ops/cuda_train.py`` so far (the first,
 nsgan and mmgan only, took a boolean where later ones take the variant).
 Each argument after the tag is ``variant[:optimizer]``; wgan runs at
-d_steps 5 with the clip; cgan with its label lanes; infogan with its
+d_steps 5 with the clip, wgangp at d_steps 5 with the penalty's eps
+stream (dragan: x_hat rows); cgan with its label lanes; infogan with its
 codes on G's input and a
 15-lane head, began with its 784-400-784 autoencoder critic (versions
 without their hooks print "not in this version"). For each it builds that version's kernel, runs a
@@ -37,10 +38,13 @@ def main(argv) -> int:
     for spec in specs:
         variant, _, optimizer = spec.partition(":")
         optimizer = optimizer or "adam"
-        ds = 5 if variant == "wgan" else 1
+        ds = 5 if variant in ("wgan", "wgangp") else 1
         extra = {"infogan": dict(info_cat=10, info_cont=2, info_lam=1.0),
                  "began": dict(began_gamma=0.75, began_lambda_k=1e-3),
-                 "cgan": dict(n_cls=10)}
+                 "cgan": dict(n_cls=10), "wgangp": dict(gp_lam=10.0),
+                 "dragan": dict(gp_lam=10.0)}
+        # the penalty's stream: wgangp's eps, dragan's x_hat rows
+        lanes = {"wgangp": 1, "dragan": 784}.get(variant, 0)
         if hasattr(ct, "HOOKS") and variant in ct.HOOKS:
             hp = ct.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, variant,
                                optimizer, 0.01 if variant == "wgan" else 0.0,
@@ -69,8 +73,10 @@ def main(argv) -> int:
         xs = torch.rand(steps * ds * b, xd, device="cuda")
         zd = torch.randn(steps * ds * b, z, device="cuda")
         zg = torch.randn(steps * b, z, device="cuda")
+        more = ({"xtra": torch.rand(steps * ds * b, lanes, device="cuda")}
+                if lanes else {})
         run = lambda: ct.gan_chunk(xs, zd, zg, *planes, steps=steps, ds=ds,
-                                   batch=b, t_g=0, t_d=0, hp=hp)
+                                   batch=b, t_g=0, t_d=0, hp=hp, **more)
         for _ in range(3):
             run()
         torch.cuda.synchronize()

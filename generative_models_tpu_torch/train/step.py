@@ -42,6 +42,7 @@ and the same noise.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Tuple, Union
 
 import numpy as np
@@ -191,7 +192,8 @@ def noise_generator(rng_words, index: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed % 2 ** 63)
 
 
-def grid_noise(rng_words, first_step: int, n: int, device, draw):
+def grid_noise(rng_words, first_step: int, n: int, device, draw,
+               shard: Tuple[int, int] = (0, 1)):
     """The noise of global steps first_step .. first_step+n-1 on a fixed
     grid: block j holds steps j*NOISE_BLOCK .. (j+1)*NOISE_BLOCK-1 and is
     drawn whole by ``draw(gen, NOISE_BLOCK)`` (a tensor, or a tuple of
@@ -200,15 +202,27 @@ def grid_noise(rng_words, first_step: int, n: int, device, draw):
     are drawn and the steps sliced out. So a step's noise depends on
     (rng, step) alone, not on where its chunk or sub-chunk starts: a run
     split into two ``train`` calls, or resumed at any step, draws the
-    numbers the uninterrupted run drew."""
+    numbers the uninterrupted run drew. Under data parallelism `shard`
+    is (rank, world): each tensor's batch dim (the second to last) is
+    the global batch, and the rank keeps its rows rank*b .. rank*b+b-1
+    (b = batch / world), so a rank's noise is a function of (rng, step,
+    rank), and the ranks together draw the single-device run's noise."""
     s = NOISE_BLOCK
     j0, j1 = first_step // s, (first_step + n - 1) // s
     blocks = [draw(noise_generator(rng_words, j, device), s)
               for j in range(j0, j1 + 1)]
     lo = first_step - j0 * s
+    rank, world = shard
+
+    def cut(parts):
+        t = torch.cat(parts)[lo:lo + n]
+        if world == 1:
+            return t
+        b = t.shape[-2] // world
+        return t.narrow(-2, rank * b, b).contiguous()
     if isinstance(blocks[0], torch.Tensor):
-        return torch.cat(blocks)[lo:lo + n]
-    return tuple(torch.cat(parts)[lo:lo + n] for parts in zip(*blocks))
+        return cut(blocks)
+    return tuple(cut(parts) for parts in zip(*blocks))
 
 
 def noise_lanes(cfg) -> int:
@@ -249,21 +263,49 @@ def _ema_update(ema, params, decay: float):
     return tree_map(lambda e, p: e * d + p * (1.0 - d), ema, params)
 
 
-def build_adversarial_step(spec, cfg):
+def reduce_mean(group, grads, metrics):
+    """(grads, metrics) averaged over the data group's ranks — a tree of
+    gradients and a dict of 0-dim metrics, in ONE all-reduce of a flat
+    buffer — or as they are without a group."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is None:
+        return grads, metrics
+    leaves = tree_leaves(grads)
+    keys = list(metrics)
+    flat = torch.cat([t.reshape(-1) for t in leaves]
+                     + [metrics[k].reshape(1).to(leaves[0].dtype)
+                        for k in keys])
+    group.all_reduce_mean_(flat)
+    parts = flat.split([t.numel() for t in leaves] + [1] * len(keys))
+    grads = tree_unflatten(grads, [p.view(t.shape)
+                                   for p, t in zip(parts, leaves)])
+    return grads, {k: p.reshape(()) for k, p in zip(keys,
+                                                    parts[len(leaves):])}
+
+
+def build_adversarial_step(spec, cfg, group=None):
     """Returns ``train_step(state, d_batches, z_d, z_g, aux_d=None) ->
     (state, metrics)``; `d_batches` holds tensors with leading dims
-    [d_steps, B]; `aux_d` is a penalty head's draw [d_steps, B, lanes]."""
+    [d_steps, B]; `aux_d` is a penalty head's draw [d_steps, B, lanes].
+    With a data group (``parallel/mesh.py``; the reference's
+    `axis_name`), the batches and noise are the rank's shard, each
+    update's local gradients and metrics are averaged over the ranks
+    (:func:`reduce_mean`) before the unchanged optimizer, and a
+    batch-coupled loss takes its statistics over the global batch."""
     d_steps = max(cfg.d_steps, 1)
+    d_loss_fn, g_loss_fn = spec.d_loss, spec.g_loss
+    if spec.batch_coupled and group is not None:
+        d_loss_fn = functools.partial(d_loss_fn, group=group)
+        g_loss_fn = functools.partial(g_loss_fn, group=group)
 
     def d_update(d_params, d_opt, vstate, g_params, batch, z, aux):
         dp = _leaves_requiring_grad(d_params)
         extra = {} if aux is None else {"aux": aux}
-        loss, metrics = spec.d_loss(dp, g_params, batch, None, vstate, cfg,
-                                    z=z, **extra)
-        d_params, d_opt = apply_opt(cfg, d_params, _grads(loss, dp), d_opt,
-                                    cfg.d_lr)
+        loss, metrics = d_loss_fn(dp, g_params, batch, None, vstate, cfg,
+                                  z=z, **extra)
+        grads, metrics = reduce_mean(group, _grads(loss, dp), metrics)
+        d_params, d_opt = apply_opt(cfg, d_params, grads, d_opt, cfg.d_lr)
         d_params = spec.d_post(d_params, cfg)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         return d_params, d_opt, spec.d_state_update(vstate, metrics, cfg), \
             metrics
 
@@ -280,11 +322,12 @@ def build_adversarial_step(spec, cfg):
 
         g_batch = {k: v[-1] for k, v in d_batches.items()}
         gp = _leaves_requiring_grad(g_params)
-        g_loss, g_metrics = spec.g_loss(gp, d_params, g_batch, None, vstate,
-                                        cfg, z=z_g)
-        new_g, g_opt = apply_opt(cfg, g_params, _grads(g_loss, gp),
-                                 state["g_opt"], cfg.g_lr)
-        g_metrics = {k: v.detach() for k, v in g_metrics.items()}
+        g_loss, g_metrics = g_loss_fn(gp, d_params, g_batch, None, vstate,
+                                      cfg, z=z_g)
+        g_grads, g_metrics = reduce_mean(group, _grads(g_loss, gp),
+                                         g_metrics)
+        new_g, g_opt = apply_opt(cfg, g_params, g_grads, state["g_opt"],
+                                 cfg.g_lr)
         vstate = spec.step_state_update(vstate, d_metrics, g_metrics, cfg)
 
         new_state = dict(state, g_params=new_g, d_params=d_params,
@@ -301,11 +344,15 @@ def build_adversarial_step(spec, cfg):
     return train_step
 
 
-def build_single_step(spec, cfg):
+def build_single_step(spec, cfg, group=None):
     """Returns ``train_step(state, batches, noise) -> (state, metrics)``;
     `batches` holds tensors with leading dims [1, B] (uniform with the
     adversarial layout); `noise` is ``eps [B, latent]`` or a
-    ``torch.Generator`` the loss draws from."""
+    ``torch.Generator`` the loss draws from. `group`: as
+    :func:`build_adversarial_step`'s."""
+    loss_fn = spec.loss
+    if spec.batch_coupled and group is not None:
+        loss_fn = functools.partial(loss_fn, group=group)
 
     def train_step(state: State, batches, noise) -> Tuple[State, Dict]:
         batch = {k: v[0] for k, v in batches.items()}
@@ -314,23 +361,24 @@ def build_single_step(spec, cfg):
                   for t in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         if isinstance(noise, torch.Generator):
-            loss, metrics = spec.loss(p, batch, noise, cfg)
+            loss, metrics = loss_fn(p, batch, noise, cfg)
         else:
-            loss, metrics = spec.loss(p, batch, None, cfg, eps=noise)
-        grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+            loss, metrics = loss_fn(p, batch, None, cfg, eps=noise)
+        grads, metrics = reduce_mean(group, tree_unflatten(
+            params, list(torch.autograd.grad(loss, leaves))), metrics)
         new_p, opt = apply_opt(cfg, params, grads, state["opt"], cfg.g_lr)
         new_state = dict(state, params=new_p, opt=opt, step=state["step"] + 1)
         if cfg.ema_decay > 0:
             new_state["ema"] = _ema_update(state["ema"], new_p, cfg.ema_decay)
-        return new_state, {k: v.detach() for k, v in metrics.items()}
+        return new_state, metrics
 
     return train_step
 
 
-def build_step(spec, cfg):
+def build_step(spec, cfg, group=None):
     if spec.adversarial:
-        return build_adversarial_step(spec, cfg)
-    return build_single_step(spec, cfg)
+        return build_adversarial_step(spec, cfg, group)
+    return build_single_step(spec, cfg, group)
 
 
 # ------------------------------------------------------------------

@@ -25,6 +25,17 @@ uninterrupted run. One exception: a single model's general step on the
 card hands each step a generator seeded from the ``rng`` words and the
 step, from which the loss draws its own noise — for the VAE inside the
 sampling kernel (``ops/cuda_reparam.py``).
+
+Given a data group (``parallel/mesh.py::DataGroup``; the reference's
+mesh), the Trainer is one rank of a data-parallel run, on the group's
+device, with ``cfg.batch_size`` the global batch (it must divide by the
+world): ``fused_step=True`` takes the phase kernels
+(``ops/cuda_dp.py``), ``"auto"`` and False the general DP step
+(``parallel/dp.py``), as the reference's "auto" keeps the XLA step
+whenever a mesh is present. Each rank draws its rows of the global
+batch's noise (``grid_noise``'s ``shard``). Rank 0 alone writes
+``metrics.jsonl``, images, the loss plot and checkpoints; every rank can
+load.
 """
 
 from __future__ import annotations
@@ -44,8 +55,9 @@ from generative_models_tpu_torch.data.mnist import (
 )
 from generative_models_tpu_torch.data.pipeline import make_perm
 from generative_models_tpu_torch.losses.registry import get_variant
-from generative_models_tpu_torch.ops import cuda_train
+from generative_models_tpu_torch.ops import cuda_dp, cuda_train
 from generative_models_tpu_torch.ops.penalty import aux_draw, aux_lanes
+from generative_models_tpu_torch.parallel import dp
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
 from generative_models_tpu_torch.utils.checkpoint import (
@@ -80,16 +92,36 @@ class Trainer:
     def __init__(self, variant: str = "nsgan",
                  config: Optional[Config] = None, device="cuda",
                  data: Optional[Dict[str, np.ndarray]] = None,
-                 **overrides):
+                 group=None, **overrides):
         cfg = config if config is not None else variant_config(
             variant, **overrides)
         if cfg.dtype == "auto":
             # no bf16 crossover has been measured on the card: float32
             cfg = cfg.replace(dtype="float32")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = resolve_device(device if group is None
+                                     else group.device)
         self.spec = get_variant(cfg.variant)
-        if cfg.fused_step is True:
+        if cfg.tp > 1:
+            raise ValueError("tensor-parallel training (tp > 1) is not "
+                             "ported to generative_models_tpu_torch yet "
+                             "(ROADMAP.md Queue 1 item 12, parallelism)")
+        if group is None and cfg.dp > 1:
+            raise ValueError(f"dp={cfg.dp} needs a data group of {cfg.dp} "
+                             "ranks (parallel/mesh.py::run_ranks; the CLI's "
+                             "--dp starts them)")
+        if group is not None:
+            if cfg.dp > 1 and cfg.dp != group.world:
+                raise ValueError(f"dp={cfg.dp} but the data group has "
+                                 f"{group.world} ranks")
+            dp.check_divisible(cfg, group.world)
+            if cfg.fused_step is True:
+                ok, reason = cuda_dp.fused_dp_supported(self.spec, cfg)
+                if not ok:
+                    raise ValueError(
+                        f"fused_step with DP unsupported: {reason}")
+        elif cfg.fused_step is True:
             ok, reason = cuda_train.fused_step_supported(self.spec, cfg)
             if not ok:
                 raise ValueError(f"fused_step unsupported here: {reason}")
@@ -149,6 +181,13 @@ class Trainer:
         if self.steps_per_epoch < 1:
             raise ValueError("dataset smaller than one training step")
         self.rows_per_epoch = self.steps_per_epoch * self.rows_per_step
+        if self.group is not None:
+            self._fused = cfg.fused_step is True
+            self._many_steps = (
+                cuda_dp.build_fused_dp_many_steps if self._fused
+                else dp.build_shard_map_many_steps)(
+                    self.spec, cfg, self.steps_per_epoch, self.group)
+            return
         self._fused = cuda_train.resolve_fused_step(self.spec, cfg,
                                                     self.device)
         if self._fused:
@@ -193,16 +232,21 @@ class Trainer:
         ``rng`` words and the step, from which that step's loss draws
         (the VAE's in its sampling kernel)."""
         cfg, dev, rng = self.cfg, self.device, self.state["rng"]
+        g = self.group
+        shard = (0, 1) if g is None else (g.rank, g.world)
         if not self.spec.adversarial:
             if dev.type == "cuda" and not self._fused:
-                # (indices past every grid block: no seed is shared)
-                return [step_lib.noise_generator(rng, ~(first_step + k), dev)
-                        for k in range(n)]
+                # (indices past every grid block: no seed is shared; a
+                # rank's own generator a step)
+                return [step_lib.noise_generator(
+                    rng, ~((first_step + k) * shard[1] + shard[0]), dev)
+                    for k in range(n)]
             return step_lib.grid_noise(
                 rng, first_step, n, dev,
                 lambda gen, s: torch.randn((s, cfg.batch_size,
                                             cfg.latent_dim),
-                                           generator=gen, device=dev))
+                                           generator=gen, device=dev),
+                shard)
         ds, b = max(cfg.d_steps, 1), cfg.batch_size
         lanes = aux_lanes(cfg.variant, cfg.image_dim)
 
@@ -212,7 +256,7 @@ class Trainer:
                                 device=dev) if lanes else None)
             z_g = step_lib.draw_z(gen, (s, b), cfg, dev)
             return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
-        return step_lib.grid_noise(rng, first_step, n, dev, draw)
+        return step_lib.grid_noise(rng, first_step, n, dev, draw, shard)
 
     # --------------------------------------------------------------
     def train(self, num_epochs: Optional[int] = None,
@@ -246,7 +290,8 @@ class Trainer:
         else:
             total = steps
 
-        logger = MetricsLogger(log_path, echo_every=echo_every)
+        logger = MetricsLogger(log_path if self.writes else None,
+                               echo_every=echo_every if self.writes else 0)
         sample_every = (cfg.sample_every if sample_every is None
                         else sample_every)
         # data order continues from the restored global step on resume
@@ -412,17 +457,28 @@ class Trainer:
                                self.cfg, z=z)
         return out.cpu().numpy()
 
+    @property
+    def writes(self) -> bool:
+        """Whether this Trainer writes files: rank 0 of a data group, or
+        a Trainer without one."""
+        return self.group is None or self.group.rank == 0
+
     def generate_images(self, tag: str = "samples", n: Optional[int] = None,
                         out_dir: Optional[str] = None) -> str:
-        """Reference's `generate_images`: a PNG sample grid."""
+        """Reference's `generate_images`: a PNG sample grid (written by
+        rank 0 only; every rank returns its path)."""
         imgs = self.sample(n)
         out_dir = out_dir or os.path.join(self.cfg.out_dir, self.cfg.variant)
-        return save_image_grid(os.path.join(out_dir, f"{tag}.png"), imgs)
+        path = os.path.join(out_dir, f"{tag}.png")
+        return save_image_grid(path, imgs) if self.writes else path
 
     def viz_loss(self, path: Optional[str] = None) -> str:
-        """Reference's loss-curve plot (a CSV without matplotlib)."""
+        """Reference's loss-curve plot (a CSV without matplotlib; rank 0
+        only)."""
         path = path or os.path.join(self.cfg.out_dir, self.cfg.variant,
                                     "loss.png")
+        if not self.writes:
+            return path
         return plot_losses(path, getattr(self, "history", {}))
 
     # --------------------------------------------------------------
@@ -437,7 +493,10 @@ class Trainer:
         variant's carried scalars, step, rng) in the JAX package's npz
         layout."""
         self._npz_only()
-        return save_state(path, self.state)
+        out = save_state(path, self.state, write=self.writes)
+        if self.group is not None:  # the file is whole before any rank
+            self.group.barrier()    # reads it
+        return out
 
     def load_model(self, path: str) -> None:
         """Load a checkpoint written by either package's ``save_model``

@@ -129,10 +129,14 @@ def _to_numpy(key: str, v) -> np.ndarray:
     return np.asarray(v)
 
 
-def save_state(path: str, state: Dict[str, Any]) -> str:
+def save_state(path: str, state: Dict[str, Any], write: bool = True) -> str:
     """Save a port train state as an ``.npz`` in the JAX package's layout
-    (same leaf paths, shapes, dtypes and order). Returns the path."""
+    (same leaf paths, shapes, dtypes and order). Returns the path. A
+    data-parallel rank other than 0 passes ``write=False``: the ranks'
+    states are identical and rank 0 alone writes the file."""
     path = npz_path(path)
+    if not write:
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     leaves = [(p, _to_numpy(p, v)) for p, v in state_leaves(state)]
     flat = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}

@@ -3,7 +3,9 @@
 step with ``step``, ``ts`` and every metric, plus standalone events).
 
 Metrics are fetched from the device after each chunk, not per step, and
-written on the host.
+written on the host. Under data parallelism the Trainer gives rank 0
+alone a path and an echo (the ranks' metrics are averaged, so equal);
+the others keep the history only.
 """
 
 from __future__ import annotations

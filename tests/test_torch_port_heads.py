@@ -175,8 +175,8 @@ def test_global_mean_refuses_a_mesh_axis():
     from generative_models_tpu_torch.losses.common import global_mean
     a = torch.arange(6.0).reshape(2, 3)
     assert float(global_mean(a)) == 2.5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        global_mean(a, axis_name="dp")
+    with pytest.raises(TypeError, match="DataGroup"):
+        global_mean(a, group="dp")
 
 
 def _key_chain(rng, steps, ds):

@@ -463,3 +463,89 @@ def test_began_and_infogan_hooks_run_on_cpu_without_building(variant,
                              if mu is None else [t.clone() for t in mu],
                              [t.clone() for t in nu], steps=2, ds=1, batch=2,
                              t_g=0, t_d=0, hp=hp)
+
+
+def test_phase_kernel_module_runs_on_cpu_without_building():
+    code = (
+        "import sys, torch\n"
+        "from generative_models_tpu_torch.config import variant_config\n"
+        "from generative_models_tpu_torch.ops import cuda_dp\n"
+        "from generative_models_tpu_torch.ops.cuda_train import ChunkHyper\n"
+        "from generative_models_tpu_torch.parallel.runs import init_state\n"
+        "cfg = variant_config('nsgan', batch_size=4, hidden_dim=8, z_dim=3)\n"
+        "st = init_state(cfg, 'cpu')\n"
+        "g, d = cuda_dp.pack_g(st['g_params']), cuda_dp.pack_d(st['d_params'])\n"
+        "hp = ChunkHyper.from_config(cfg)\n"
+        "fd = cuda_dp.d_phase(torch.rand(4, 784), torch.randn(4, 3), None,"
+        " g, d, 0.0, hp)\n"
+        "fg = cuda_dp.g_phase(torch.randn(4, 3), g, d, hp)\n"
+        "assert fd.shape == (784 * 8 + 8 + 8 + 1 + 8,)\n"
+        "assert fg.shape == (3 * 8 + 8 + 8 * 784 + 784 + 8,)\n"
+        "assert cuda_dp.d_launches == cuda_dp.g_launches == 0\n"
+        "assert 'generative_models_tpu_torch.ops.build' not in sys.modules\n"
+        "assert cuda_dp._lib.cache_info().currsize == 0\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_phase_wrappers_refuse_devices_they_have_no_path_for():
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.ops import cuda_dp
+    from generative_models_tpu_torch.ops.cuda_train import ChunkHyper
+    cfg = variant_config("nsgan", batch_size=4, hidden_dim=8, z_dim=3)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    g = [meta(3, 8), meta(8), meta(8, 784), meta(784)]
+    d = [meta(784, 8), meta(8), meta(8, 1), meta(1)]
+    hp = ChunkHyper.from_config(cfg)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_dp.d_phase(meta(4, 784), meta(4, 3), None, g, d, 0.0, hp)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_dp.g_phase(meta(4, 3), g, d, hp)
+    with pytest.raises(ValueError, match="phase kernels cover"):
+        cuda_dp.g_phase(meta(4, 3), g, d,
+                        ChunkHyper.from_config(cfg.replace(variant="ragan")))
+
+
+def test_phase_libraries_are_one_a_dp_hook_and_need_nvcc(monkeypatch):
+    from generative_models_tpu_torch.ops import cuda_dp, cuda_train
+    assert cuda_dp.DP_HOOKS == ("bce", "ls", "w", "cond", "gpb", "gpw", "f",
+                                "be", "info")
+    assert set(cuda_dp.FUSED_DP_VARIANTS) == set(cuda_train.GAN_VARIANTS) - {
+        "ragan", "fishergan"}
+    with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
+        src = f.read()
+    assert "GM_PHASE" in src and "gm_gan_phase(" in src
+    import torch.utils.cpp_extension as ext
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    cuda_dp._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_dp.build("bce")
+    finally:
+        cuda_dp._lib.cache_clear()
+
+
+def test_a_rank_without_its_card_raises_and_backends_follow_the_rule(
+        monkeypatch):
+    from generative_models_tpu_torch.parallel import mesh
+    assert mesh.pick_backend(2, "cpu") == "gloo"
+    assert mesh.pick_backend(2, "cuda") == "nccl"
+    assert mesh.pick_backend(1, "cuda") == "nccl"
+    assert mesh.pick_backend(2, "cuda", ranks_share_card=True) == "gloo"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs cuda:1"):
+        mesh.rank_device("cuda", 1, False)
+    assert mesh.rank_device("cpu", 1, False) == torch.device("cpu")
+
+
+def test_chip_smoke_kernels_line_names_the_phase_kernels():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    assert 'entry(f"gan_phase_{m}"' in src
+    for line in ("pallas_dp.py:", '"107"', '"195"', "check_phases(",
+                 "drive_dp_world1(", "drive_dp_shared_card(",
+                 "time_phases("):
+        assert line in src, line

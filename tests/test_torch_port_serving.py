@@ -197,7 +197,7 @@ def test_cli_sample_only_writes_png(tiny_data, tmp_path, capsys):
     (["--reflow-from", "t.npz"], "--reflow-from"),
     (["--vq-from", "v.npz"], "--vq-from"),
     (["--multihost"], "--multihost"),
-    (["--dp", "2"], "training"),
+    (["--tp", "2"], "training"),
 ])
 def test_cli_unported_paths_are_usage_errors(flags, named, capsys):
     argv = ["--variant", "nsgan", "--device", "cpu", *flags]

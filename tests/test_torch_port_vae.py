@@ -174,8 +174,8 @@ def test_birvae_pieces_match_jax():
         np.testing.assert_allclose(m.numpy(), np.asarray(jm), **NET_TOL)
         np.testing.assert_allclose(v.numpy(), np.asarray(jv), **NET_TOL)
         assert float(v.min()) >= eps
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        global_moments_axis0(torch.from_numpy(a), axis_name="dp")
+    with pytest.raises(TypeError, match="DataGroup"):
+        global_moments_axis0(torch.from_numpy(a), group="dp")
     w = _weights(rng, "birvae")
     x = rng.random((B, X), dtype=np.float32)
     np.testing.assert_allclose(
