@@ -88,7 +88,8 @@ imports nothing of JAX. Phases:
      card, ``Trainer(fused_step=True, group)`` (the phase kernels: d_steps
      + 1 launches a step, no chunk launch) against ``fused_step=False``
      (the general DP step) for nsgan and wgangp, 20 steps from one seed,
-     held like the cross-check, with d_steps + 1 all-reduces a step;
+     held like the cross-check, with d_steps + 1 NCCL all-reduces a
+     step (each one runs, at world 1 too);
      then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
      same pair on nsgan, the two ranks' states equal;
 5. times, with CUDA events, each kernel beside its plain version, its
@@ -98,8 +99,8 @@ imports nothing of JAX. Phases:
    + autograd + ``torch.optim.Adam`` or ``RMSprop`` with
    ``foreach=True``, which the port never calls: every one of them);
    each hook's phase kernels at b = 100 and 50 beside their float32
-   plain versions, their bounds and (nsgan) one ``autograd.grad`` call,
-   and steps/s of both DP routes at world 1 and on two ranks sharing the
+   plain versions, their bounds and one ``autograd.grad`` call of the
+   hook's loss (held first against the float64 plain version), and steps/s of both DP routes at world 1 and on two ranks sharing the
    card, with the all-reduce's time;
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -2075,6 +2076,10 @@ def time_vae_training(ctv, torch, card, general_sps):
 # (-1/B and +1/B a row): it is held by its absolute error instead.
 PHASE_TOL = {"grad": 1e-4, "metrics": 1e-4, "zero": 1e-6}
 PHASE_BATCHES = (TRAIN_B, TRAIN_B // 2)
+# phase 5e's library versions against the float64 plain version: a check
+# that they compute the phase's function (a wrong loss term is off by
+# O(1)), float32 rounding and sign ties well inside it
+LIBRARY_TOL = 1e-3
 # one variant a critic hook of the nine phase libraries
 PHASE_CASES = (("nsgan", {}), ("lsgan", {}), ("wgan", {}),
                ("fgan", dict(fgan_div="jensen_shannon")),
@@ -2179,9 +2184,12 @@ def dp_counts(cuda_dp, cuda_train, mesh):
 
 
 def dp_cfg(variant, kw, fused):
+    """A DP run's configuration: no sample images at the epoch ends (an
+    epoch of the 2000-row split is 20 steps), so the timed runs time the
+    steps alone."""
     from generative_models_tpu_torch.config import variant_config
     return variant_config(variant, batch_size=TRAIN_B, dtype="float32",
-                          fused_step=fused, **kw)
+                          fused_step=fused, sample_every=10 ** 9, **kw)
 
 
 def check_dp_pair(variant, cfg, what, s_f, h_f, s_g, h_g):
@@ -2351,8 +2359,9 @@ def phase_bound(mode, b, variant, hp):
 
 def time_phases(cuda_dp, cuda_train, torch, card):
     """Phase 5e: each hook's phase kernels at b = 100 and 50 beside their
-    float32 plain versions on the card, their bounds, and (nsgan) the
-    library's same gradients (torch.autograd.grad through addmm)."""
+    float32 plain versions on the card, their bounds, and the library's
+    same gradients (library_phases), which are first held against the
+    float64 plain version (LIBRARY_TOL)."""
     rows = []
     for variant, kw in PHASE_CASES:
         hp = chunk_hyper(cuda_train, variant, **kw)
@@ -2366,9 +2375,20 @@ def time_phases(cuda_dp, cuda_train, torch, card):
                                                          hp)),
                      "g": (lambda: cuda_dp.g_phase(zg, g, d, hp),
                            lambda: cuda_dp.g_phase_plain(zg, g, d, hp))}
-            lib = library_phases(torch, x, zd, zg, g, d) if (
-                variant == "nsgan") else {}
+            lib = library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d,
+                                 lam)
+            p64 = [t.double() for t in p]
+            ref = {"d": cuda_dp.d_phase_plain(
+                x.double(), zd.double(), None if xt is None else xt.double(),
+                p64[:4], p64[4:], lam, hp),
+                "g": cuda_dp.g_phase_plain(zg.double(), p64[:4], p64[4:], hp)}
             for mode, (kern, plain) in calls.items():
+                l_err = library_err(torch, lib[mode](), ref[mode],
+                                    d if mode == "d" else g)
+                if not l_err <= LIBRARY_TOL:
+                    raise AssertionError(
+                        f"library_phases {variant} {mode} b={b} is not the "
+                        f"phase's function: err {l_err:.3e}")
                 b_ms, b_by = phase_bound(mode, b, variant, hp)
                 row = {"kernel": f"gan_phase_{mode}", "variant": variant,
                        "hook": cuda_train.HOOKS[variant], "b": b,
@@ -2376,8 +2396,8 @@ def time_phases(cuda_dp, cuda_train, torch, card):
                        "device_ms": kernel_device_ms(torch, kern,
                                                     "gan_chunk_kernel"),
                        "plain_ms": time_ms(torch, plain, 10),
-                       "library_ms": (time_ms(torch, lib[mode], 50)
-                                      if lib else None),
+                       "library_ms": time_ms(torch, lib[mode], 50),
+                       "library_err": l_err,
                        "bound_ms": b_ms, "bound_by": b_by}
                 rows.append(row)
                 dev = row["device_ms"]
@@ -2385,32 +2405,106 @@ def time_phases(cuda_dp, cuda_train, torch, card):
                       f"{row['ms']:.4f} ms"
                       + (f" (device {dev:.4f})" if dev else "")
                       + f"  plain {row['plain_ms']:.4f}"
-                      + (f"  library {row['library_ms']:.4f}" if lib else "")
+                      + f"  library {row['library_ms']:.4f} (err {l_err:.1e})"
                       + f"  bound {b_ms:.5f} ({b_by})  [{card}]")
     return rows
 
 
-def library_phases(torch, x, zd, zg, g, d):
-    """nsgan's two phases as one library call each: addmm forwards and
-    torch.autograd.grad of the loss (the port never calls these)."""
-    lk = lambda u: torch.nn.functional.leaky_relu(u, 0.2)
-    sp = torch.nn.functional.softplus
+def library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d, lam):
+    """Each hook's two phases as one library call each: addmm forwards
+    and torch.autograd.grad of the hook's loss (the penalty's input
+    gradient through autograd.grad with create_graph, as
+    ops/penalty.py builds it); the port never calls these. Returns
+    {"d": fn, "g": fn}, each giving the four gradients."""
+    F = torch.nn.functional
+    sp = F.softplus
+    v = hp.variant
+    nc, nm = hp.info_cat, hp.info_cont
+    gf, _, fstar, _ = cuda_train._FGAN_TABLE[hp.fgan_div]
+
+    def G(p, z):
+        return torch.sigmoid(torch.addmm(p[3], torch.relu(
+            torch.addmm(p[1], z, p[0])), p[2]))
+
+    def D(p, u):
+        return torch.addmm(p[3], F.leaky_relu(torch.addmm(p[1], u, p[0]),
+                                              hp.slope), p[2])
+
+    def labelled(fake, rows):  # cgan: the fake beside its rows' labels
+        if not hp.n_cls:
+            return fake
+        return torch.cat([fake, rows[:, rows.shape[1] - hp.n_cls:]], 1)
+
+    def mi(o, z):  # infogan: CE + the fixed-variance NLL of the codes
+        t = z[:, z.shape[1] - nc - nm:]
+        return (-(F.log_softmax(o[:, 1:1 + nc], 1) * t[:, :nc]).sum(1).mean()
+                + 0.5 * ((t[:, nc:] - o[:, 1 + nc:1 + nc + nm]) ** 2).mean())
+
+    def energy(p, u):  # began: the autoencoder's L1 energy
+        return (u - torch.sigmoid(D(p, u))).abs().mean()
+
+    def d_head(lr, lf):
+        if v == "lsgan":
+            return 0.5 * ((lr - 1.0) ** 2).mean() + 0.5 * (lf ** 2).mean()
+        if v in ("wgan", "wgangp"):
+            return lf.mean() - lr.mean()
+        if v == "fgan":
+            return -gf(lr).mean() + fstar(gf(lf)).mean()
+        return sp(-lr).mean() + sp(lf).mean()
+
+    def g_head(lf):
+        if v == "lsgan":
+            return 0.5 * ((lf - 1.0) ** 2).mean()
+        if v in ("wgan", "wgangp"):
+            return -lf.mean()
+        if v == "fgan":
+            return -(gf(lf) if hp.fgan_ns else fstar(gf(lf))).mean()
+        if v == "mmgan":
+            return -sp(lf).mean()
+        return sp(-lf).mean()
 
     def d_grads():
         dd = [t.detach().requires_grad_(True) for t in d]
-        fake = torch.sigmoid(torch.addmm(g[3], torch.relu(
-            torch.addmm(g[1], zd, g[0])), g[2]))
-        lr = torch.addmm(dd[3], lk(torch.addmm(dd[1], x, dd[0])), dd[2])
-        lf = torch.addmm(dd[3], lk(torch.addmm(dd[1], fake, dd[0])), dd[2])
-        return torch.autograd.grad(sp(-lr).mean() + sp(lf).mean(), dd)
+        with torch.no_grad():
+            fake = G(g, zd)
+        if v == "began":
+            return torch.autograd.grad(
+                energy(dd, x) - lam * energy(dd, fake), dd)
+        lr, lf = D(dd, x), D(dd, labelled(fake, x))
+        if v == "infogan":
+            loss = (sp(-lr[:, 0]).mean() + sp(lf[:, 0]).mean()
+                    + hp.info_lam * mi(lf, zd))
+        else:
+            loss = d_head(lr[:, 0], lf[:, 0])
+        if hp.gp_lam:
+            xh = xt if v == "dragan" else xt * x + (1.0 - xt) * fake
+            xh = xh.detach().requires_grad_(True)
+            gx, = torch.autograd.grad(D(dd, xh).sum(), xh, create_graph=True)
+            n = torch.sqrt(gx.pow(2).sum(1) + 1e-12)
+            loss = loss + hp.gp_lam * ((n - 1.0) ** 2).mean()
+        return torch.autograd.grad(loss, dd)
 
     def g_grads():
         gg = [t.detach().requires_grad_(True) for t in g]
-        fake = torch.sigmoid(torch.addmm(gg[3], torch.relu(
-            torch.addmm(gg[1], zg, gg[0])), gg[2]))
-        lf = torch.addmm(d[3], lk(torch.addmm(d[1], fake, d[0])), d[2])
-        return torch.autograd.grad(sp(-lf).mean(), gg)
+        fake = G(gg, zg)
+        if v == "began":
+            return torch.autograd.grad(energy(d, fake), gg)
+        lf = D(d, labelled(fake, zg))
+        if v == "infogan":
+            loss = sp(-lf[:, 0]).mean() + hp.info_lam * mi(lf, zg)
+        else:
+            loss = g_head(lf[:, 0])
+        return torch.autograd.grad(loss, gg)
     return {"d": d_grads, "g": g_grads}
+
+
+def library_err(torch, lib_grads, plain_flat, like):
+    """The library's gradients against the plain version's (float64):
+    max abs error over max |ref|, the worst of the four tensors."""
+    ref, _ = phase_split(plain_flat, like)
+    return max(float((a.double() - r).abs().max())
+               / max(float(r.abs().max()), PHASE_TOL["zero"])
+               for a, r in zip(lib_grads, ref))
 
 
 def main() -> int:

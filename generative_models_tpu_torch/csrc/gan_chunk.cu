@@ -249,7 +249,9 @@ struct Args {
   float *ab, *d2, *erow, *erow2;
   // the phase kernels: where each state tensor's gradient goes (segments
   // of one flat buffer), in place of its optimizer step
+#if GM_PHASE
   float* gr[N_PARAMS];
+#endif
 };
 
 // The same arguments for the RMSprop kernel: a type of its own, so that
@@ -289,10 +291,9 @@ __device__ __forceinline__ int gp_fresh(int n) {
 template <bool RMS>
 __device__ __forceinline__ void update(const Args& a, int q, size_t i,
                                        float g, const AdamT& t) {
-  if constexpr (PHASE) {  // the gradient itself; the optimizer runs after
-    a.gr[q][i] = g;       // the all-reduce, outside the kernel
-    return;
-  }
+#if GM_PHASE  // the gradient itself; the optimizer runs after the
+  a.gr[q][i] = g;  // all-reduce, outside the kernel
+#else
   if (RMS) {
     const float v = RMS_DECAY * ld(a.nu[q] + i) + (RMS_OMD * g) * g;
     a.nu[q][i] = v;
@@ -308,6 +309,7 @@ __device__ __forceinline__ void update(const Args& a, int q, size_t i,
     if (HOOK == HOOK_W && q >= P_D_W1 && a.clip > 0.0f)
       a.p[q][i] = fminf(fmaxf(ld(a.p[q] + i), -a.clip), a.clip);
   }
+#endif
 }
 
 template <bool RMS>

@@ -17,7 +17,10 @@ d_steps ds:
   critic, one all-reduce, the optimizer, ``spec.step_state_update``
   (began's k_t law), then the EMA of G.
 
-So a step makes ds + 1 phase launches and ds + 1 all-reduces. The
+The step around the launches is the general step's
+(``train/step.py::build_adversarial_step`` with :func:`phase_grads` as
+its gradient source), driven by ``parallel/dp.py``'s chunk loop. So a
+step makes ds + 1 phase launches and ds + 1 all-reduces. The
 kernels are ``csrc/gan_chunk.cu`` built with ``-DGM_PHASE=1``: the chunk
 kernel's phases A-F (critic) and G1-G6 (G), whose epilogues write the
 gradient where the chunk steps the optimizer; one library a critic hook
@@ -62,13 +65,7 @@ from generative_models_tpu_torch.ops.cuda_train import (
     ChunkHyper,
 )
 from generative_models_tpu_torch.ops.penalty import aux_lanes
-from generative_models_tpu_torch.train.optim import apply_opt
-from generative_models_tpu_torch.train.step import (
-    _ema_update,
-    batches_per_step,
-    pick_sub,
-    stream_bytes_per_step,
-)
+from generative_models_tpu_torch.train.step import build_adversarial_step
 
 SOURCE = cuda_train.SOURCE  # built with -DGM_PHASE=1
 # the reference's order (pallas_train.FUSED_VARIANTS without the
@@ -376,92 +373,60 @@ def g_phase(zg, g, d, hp: ChunkHyper) -> torch.Tensor:
 # The many-steps function the Trainer calls
 # ---------------------------------------------------------------------
 
-def build_fused_dp_many_steps(spec, cfg, steps_per_epoch: int, group):
-    """The phase kernels' twin of ``parallel/dp.py::
-    build_shard_map_many_steps``, with its contract, its gather and its
-    noise: ``many_steps(state, images, labels, perm_stack, rel_offsets,
-    noise) -> (state, metrics)``, `noise` giving the rank's shard of each
-    step's noise. The optimizer and the variant's hooks are the general
-    step's, so the two paths train alike up to the kernels' rounding.
+def phase_grads(spec, cfg, group):
+    """The phase kernels' gradient source for ``train/step.py::
+    build_adversarial_step`` (the pair ``autograd_grads`` returns there):
+    each update is one :func:`d_phase` or :func:`g_phase` launch on the
+    rank's rows, then one all-reduce of its flat buffer over `group`.
     dragan's x_hat = x + scale * std(x) * u is formed here from the
-    rank's rows (std over its shard, as the reference's per-device
-    draw); cgan's labels become one-hot lanes on the x and zd rows, and
-    the last critic batch's on the zg rows."""
-    from generative_models_tpu_torch.parallel.dp import (
-        check_divisible,
-        make_gather_local,
-    )
-    ok, reason = fused_dp_supported(spec, cfg)
-    if not ok:
-        raise ValueError(f"fused_step with DP unsupported: {reason}")
-    b = check_divisible(cfg, group.world)
+    rank's rows (std over its shard, as the reference's per-device draw);
+    cgan's labels become one-hot lanes on the x and zd rows, and the
+    last critic batch's on the zg rows; began's k is read from vstate."""
     variant = cfg.variant
-    ds = max(cfg.d_steps, 1)
     hp = ChunkHyper.from_config(cfg)
     lanes = aux_lanes(variant, cfg.image_dim)
-    gather_local = make_gather_local(cfg, batches_per_step(spec, cfg),
-                                     steps_per_epoch, group.world,
-                                     group.rank)
-    per_step = stream_bytes_per_step(cfg, spec) // group.world
 
     def with_labels(rows, y):
         if not hp.n_cls:
             return rows
         return torch.cat([rows, onehot(y, hp.n_cls)], 1).contiguous()
 
-    def train_step(state, x, y, z_d, z_g, aux_d=None):
-        g_params = state["g_params"]
-        g_pk = pack_g(g_params)
-        d_params, d_opt, vstate = (state["d_params"], state["d_opt"],
-                                   state["vstate"])
+    def d_grads(d_params, g_params, batch, z, aux, vstate):
+        x, y = batch["image"], batch["label"]
+        xt = None
+        if lanes:
+            xt = aux
+            if variant == "dragan":  # x_hat on the rank's rows
+                xt = x + cfg.dragan_noise_scale * x.std(correction=0) * xt
+            xt = xt.contiguous()
         lam = vstate["k"] if variant == "began" else 0.0
-        for i in range(ds):
-            xt = None
-            if lanes:
-                xt = aux_d[i]
-                if variant == "dragan":  # x_hat on the rank's rows
-                    std = x[i].std(correction=0)
-                    xt = x[i] + cfg.dragan_noise_scale * std * xt
-            buf = d_phase(with_labels(x[i], y[i]), with_labels(z_d[i], y[i]),
-                          None if xt is None else xt.contiguous(), g_pk,
-                          pack_d(d_params), lam, hp)
-            group.all_reduce_mean_(buf)
-            d_metrics = d_named(variant, metrics_of(buf))
-            d_params, d_opt = apply_opt(cfg, d_params,
-                                        unpack_d(buf, d_params), d_opt,
-                                        cfg.d_lr)
-            d_params = spec.d_post(d_params, cfg)
-            vstate = spec.d_state_update(vstate, d_metrics, cfg)
-        buf = g_phase(with_labels(z_g, y[-1]), g_pk, pack_d(d_params), hp)
+        buf = d_phase(with_labels(x, y), with_labels(z, y), xt,
+                      pack_g(g_params), pack_d(d_params), lam, hp)
         group.all_reduce_mean_(buf)
-        g_metrics = g_named(variant, metrics_of(buf))
-        new_g, g_opt = apply_opt(cfg, g_params, unpack_g(buf, g_params),
-                                 state["g_opt"], cfg.g_lr)
-        vstate = spec.step_state_update(vstate, d_metrics, g_metrics, cfg)
-        new_state = dict(state, g_params=new_g, d_params=d_params,
-                         g_opt=g_opt, d_opt=d_opt, vstate=vstate,
-                         step=state["step"] + 1)
-        if cfg.ema_decay > 0:  # outside the kernels, as the reference's
-            new_state["g_ema"] = _ema_update(state["g_ema"], new_g,
-                                             cfg.ema_decay)
-        metrics = {**d_metrics, **g_metrics}
-        for k, v in vstate.items():
-            metrics[f"vstate_{k}"] = v
-        return new_state, metrics
+        return unpack_d(buf, d_params), d_named(variant, metrics_of(buf))
 
-    def many_steps(state, images, labels, perm_stack, rel_offsets, noise):
-        steps = rel_offsets.shape[0]
-        sub = pick_sub(steps, per_step)
-        hist: Dict[str, list] = {}
-        for k0 in range(0, steps, sub):
-            xs, ys = gather_local(images, labels, perm_stack,
-                                  rel_offsets[k0:k0 + sub])
-            drawn = noise(k0, sub)
-            for k in range(sub):
-                state, m = train_step(state, xs[k], ys[k],
-                                      *[t[k] for t in drawn])
-                for key, v in m.items():
-                    hist.setdefault(key, []).append(v)
-        return state, {k: torch.stack(v) for k, v in hist.items()}
+    def g_grads(g_params, d_params, batch, z, vstate):
+        buf = g_phase(with_labels(z, batch["label"]), pack_g(g_params),
+                      pack_d(d_params), hp)
+        group.all_reduce_mean_(buf)
+        return unpack_g(buf, g_params), g_named(variant, metrics_of(buf))
 
-    return many_steps
+    return d_grads, g_grads
+
+
+def build_fused_dp_many_steps(spec, cfg, steps_per_epoch: int, group):
+    """``parallel/dp.py::build_shard_map_many_steps`` — its contract, its
+    gather, its noise — driving the general step with the phase kernels'
+    gradients (:func:`phase_grads`): the optimizer, the variant's hooks
+    and the EMA are the general step's, so the two paths train alike up
+    to the kernels' rounding."""
+    from generative_models_tpu_torch.parallel.dp import (
+        build_shard_map_many_steps,
+    )
+    ok, reason = fused_dp_supported(spec, cfg)
+    if not ok:
+        raise ValueError(f"fused_step with DP unsupported: {reason}")
+    train_step = build_adversarial_step(spec, cfg, group,
+                                        grads=phase_grads(spec, cfg, group))
+    return build_shard_map_many_steps(spec, cfg, steps_per_epoch, group,
+                                      train_step)

@@ -60,16 +60,20 @@ def check_divisible(cfg, world: int) -> int:
     return cfg.batch_size // world
 
 
-def build_shard_map_many_steps(spec, cfg, steps_per_epoch: int, group):
+def build_shard_map_many_steps(spec, cfg, steps_per_epoch: int, group,
+                               train_step=None):
     """The explicit-collective twin of ``train.step.build_many_steps``:
     ``many_steps(state, images, labels, perm_stack, rel_offsets, noise) ->
     (state, metrics)``, with `noise` giving this rank's shard of each
     step's noise (``train/step.py::grid_noise`` with ``shard``). Each
     update's gradients and metrics are averaged over `group`'s ranks in
-    one all-reduce (a batch-coupled loss adds its statistics' own)."""
+    one all-reduce (a batch-coupled loss adds its statistics' own).
+    `train_step` (default: the general step with `group`) is the step it
+    drives; the phase kernels' path passes its own
+    (``ops/cuda_dp.py::build_fused_dp_many_steps``)."""
     check_divisible(cfg, group.world)
     nb = step_lib.batches_per_step(spec, cfg)
-    train_step = step_lib.build_step(spec, cfg, group)
+    train_step = train_step or step_lib.build_step(spec, cfg, group)
     gather_local = make_gather_local(cfg, nb, steps_per_epoch, group.world,
                                      group.rank)
     per_step = step_lib.stream_bytes_per_step(cfg, spec) // group.world

@@ -48,11 +48,13 @@ class DataGroup:
     pg: Any  # the torch.distributed process group
 
     def all_reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
-        """Averages `t` over the ranks, in place (one collective)."""
+        """Averages `t` over the ranks, in place: one collective of the
+        group's backend, at world 1 too, so a group of one rank runs the
+        path a larger one runs."""
         global all_reduces
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         all_reduces += 1
         if self.world > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
             t.div_(self.world)
         return t
 
@@ -110,8 +112,7 @@ def rank_device(device, rank: int, ranks_share_card: bool) -> torch.device:
 
 
 def init_data_group(world: Optional[int] = None, rank: Optional[int] = None,
-                    device="cuda", backend: Optional[str] = None,
-                    store_path: Optional[str] = None,
+                    device="cuda", store_path: Optional[str] = None,
                     ranks_share_card: bool = False) -> DataGroup:
     """Joins (or, at world 1, forms) the data group. Without `world` and
     `rank` they come from ``WORLD_SIZE`` and ``RANK``, and the rendezvous
@@ -122,7 +123,7 @@ def init_data_group(world: Optional[int] = None, rank: Optional[int] = None,
     if rank is None:
         rank = int(os.environ["RANK"])
     dev = rank_device(device, rank, ranks_share_card)
-    backend = backend or pick_backend(world, dev, ranks_share_card)
+    backend = pick_backend(world, dev, ranks_share_card)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if not dist.is_initialized():

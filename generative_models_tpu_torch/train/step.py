@@ -283,31 +283,48 @@ def reduce_mean(group, grads, metrics):
                                                     parts[len(leaves):])}
 
 
-def build_adversarial_step(spec, cfg, group=None):
-    """Returns ``train_step(state, d_batches, z_d, z_g, aux_d=None) ->
-    (state, metrics)``; `d_batches` holds tensors with leading dims
-    [d_steps, B]; `aux_d` is a penalty head's draw [d_steps, B, lanes].
-    With a data group (``parallel/mesh.py``; the reference's
-    `axis_name`), the batches and noise are the rank's shard, each
-    update's local gradients and metrics are averaged over the ranks
-    (:func:`reduce_mean`) before the unchanged optimizer, and a
-    batch-coupled loss takes its statistics over the global batch."""
-    d_steps = max(cfg.d_steps, 1)
+def autograd_grads(spec, cfg, group=None):
+    """The general step's gradient source for
+    :func:`build_adversarial_step`: ``(d_grads, g_grads)`` with
+    ``d_grads(d_params, g_params, batch, z, aux, vstate)`` and
+    ``g_grads(g_params, d_params, batch, z, vstate)``, each returning
+    (a gradient tree, a dict of 0-dim metrics): autograd through the
+    variant's loss, then with a data group (``parallel/mesh.py``; the
+    reference's `axis_name`) the local gradients and metrics averaged
+    over the ranks (:func:`reduce_mean`); a batch-coupled loss then takes
+    its statistics over the global batch."""
     d_loss_fn, g_loss_fn = spec.d_loss, spec.g_loss
     if spec.batch_coupled and group is not None:
         d_loss_fn = functools.partial(d_loss_fn, group=group)
         g_loss_fn = functools.partial(g_loss_fn, group=group)
 
-    def d_update(d_params, d_opt, vstate, g_params, batch, z, aux):
+    def d_grads(d_params, g_params, batch, z, aux, vstate):
         dp = _leaves_requiring_grad(d_params)
         extra = {} if aux is None else {"aux": aux}
         loss, metrics = d_loss_fn(dp, g_params, batch, None, vstate, cfg,
                                   z=z, **extra)
-        grads, metrics = reduce_mean(group, _grads(loss, dp), metrics)
-        d_params, d_opt = apply_opt(cfg, d_params, grads, d_opt, cfg.d_lr)
-        d_params = spec.d_post(d_params, cfg)
-        return d_params, d_opt, spec.d_state_update(vstate, metrics, cfg), \
-            metrics
+        return reduce_mean(group, _grads(loss, dp), metrics)
+
+    def g_grads(g_params, d_params, batch, z, vstate):
+        gp = _leaves_requiring_grad(g_params)
+        loss, metrics = g_loss_fn(gp, d_params, batch, None, vstate, cfg,
+                                  z=z)
+        return reduce_mean(group, _grads(loss, gp), metrics)
+
+    return d_grads, g_grads
+
+
+def build_adversarial_step(spec, cfg, group=None, grads=None):
+    """Returns ``train_step(state, d_batches, z_d, z_g, aux_d=None) ->
+    (state, metrics)``; `d_batches` holds tensors with leading dims
+    [d_steps, B]; `aux_d` is a penalty head's draw [d_steps, B, lanes].
+    With a data group the batches and noise are the rank's shard.
+    `grads` is where each update's gradients come from: a pair as
+    :func:`autograd_grads` returns (its default), or the phase kernels'
+    (``ops/cuda_dp.py::phase_grads``). The optimizer, ``spec.d_post``,
+    the state hooks and the EMA are the same for every source."""
+    d_steps = max(cfg.d_steps, 1)
+    d_grads, g_grads = grads or autograd_grads(spec, cfg, group)
 
     def train_step(state: State, d_batches, z_d, z_g,
                    aux_d=None) -> Tuple[State, Dict]:
@@ -316,17 +333,18 @@ def build_adversarial_step(spec, cfg, group=None):
                                    state["vstate"])
         for i in range(d_steps):
             batch = {k: v[i] for k, v in d_batches.items()}
-            d_params, d_opt, vstate, d_metrics = d_update(
-                d_params, d_opt, vstate, g_params, batch, z_d[i],
-                None if aux_d is None else aux_d[i])
+            grads_d, d_metrics = d_grads(
+                d_params, g_params, batch, z_d[i],
+                None if aux_d is None else aux_d[i], vstate)
+            d_params, d_opt = apply_opt(cfg, d_params, grads_d, d_opt,
+                                        cfg.d_lr)
+            d_params = spec.d_post(d_params, cfg)
+            vstate = spec.d_state_update(vstate, d_metrics, cfg)
 
         g_batch = {k: v[-1] for k, v in d_batches.items()}
-        gp = _leaves_requiring_grad(g_params)
-        g_loss, g_metrics = g_loss_fn(gp, d_params, g_batch, None, vstate,
-                                      cfg, z=z_g)
-        g_grads, g_metrics = reduce_mean(group, _grads(g_loss, gp),
-                                         g_metrics)
-        new_g, g_opt = apply_opt(cfg, g_params, g_grads, state["g_opt"],
+        grads_g, g_metrics = g_grads(g_params, d_params, g_batch, z_g,
+                                     vstate)
+        new_g, g_opt = apply_opt(cfg, g_params, grads_g, state["g_opt"],
                                  cfg.g_lr)
         vstate = spec.step_state_update(vstate, d_metrics, g_metrics, cfg)
 

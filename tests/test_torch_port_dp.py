@@ -341,3 +341,31 @@ def test_cli_dp_on_cuda_needs_a_card_a_rank(capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"--dp {n} needs {n} CUDA devices, one a rank, but only {have}" in err
+
+
+def test_a_group_of_one_runs_every_collective_it_counts(tmp_path,
+                                                        monkeypatch):
+    """At world 1 each counted all-reduce (in place, and the
+    differentiable mean both ways) is a call of the backend's
+    collective, as a larger group makes it."""
+    calls = []
+    real = mesh.dist.all_reduce
+
+    def spy(t, **kw):
+        calls.append(t.numel())
+        return real(t, **kw)
+    monkeypatch.setattr(mesh.dist, "all_reduce", spy)
+    group = mesh.init_data_group(1, 0, "cpu",
+                                 store_path=str(tmp_path / "store"))
+    try:
+        assert group.backend == "gloo"
+        before = mesh.all_reduces
+        t = torch.arange(4.0)
+        group.all_reduce_mean_(t)
+        x = torch.ones(3, requires_grad=True)
+        mesh.all_reduce_mean(x * 2.0, group).sum().backward()
+        assert calls == [4, 3, 3] and mesh.all_reduces - before == 3
+        assert torch.equal(t, torch.arange(4.0))
+        assert torch.equal(x.grad, torch.full((3,), 2.0))
+    finally:
+        mesh.close_data_group()
