@@ -11,10 +11,11 @@ imports nothing of JAX. Phases:
 2. builds every kernel of the serving and training paths from ``csrc/``
    (five sources — mlp_fwd, mlp_bwd, gan_chunk, reparam, vae_chunk;
    gan_chunk once per critic hook, eleven libraries, and once per
-   data-parallel hook with -DGM_PHASE=1, nine ``gan_phase`` libraries —
-   one nvcc each, all started together, in this process before any rank
-   starts; sm_90a) and prints the build time and the ptxas reports; it
-   fails if a chunk or phase kernel spills registers;
+   data-parallel hook with -DGM_PHASE=1, nine ``gan_phase`` libraries,
+   each of these and vae_chunk also with -DGM_BF16=1 (bf16 operands):
+   45 libraries, one nvcc each, all started together, in this process
+   before any rank starts; sm_90a) and prints the build time and the
+   ptxas reports; it fails if a chunk or phase kernel spills registers;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -54,6 +55,13 @@ imports nothing of JAX. Phases:
      rank's rows at world 1 and 2), each gradient tensor by its max abs
      error over its max |ref|, the metrics lanes by abs error, data by
      the tie rule;
+   - the EMA and bf16 kernels (3i): every hook's Adam and RMSprop EMA
+     chunk kernels, 8 steps at ema_decay 0.999, and the VAE and BIR-VAE EMA kernels, held as 3c
+     and 3f hold theirs with the EMA plane as one more state plane; every
+     hook's bf16 chunk kernel with and without the EMA plane, the VAE
+     and BIR-VAE bf16 kernels (one step) and every hook's bf16 D and G
+     phase kernel (b = 100), each against a float64 plain version with
+     the same bf16 operand rounding, by BF16_RATIO;
 4. drives the port's main paths, each with the launch counts set to 0
    just before it and read just after:
    - serving: a full-width nsgan checkpoint in the JAX package's npz
@@ -69,7 +77,10 @@ imports nothing of JAX. Phases:
      at the end, fishergan's ``vstate_lam``, began's ``vstate_k`` (in [0,
      1]) and ``vstate_m``, infogan's ``g_mi_loss`` and the penalty's
      ``gp`` and ``grad_norm`` in ``metrics.jsonl``, ``final.png`` and
-     ``metrics.jsonl`` written;
+     ``metrics.jsonl`` written; then nsgan and vae again with
+     ``--ema-decay 0.999 --dtype bfloat16`` (2 launches of the EMA and
+     bf16 kernel each, the checkpoint's EMA plane apart from the
+     parameters);
    - training through the general step (``fused_step=False``): nsgan 200
      steps, 5 forward and 4 backward launches a step; wgan 60 steps, 17
      and 12; wgangp 60 steps, 17 and 12 and 5 plain critic passes of the
@@ -90,6 +101,8 @@ imports nothing of JAX. Phases:
      (the general DP step) for nsgan and wgangp, 20 steps from one seed,
      held like the cross-check, with d_steps + 1 NCCL all-reduces a
      step (each one runs, at world 1 too);
+     and nsgan at dtype bfloat16 through the bf16 phase kernels, held to
+     the float32 fused run by the reference's bf16 bound (BF16_RUN_TOL);
      then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
      same pair on nsgan, the two ranks' states equal;
 5. times, with CUDA events, each kernel beside its plain version, its
@@ -101,7 +114,12 @@ imports nothing of JAX. Phases:
    each hook's phase kernels at b = 100 and 50 beside their float32
    plain versions, their bounds and one ``autograd.grad`` call of the
    hook's loss (held first against the float64 plain version), and steps/s of both DP routes at world 1 and on two ranks sharing the
-   card, with the all-reduce's time;
+   card, with the all-reduce's time; (5f) the EMA and bf16 chunk
+   kernels of every hook and of the VAE family and the bf16 phase
+   kernels the same way (their library yardsticks with an EMA step or
+   under autocast, bf16 bounds at the tensor cores' dense peak; each
+   bf16 phase's yardstick held to its function by LIBRARY_BF16_TOL, which
+   the same yardstick with a wrong loss term must exceed);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -114,6 +132,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import glob
 import io
@@ -132,6 +151,9 @@ OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
+# the EMA kernels' decay (ddpm's and flow's default, config.py)
+EMA_DECAY = 0.999
 
 # Kernel vs plain version on the card, fixed before measuring.
 # Forward, max abs error. float32: only the order of the K <= 784
@@ -307,8 +329,9 @@ def build_all(mods, build_dir):
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(fn) for fn in mods]:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk and gan_phase (one library "
-          f"a hook each), reparam, vae_chunk: {len(mods)} libraries in "
+    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk and gan_phase (two "
+          f"libraries a hook each, float32 and bf16), reparam, vae_chunk "
+          f"(float32 and bf16): {len(mods)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     spills, chunk_kernels = [], 0
     for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
@@ -520,7 +543,10 @@ CHUNK_CASES = (
                         info_lam=INFO_LAM), 0.0),
     ("began", 1, dict(began_gamma=BEGAN_GAMMA, began_lambda_k=BEGAN_LK),
      BEGAN_K0),
-    # the two hooks' RMSprop kernels
+    # the RMSprop kernels of three hooks (wgangp's since ROADMAP Queue 2
+    # item 6(e); d_steps 2, so that the tie rule finds data)
+    ("wgangp", 2, dict(optimizer="rmsprop", g_lr=1e-4, d_lr=1e-4,
+                       gp_lam=GP_LAM), 0.0),
     ("infogan", 1, dict(optimizer="rmsprop", g_lr=1e-3, info_cat=INFO_CAT,
                         info_cont=INFO_CONT, info_lam=INFO_LAM), 0.0),
     ("began", 1, dict(optimizer="rmsprop", began_gamma=BEGAN_GAMMA,
@@ -603,55 +629,90 @@ def held_state_err(variant, got, ref, names):
     return l2, name, err, r_err
 
 
-def check_chunk(cuda_train, torch):
-    """Phase 3c: 8 steps of the chunk kernel vs gan_chunk_plain in
-    float64, per variant. Returns the worst metrics error."""
+def bf16_shift(p, biases, readers):
+    """BF16_HIDDEN_SHIFT on the hidden `biases` (indices into the numpy
+    planes p), the column means out of the `readers` weights."""
+    for q in biases:
+        p[q] = p[q] + np.float32(BF16_HIDDEN_SHIFT)
+    for q in readers:
+        p[q] = (p[q] - p[q].mean(0, keepdims=True)).astype(np.float32)
+
+
+def chunk_case(torch, hp, steps, ds, seed, ema=False):
+    """A chunk check's data from `seed`: ((p, mu, nu, G's EMA plane or
+    None) as numpy, then chunk_streams' xs, zd, zg, xtra); began's output
+    biases shifted (BEGAN_SHIFT), wgan's critic clipped."""
+    variant = hp.variant
+    rng = np.random.default_rng(seed)
+    p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
+    if variant == "began":  # fakes near 0.88, reconstructions near 0.12:
+        # no |v - r| near 0, r (1 - r) ~ 0.1 (BEGAN_SHIFT)
+        p[3] = p[3] + np.float32(BEGAN_SHIFT)
+        p[7] = p[7] - np.float32(BEGAN_SHIFT)
+    if hp.bf16:  # hidden pre-activations away from 0 (BF16_HIDDEN_SHIFT)
+        bf16_shift(p, (1, 5), (2, 6))
+    if hp.clip > 0:  # a critic as the clip leaves it
+        p = p[:4] + [np.clip(a, -hp.clip, hp.clip) for a in p[4:]]
+    streams = chunk_streams(rng, torch, variant, steps, ds, hp.n_cls)
+    # an EMA plane apart from G's parameters, as after some training
+    e = ([(a + rng.normal(0, 1e-2, a.shape)).astype(np.float32)
+          for a in p[:4]] if ema else None)
+    return ((p, mu, nu, e),) + streams
+
+
+def chunk_planes(torch, hp, state, dt):
+    """chunk_case's numpy state on the card in `dt`: [p, mu (None with
+    RMSprop), nu, ema (or None)]."""
+    out = [None if pl is None else
+           [torch.from_numpy(a.copy()).to("cuda", dt) for a in pl]
+           for pl in state]
+    if not hp.adam:
+        out[1] = None
+    return out
+
+
+EMA_NAMES = [f"ema.{t}" for t in ("g_w1", "g_b1", "g_w2", "g_b2")]
+
+
+def check_chunk(cuda_train, torch, cases=CHUNK_CASES, ema_decay=0.0):
+    """Phase 3c (and 3i, the EMA kernels, with `ema_decay`: G's EMA plane
+    held as a state plane): 8 steps of the chunk kernel vs gan_chunk_plain
+    in float64, per case. Returns the worst metrics error."""
     worst = 0.0
     steps = 8
-    for variant, ds, kw, lam0 in CHUNK_CASES:
-        hp = chunk_hyper(cuda_train, variant, **kw)
+    for variant, ds, kw, lam0 in cases:
+        hp = chunk_hyper(cuda_train, variant, ema_decay=ema_decay, **kw)
         kws = dict(steps=steps, ds=ds, batch=TRAIN_B, t_g=3, t_d=5, hp=hp,
                    lam=lam0)
         tag = f"chunk {variant} d_steps={ds} " + " ".join(
-            f"{k}={v}" for k, v in kw.items())
-
-        def make(seed):
-            rng = np.random.default_rng(seed)
-            p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
-            if variant == "began":  # fakes near 0.88, reconstructions
-                # near 0.12: no |v - r| near 0, r (1 - r) ~ 0.1 (BEGAN_SHIFT)
-                p[3] = p[3] + np.float32(BEGAN_SHIFT)
-                p[7] = p[7] - np.float32(BEGAN_SHIFT)
-            if hp.clip > 0:  # a critic as the clip leaves it
-                p = p[:4] + [np.clip(a, -hp.clip, hp.clip) for a in p[4:]]
-            return ((p, mu, nu),) + chunk_streams(rng, torch, variant, steps,
-                                                  ds, hp.n_cls)
-
-        def planes(state, dt):
-            out = [[torch.from_numpy(a.copy()).to("cuda", dt) for a in pl]
-                   for pl in state]
-            if not hp.adam:
-                out[1] = None
-            return out
+            f"{k}={v}" for k, v in kw.items()) + (
+            f" ema_decay={ema_decay}" if ema_decay else "")
+        make = lambda seed: chunk_case(torch, hp, steps, ds, seed,
+                                       ema_decay > 0)
+        planes = functools.partial(chunk_planes, torch, hp)
 
         def run_ref(case, probe):
             state, xs, zd, zg, xtra = case
             ref = planes(state, torch.float64)
             m_ref = cuda_train.gan_chunk_plain(
-                xs.double(), zd.double(), zg.double(), *ref, probe=probe,
-                xtra=None if xtra is None else xtra.double(), **kws)
+                xs.double(), zd.double(), zg.double(), *ref[:3], ema=ref[3],
+                probe=probe, xtra=None if xtra is None else xtra.double(),
+                **kws)
             return ref, m_ref
 
         (state, xs, zd, zg, xtra), (ref, m_ref) = tie_free_case(
             tag, make, run_ref, TIE_MARGIN_OF.get(variant, TIE_MARGIN))
         got, f32 = planes(state, torch.float32), planes(state, torch.float32)
-        m = cuda_train.gan_chunk(xs, zd, zg, *got, xtra=xtra, **kws)
-        cuda_train.gan_chunk_plain(xs, zd, zg, *f32, xtra=xtra, **kws)
+        m = cuda_train.gan_chunk(xs, zd, zg, *got[:3], ema=got[3], xtra=xtra,
+                                 **kws)
+        cuda_train.gan_chunk_plain(xs, zd, zg, *f32[:3], ema=f32[3],
+                                   xtra=xtra, **kws)
         torch.cuda.synchronize()
         m_err = float((m - m_ref).abs().max())
         residue = RESIDUE_SLOTS.get(variant, ())
         r_tol = RESIDUE_ABS_TOL.get(variant, 0.0)
         names = [n for n in PLANE_NAMES if hp.adam or not n.startswith("mu.")]
+        names += EMA_NAMES if ema_decay else []
         s_l2, s_name, s_err, r_err = held_state_err(variant, got, ref, names)
         _, f32_name, f32_err, _ = held_state_err(variant, f32, ref, names)
         lam_err = abs(float(m[-1, 7]) - float(m_ref[-1, 7]))
@@ -932,50 +993,73 @@ def vae_state(rng, birvae):
     return p, mu, nu
 
 
-def vae_hyper(ctv, variant, recon):
+def vae_hyper(ctv, variant, recon, **kw):
     from generative_models_tpu_torch.config import variant_config
-    kw = {"adam_eps": BIRVAE_ADAM_EPS} if variant == "birvae" else {}
+    if variant == "birvae":
+        kw["adam_eps"] = BIRVAE_ADAM_EPS
     return ctv.VaeHyper.from_config(
         variant_config(variant, vae_recon=recon, **kw))
 
 
-def check_vae_chunk(ctv, torch):
-    """Phase 3f: 8 steps of the VAE / BIR-VAE chunk kernels vs their plain
-    versions in float64. Returns {variant: worst metrics error}."""
+def vae_case(torch, birvae, steps, seed, ema=False, bf16=False):
+    """A VAE-family check's data from `seed`: ((p, mu, nu, the EMA plane or
+    None) as numpy, xs, eps on the card); with `bf16` the trunk's and the
+    decoder's hidden biases shifted (BF16_HIDDEN_SHIFT)."""
+    rng = np.random.default_rng(seed)
+    p, mu, nu = vae_state(rng, birvae)
+    if bf16:  # the trunk's and the decoder's hidden biases; the heads
+        # and the output read them
+        bf16_shift(p, (1, 5) if birvae else (1, 7),
+                   (2, 6) if birvae else (2, 4, 8))
+    xs = torch.from_numpy(rng.random((steps * TRAIN_B, VAE_X),
+                                     dtype=np.float32)).cuda()
+    es = torch.from_numpy(rng.standard_normal((steps * TRAIN_B, VAE_L),
+                                              dtype=np.float32)).cuda()
+    e = ([(a + rng.normal(0, 1e-2, a.shape)).astype(np.float32) for a in p]
+         if ema else None)
+    return (p, mu, nu, e), xs, es
+
+
+def vae_planes(torch, state, dt):
+    return [None if pl is None else
+            [torch.from_numpy(a.copy()).to("cuda", dt) for a in pl]
+            for pl in state]
+
+
+def check_vae_chunk(ctv, torch, cases=VAE_CASES, ema_decay=0.0):
+    """Phase 3f (and 3i, the EMA kernels, with `ema_decay`: the EMA plane
+    held as a state plane): 8 steps of the VAE / BIR-VAE chunk kernels vs
+    their plain versions in float64. Returns {variant: worst metrics
+    error}."""
     worst = {"vae": 0.0, "birvae": 0.0}
     steps = 8
-    for variant, recon in VAE_CASES:
+    for variant, recon in cases:
         birvae = variant == "birvae"
-        hp = vae_hyper(ctv, variant, recon)
+        hp = vae_hyper(ctv, variant, recon, ema_decay=ema_decay)
         kw = dict(steps=steps, batch=TRAIN_B, t=3, hp=hp)
         kernel = ctv.birvae_chunk if birvae else ctv.vae_chunk
         plain = ctv.birvae_chunk_plain if birvae else ctv.vae_chunk_plain
-
-        def make(seed):
-            rng = np.random.default_rng(seed)
-            return (vae_state(rng, birvae),
-                    torch.from_numpy(rng.random(
-                        (steps * TRAIN_B, VAE_X), dtype=np.float32)).cuda(),
-                    torch.from_numpy(rng.standard_normal(
-                        (steps * TRAIN_B, VAE_L), dtype=np.float32)).cuda())
-
-        def planes(state, dt):
-            return [[torch.from_numpy(a.copy()).to("cuda", dt) for a in pl]
-                    for pl in state]
+        make = lambda seed: vae_case(torch, birvae, steps, seed,
+                                     ema_decay > 0)
+        planes = functools.partial(vae_planes, torch)
 
         def run_ref(case, probe):
             state, xs, es = case
             ref = planes(state, torch.float64)
-            return ref, plain(xs.double(), es.double(), *ref, probe=probe,
-                              **kw)
+            return ref, plain(xs.double(), es.double(), *ref[:3], ema=ref[3],
+                              probe=probe, **kw)
 
         (state, xs, es), (ref, m_ref) = tie_free_case(
-            f"chunk {variant} {recon}", make, run_ref)
+            f"chunk {variant} {recon}"
+            + (f" ema_decay={ema_decay}" if ema_decay else ""), make, run_ref)
         got, f32 = planes(state, torch.float32), planes(state, torch.float32)
-        m = kernel(xs, es, *got, **kw)
-        plain(xs, es, *f32, **kw)
+        m = kernel(xs, es, *got[:3], ema=got[3], **kw)
+        plain(xs, es, *f32[:3], ema=f32[3], **kw)
         torch.cuda.synchronize()
         names = vae_plane_names(birvae)
+        if ema_decay:
+            names += [n.replace("p.", "ema.", 1) for n in names
+                      if n.startswith("p.")]
         m_err = float((m - m_ref).abs().max()) / float(m_ref.abs().max())
         s_l2, s_name, s_err, r_err = held_state_err(variant, got, ref, names)
         _, f32_name, f32_err, f32_r = held_state_err(variant, f32, ref, names)
@@ -983,7 +1067,8 @@ def check_vae_chunk(ctv, torch):
         ok = (m_err <= VAE_CHUNK_TOL["metrics"]
               and s_err <= VAE_CHUNK_TOL["state"] and r_err <= r_tol
               and bool(torch.isfinite(m).all()))
-        print(f"  chunk {variant} {recon} adam_eps={hp.eps:g} steps={steps} "
+        print(f"  chunk {variant} {recon} adam_eps={hp.eps:g} "
+              f"ema_decay={hp.ema_decay:g} steps={steps} "
               f"B={TRAIN_B} vs plain(float64): metrics max_err/max="
               f"{m_err:.3e} (tol {VAE_CHUNK_TOL['metrics']:.0e}; loss "
               f"{float(m_ref[0, 0]):.3f} -> {float(m_ref[-1, 0]):.3f}) state "
@@ -1088,7 +1173,8 @@ def reset(*mods):
     from generative_models_tpu_torch.ops import penalty
     penalty.plain_passes = 0
     for m in mods:
-        for name in ("launches", "bwd_launches", "birvae_launches"):
+        for name in ("launches", "bwd_launches", "birvae_launches",
+                     "ema_launches", "bf16_launches"):
             if hasattr(m, name):
                 setattr(m, name, 0)
 
@@ -1265,10 +1351,17 @@ def drive_began_infogan_sample_only(mods, torch):
 
 
 def launch_counts(mods):
+    """Each wrapper's launches; the EMA and bf16 keys count the launches
+    of those kernels among the chunk kernels' (the GAN chunk's; the VAE
+    family's, vae and birvae together)."""
     cuda_mlp, cuda_train, cuda_reparam, ctv = mods
     return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
             "mlp_bwd": cuda_mlp.bwd_launches, "reparam": cuda_reparam.launches,
-            "vae_chunk": ctv.launches, "birvae_chunk": ctv.birvae_launches}
+            "vae_chunk": ctv.launches, "birvae_chunk": ctv.birvae_launches,
+            "gan_chunk_ema": cuda_train.ema_launches,
+            "gan_chunk_bf16": cuda_train.bf16_launches,
+            "vae_family_ema": ctv.ema_launches,
+            "vae_family_bf16": ctv.bf16_launches}
 
 
 # the keys of the CLI's final `eval` dict; a metrics.jsonl record holds
@@ -1295,19 +1388,27 @@ CLI_GAN = ("nsgan", "lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",
 CLI_VARIANTS = CLI_GAN + ("vae", "birvae")
 
 
-def drive_training_cli(variant, mods, torch):
+# the CLI's runs with the EMA plane and bf16 operands (phase 4b)
+EMA_BF16_FLAGS = ("--ema-decay", str(EMA_DECAY), "--dtype", "bfloat16")
+CLI_EMA_BF16 = ("nsgan", "vae")
+
+
+def drive_training_cli(variant, mods, torch, flags=()):
     """Phase 4b: the CLI's training run of `variant`, fused_step auto ->
-    its chunk kernel, 1000 steps in chunks of 500. Returns (launch
-    counts, the run's JSON line)."""
+    its chunk kernel, 1000 steps in chunks of 500; with EMA_BF16_FLAGS
+    the EMA and bf16 kernel's (its launches counted as such, the
+    checkpoint's EMA plane finite and apart from the parameters).
+    Returns (launch counts, the run's JSON line)."""
     from generative_models_tpu_torch import cli
-    run_dir = os.path.join(OUT_DIR, "train")
+    run_dir = os.path.join(OUT_DIR, "train_ema_bf16" if flags else "train")
     buf = io.StringIO()
     reset(*mods)
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", variant, "--dataset", "synthetic",
                        "--steps", "1000", "--scan-steps", "500",
                        "--echo-every", "500", "--out-dir", run_dir,
-                       "--ckpt", os.path.join(run_dir, f"{variant}_trained")])
+                       "--ckpt", os.path.join(run_dir, f"{variant}_trained"),
+                       *flags])
     counts = launch_counts(mods)
     out = buf.getvalue().strip()
     print("  " + out.replace("\n", "\n  "))
@@ -1322,9 +1423,12 @@ def drive_training_cli(variant, mods, torch):
     chunk = "gan_chunk" if gan else f"{variant}_chunk"
     others = [k for k in ("gan_chunk", "vae_chunk", "birvae_chunk")
               if k != chunk]
+    new = 2 if flags else 0  # the EMA and bf16 kernels' launches
+    fam = "gan_chunk" if gan else "vae_family"
     ok = (rc == 0 and line["steps"] == 1000 and len(recs) == 1000
           and finite and counts[chunk] == 2
           and all(counts[k] == 0 for k in others)
+          and counts[f"{fam}_ema"] == counts[f"{fam}_bf16"] == new
           and sorted(line["eval"]) == sorted(keys)
           and all(math.isfinite(v) for v in line["eval"].values())
           and os.path.getsize(os.path.join(vdir, "final.png")) > 0
@@ -1357,12 +1461,27 @@ def drive_training_cli(variant, mods, torch):
         ok = ok and all(v > 0.0 for v in gps)
         falling = (f" gp {gps[0]:.4f} -> {gps[-1]:.4f} grad_norm "
                    f"{recs[0]['grad_norm']:.4f} -> {recs[-1]['grad_norm']:.4f}")
+    if flags:  # the EMA plane went through the checkpoint
+        from generative_models_tpu_torch.utils.checkpoint import read_leaves
+        leaves = read_leaves(os.path.join(run_dir, f"{variant}_trained"))
+        key = "['g_ema']" if gan else "['ema']"
+        ema = {k[len(key):]: a for k, a in leaves.items() if k.startswith(key)}
+        pre = "['g_params']" if gan else "['params']"
+        live = {k[len(pre):]: a for k, a in leaves.items()
+                if k.startswith(pre)}
+        ok = ok and set(ema) == set(live) and all(
+            np.isfinite(a).all() for a in ema.values()) and any(
+            not np.array_equal(ema[k], live[k]) for k in ema)
+        falling += (f" EMA plane {len(ema)} tensors, max |ema - p| "
+                    f"{max(float(np.abs(ema[k] - live[k]).max()) for k in ema):.3e}"
+                    if set(ema) == set(live) and ema else " no EMA plane")
     if not gan:  # a GAN's losses do not fall; a VAE's must
         first = float(np.mean([r["loss"] for r in recs[:100]]))
         last = float(np.mean([r["loss"] for r in recs[-100:]]))
         ok = ok and last < first
-        falling = f" loss first100={first:.3f} last100={last:.3f}"
-    print(f"  cli training {variant}: rc={rc} steps={line['steps']} records="
+        falling += f" loss first100={first:.3f} last100={last:.3f}"
+    print(f"  cli training {variant} {' '.join(flags)}: rc={rc} "
+          f"steps={line['steps']} records="
           f"{len(recs)} finite={finite}{falling} launches={counts} "
           f"{'ok' if ok else 'FAIL'}")
     os.remove(os.path.join(run_dir, f"{variant}_trained.npz"))  # 8 MB each
@@ -1408,7 +1527,9 @@ def drive_training_general(variant, steps, mods, torch):
     finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
     fwd, bwd, rep = GENERAL_LAUNCHES[variant]
     want = {"gan_chunk": 0, "mlp_fwd": fwd * steps, "mlp_bwd": bwd * steps,
-            "reparam": rep * steps, "vae_chunk": 0, "birvae_chunk": 0}
+            "reparam": rep * steps, "vae_chunk": 0, "birvae_chunk": 0,
+            "gan_chunk_ema": 0, "gan_chunk_bf16": 0, "vae_family_ema": 0,
+            "vae_family_bf16": 0}
     pen = PENALTY_PASSES.get(variant, 0)
     ok = (counts == want and finite and passes == pen * steps
           and all(len(v) == steps for v in hist.values()))
@@ -1509,9 +1630,12 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 20):
     return us / iters / 1e3 if us > 0 else None
 
 
-def bound_of(flops, nbytes):
+def bound_of(flops, nbytes, peak=FP32_FLOP_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
+    rate and the FLOPs at `peak` (float32 FMA; bf16 work: BF16_FLOP_PER_S,
+    the tensor cores' dense rate, the least time the card could take)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -1564,17 +1688,22 @@ def chunk_flops_per_step(b=TRAIN_B, ds=1, z=128, h=400, x=784, hd=400,
 
 
 def chunk_bound(steps, b=TRAIN_B, z=128, h=400, x=784, hd=400, ds=1,
-                ragan=False, planes=3, lanes=0, n_cls=0, codes=0, l=1):
+                ragan=False, planes=3, lanes=0, n_cls=0, codes=0, l=1,
+                ema=False, bf16=False):
     """The streams read once (the penalty's `lanes` a critic row too), the
-    state (params, mu, nu; RMSprop: two planes) read and written once,
-    the metrics rows written."""
+    state (params, mu, nu; RMSprop: two planes; with `ema` G's EMA plane
+    too) read and written once, the metrics rows written; the FLOPs at
+    the float32 peak, or at the bf16 tensor-core peak with `bf16`."""
     zi, xd = z + n_cls + codes, x + n_cls
-    params = zi * h + h + h * x + x + xd * hd + hd + hd * l + l
+    g_params = zi * h + h + h * x + x
+    params = g_params + xd * hd + hd + hd * l + l
     nbytes = 4 * (steps * b * (ds * (xd + zi + lanes) + zi)
-                  + 2 * planes * params + steps * 8)
+                  + 2 * planes * params + (2 * g_params if ema else 0)
+                  + steps * 8)
     return bound_of(steps * chunk_flops_per_step(
         b, ds, z, h, x, hd, ragan=ragan, gp=lanes > 0, n_cls=n_cls,
-        codes=codes, l=l), nbytes)
+        codes=codes, l=l), nbytes,
+        BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
 
 
 def chunk_shape_kw(variant):
@@ -1665,7 +1794,8 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
     return rows
 
 
-def library_step_loop(torch, steps, variant="nsgan"):
+def library_step_loop(torch, steps, variant="nsgan", bf16=False, ema=False,
+                      rmsprop=False):
     """The yardstick step the port never calls, at full width with
     torch.addmm + autograd + a foreach optimizer: nsgan (Adam), ragan
     (Adam, the relativistic losses), wgan (RMSprop, 5 critic updates a
@@ -1675,8 +1805,11 @@ def library_step_loop(torch, steps, variant="nsgan"):
     (10 label lanes on G's and D's inputs), lsgan, fgan (jensen_shannon)
     and fishergan (the IPM with the multiplier), began (the autoencoder's
     L1 energies and the k_t law) or infogan (the 15-lane head, the codes
-    on G's input, the MI bound in both losses). Returns steps/s (CUDA
-    events)."""
+    on G's input, the MI bound in both losses); with `bf16` the step
+    runs under torch.autocast (bf16 matmuls), with `ema` G's EMA is
+    stepped after each G update (torch._foreach_lerp_), with `rmsprop`
+    RMSprop for both networks whatever the variant. Returns steps/s
+    (CUDA events)."""
     F = torch.nn.functional
     rng = np.random.default_rng(5)
     n_cls = N_CLS if variant == "cgan" else 0
@@ -1688,9 +1821,10 @@ def library_step_loop(torch, steps, variant="nsgan"):
     gp = [t.requires_grad_(True) for t in gw + gb]
     dp = [t.requires_grad_(True) for t in dw + db]
     ds = 5 if variant in ("wgan", "wgangp") else 1
-    if variant == "wgan":
-        g_opt = torch.optim.RMSprop(gp, lr=5e-5, alpha=0.99, foreach=True)
-        d_opt = torch.optim.RMSprop(dp, lr=5e-5, alpha=0.99, foreach=True)
+    if variant == "wgan" or rmsprop:
+        lr = 5e-5 if variant == "wgan" else 1e-4
+        g_opt = torch.optim.RMSprop(gp, lr=lr, alpha=0.99, foreach=True)
+        d_opt = torch.optim.RMSprop(dp, lr=lr, alpha=0.99, foreach=True)
     else:
         lr, b2 = (1e-4, 0.9) if variant == "wgangp" else (2e-4, 0.999)
         g_opt = torch.optim.Adam(gp, lr=lr, betas=(0.5, b2), foreach=True)
@@ -1707,6 +1841,7 @@ def library_step_loop(torch, steps, variant="nsgan"):
                     torch.rand(steps, ds + 1, TRAIN_B, INFO_CONT,
                                device="cuda") * 2 - 1], -1)
     k_t = torch.zeros((), device="cuda")
+    g_ema = [t.detach().clone() for t in gp]
     ones = torch.ones(TRAIN_B, device="cuda")
     zeros = torch.zeros(TRAIN_B, device="cuda")
     bce = F.binary_cross_entropy_with_logits
@@ -1767,6 +1902,13 @@ def library_step_loop(torch, steps, variant="nsgan"):
         return bce(lr, ones) + bce(lf, zeros), bce(lf, ones)
 
     def step(k):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            bare_step(k)
+        if ema:
+            with torch.no_grad():
+                torch._foreach_lerp_(g_ema, gp, 1.0 - EMA_DECAY)
+
+    def bare_step(k):
         nonlocal k_t
         for i in range(ds):
             x = xs[k, i]
@@ -1833,6 +1975,8 @@ TIMED_CASES = (
     ("fgan", 1, {}, True), ("ragan", 1, {}, True),
     ("fishergan", 1, dict(fisher_rho=1e-6), True),
     ("wgangp", 5, dict(g_lr=1e-4, d_lr=1e-4, b2=0.9, gp_lam=GP_LAM), True),
+    ("wgangp", 5, dict(optimizer="rmsprop", g_lr=1e-4, d_lr=1e-4,
+                       gp_lam=GP_LAM), True),
     ("dragan", 1, dict(gp_lam=GP_LAM), True),
     ("cgan", 1, dict(n_cls=N_CLS), True),
     ("infogan", 1, dict(g_lr=1e-3, info_cat=INFO_CAT, info_cont=INFO_CONT,
@@ -1841,21 +1985,26 @@ TIMED_CASES = (
      True))
 
 
-def time_training(cuda_train, torch, card, general_sps):
+def time_training(cuda_train, torch, card, general_sps, ema_decay=0.0,
+                  dtype="float32"):
     """Phase 5b: steps/s of the chunk kernel on a 1000-step chunk per
     variant, beside the plain version, the bound, and (nsgan, wgan,
-    ragan) the general step (phase 4c) and the library step loop.
-    Returns {variant: row}."""
+    ragan) the general step (phase 4c) and the library step loop; with
+    `ema_decay` or `dtype` the EMA or bf16 kernels (phase 5f; the library
+    loop likewise with its EMA or under autocast, the bf16 bound at the
+    tensor cores' peak). Returns {variant: row}."""
     rng = np.random.default_rng(6)
     steps = 1000
     out = {}
     for variant, ds, kw, with_lib in TIMED_CASES:
-        hp = chunk_hyper(cuda_train, variant, **kw)
+        hp = chunk_hyper(cuda_train, variant, ema_decay=ema_decay,
+                         dtype=dtype, **kw)
         p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
         planes = [[torch.from_numpy(a.copy()).cuda() for a in pl]
                   for pl in (p, mu, nu)]
         if not hp.adam:
             planes[1] = None
+        ema = ([t.clone() for t in planes[0][:4]] if ema_decay else None)
         rows, lanes = steps * ds * TRAIN_B, PENALTY_LANES.get(variant, 0)
         # (the label lanes' values do not change the work; infogan's
         # codes are one-hot and uniform, as its stream's)
@@ -1868,7 +2017,7 @@ def time_training(cuda_train, torch, card, general_sps):
             zd = torch.randn(rows, zw, device="cuda")
             zg = torch.randn(steps * TRAIN_B, zw, device="cuda")
         xtra = torch.rand(rows, lanes, device="cuda") if lanes else None
-        kws = dict(ds=ds, batch=TRAIN_B, t_g=0, t_d=0, hp=hp)
+        kws = dict(ds=ds, batch=TRAIN_B, t_g=0, t_d=0, hp=hp, ema=ema)
 
         def rows_of(n_steps):
             n = n_steps * ds * TRAIN_B
@@ -1880,16 +2029,23 @@ def time_training(cuda_train, torch, card, general_sps):
         a_all, k_all = rows_of(steps)
         k_ms = time_ms(torch, lambda: cuda_train.gan_chunk(
             *a_all, *planes, **k_all), 3)
-        p_steps = 50 if ds == 1 else 20
+        # (5f, the EMA and bf16 kernels: shorter plain and library runs,
+        # to keep the whole script near half its time limit)
+        new = ema is not None or hp.bf16
+        p_steps = (20 if new else 50) if ds == 1 else 20
         a_p, k_p = rows_of(p_steps)
         p_ms = time_ms(torch, lambda: cuda_train.gan_chunk_plain(
             *a_p, *planes, **k_p), 2) * steps / p_steps
-        lib_sps = (library_step_loop(torch, 200 if ds == 1 else 60, variant)
+        lib_steps = (100 if new else 200) if ds == 1 else (30 if new else 60)
+        lib_sps = (library_step_loop(torch, lib_steps, variant, bf16=hp.bf16,
+                                     ema=ema is not None, rmsprop=not hp.adam)
                    if with_lib else None)
         b_ms, b_by = chunk_bound(steps, ds=ds, ragan=variant == "ragan",
                                  planes=3 if hp.adam else 2, lanes=lanes,
-                                 n_cls=hp.n_cls, **chunk_shape_kw(variant))
+                                 n_cls=hp.n_cls, ema=ema is not None,
+                                 bf16=hp.bf16, **chunk_shape_kw(variant))
         row = {"steps": steps, "d_steps": ds, "optimizer": hp.optimizer,
+               "ema_decay": hp.ema_decay, "dtype": hp.dtype,
                "ms": k_ms, "plain_ms": p_ms,
                "library_ms": steps / lib_sps * 1e3 if lib_sps else None,
                "bound_ms": b_ms, "bound_by": b_by,
@@ -1902,7 +2058,9 @@ def time_training(cuda_train, torch, card, general_sps):
                "library_steps_per_s": lib_sps,
                "bound_steps_per_s": steps / b_ms * 1e3}
         gen = general_sps.get(variant)
-        print(f"  {variant} (d_steps {ds}, {hp.optimizer}) steps/s at full "
+        print(f"  {variant} (d_steps {ds}, {hp.optimizer}, {hp.dtype}"
+              + (f", ema {hp.ema_decay}" if ema is not None else "")
+              + f") steps/s at full "
               f"width, B={TRAIN_B}: chunk kernel {row['steps_per_s']:.1f} "
               f"({k_ms:.3f} ms per 1000-step chunk)"
               + (f", general step {gen:.1f}" if gen else "")
@@ -1910,7 +2068,9 @@ def time_training(cuda_train, torch, card, general_sps):
               + f", chunk plain {row['plain_steps_per_s']:.1f}, bound "
               f"{row['bound_steps_per_s']:.1f} ({b_by}, "
               f"{row['mflop_per_step']:.1f} MFLOP a step)  [{card}]")
-        out[variant] = row
+        # (a second case of a variant, wgangp's RMSprop: by its optimizer)
+        out[variant if variant not in out else
+            f"{variant}:{hp.optimizer}"] = row
     return out
 
 
@@ -1921,13 +2081,18 @@ def vae_flops_per_step(birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L):
     return 2 * b * w + 2 * b * w + 2 * b * (w - x * h)
 
 
-def vae_chunk_bound(steps, birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L):
-    """The streams (x, eps) read once, the state (params, mu, nu) read and
-    written once, the metrics rows written."""
+def vae_chunk_bound(steps, birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L,
+                    ema=False, bf16=False):
+    """The streams (x, eps) read once, the state (params, mu, nu; with
+    `ema` the EMA plane too) read and written once, the metrics rows
+    written; the FLOPs at the float32 peak, or the bf16 tensor-core peak
+    with `bf16`."""
     heads = 1 if birvae else 2
     params = x * h + h + heads * (h * l + l) + l * h + h + h * x + x
-    nbytes = 4 * (steps * b * (x + l) + 2 * 3 * params + steps * 3)
-    return bound_of(steps * vae_flops_per_step(birvae, b, x, h, l), nbytes)
+    nbytes = 4 * (steps * b * (x + l) + 2 * (4 if ema else 3) * params
+                  + steps * 3)
+    return bound_of(steps * vae_flops_per_step(birvae, b, x, h, l), nbytes,
+                    BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
 
 
 def time_reparam(cuda_reparam, torch, card):
@@ -1963,10 +2128,12 @@ def time_reparam(cuda_reparam, torch, card):
     return rows
 
 
-def library_vae_step_loop(torch, steps, birvae, recon):
+def library_vae_step_loop(torch, steps, birvae, recon, bf16=False,
+                          ema=False):
     """The yardstick step the port never calls: the VAE (or BIR-VAE) at
-    full width with torch.addmm + autograd + torch.optim.Adam(foreach=True).
-    Returns steps/s (CUDA events)."""
+    full width with torch.addmm + autograd + torch.optim.Adam(foreach=True)
+    (with `bf16` under torch.autocast; with `ema` every tensor's EMA after
+    each update, torch._foreach_lerp_). Returns steps/s (CUDA events)."""
     F = torch.nn.functional
     rng = np.random.default_rng(9)
     x, h, l = VAE_X, VAE_H, VAE_L
@@ -1980,8 +2147,16 @@ def library_vae_step_loop(torch, steps, birvae, recon):
     opt = torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), foreach=True)
     xs = torch.rand(steps, TRAIN_B, x, device="cuda")
     es = torch.randn(steps, TRAIN_B, l, device="cuda")
+    shadow = [t.detach().clone() for t in params]
 
     def step(k):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            bare_step(k)
+        if ema:
+            with torch.no_grad():
+                torch._foreach_lerp_(shadow, params, 1.0 - EMA_DECAY)
+
+    def bare_step(k):
         henc = torch.relu(torch.addmm(b_tr, xs[k], w_tr))
         m = torch.addmm(b_mu, henc, w_mu)
         if birvae:
@@ -2017,10 +2192,12 @@ def library_vae_step_loop(torch, steps, birvae, recon):
     return steps / e0.elapsed_time(e1) * 1e3
 
 
-def time_vae_training(ctv, torch, card, general_sps):
+def time_vae_training(ctv, torch, card, general_sps, ema_decay=0.0,
+                      dtype="float32"):
     """Phase 5d: steps/s of the VAE and BIR-VAE chunk kernels on a
     1000-step chunk, beside the general step (phase 4c), a library step
-    loop, the plain version and the bound. Returns {variant: row}."""
+    loop, the plain version and the bound; with `ema_decay` or `dtype`
+    the EMA or bf16 kernels (phase 5f). Returns {variant: row}."""
     from generative_models_tpu_torch.config import variant_config
     rng = np.random.default_rng(10)
     steps = 1000
@@ -2032,10 +2209,12 @@ def time_vae_training(ctv, torch, card, general_sps):
                   for pl in (p, mu, nu)]
         xs = torch.rand(steps * TRAIN_B, VAE_X, device="cuda")
         es = torch.randn(steps * TRAIN_B, VAE_L, device="cuda")
-        hp = ctv.VaeHyper.from_config(variant_config(variant, vae_recon=recon))
+        hp = ctv.VaeHyper.from_config(variant_config(
+            variant, vae_recon=recon, ema_decay=ema_decay, dtype=dtype))
         kernel = ctv.birvae_chunk if birvae else ctv.vae_chunk
         plain = ctv.birvae_chunk_plain if birvae else ctv.vae_chunk_plain
-        kw = dict(batch=TRAIN_B, t=0, hp=hp)
+        ema = [t.clone() for t in planes[0]] if ema_decay else None
+        kw = dict(batch=TRAIN_B, t=0, hp=hp, ema=ema)
         kernel(xs[:10 * TRAIN_B], es[:10 * TRAIN_B], *planes, steps=10, **kw)
         k_ms = time_ms(torch, lambda: kernel(xs, es, *planes, steps=steps,
                                              **kw), 3)
@@ -2043,16 +2222,21 @@ def time_vae_training(ctv, torch, card, general_sps):
         p_ms = time_ms(torch, lambda: plain(
             xs[:p_steps * TRAIN_B], es[:p_steps * TRAIN_B], *planes,
             steps=p_steps, **kw), 2) * steps / p_steps
-        lib_sps = library_vae_step_loop(torch, 200, birvae, recon)
-        b_ms, b_by = vae_chunk_bound(steps, birvae)
-        row = {"steps": steps, "recon": recon, "ms": k_ms, "plain_ms": p_ms,
+        lib_sps = library_vae_step_loop(torch, 200, birvae, recon,
+                                        bf16=hp.bf16, ema=ema is not None)
+        b_ms, b_by = vae_chunk_bound(steps, birvae, ema=ema is not None,
+                                     bf16=hp.bf16)
+        row = {"steps": steps, "recon": recon, "ema_decay": hp.ema_decay,
+               "dtype": hp.dtype, "ms": k_ms, "plain_ms": p_ms,
                "library_ms": steps / lib_sps * 1e3, "bound_ms": b_ms,
                "bound_by": b_by, "steps_per_s": steps / k_ms * 1e3,
                "plain_steps_per_s": steps / p_ms * 1e3,
                "general_step_steps_per_s": general_sps[variant],
                "library_steps_per_s": lib_sps,
                "bound_steps_per_s": steps / b_ms * 1e3}
-        print(f"  {variant} ({recon}) steps/s at full width, B={TRAIN_B}: "
+        print(f"  {variant} ({recon}, {hp.dtype}"
+              + (f", ema {hp.ema_decay}" if ema is not None else "")
+              + f") steps/s at full width, B={TRAIN_B}: "
               f"chunk kernel {row['steps_per_s']:.1f} ({k_ms:.3f} ms per "
               f"1000-step chunk), general step {general_sps[variant]:.1f}, "
               f"library step loop {lib_sps:.1f}, chunk plain "
@@ -2115,6 +2299,8 @@ def phase_case(cuda_train, torch, variant, hp, b, seed):
     if variant == "began":
         p[3] = p[3] + np.float32(BEGAN_SHIFT)
         p[7] = p[7] - np.float32(BEGAN_SHIFT)
+    if hp.bf16:  # hidden pre-activations away from 0 (BF16_HIDDEN_SHIFT)
+        bf16_shift(p, (1, 5), (2, 6))
     xs, zd, zg, xtra = chunk_streams(rng, torch, variant, 1, 1, hp.n_cls)
     cut = lambda t: None if t is None else t[:b].contiguous()
     return ([torch.from_numpy(a).cuda() for a in p], cut(xs), cut(zd),
@@ -2178,8 +2364,304 @@ def check_phases(cuda_dp, cuda_train, torch):
     return worst
 
 
+# ---------------------------------------------------------------------
+# Phase 3i: the EMA plane and the bf16 path of the chunk and phase
+# kernels (ROADMAP Queue 2 item 6)
+# ---------------------------------------------------------------------
+
+# The bf16 kernels (one step of every hook's chunk at d_steps 1, every
+# hook's D and G phase at b = 100, one step of the VAE and the BIR-VAE)
+# against their plain versions in float64 with the same bf16 rounding of
+# every product's operands. The two round the same values, but where an
+# operand the kernel computed in float32 lies within its float32 error
+# of a bf16 rounding boundary (one in ~2^15) the kernel's sits one bf16
+# step (2^-8 of itself) away: a sparse error. So each tensor is held by
+# its distance (L2, over the reference's norm) from the bf16 oracle
+# against the bf16 oracle's own distance from the float32 oracle (what
+# the rounding does to that tensor, ~1e-3): at most BF16_RATIO of it,
+# plus BF16_FLOOR for tensors the rounding leaves nearly alone; the
+# metrics likewise by max abs error. The float32 plain version on the
+# CPU, held to the same oracle on this data (data seeds from 10, 30, 50
+# and 70), read at most 0.39 of the rounding's effect, on G's first
+# layer's Adam slot (mu.g_w1) after the critic's update: the updated
+# critic's weights differ from the oracle's by float32 rounding, and each
+# weight that lands on the other side of a bf16 boundary moves G's whole
+# gradient a little, all of it in the same way; every other tensor, and
+# every phase kernel's gradient, read at most 0.11. So a product that
+# skipped its rounding shows here where it carries more than half of a
+# tensor's rounding effect; the CPU tests hold every product against the
+# reference's at small widths, where flips are rare.
+# A flipped operand moves the pre-activations it enters by ~2^-8 of one
+# term, 1e-4 to 1e-3 of their rms: far more than the tie rule's 1e-6, so
+# a hidden unit near 0 would take the other side of its ReLU or
+# LeakyReLU in one version only (a jump of the function, which by that
+# estimate would hit one check in three to five). So the bf16
+# checks shift every hidden layer's bias up by BF16_HIDDEN_SHIFT (the
+# pre-activations sit near +3 with an rms of ~0.3, no unit near its kink)
+# and take the column means out of the weights that read those layers
+# (W2g, W2d, and the VAE's heads and output), so that what the next
+# layer sees is the unshifted part: G's output, the logits, began's
+# reconstructions (still near 0.12 against fakes near 0.88: no |.| tie)
+# and the VAE's latents keep the scale of the float32 checks, and what a
+# flip does stays a small smooth error. The kinks themselves are held by
+# the float32 checks, whose code the bf16 builds share (wgan's critic is
+# clipped to 0.01 and keeps its kinks: its check stands on the tie rule).
+# One step at d_steps 1. Each limit is the float32 check's own floor
+# (CHUNK_TOL's, PHASE_TOL's, VAE_CHUNK_TOL's metrics limits; BF16_FLOOR
+# for a tensor's relative L2) plus BF16_RATIO of the rounding's effect.
+# Residue slots and tensors that are 0 in exact arithmetic keep their
+# absolute limits (RESIDUE_ABS_TOL, PHASE_TOL["zero"]); with every trunk
+# unit active the BIR-VAE's trunk bias gradient is one too: sum_r dhe_r
+# = (sum_r g_mu_r) W_mu^T, and sum_r g_mu_r = 0 after the normalisation.
+BF16_RATIO = 0.5
+BF16_FLOOR = 1e-5
+BF16_HIDDEN_SHIFT = 3.0
+BF16_RESIDUE = {"birvae": RESIDUE_SLOTS["birvae"] + ("mu.tr_b", "nu.tr_b")}
+# their absolute limit: the trunk bias's residue is a float32 sum over
+# 100 rows of dhe, each a sum of 20 products (the float32 plain version
+# read 2.5e-5 in its mu slot on the CPU, where mu_b's reads 7e-7)
+BF16_RESIDUE_ABS_TOL = {"birvae": 1e-4}
+# wgan and wgangp take their kernels' d_steps 5 loop in phase 3c; the
+# hook's code is the same at d_steps 1, which keeps the bf16 check to
+# one update of each network (see above)
+BF16_CASES = tuple((v, 1, kw, lam) for v, _, kw, lam in CHUNK_CASES)
+# the reference's bf16-vs-float32 bound on a trajectory
+# (tests/test_fused_step.py::test_fused_bf16_matmuls_run_and_track_f32)
+BF16_RUN_TOL = {"rtol": 0.12, "atol": 0.05}
+# library_phases under autocast keeps its activations in bf16 too, a
+# rounding the kernels do not make (2^-8 of each value, and more where a
+# gradient is a difference of such values). On phase 5f's data (seed 7)
+# the nine hooks' yardsticks read 0.012-0.035 (D) and 0.016-0.084 (G,
+# infogan's the most) against the float64 plain version on an H100. The
+# limit sits above those, and below what the same yardstick reads with
+# its head term weighted LIBRARY_PLANTED_W (a wrong loss term): 0.16-0.25
+# by the float32 arithmetic (0.25 where the head is the whole loss;
+# began's D and infogan's least), which each run reads again and holds
+# above the limit.
+LIBRARY_BF16_TOL = 0.12
+LIBRARY_PLANTED_W = 1.25
+
+
+def one_per_hook(cuda_train, cases):
+    """The first case of each critic hook in `cases`."""
+    seen, out = set(), []
+    for case in cases:
+        hook = cuda_train.HOOKS[case[0]]
+        if hook not in seen:
+            seen.add(hook)
+            out.append(case)
+    return tuple(out)
+
+
+def ema_cases(cuda_train):
+    """Phase 3i's EMA cases: every hook's Adam and RMSprop EMA kernels,
+    each CHUNK_CASES' first case of that hook and optimizer, or, where it
+    has none, the hook's first case with the other optimizer; at most 2
+    critic updates a step (the G EMA plane steps once a G update whatever
+    d_steps is, and 3c holds d_steps 5; fewer updates keep the tie rule's
+    search short)."""
+    opt = lambda case: case[2].get("optimizer", "adam")
+    cases = []
+    for first in one_per_hook(cuda_train, CHUNK_CASES):
+        hook = cuda_train.HOOKS[first[0]]
+        for o in ("adam", "rmsprop"):
+            v, ds, kw, lam = next(
+                (c for c in CHUNK_CASES if opt(c) == o
+                 and cuda_train.HOOKS[c[0]] == hook),
+                (first[0], first[1], dict(first[2], optimizer=o), first[3]))
+            cases.append((v, min(ds, 2), kw, lam))
+    return tuple(cases)
+
+
+def bf16_rule(got, ref, ref32, names, residue=(), r_tol=0.0):
+    """Phase 3i's bf16 rule over flat lists of tensors (see BF16_RATIO):
+    (ok, the worst (name, error, rounding distance) by error over its
+    limit)."""
+    ok, worst, rows = True, -1.0, None
+    for n, a, r, r32 in zip(names, got, ref, ref32):
+        a, r, r32 = a.double(), r.double(), r32.double()
+        if n in residue or float(r.abs().max()) < PHASE_TOL["zero"]:
+            e = float((a - r).abs().max())
+            lim = r_tol if n in residue else PHASE_TOL["zero"]
+            d = 0.0
+        else:
+            nr = float(r.norm())
+            e, d = float((a - r).norm()) / nr, float((r - r32).norm()) / nr
+            lim = BF16_RATIO * d + BF16_FLOOR
+        ok = ok and e <= lim
+        if e / lim > worst:
+            worst, rows = e / lim, (n, e, d)
+    return ok, rows
+
+
+def metrics_rule(m, m_ref, m_ref32, floor):
+    """The metrics' max abs error against BF16_RATIO of the rounding's own
+    max abs effect, plus the float32 check's `floor`: (ok, error,
+    distance)."""
+    e = float((m.double() - m_ref.double()).abs().max())
+    d = float((m_ref.double() - m_ref32.double()).abs().max())
+    return e <= BF16_RATIO * d + floor, e, d
+
+
+def check_chunk_bf16(cuda_train, torch, ema_decay=0.0):
+    """Phase 3i: one step of every hook's bf16 chunk kernel (with
+    `ema_decay` its EMA kernel, G's EMA plane held as a state plane)
+    against gan_chunk_plain in float64 with the same bf16 rounding
+    (BF16_RATIO). Returns the worst metrics error."""
+    worst = 0.0
+    for variant, ds, kw, lam0 in one_per_hook(cuda_train, BF16_CASES):
+        hp = chunk_hyper(cuda_train, variant, dtype="bfloat16",
+                         ema_decay=ema_decay, **kw)
+        hp32 = dataclasses.replace(hp, dtype="float32")
+        kws = dict(steps=1, ds=ds, batch=TRAIN_B, t_g=3, t_d=5, lam=lam0)
+        tag = (f"bf16 chunk {variant} ({cuda_train.HOOKS[variant]}, "
+               f"{hp.optimizer}{', ema' if ema_decay else ''})")
+        planes = functools.partial(chunk_planes, torch, hp)
+
+        def run_ref(case, probe, h=hp):
+            state, xs, zd, zg, xtra = case
+            ref = planes(state, torch.float64)
+            m_ref = cuda_train.gan_chunk_plain(
+                xs.double(), zd.double(), zg.double(), *ref[:3], ema=ref[3],
+                hp=h, probe=probe,
+                xtra=None if xtra is None else xtra.double(), **kws)
+            return ref, m_ref
+
+        case, (ref, m_ref) = tie_free_case(
+            tag, lambda seed: chunk_case(torch, hp, 1, ds, seed,
+                                         ema_decay > 0), run_ref,
+            TIE_MARGIN_OF.get(variant, TIE_MARGIN))
+        state, xs, zd, zg, xtra = case
+        ref32, m_ref32 = run_ref(case, None, hp32)
+        got = planes(state, torch.float32)
+        m = cuda_train.gan_chunk(xs, zd, zg, *got[:3], ema=got[3], xtra=xtra,
+                                 hp=hp, **kws)
+        torch.cuda.synchronize()
+        flat = lambda pl: [t for part in pl if part is not None
+                           for t in part]
+        names = [n for n in PLANE_NAMES if hp.adam or not n.startswith("mu.")]
+        names += EMA_NAMES if ema_decay else []
+        ok, (name, e, d) = bf16_rule(
+            flat(got), flat(ref), flat(ref32), names,
+            RESIDUE_SLOTS.get(variant, ()), RESIDUE_ABS_TOL.get(variant, 0.0))
+        m_ok, m_err, m_d = metrics_rule(m, m_ref, m_ref32,
+                                        CHUNK_TOL["metrics"])
+        ok = ok and m_ok and bool(torch.isfinite(m).all())
+        print(f"  {tag} 1 step B={TRAIN_B} vs plain(float64, bf16 "
+              f"operands): metrics max_abs_err={m_err:.3e} (the rounding "
+              f"moves them {m_d:.3e}) worst tensor {name}: rel L2 err "
+              f"{e:.3e} (the rounding moves it {d:.3e}; limit "
+              f"{BF16_RATIO} of that + {BF16_FLOOR:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 gan_chunk disagrees with its "
+                                 f"plain version: {tag}")
+        worst = max(worst, m_err)
+    return worst
+
+
+def check_vae_bf16(ctv, torch):
+    """Phase 3i: one step of the bf16 VAE and BIR-VAE chunk kernels against
+    their plain versions in float64 with the same bf16 rounding
+    (BF16_RATIO). Returns {variant: worst metrics error}."""
+    worst = {}
+    for variant, recon in (("vae", "bce"), ("birvae", "mse")):
+        birvae = variant == "birvae"
+        hp = vae_hyper(ctv, variant, recon, dtype="bfloat16")
+        hp32 = dataclasses.replace(hp, dtype="float32")
+        kw = dict(steps=1, batch=TRAIN_B, t=3)
+        kernel = ctv.birvae_chunk if birvae else ctv.vae_chunk
+        plain = ctv.birvae_chunk_plain if birvae else ctv.vae_chunk_plain
+        planes = functools.partial(vae_planes, torch)
+
+        def run_ref(case, probe, h=hp):
+            state, xs, es = case
+            ref = planes(state, torch.float64)
+            return ref, plain(xs.double(), es.double(), *ref[:3], hp=h,
+                              probe=probe, **kw)
+
+        case, (ref, m_ref) = tie_free_case(
+            f"bf16 chunk {variant} {recon}",
+            lambda seed: vae_case(torch, birvae, 1, seed, bf16=True), run_ref)
+        state, xs, es = case
+        ref32, m_ref32 = run_ref(case, None, hp32)
+        got = planes(state, torch.float32)
+        m = kernel(xs, es, *got[:3], hp=hp, **kw)
+        torch.cuda.synchronize()
+        flat = lambda pl: [t for part in pl[:3] for t in part]
+        ok, (name, e, d) = bf16_rule(
+            flat(got), flat(ref), flat(ref32), vae_plane_names(birvae),
+            BF16_RESIDUE.get(variant, ()), BF16_RESIDUE_ABS_TOL.get(variant, 0.0))
+        m_ok, m_err, m_d = metrics_rule(
+            m, m_ref, m_ref32,
+            VAE_CHUNK_TOL["metrics"] * float(m_ref.abs().max()))
+        ok = ok and m_ok and bool(torch.isfinite(m).all())
+        print(f"  bf16 chunk {variant} {recon} 1 step B={TRAIN_B} vs "
+              f"plain(float64, bf16 operands): metrics max_abs_err="
+              f"{m_err:.3e} (the rounding moves them {m_d:.3e}) worst tensor "
+              f"{name}: rel L2 err {e:.3e} (the rounding moves it {d:.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 {variant}_chunk disagrees with "
+                                 f"its plain version")
+        worst[variant] = m_err
+    return worst
+
+
+def check_phases_bf16(cuda_dp, cuda_train, torch):
+    """Phase 3i: each hook's bf16 D and G phase kernels at b = 100 against
+    their plain versions in float64 with the same bf16 rounding
+    (BF16_RATIO). Returns the worst metrics error."""
+    worst = 0.0
+    for variant, kw in PHASE_CASES:
+        hp = chunk_hyper(cuda_train, variant, dtype="bfloat16", **kw)
+        hp32 = dataclasses.replace(hp, dtype="float32")
+        lam = BEGAN_K0 if variant == "began" else 0.0
+        tag = f"bf16 gan_phase {variant} ({cuda_train.HOOKS[variant]})"
+
+        def run_ref(case, probe, h=hp):
+            p, x, zd, zg, xt = case
+            p64 = [t.double() for t in p]
+            return (cuda_dp.d_phase_plain(
+                x.double(), zd.double(), None if xt is None else xt.double(),
+                p64[:4], p64[4:], lam, h, probe),
+                cuda_dp.g_phase_plain(zg.double(), p64[:4], p64[4:], h,
+                                      probe))
+
+        case, refs = tie_free_case(
+            tag, lambda seed: phase_case(cuda_train, torch, variant, hp,
+                                         TRAIN_B, seed),
+            run_ref, TIE_MARGIN_OF.get(variant, TIE_MARGIN))
+        refs32 = run_ref(case, None, hp32)
+        p, x, zd, zg, xt = case
+        got = (cuda_dp.d_phase(x, zd, xt, p[:4], p[4:], lam, hp),
+               cuda_dp.g_phase(zg, p[:4], p[4:], hp))
+        torch.cuda.synchronize()
+        ok, report = True, []
+        for mode, flat, ref, ref32, like in zip(
+                "dg", got, refs, refs32, (p[4:], p[:4])):
+            gs, m = phase_split(flat, like)
+            rs, mr = phase_split(ref, like)
+            r32, mr32 = phase_split(ref32, like)
+            g_ok, (name, e, d) = bf16_rule(gs, rs, r32, PHASE_NAMES[mode])
+            m_ok, m_err, m_d = metrics_rule(m, mr, mr32,
+                                            PHASE_TOL["metrics"])
+            ok = ok and g_ok and m_ok and bool(torch.isfinite(flat).all())
+            worst = max(worst, m_err)
+            report.append(f"{mode}: {name} rel L2 err {e:.3e} (rounding "
+                          f"{d:.3e}), metrics {m_err:.3e} ({m_d:.3e})")
+        print(f"  {tag} b={TRAIN_B} vs plain(float64, bf16 operands): "
+              + "; ".join(report) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 gan_phase disagrees with its "
+                                 f"plain version: {tag}")
+    return worst
+
+
 def dp_counts(cuda_dp, cuda_train, mesh):
     return {"d_phase": cuda_dp.d_launches, "g_phase": cuda_dp.g_launches,
+            "d_phase_bf16": cuda_dp.d_bf16_launches,
+            "g_phase_bf16": cuda_dp.g_bf16_launches,
             "gan_chunk": cuda_train.launches, "all_reduce": mesh.all_reduces}
 
 
@@ -2188,8 +2670,9 @@ def dp_cfg(variant, kw, fused):
     epoch of the 2000-row split is 20 steps), so the timed runs time the
     steps alone."""
     from generative_models_tpu_torch.config import variant_config
-    return variant_config(variant, batch_size=TRAIN_B, dtype="float32",
-                          fused_step=fused, sample_every=10 ** 9, **kw)
+    return variant_config(variant, **{
+        "batch_size": TRAIN_B, "dtype": "float32", "fused_step": fused,
+        "sample_every": 10 ** 9, **kw})
 
 
 def check_dp_pair(variant, cfg, what, s_f, h_f, s_g, h_g):
@@ -2248,6 +2731,7 @@ def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
                 t._load_data()
                 reset(*mods)
                 cuda_dp.d_launches = cuda_dp.g_launches = 0
+                cuda_dp.d_bf16_launches = cuda_dp.g_bf16_launches = 0
                 mesh.all_reduces = 0
                 t.train(steps=DP_CHECK_STEPS)
                 torch.cuda.synchronize()
@@ -2276,6 +2760,9 @@ def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
                     t.train(steps=DP_TIMED_STEPS)
                     sps[f"world1_{'fused' if fused else 'general'}"] = (
                         DP_TIMED_STEPS / t.wall_time)
+                paths["dp1_fused_nsgan_bf16"], sps["world1_fused_bf16"] = \
+                    drive_dp_bf16(cuda_dp, cuda_train, mods, torch, group,
+                                  data, runs[True][2])
         flat = torch.zeros(DP_REDUCE_FLOATS, device="cuda")
         sps["world1_all_reduce_ms"] = time_ms(
             torch, lambda: group.all_reduce_mean_(flat), 50)
@@ -2286,6 +2773,47 @@ def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
           f"{sps['world1_general']:.1f}; all-reduce of the D phase's buffer "
           f"{sps['world1_all_reduce_ms']:.4f} ms  [{card}]")
     return paths, sps
+
+
+def drive_dp_bf16(cuda_dp, cuda_train, mods, torch, group, data, hist32):
+    """Phase 4f, bf16: Trainer(fused_step=True, dtype="bfloat16", group)
+    on nsgan, DP_CHECK_STEPS steps from the float32 fused run's seed
+    through the bf16 phase libraries (every phase launch counted as bf16),
+    its metrics held to the float32 run's (`hist32`) by the reference's
+    own bf16 bound (BF16_RUN_TOL); then DP_TIMED_STEPS more for steps/s.
+    Returns (launch counts, steps/s)."""
+    from generative_models_tpu_torch.parallel import mesh
+    from generative_models_tpu_torch.train.trainer import Trainer
+    t = Trainer(config=dp_cfg("nsgan", {"dtype": "bfloat16"}, True),
+                group=group, data=data)
+    t._load_data()
+    reset(*mods)
+    cuda_dp.d_launches = cuda_dp.g_launches = 0
+    cuda_dp.d_bf16_launches = cuda_dp.g_bf16_launches = 0
+    mesh.all_reduces = 0
+    n = DP_CHECK_STEPS
+    t.train(steps=n)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts(mods), **dp_counts(cuda_dp, cuda_train, mesh))
+    want = {"d_phase": n, "g_phase": n, "d_phase_bf16": n, "g_phase_bf16": n,
+            "gan_chunk": 0}
+    errs = {k: float(np.abs(np.asarray(t.history[k]) - np.asarray(v)).max())
+            for k, v in hist32.items()}
+    close = all(np.allclose(np.asarray(t.history[k]), np.asarray(v),
+                            **BF16_RUN_TOL) for k, v in hist32.items())
+    finite = all(np.isfinite(np.asarray(v)).all()
+                 for v in t.history.values())
+    ok = ({k: counts[k] for k in want} == want
+          and counts["all_reduce"] == 2 * n and close and finite)
+    print(f"  dp1_fused_nsgan_bf16: Trainer(fused_step=True, dtype=bfloat16, "
+          f"group of 1, nccl).train({n}): launches={counts} (expect {want}) "
+          f"vs the float32 fused DP run: max abs diff {errs} (the "
+          f"reference's bf16 bound rtol {BF16_RUN_TOL['rtol']} atol "
+          f"{BF16_RUN_TOL['atol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 fused DP run failed its checks")
+    t.train(steps=DP_TIMED_STEPS)
+    return counts, DP_TIMED_STEPS / t.wall_time
 
 
 def drive_dp_shared_card(card):
@@ -2342,8 +2870,10 @@ def drive_dp_shared_card(card):
 
 def phase_bound(mode, b, variant, hp):
     """The bound of one phase launch: its FLOPs (phase_flops) at the
-    float32 peak, or its bytes (the 8 parameters and its streams read,
-    its gradients and metrics row written) at the HBM rate."""
+    float32 peak (bf16 operands: the bf16 tensor-core peak), or its bytes
+    (the 8 parameters and its streams read, its gradients and metrics
+    row written) at the HBM rate."""
+    peak = BF16_FLOP_PER_S if hp.bf16 else FP32_FLOP_PER_S
     kw = chunk_shape_kw(variant)
     d_f, g_f = phase_flops(b, gp=hp.gp_lam > 0, n_cls=hp.n_cls, **kw)
     zi = 128 + hp.n_cls + kw.get("codes", 0)
@@ -2353,69 +2883,96 @@ def phase_bound(mode, b, variant, hp):
     if mode == "d":
         lanes = PENALTY_LANES.get(variant, 0)
         nbytes = 4 * (g_n + d_n + b * (xd + zi + lanes) + d_n + 8)
-        return bound_of(d_f, nbytes)
-    return bound_of(g_f, 4 * (g_n + d_n + b * zi + g_n + 8))
+        return bound_of(d_f, nbytes, peak)
+    return bound_of(g_f, 4 * (g_n + d_n + b * zi + g_n + 8), peak)
 
 
-def time_phases(cuda_dp, cuda_train, torch, card):
+def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32"):
     """Phase 5e: each hook's phase kernels at b = 100 and 50 beside their
     float32 plain versions on the card, their bounds, and the library's
     same gradients (library_phases), which are first held against the
-    float64 plain version (LIBRARY_TOL)."""
+    float64 plain version (LIBRARY_TOL); with `dtype` "bfloat16" (phase
+    5f) the bf16 kernels at b = 100, the library under autocast
+    (LIBRARY_BF16_TOL), the bound at the tensor cores' peak."""
     rows = []
+    bf16 = dtype == "bfloat16"
     for variant, kw in PHASE_CASES:
-        hp = chunk_hyper(cuda_train, variant, **kw)
+        hp = chunk_hyper(cuda_train, variant, dtype=dtype, **kw)
         lam = BEGAN_K0 if variant == "began" else 0.0
-        for b in PHASE_BATCHES:
-            p, x, zd, zg, xt = phase_case(cuda_train, torch, variant, hp, b,
-                                          seed=7)
+        for b in (TRAIN_B,) if bf16 else PHASE_BATCHES:
+            # (the float32 checks' data: BF16_HIDDEN_SHIFT serves a check,
+            # and its hidden layers near +3 make the library's bf16
+            # activations cancel in wgan's dW2d = sum (hr - hf) / B)
+            p, x, zd, zg, xt = phase_case(
+                cuda_train, torch, variant,
+                dataclasses.replace(hp, dtype="float32"), b, seed=7)
             g, d = p[:4], p[4:]
             calls = {"d": (lambda: cuda_dp.d_phase(x, zd, xt, g, d, lam, hp),
                            lambda: cuda_dp.d_phase_plain(x, zd, xt, g, d, lam,
                                                          hp)),
                      "g": (lambda: cuda_dp.g_phase(zg, g, d, hp),
                            lambda: cuda_dp.g_phase_plain(zg, g, d, hp))}
-            lib = library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d,
-                                 lam)
+            lib, planted = (
+                library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d,
+                               lam, w) for w in (1.0, LIBRARY_PLANTED_W))
+            if bf16:
+                lib, planted = ({m: functools.partial(under_autocast, torch,
+                                                      fn)
+                                 for m, fn in fns.items()}
+                                for fns in (lib, planted))
             p64 = [t.double() for t in p]
             ref = {"d": cuda_dp.d_phase_plain(
                 x.double(), zd.double(), None if xt is None else xt.double(),
                 p64[:4], p64[4:], lam, hp),
                 "g": cuda_dp.g_phase_plain(zg.double(), p64[:4], p64[4:], hp)}
             for mode, (kern, plain) in calls.items():
-                l_err = library_err(torch, lib[mode](), ref[mode],
-                                    d if mode == "d" else g)
-                if not l_err <= LIBRARY_TOL:
+                like = d if mode == "d" else g
+                l_err = library_err(torch, lib[mode](), ref[mode], like)
+                p_err = library_err(torch, planted[mode](), ref[mode], like)
+                lim = LIBRARY_BF16_TOL if bf16 else LIBRARY_TOL
+                if not l_err <= lim < p_err:
                     raise AssertionError(
-                        f"library_phases {variant} {mode} b={b} is not the "
-                        f"phase's function: err {l_err:.3e}")
+                        f"library_phases {variant} {mode} b={b}: err "
+                        f"{l_err:.3e}, with a wrong loss term {p_err:.3e}: "
+                        f"the limit {lim} does not part them")
                 b_ms, b_by = phase_bound(mode, b, variant, hp)
-                row = {"kernel": f"gan_phase_{mode}", "variant": variant,
+                row = {"kernel": f"gan_phase_{mode}" + ("_bf16" if bf16
+                                                         else ""),
+                       "variant": variant,
                        "hook": cuda_train.HOOKS[variant], "b": b,
                        "ms": time_ms(torch, kern, 50),
                        "device_ms": kernel_device_ms(torch, kern,
                                                     "gan_chunk_kernel"),
                        "plain_ms": time_ms(torch, plain, 10),
                        "library_ms": time_ms(torch, lib[mode], 50),
-                       "library_err": l_err,
+                       "library_err": l_err, "library_planted_err": p_err,
                        "bound_ms": b_ms, "bound_by": b_by}
                 rows.append(row)
                 dev = row["device_ms"]
-                print(f"  gan_phase_{mode} {variant:7s} b={b:3d} kernel "
+                print(f"  {row['kernel']} {variant:7s} b={b:3d} kernel "
                       f"{row['ms']:.4f} ms"
                       + (f" (device {dev:.4f})" if dev else "")
                       + f"  plain {row['plain_ms']:.4f}"
-                      + f"  library {row['library_ms']:.4f} (err {l_err:.1e})"
+                      + f"  library {row['library_ms']:.4f} (err {l_err:.1e};"
+                      + f" wrong loss {p_err:.1e})"
                       + f"  bound {b_ms:.5f} ({b_by})  [{card}]")
     return rows
 
 
-def library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d, lam):
+def under_autocast(torch, fn):
+    """fn() under torch.autocast to bf16: phase 5f's library yardstick."""
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        return fn()
+
+
+def library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d, lam, w=1.0):
     """Each hook's two phases as one library call each: addmm forwards
     and torch.autograd.grad of the hook's loss (the penalty's input
     gradient through autograd.grad with create_graph, as
-    ops/penalty.py builds it); the port never calls these. Returns
-    {"d": fn, "g": fn}, each giving the four gradients."""
+    ops/penalty.py builds it); the port never calls these. `w` weights
+    the hook's head term (began: the real rows' energy, and G's), 1 in
+    the loss: LIBRARY_PLANTED_W plants a wrong loss. Returns {"d": fn,
+    "g": fn}, each giving the four gradients."""
     F = torch.nn.functional
     sp = F.softplus
     v = hp.variant
@@ -2469,13 +3026,13 @@ def library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d, lam):
             fake = G(g, zd)
         if v == "began":
             return torch.autograd.grad(
-                energy(dd, x) - lam * energy(dd, fake), dd)
+                w * energy(dd, x) - lam * energy(dd, fake), dd)
         lr, lf = D(dd, x), D(dd, labelled(fake, x))
         if v == "infogan":
-            loss = (sp(-lr[:, 0]).mean() + sp(lf[:, 0]).mean()
+            loss = (w * (sp(-lr[:, 0]).mean() + sp(lf[:, 0]).mean())
                     + hp.info_lam * mi(lf, zd))
         else:
-            loss = d_head(lr[:, 0], lf[:, 0])
+            loss = w * d_head(lr[:, 0], lf[:, 0])
         if hp.gp_lam:
             xh = xt if v == "dragan" else xt * x + (1.0 - xt) * fake
             xh = xh.detach().requires_grad_(True)
@@ -2488,12 +3045,12 @@ def library_phases(torch, cuda_train, hp, x, zd, zg, xt, g, d, lam):
         gg = [t.detach().requires_grad_(True) for t in g]
         fake = G(gg, zg)
         if v == "began":
-            return torch.autograd.grad(energy(d, fake), gg)
+            return torch.autograd.grad(w * energy(d, fake), gg)
         lf = D(d, labelled(fake, zg))
         if v == "infogan":
-            loss = sp(-lf[:, 0]).mean() + hp.info_lam * mi(lf, zg)
+            loss = w * sp(-lf[:, 0]).mean() + hp.info_lam * mi(lf, zg)
         else:
-            loss = g_head(lf[:, 0])
+            loss = w * g_head(lf[:, 0])
         return torch.autograd.grad(loss, gg)
     return {"d": d_grads, "g": g_grads}
 
@@ -2535,11 +3092,12 @@ def main() -> int:
     print(f"    allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_reparam.build,
-               ctv.build] + [functools.partial(cuda_train.build, hook)
-                             for hook in cuda_train.HOOK_IDS]
-              + [functools.partial(cuda_dp.build, hook)
-                 for hook in cuda_dp.DP_HOOKS],
+    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_reparam.build]
+              + [functools.partial(ctv.build, bf16) for bf16 in (False, True)]
+              + [functools.partial(cuda_train.build, hook, bf16)
+                 for hook in cuda_train.HOOK_IDS for bf16 in (False, True)]
+              + [functools.partial(cuda_dp.build, hook, bf16)
+                 for hook in cuda_dp.DP_HOOKS for bf16 in (False, True)],
               build_mod.BUILD_DIR)
     mods = (cuda_mlp, cuda_train, cuda_reparam, ctv)
 
@@ -2552,6 +3110,14 @@ def main() -> int:
     vae_err = check_vae_chunk(ctv, torch)
     cross_check_vae(cuda_train, ctv, step_lib, torch)
     phase_err = check_phases(cuda_dp, cuda_train, torch)
+    print("[3i] the EMA and bf16 kernels vs their plain versions")
+    ema_err = check_chunk(cuda_train, torch, ema_cases(cuda_train), EMA_DECAY)
+    vae_ema_err = check_vae_chunk(ctv, torch, (("vae", "bce"),
+                                               ("birvae", "mse")), EMA_DECAY)
+    bf16_err = max(check_chunk_bf16(cuda_train, torch),
+                   check_chunk_bf16(cuda_train, torch, EMA_DECAY))
+    vae_bf16_err = check_vae_bf16(ctv, torch)
+    phase_bf16_err = check_phases_bf16(cuda_dp, cuda_train, torch)
 
     print("[4] main paths (launch counts set to 0 before each, read after)")
     paths = {}  # path name -> launch counts of that path's run
@@ -2561,6 +3127,9 @@ def main() -> int:
     for variant in CLI_VARIANTS:
         paths[f"cli_{variant}"], cli_lines[variant] = drive_training_cli(
             variant, mods, torch)
+    for variant in CLI_EMA_BF16:  # the EMA plane and bf16 operands
+        paths[f"cli_{variant}_ema_bf16"], cli_lines[f"{variant}_ema_bf16"] = \
+            drive_training_cli(variant, mods, torch, EMA_BF16_FLAGS)
     for variant, steps in GENERAL_STEPS:
         paths[f"general_{variant}"], general_sps[variant] = \
             drive_training_general(variant, steps, mods, torch)
@@ -2587,7 +3156,9 @@ def main() -> int:
                 if c.get(kernel, 0)}
 
     for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam", "vae_chunk",
-                   "birvae_chunk", "d_phase", "g_phase"):
+                   "birvae_chunk", "d_phase", "g_phase", "gan_chunk_ema",
+                   "gan_chunk_bf16", "vae_family_ema", "vae_family_bf16",
+                   "d_phase_bf16", "g_phase_bf16"):
         if not by_path(kernel):
             raise AssertionError(f"no main path launched {kernel}")
 
@@ -2601,6 +3172,18 @@ def main() -> int:
     phase_main = {m: next(r for r in phase_rows if r["kernel"] ==
                           f"gan_phase_{m}" and r["variant"] == "nsgan"
                           and r["b"] == TRAIN_B) for m in "dg"}
+    print("[5f] the EMA and bf16 kernels' times")
+    ema_rows = time_training(cuda_train, torch, card, {}, ema_decay=EMA_DECAY)
+    bf16_rows = time_training(cuda_train, torch, card, {}, dtype="bfloat16")
+    vae_ema_rows = time_vae_training(ctv, torch, card, general_sps,
+                                     ema_decay=EMA_DECAY)
+    vae_bf16_rows = time_vae_training(ctv, torch, card, general_sps,
+                                      dtype="bfloat16")
+    phase_bf16_rows = time_phases(cuda_dp, cuda_train, torch, card,
+                                  dtype="bfloat16")
+    phase_bf16_main = {m: next(r for r in phase_bf16_rows if r["kernel"] ==
+                               f"gan_phase_{m}_bf16"
+                               and r["variant"] == "nsgan") for m in "dg"}
 
     fwd_main = rows["mlp_fwd"][-1]   # B = 8192, the largest serving batch
     bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
@@ -2651,7 +3234,41 @@ def main() -> int:
                f"nsgan b={TRAIN_B} (world 1), full width", counted=f"{m}_phase",
                per_hook=[r for r in phase_rows
                          if r["kernel"] == f"gan_phase_{m}"],
-               dp_steps_per_s=dp_sps) for m in "dg"]}))
+               dp_steps_per_s=dp_sps) for m in "dg"]
+        + [
+        entry("gan_chunk_ema", cuda_train.SOURCE,
+              "generative_models_tpu/ops/pallas_train.py:755", ema_err,
+              ema_rows["nsgan"], chunk_shape + f", nsgan, ema_decay "
+              f"{EMA_DECAY} (the other hooks: per_variant)",
+              per_variant=ema_rows,
+              cli_run=cli_lines["nsgan_ema_bf16"]),
+        entry("gan_chunk_bf16", cuda_train.SOURCE + " (-DGM_BF16=1)",
+              "generative_models_tpu/ops/pallas_train.py:192", bf16_err,
+              bf16_rows["nsgan"], chunk_shape + ", nsgan, bf16 operands "
+              "(the other hooks: per_variant)", per_variant=bf16_rows,
+              cli_run=cli_lines["nsgan_ema_bf16"]),
+        entry("vae_chunk_ema", ctv.SOURCE,
+              "generative_models_tpu/ops/pallas_train.py:1522",
+              max(vae_ema_err.values()), vae_ema_rows["vae"],
+              chunk_shape + f", ema_decay {EMA_DECAY} (birvae: per_variant)",
+              counted="vae_family_ema", per_variant=vae_ema_rows,
+              max_abs_err_is="metrics, relative to max|ref|",
+              cli_run=cli_lines["vae_ema_bf16"]),
+        entry("vae_chunk_bf16", ctv.SOURCE + " (-DGM_BF16=1)",
+              "generative_models_tpu/ops/pallas_train.py:1497",
+              max(vae_bf16_err.values()), vae_bf16_rows["vae"],
+              chunk_shape + ", bf16 operands (birvae: per_variant)",
+              counted="vae_family_bf16", per_variant=vae_bf16_rows,
+              cli_run=cli_lines["vae_ema_bf16"]),
+    ] + [entry(f"gan_phase_{m}_bf16",
+               cuda_dp.SOURCE + " (-DGM_PHASE=1 -DGM_BF16=1)",
+               "generative_models_tpu/ops/pallas_dp.py:"
+               + ("128" if m == "d" else "214"), phase_bf16_err,
+               phase_bf16_main[m], f"nsgan b={TRAIN_B} (world 1), full "
+               "width, bf16 operands", counted=f"{m}_phase_bf16",
+               per_hook=[r for r in phase_bf16_rows
+                         if r["kernel"] == f"gan_phase_{m}_bf16"])
+         for m in "dg"]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,10 +1,11 @@
 // What the whole-chunk training kernels share (gan_chunk.cu, vae_chunk.cu):
-// the product job and its tile loop, Adam, and the warp sum.
+// the product job and its tile loop, Adam, the EMA step, the bf16 operand
+// rounding, and the warp sum.
 //
 // A kernel's argument struct `A` carries its state planes and Adam's
 // constants: float* p[], mu[], nu[]; float b1, b2, omb1, omb2, eps,
-// log_b1, log_b2. Each source defines its own epilogues by specialising
-// epilogue<A> before its kernel.
+// log_b1, log_b2. Each source defines epilogue<A> for its argument types
+// before its kernel.
 //
 // Products: 16x32 output tiles, 256 threads. The depth is split over the
 // block's 8 warps (16-deep slices, each warp's staged in its own shared
@@ -12,11 +13,26 @@
 // of 16 rows, and the 8 partial tiles are summed in a fixed order: at
 // B = 100 the products are short and deep (K up to 784 for 100 rows),
 // so the depth, not the tile count, is what must run in parallel.
+//
+// Built with -DGM_BF16=1 (a library of its own), every product takes its
+// two operands rounded to bfloat16 (round to nearest even) and sums them
+// in float32, as the TPU kernels' Config.dtype="bfloat16" path
+// (pallas_train.py::_make_dots, pallas_dp.py:128,214): the tiles round
+// where they stage an operand into shared memory, and a source's own
+// row-warp products round through opnd(). A product of two bf16 values is
+// exact in float32, so only the order of the float32 sums differs from
+// the reference. Elementwise work stays float32.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifndef GM_BF16
+#define GM_BF16 0
+#endif
+constexpr bool BF16 = GM_BF16 != 0;
 
 #define CT 256               // threads a block
 #define WARPS (CT / 32)
@@ -49,6 +65,25 @@ struct Gemm {  // C [M, N] = A [M, K] B [K, N], then the epilogue
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 
+// v rounded to the nearest bfloat16 (ties to even), as a float
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// An operand of a product: rounded to bfloat16 in the bf16 builds.
+__device__ __forceinline__ float opnd(float v) {
+  if constexpr (BF16) return bf16r(v);
+  return v;
+}
+
+// One EMA step, ema <- d ema + (1 - d) p, the TPU kernels' order
+// (pallas_train.py:761-762, 1522-1524): two float32 products, one sum, no
+// fused multiply-add; omd is 1 - d rounded once from double.
+__device__ __forceinline__ float ema_step(float d, float e, float omd,
+                                          float p) {
+  return __fadd_rn(__fmul_rn(d, e), __fmul_rn(omd, p));
+}
+
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 __device__ __forceinline__ float softplus(float u) {
@@ -68,16 +103,20 @@ __device__ __forceinline__ AdamT adam_t(const A& a, float lr, float t) {
   return r;
 }
 
+// One Adam step on element i of state tensor q; returns the new
+// parameter (for an EMA plane).
 template <class A>
-__device__ __forceinline__ void adam(const A& a, int q, size_t i, float g,
-                                     const AdamT& t) {
+__device__ __forceinline__ float adam(const A& a, int q, size_t i, float g,
+                                      const AdamT& t) {
   const float m = a.b1 * ld(a.mu[q] + i) + a.omb1 * g;
   const float v = a.b2 * ld(a.nu[q] + i) + (a.omb2 * g) * g;
   a.mu[q][i] = m;
   a.nu[q][i] = v;
   const float mhat = m / t.bc1;
   const float vhat = v / t.bc2;
-  a.p[q][i] = ld(a.p[q] + i) - (t.lr * mhat) / (sqrtf(vhat) + a.eps);
+  const float p = ld(a.p[q] + i) - (t.lr * mhat) / (sqrtf(vhat) + a.eps);
+  a.p[q][i] = p;
+  return p;
 }
 
 __device__ __forceinline__ int tiles_of(const Gemm& g) {
@@ -85,7 +124,7 @@ __device__ __forceinline__ int tiles_of(const Gemm& g) {
 }
 
 // What becomes of element (m, n) of a job's product, c: each source
-// specialises this for its argument struct.
+// defines this for its argument types.
 template <class A>
 __device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
                                          int n, float c, const AdamT& at);
@@ -94,7 +133,8 @@ __device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
 // w takes the SK-deep slices w, w + WARPS, ... (staged in its own corner
 // of shared memory, the next slice's loads in flight while it computes
 // this one), lane l keeps column n0 + l of all TM rows, and the warps'
-// partial tiles are summed in a fixed order at the end. The job is
+// partial tiles are summed in a fixed order at the end (bf16 builds:
+// each operand rounded as it is staged). The job is
 // copied to registers once and every load is unconditional (an element
 // past the edge reads the operand's first element and is zeroed), so
 // the loads issue back to back.
@@ -147,10 +187,10 @@ __device__ void gemm_tile(const A& a, const Gemm& job, int tile,
     __syncwarp();  // every lane is done reading the previous slice
 #pragma unroll
     for (int q = 0; q < A_PER_LANE; ++q)
-      As[(ak0 + q * adk) * TM + am0 + q * adm] = ra[q];
+      As[(ak0 + q * adk) * TM + am0 + q * adm] = opnd(ra[q]);
 #pragma unroll
     for (int q = 0; q < B_PER_LANE; ++q)
-      Bs[(bk0 + q * bdk) * (TN + 1) + bn0 + q * bdn] = rb[q];
+      Bs[(bk0 + q * bdk) * (TN + 1) + bn0 + q * bdn] = opnd(rb[q]);
     __syncwarp();
     if (s + WARPS < slices) load(s + WARPS);
 #pragma unroll

@@ -10,15 +10,21 @@
 // head (:271-310, 392-406, 468-478, lane 6 :735-736), began's
 // autoencoder critic, its direct L1 path into G (dx_extra, :740-741) and
 // its k_t law (:764-772), Adam or RMSprop, wgan's clip, the carried
-// scalar (fishergan's multiplier, began's k_t), float32, no EMA plane.
+// scalar (fishergan's multiplier, began's k_t), the G EMA plane
+// (:755-762), float32 or bf16 operands (_make_dots, :192-211).
 //
 // One source, one library a hook: -DGM_HOOK=0..10 picks the critic (bce:
 // nsgan and mmgan; ls; w; f: all seven divergences; ra; fi; gpw: w with
 // the penalty, wgangp; gpb: bce with the penalty, dragan; cond: bce on
 // label-carrying rows, cgan; info: bce with the Q head, infogan; be: the
 // autoencoder, began) at compile time, and each library holds an Adam
-// and an RMSprop kernel (gpw: Adam only, see kernel_of), so no hot loop
-// carries a run-time switch of another variant.
+// and an RMSprop kernel, each also with the G EMA plane, so no hot loop
+// carries a run-time switch of another variant. With -DGM_BF16=1
+// (libraries of their own) every product takes
+// bf16-rounded operands (chunk_common.cuh), the tiles' and the row warps'
+// alike: the heads' logits and rows of dh, dW2d's column sums, infogan's
+// MI targets (the reference's tq = mm(zrow, mselq)), and the penalty's
+// u = leaky'(hh) w2d (w2row = dotT_rhs(lane0, w2d)) and its dw2d terms.
 // Built with -DGM_PHASE=1, a hook's library holds instead its two phase
 // kernels for data-parallel training (see gm_gan_phase): one critic
 // update's gradients and one G update's, which the caller all-reduces
@@ -42,7 +48,9 @@
 //     dh2 = gl w2d^T * leaky'(hf2), dx = dh2 W1d^T,
 //     gu2 = dx * fake2 * (1 - fake2), dW2g = hg^T gu2, db2g = sum gu2,
 //     dhg = gu2 W2g^T * (hg > 0), dW1g = zg^T dhg, db1g = sum dhg;
-//     optimizer on G
+//     optimizer on G; the EMA kernels then step the G EMA plane,
+//     ema <- d ema + (1 - d) p, element by element right after each G
+//     parameter's update (the reference reads p after the update too)
 //   one metrics row of 8 lanes, those of the TPU kernel: d_loss, the real
 //   and fake logit means (fishergan: ipm, Omega), g_loss, -, -,
 //   fishergan's constraint 1 - Omega, lam after the step; the critic's
@@ -155,7 +163,12 @@
 // 416 KB of streams (x 313.6 KB, zd 51.2 KB, zg 51.2 KB) = 0.12 us from
 // HBM: the kernel is bound by operations. It gives away the FMA rate
 // (no tensor cores; small tiles at B = 100 leave SMs idle in the narrow
-// phases) and about 10 grid barriers a step.
+// phases) and about 10 grid barriers a step. The bf16 builds do the same
+// work on bf16 operands, whose bound is the 989 TFLOP/s dense bf16
+// tensor-core peak (0.67 us a step); they still run FFMA on rounded
+// values. The EMA plane adds a read and a write of G's 4 tensors a step
+// (2.93 MB), 0.87 us at 3.35 TB/s.
+
 
 #include "chunk_common.cuh"
 
@@ -247,6 +260,10 @@ struct Args {
   // [B, X], and their row sums [2B], [B]
   float gamma, lambda_k, inv_bx;
   float *ab, *d2, *erow, *erow2;
+  // the EMA kernels: G's EMA plane (g_w1 g_b1 g_w2 g_b2), its decay d and
+  // 1 - d
+  float* ema[4];
+  float ema_d, ema_omd;
   // the phase kernels: where each state tensor's gradient goes (segments
   // of one flat buffer), in place of its optimizer step
 #if GM_PHASE
@@ -254,9 +271,13 @@ struct Args {
 #endif
 };
 
-// The same arguments for the RMSprop kernel: a type of its own, so that
-// the product tiles' epilogue is chosen at compile time.
-struct ArgsRms : Args {};
+// The arguments typed by the kernel's optimizer (RMSprop or Adam) and
+// whether it steps the G EMA plane, so that the product tiles' epilogue
+// is chosen at compile time (chunk_common.cuh's epilogue<A>).
+template <bool R, bool E>
+struct KArgs : Args {
+  static constexpr bool RMS = R, EMA = E;
+};
 
 __device__ __forceinline__ float leaky(float v, float s) {
   return v >= 0.0f ? v : s * v;
@@ -287,8 +308,9 @@ __device__ __forceinline__ int gp_fresh(int n) {
 }
 
 // One optimizer step on element i of state tensor q with gradient g;
-// wgan clips the critic's tensors (q >= P_D_W1) right after it.
-template <bool RMS>
+// wgan clips the critic's tensors (q >= P_D_W1) right after it; the EMA
+// kernels step G's EMA plane (q < P_D_W1) from the new parameter.
+template <bool RMS, bool EMA = false>
 __device__ __forceinline__ void update(const Args& a, int q, size_t i,
                                        float g, const AdamT& t) {
 #if GM_PHASE  // the gradient itself; the optimizer runs after the
@@ -304,10 +326,16 @@ __device__ __forceinline__ void update(const Args& a, int q, size_t i,
     if (HOOK == HOOK_W && q >= P_D_W1 && a.clip > 0.0f)
       p = fminf(fmaxf(p, -a.clip), a.clip);
     a.p[q][i] = p;
+    if constexpr (EMA)
+      if (q < P_D_W1)
+        a.ema[q][i] = ema_step(a.ema_d, ld(a.ema[q] + i), a.ema_omd, p);
   } else {
-    adam(a, q, i, g, t);
+    const float p = adam(a, q, i, g, t);
     if (HOOK == HOOK_W && q >= P_D_W1 && a.clip > 0.0f)
       a.p[q][i] = fminf(fmaxf(ld(a.p[q] + i), -a.clip), a.clip);
+    if constexpr (EMA)
+      if (q < P_D_W1)
+        a.ema[q][i] = ema_step(a.ema_d, ld(a.ema[q] + i), a.ema_omd, p);
   }
 #endif
 }
@@ -328,7 +356,7 @@ __device__ __forceinline__ void gp_epi(const Args& a, const Gemm& g, int m,
     g.out[o] = c;
   } else if (g.epi == EPI_GPU) {
     const float d = dleaky(c + ld(g.bias + n), a.slope);
-    g.out[o] = d * ld(g.aux + n);
+    g.out[o] = d * opnd(ld(g.aux + n));
     a.dph[o] = d;
   } else {
     const float f = sigm(c + ld(g.bias + n));
@@ -375,7 +403,7 @@ __device__ __forceinline__ void be_epi(const Args& a, const Gemm& g, int m,
   }
 }
 
-template <bool RMS>
+template <bool RMS, bool EMA>
 __device__ __forceinline__ void epi(const Args& a, const Gemm& g, int m, int n,
                                     float c, const AdamT& at) {
   if constexpr (GP) {
@@ -401,22 +429,14 @@ __device__ __forceinline__ void epi(const Args& a, const Gemm& g, int m, int n,
       break;
     }
     case EPI_RELUD: g.out[o] = c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f); break;
-    default: update<RMS>(a, g.param, (size_t)m * g.N + n, c, at); break;
+    default: update<RMS, EMA>(a, g.param, (size_t)m * g.N + n, c, at); break;
   }
 }
 
-template <>
-__device__ __forceinline__ void epilogue<Args>(const Args& a, const Gemm& g,
-                                               int m, int n, float c,
-                                               const AdamT& at) {
-  epi<false>(a, g, m, n, c, at);
-}
-
-template <>
-__device__ __forceinline__ void epilogue<ArgsRms>(const ArgsRms& a,
-                                                  const Gemm& g, int m, int n,
-                                                  float c, const AdamT& at) {
-  epi<true>(a, g, m, n, c, at);
+template <class A>
+__device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
+                                         int n, float c, const AdamT& at) {
+  epi<A::RMS, A::EMA>(a, g, m, n, c, at);
 }
 
 // f-GAN: the output activation g_f, its derivative, the conjugate f* and
@@ -565,7 +585,8 @@ __device__ void logits_only(const Args& a, const float* h, int rows,
   for (int r = warp; r < rows; r += nwarps) {
     const float* hr = h + (size_t)r * a.Hd;
     float s = 0.0f;
-    for (int j = lane; j < a.Hd; j += 32) s = fmaf(ld(hr + j), ld(w2 + j), s);
+    for (int j = lane; j < a.Hd; j += 32)
+      s = fmaf(opnd(ld(hr + j)), opnd(ld(w2 + j)), s);
     s = warp_sum(s) + ld(a.p[P_D_B2]);
     if (lane == 0) logit[r] = s;
   }
@@ -586,7 +607,8 @@ __device__ void grad_rows(const Args& a, const float* h, int rows,
     const float g = grad(r, ld(logit + r));
     if (lane == 0) glo[r] = g;
     for (int j = lane; j < a.Hd; j += 32)
-      dh[(size_t)r * a.Hd + j] = (g * ld(w2 + j)) * dleaky(ld(hr + j), a.slope);
+      dh[(size_t)r * a.Hd + j] =
+          (opnd(g) * opnd(ld(w2 + j))) * dleaky(ld(hr + j), a.slope);
   }
 }
 
@@ -602,7 +624,8 @@ __device__ void logit_rows(const Args& a, const float* h, int rows,
   for (int r = warp; r < rows; r += nwarps) {
     const float* hr = h + (size_t)r * a.Hd;
     float s = 0.0f;
-    for (int j = lane; j < a.Hd; j += 32) s = fmaf(ld(hr + j), ld(w2 + j), s);
+    for (int j = lane; j < a.Hd; j += 32)
+      s = fmaf(opnd(ld(hr + j)), opnd(ld(w2 + j)), s);
     const float l = warp_sum(s) + ld(a.p[P_D_B2]);
     const float g = grad(r, l);
     if (lane == 0) {
@@ -610,7 +633,8 @@ __device__ void logit_rows(const Args& a, const float* h, int rows,
       glo[r] = g;
     }
     for (int j = lane; j < a.Hd; j += 32)
-      dh[(size_t)r * a.Hd + j] = (g * ld(w2 + j)) * dleaky(ld(hr + j), a.slope);
+      dh[(size_t)r * a.Hd + j] =
+          (opnd(g) * opnd(ld(w2 + j))) * dleaky(ld(hr + j), a.slope);
   }
 }
 
@@ -648,11 +672,11 @@ __device__ void info_row(const Args& a, const float* h, int r, bool real,
 #pragma unroll
     for (int c = 0; c < QC; ++c) acc[c] = 0.0f;
     for (int j = lane; j < Hd; j += 32) {
-      const float hj = ld(hr + j);
+      const float hj = opnd(ld(hr + j));
       const float* wj = w2 + (size_t)j * L + c0;
 #pragma unroll
       for (int c = 0; c < QC; ++c)
-        if (c0 + c < L) acc[c] = fmaf(hj, ld(wj + c), acc[c]);
+        if (c0 + c < L) acc[c] = fmaf(hj, opnd(ld(wj + c)), acc[c]);
     }
 #pragma unroll
     for (int c = 0; c < QC; ++c) {
@@ -693,7 +717,7 @@ __device__ void info_row(const Args& a, const float* h, int r, bool real,
       g = (real || toward_real) ? (sigm(o[q]) - 1.0f) * a.inv_b
                                 : sigm(o[q]) * a.inv_b;
     } else if (!real && c <= nc + nm) {
-      const float t = ld(zrow + a.Zc + c - 1);
+      const float t = opnd(ld(zrow + a.Zc + c - 1));  // tq = mm(zrow, ..)
       if (c <= nc) {
         g = (a.info_lam * (expf(o[q] - mx) / se - t)) * a.inv_b;
         term -= ((o[q] - mx) - lse) * t;
@@ -717,7 +741,7 @@ __device__ void info_row(const Args& a, const float* h, int r, bool real,
   for (int j = lane; j < Hd; j += 32) {
     const float* wj = w2 + (size_t)j * L;
     float acc = 0.0f;
-    for (int c = 0; c < L; ++c) acc = fmaf(gs[c], ld(wj + c), acc);
+    for (int c = 0; c < L; ++c) acc = fmaf(opnd(gs[c]), opnd(ld(wj + c)), acc);
     dh[(size_t)r * Hd + j] = acc * dleaky(ld(hr + j), a.slope);
   }
   __syncwarp();  // every lane is done with gs before the next row's
@@ -898,7 +922,8 @@ __device__ void gp_rows(const Args& a, int norms) {
     }
     const float* hr = a.hd + (size_t)r * Hd;
     float s = 0.0f;
-    for (int j = lane; j < Hd; j += 32) s = fmaf(ld(hr + j), ld(w2 + j), s);
+    for (int j = lane; j < Hd; j += 32)
+      s = fmaf(opnd(ld(hr + j)), opnd(ld(w2 + j)), s);
     const float l = warp_sum(s) + ld(a.p[P_D_B2]);
     const float g = d_grad(a, r < B, l);
     if (lane == 0) {
@@ -906,7 +931,8 @@ __device__ void gp_rows(const Args& a, int norms) {
       a.gl[r] = g;
     }
     for (int j = lane; j < Hd; j += 32)
-      a.dh[(size_t)r * Hd + j] = (g * ld(w2 + j)) * dleaky(ld(hr + j), a.slope);
+      a.dh[(size_t)r * Hd + j] =
+          (opnd(g) * opnd(ld(w2 + j))) * dleaky(ld(hr + j), a.slope);
   }
 }
 
@@ -928,8 +954,9 @@ __device__ void run_gemms_beside(const A& a, const Gemm* jobs, int njobs,
   }
 }
 
-template <class A, bool RMS, int MODE = M_CHUNK>
-__global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
+template <bool RMS, bool EMA, int MODE = M_CHUNK>
+__global__ void __launch_bounds__(CT)
+    gan_chunk_kernel(const KArgs<RMS, EMA> a) {
   __shared__ __align__(16) float smem[WARPS * WARP_SMEM];
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * CT + threadIdx.x;
@@ -1146,8 +1173,8 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
               db += ld(src + (size_t)r * stride);
             db = warp_sum(db);
             if (lane == 0) {
-              if (v < Hd) update<RMS>(a, P_D_B1, v, db, td);
-              else update<RMS>(a, P_D_B2, v - Hd, db, td);
+              if (v < Hd) update<RMS, EMA>(a, P_D_B1, v, db, td);
+              else update<RMS, EMA>(a, P_D_B2, v - Hd, db, td);
             }
           } else {
             critic_metrics(a, k);
@@ -1167,27 +1194,36 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
           if (v < Hd) {
             float dw = 0.0f, db = 0.0f;
             for (int r = lane; r < 2 * B; r += 32) {
-              dw = fmaf(ld(a.hd + (size_t)r * Hd + v), ld(a.gl + r), dw);
+              dw = fmaf(opnd(ld(a.hd + (size_t)r * Hd + v)),
+                        opnd(ld(a.gl + r)), dw);
               db += ld(a.dh + (size_t)r * Hd + v);
             }
             dw = warp_sum(dw);
             db = warp_sum(db);
             if constexpr (GP) {  // sum_i c_i leaky'(hh_i) s_i
               float dp = 0.0f;
-              for (int r = lane; r < B; r += 32)
-                dp = fmaf(ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v),
-                          ld(a.sbuf + (size_t)r * Hd + v), dp);
+              // (the count fresh: with it hoisted the RMSprop kernels
+              // spilled 4 bytes, the bf16 Adam kernel 8)
+              for (int r = lane; r < gp_fresh(B); r += 32) {
+                if constexpr (BF16)  // dotT_lhs(c dph s, lane0): one
+                  dp += bf16r(       // rounded operand a term
+                      (ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v)) *
+                      ld(a.sbuf + (size_t)r * Hd + v));
+                else
+                  dp = fmaf(ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v),
+                            ld(a.sbuf + (size_t)r * Hd + v), dp);
+              }
               dw += warp_sum(dp);
             }
             if (lane == 0) {
-              update<RMS>(a, P_D_W2, v, dw, td);
-              update<RMS>(a, P_D_B1, v, db, td);
+              update<RMS, EMA>(a, P_D_W2, v, dw, td);
+              update<RMS, EMA>(a, P_D_B1, v, db, td);
             }
           } else if (v == Hd) {
             float db = 0.0f;
             for (int r = lane; r < 2 * B; r += 32) db += ld(a.gl + r);
             db = warp_sum(db);
-            if (lane == 0) update<RMS>(a, P_D_B2, 0, db, td);
+            if (lane == 0) update<RMS, EMA>(a, P_D_B2, 0, db, td);
           } else {
             critic_metrics(a, k);
           }
@@ -1274,8 +1310,8 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
         for (int r = lane; r < B; r += 32) db += ld(src + (size_t)r * stride);
         db = warp_sum(db);
         if (lane == 0) {
-          if (v < X) update<RMS>(a, P_G_B2, v, db, tg);
-          else update<RMS>(a, P_G_B1, v - X, db, tg);
+          if (v < X) update<RMS, EMA>(a, P_G_B2, v, db, tg);
+          else update<RMS, EMA>(a, P_G_B1, v - X, db, tg);
         }
       }
     }
@@ -1287,9 +1323,9 @@ __global__ void __launch_bounds__(CT) gan_chunk_kernel(const A a) {
 // them over (ops/cuda_train.py::_Hyper mirrors this field for field).
 struct GanChunkHyper {
   int steps, ds, B, Z, H, X, Hd, t_g, t_d, rmsprop, alt, div, n_cls, Xd, L,
-      n_cat, n_cont;
+      n_cat, n_cont, ema;
   float g_lr, d_lr, b1, b2, omb1, omb2, eps, log_b1, log_b2, slope, inv_b,
-      clip, rho, gp_lam, info_lam, gamma, lambda_k;
+      clip, rho, gp_lam, info_lam, gamma, lambda_k, ema_d, ema_omd;
 };
 
 // Floats of scratch a launch needs at these widths; Xd is D's input width
@@ -1310,7 +1346,7 @@ static long long scratch_floats(int B, int H, int X, int Hd, int Xd, int L) {
 // Everything of `a` but the state planes, from the streams and `h`, with
 // `scratch` cut into its buffers. False when the sizes do not fit the
 // hook (or a penalty hook that needs it has no xtra stream).
-static bool set_args(ArgsRms& a, const float* xs, const float* zd,
+static bool set_args(Args& a, const float* xs, const float* zd,
                      const float* zg, const float* xtra, float* scratch,
                      float* metrics, float* lam, const GanChunkHyper* h,
                      bool needs_xtra) {
@@ -1400,6 +1436,8 @@ static bool set_args(ArgsRms& a, const float* xs, const float* zd,
   a.gamma = h->gamma;
   a.lambda_k = h->lambda_k;
   a.inv_bx = h->inv_b / (float)h->X;
+  a.ema_d = h->ema_d;
+  a.ema_omd = h->ema_omd;
   return true;
 }
 
@@ -1420,7 +1458,7 @@ static int grid_of(const void* kernel, int blocks_per_sm) {
 
 // One cooperative launch of `kernel` on `stream` (the grid no larger than
 // what is co-resident, or the launch is refused); the CUDA error code.
-static int launch(const void* kernel, ArgsRms& a, int grid, void* stream) {
+static int launch(const void* kernel, Args& a, int grid, void* stream) {
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
       kernel, dim3(grid), dim3(CT), args, 0, static_cast<cudaStream_t>(stream));
@@ -1441,17 +1479,22 @@ static int launch(const void* kernel, ArgsRms& a, int grid, void* stream) {
 //   M_G: hg and fake2, then G1-G6 through the critic it is given, the G
 //     gradients (dW1g, db1g, dW2g, db2g) into `gr`, lane 3 g_loss (infogan:
 //     lane 6 its MI term); began's k_t law is left to the caller
-// The all-reduce, the optimizer, wgan's clip and began's law run after
-// the launch, as the TPU path runs them outside its kernels. RMS = true
+// The all-reduce, the optimizer, wgan's clip, began's law and the G EMA
+// run after the launch, as the TPU path runs them outside its kernels
+// (pallas_dp.py:525-527). A -DGM_BF16=1 build takes bf16 operands in
+// every product, as _make_d_phase_kernel and _make_g_phase_kernel do
+// (pallas_dp.py:128, 214). RMS = true
 // only selects the step_t that reads no Adam constants.
 static const void* phase_kernel_of(int mode) {
-  if (mode == M_D) return (const void*)gan_chunk_kernel<ArgsRms, true, M_D>;
-  if (mode == M_G) return (const void*)gan_chunk_kernel<ArgsRms, true, M_G>;
+  if (mode == M_D) return (const void*)gan_chunk_kernel<true, false, M_D>;
+  if (mode == M_G) return (const void*)gan_chunk_kernel<true, false, M_G>;
   return nullptr;
 }
 
-// The hook this library was compiled for (GM_HOOK).
+// The hook this library was compiled for (GM_HOOK), and whether its
+// products take bf16 operands (GM_BF16).
 extern "C" int gm_gan_phase_hook() { return HOOK; }
+extern "C" int gm_gan_phase_bf16() { return GM_BF16; }
 
 extern "C" long long gm_gan_phase_scratch_floats(int B, int H, int X, int Hd,
                                                  int Xd, int L) {
@@ -1477,9 +1520,9 @@ extern "C" int gm_gan_phase(int mode, const float* x, const float* zd,
                             void* const* params, void* const* grads,
                             float* scratch, float* metrics, float* lam,
                             const GanChunkHyper* h, int grid, void* stream) {
-  ArgsRms a = {};
+  Args a = {};
   if (!phase_kernel_of(mode) || grid < 1 || h->steps != 1 || h->ds != 1 ||
-      !set_args(a, x, zd, zg, xtra, scratch, metrics, lam, h, mode == M_D))
+      h->ema || !set_args(a, x, zd, zg, xtra, scratch, metrics, lam, h, mode == M_D))
     return (int)cudaErrorInvalidValue;
   const int q0 = mode == M_D ? P_D_W1 : P_G_W1;
   for (int q = 0; q < N_PARAMS; ++q) {
@@ -1491,19 +1534,20 @@ extern "C" int gm_gan_phase(int mode, const float* x, const float* zd,
   return launch(phase_kernel_of(mode), a, grid, stream);
 }
 #else
-// The Adam (rmsprop = 0) or RMSprop kernel; gpw (wgangp) has no RMSprop
-// kernel: that instantiation spills 4 bytes however its phases are laid
-// out, and wgangp trains with Adam (null: the launch is refused).
-static const void* kernel_of(int rmsprop) {
-  if constexpr (HOOK == HOOK_GPW)
-    return rmsprop ? nullptr : (const void*)gan_chunk_kernel<Args, false>;
-  else
-    return rmsprop ? (const void*)gan_chunk_kernel<ArgsRms, true>
-                   : (const void*)gan_chunk_kernel<Args, false>;
+// The Adam (rmsprop = 0) or RMSprop kernel, without or with (ema = 1) the
+// G EMA plane.
+static const void* kernel_of(int rmsprop, int ema) {
+  if (ema)
+    return rmsprop ? (const void*)gan_chunk_kernel<true, true>
+                   : (const void*)gan_chunk_kernel<false, true>;
+  return rmsprop ? (const void*)gan_chunk_kernel<true, false>
+                 : (const void*)gan_chunk_kernel<false, false>;
 }
 
-// The hook this library was compiled for (GM_HOOK).
+// The hook this library was compiled for (GM_HOOK), and whether its
+// products take bf16 operands (GM_BF16).
 extern "C" int gm_gan_chunk_hook() { return HOOK; }
+extern "C" int gm_gan_chunk_bf16() { return GM_BF16; }
 
 // Floats of scratch a launch needs at these widths (the wrapper
 // allocates it); see scratch_floats.
@@ -1513,17 +1557,18 @@ extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
   return scratch_floats(B, H, X, Hd, Xd, L);
 }
 
-// The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel uses:
-// every SM's co-resident blocks, at most blocks_per_sm each. Returns 0
-// when the query fails.
-extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop) {
-  return grid_of(kernel_of(rmsprop), blocks_per_sm);
+// The grid a launch of the Adam (rmsprop = 0) or RMSprop kernel, with or
+// without the EMA plane, uses: every SM's co-resident blocks, at most
+// blocks_per_sm each. Returns 0 when the query fails.
+extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop, int ema) {
+  return grid_of(kernel_of(rmsprop, ema), blocks_per_sm);
 }
 
 // Launches one cooperative kernel on `stream` that runs `steps` outer
 // steps and updates the 8 state tensors' planes (p, mu, nu: `state` holds
 // 24 pointers, planes in that order, tensors g_w1 g_b1 g_w2 g_b2 d_w1
-// d_b1 d_w2 d_b2; with RMSprop the mu pointers are null) and `lam` (one
+// d_b1 d_w2 d_b2; with RMSprop the mu pointers are null; with h->ema 4
+// more, G's EMA plane g_w1 g_b1 g_w2 g_b2) and `lam` (one
 // float: fishergan's multiplier, began's k_t) in place. `xtra` is the penalty's
 // stream (gpw: eps [rows, 1]; gpb: x_hat [rows, X]), null for the other
 // hooks; cgan's xs rows are Xd = X + n_cls wide and its zd, zg rows Z
@@ -1536,8 +1581,8 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
                             const float* xtra, void* const* state,
                             float* scratch, float* metrics, float* lam,
                             const GanChunkHyper* h, int grid, void* stream) {
-  ArgsRms a = {};
-  if (grid < 1 || !kernel_of(h->rmsprop) ||
+  Args a = {};
+  if (grid < 1 || !kernel_of(h->rmsprop, h->ema) ||
       !set_args(a, xs, zd, zg, xtra, scratch, metrics, lam, h, true))
     return (int)cudaErrorInvalidValue;
   for (int q = 0; q < N_PARAMS; ++q) {
@@ -1547,6 +1592,10 @@ extern "C" int gm_gan_chunk(const float* xs, const float* zd, const float* zg,
     if (!a.p[q] || !a.nu[q] || (!h->rmsprop && !a.mu[q]))
       return (int)cudaErrorInvalidValue;
   }
-  return launch(kernel_of(h->rmsprop), a, grid, stream);
+  for (int q = 0; h->ema && q < 4; ++q) {
+    a.ema[q] = static_cast<float*>(state[3 * N_PARAMS + q]);
+    if (!a.ema[q]) return (int)cudaErrorInvalidValue;
+  }
+  return launch(kernel_of(h->rmsprop, h->ema), a, grid, stream);
 }
 #endif

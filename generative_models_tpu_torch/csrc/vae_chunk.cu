@@ -3,8 +3,12 @@
 // Replaces: generative_models_tpu/ops/pallas_train.py::_make_vae_kernel
 // with ::_fused_vae_chunk_call, and ::_make_birvae_kernel with
 // ::_fused_birvae_chunk_call (the TPU chunk kernels of the single-model
-// family), Adam, float32, no EMA plane. One source, the BIR-VAE a
-// compile-time variant of the same kernel (template <bool BIR>).
+// family), Adam, the EMA plane of every tensor (pallas_train.py:1522-1524,
+// 1903-1905), float32 or, built with -DGM_BF16=1 (a library of its own),
+// bf16 operands in every product (:1497-1511, 1878-1892; see
+// chunk_common.cuh). One source, the BIR-VAE a compile-time variant of
+// the same kernel (template <bool EMA, bool BIR>; EMA the kernels that
+// step the EMA plane).
 //
 // What it computes, for k = 0..steps-1 (one step each, t = t0 + k + 1),
 // on the step's batch x [B, X] and streamed noise e [B, L]:
@@ -26,7 +30,9 @@
 //   BIR-VAE: g_mu = r (dz - mean_B(dz) - muh mean_B(dz muh))
 //   dWmu = henc^T g_mu, dbmu = sum g_mu (and dWlv, dblv from g_lv)
 //   dhe = (g_mu Wmu^T [+ g_lv Wlv^T]) * (henc > 0)
-//   dWtr = x^T dhe, dbtr = sum dhe;  Adam on every tensor
+//   dWtr = x^T dhe, dbtr = sum dhe;  Adam on every tensor; the EMA
+//   kernels then ema <- d ema + (1 - d) p on each element right after
+//   its update
 //   one metrics row: VAE [recon + kl, recon, kl];
 //                    BIR-VAE [recon, recon, latent_power]
 // Adam is the TPU kernel's `update` (pallas_train.py:1513-1521), with the
@@ -69,7 +75,11 @@
 // against 321.6 KB of streams (x 313.6, e 8.0) = 0.10 us from HBM: the
 // kernel is bound by operations. The BIR-VAE has no lv head: 323.2
 // MFLOP. It gives away the FMA rate (no tensor cores; the narrow phases
-// leave SMs idle) and 10-11 grid barriers a step.
+// leave SMs idle) and 10-11 grid barriers a step. The bf16 build's bound
+// is the same work at the 989 TFLOP/s dense bf16 tensor-core peak (0.33
+// us a step). The EMA plane adds a read and a write of every parameter a
+// step (5.2 MB, 1.56 us at 3.35 TB/s; the state stays L2-resident).
+
 
 #include "chunk_common.cuh"
 
@@ -86,6 +96,8 @@ struct VaeArgs {
   float* p[N_PARAMS];   // the BIR-VAE leaves the lv slots null
   float* mu[N_PARAMS];
   float* nu[N_PARAMS];
+  float* ema[N_PARAMS];  // the EMA kernels' plane (lv slots null: BIR-VAE)
+  float ema_d, ema_omd;  // d and 1 - d
   float* metrics;   // [steps, 3]
   // scratch
   float *henc, *m, *lv, *z, *muh, *hd, *glg, *ppx, *dhd, *dz, *gmu, *glv,
@@ -96,10 +108,28 @@ struct VaeArgs {
   int mse;
 };
 
-template <>
-__device__ __forceinline__ void epilogue<VaeArgs>(const VaeArgs& a,
-                                                  const Gemm& g, int m, int n,
-                                                  float c, const AdamT& at) {
+// The arguments typed by whether the kernel steps the EMA plane, so that
+// the product tiles' epilogue is chosen at compile time (chunk_common.cuh's
+// epilogue<A>).
+template <bool E>
+struct VArgs : VaeArgs {
+  static constexpr bool EMA = E;
+};
+
+// Adam on element i of tensor q, and with EMA its EMA step from the new
+// parameter.
+template <bool EMA>
+__device__ __forceinline__ void vae_adam(const VaeArgs& a, int q, size_t i,
+                                         float g, const AdamT& at) {
+  const float p = adam(a, q, i, g, at);
+  if constexpr (EMA)
+    a.ema[q][i] = ema_step(a.ema_d, ld(a.ema[q] + i), a.ema_omd, p);
+}
+
+template <bool EMA>
+__device__ __forceinline__ void vae_epi(const VaeArgs& a, const Gemm& g,
+                                        int m, int n, float c,
+                                        const AdamT& at) {
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
     case EPI_RELU: g.out[o] = fmaxf(c + ld(g.bias + n), 0.0f); break;
@@ -123,14 +153,21 @@ __device__ __forceinline__ void epilogue<VaeArgs>(const VaeArgs& a,
     case EPI_RELUD_ACC:
       g.out[o] = ld(g.out + o) + c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f);
       break;
-    default: adam(a, g.param, (size_t)m * g.N + n, c, at); break;
+    default: vae_adam<EMA>(a, g.param, (size_t)m * g.N + n, c, at); break;
   }
+}
+
+template <class A>
+__device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
+                                         int n, float c, const AdamT& at) {
+  vae_epi<A::EMA>(a, g, m, n, c, at);
 }
 
 // Column sums over the B rows of src [B, ld] with Adam on bias tensor q,
 // one warp per column (lanes stride the rows, then a shuffle tree).
 // Column v goes to warp (first + v) mod the grid's warps, so two calls
 // of one phase can take different warps (0 <= first < the grid's warps).
+template <bool EMA>
 __device__ __forceinline__ void bias_adam(const VaeArgs& a, const float* src,
                                           int ld_, int n, int q,
                                           const AdamT& at, int first) {
@@ -141,12 +178,12 @@ __device__ __forceinline__ void bias_adam(const VaeArgs& a, const float* src,
     float s = 0.0f;
     for (int r = lane; r < a.B; r += 32) s += ld(src + (size_t)r * ld_ + v);
     s = warp_sum(s);
-    if (lane == 0) adam(a, q, v, s, at);
+    if (lane == 0) vae_adam<EMA>(a, q, v, s, at);
   }
 }
 
-template <bool BIR>
-__global__ void __launch_bounds__(CT) vae_chunk_kernel(const VaeArgs a) {
+template <bool EMA, bool BIR>
+__global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
   __shared__ __align__(16) float smem[WARPS * WARP_SMEM];
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * CT + threadIdx.x;
@@ -252,7 +289,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VaeArgs a) {
           {{a.dhd, H, 1}, {a.p[P_D1_W], 1, H}, B, L, H, EPI_STORE, nullptr,
            nullptr, a.dz, L, 0}};
       run_gemms(a, jobs, 2, at, smem);
-      bias_adam(a, a.glg, X, X, P_D2_B, at, 0);
+      bias_adam<EMA>(a, a.glg, X, X, P_D2_B, at, 0);
       if (gwarp == nwarps - 1) {
         float sr = 0.0f, s2 = 0.0f;
         for (int r = lane; r < B; r += 32) sr += ld(a.rrow + r);
@@ -283,7 +320,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VaeArgs a) {
       Gemm job = {{a.z, 1, L}, {a.dhd, H, 1}, L, H, B, EPI_ADAM, nullptr,
                   nullptr, nullptr, H, P_D1_W};
       run_gemms(a, &job, 1, at, smem);
-      bias_adam(a, a.dhd, H, H, P_D1_B, at, 0);
+      bias_adam<EMA>(a, a.dhd, H, H, P_D1_B, at, 0);
       if (BIR) {
         // one warp per latent dim, from the far end of the grid: the two
         // batch means of the normalisation's backward
@@ -327,7 +364,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VaeArgs a) {
           {{a.henc, 1, H}, {a.gmu, L, 1}, H, L, B, EPI_ADAM, nullptr, nullptr,
            nullptr, L, P_MU_W}};
       run_gemms(a, jobs, 2, at, smem);
-      bias_adam(a, a.gmu, L, L, P_MU_B, at, far);
+      bias_adam<EMA>(a, a.gmu, L, L, P_MU_B, at, far);
       grid.sync();
     }
     {  // 10: the last head's and the trunk's dW, db with Adam
@@ -338,8 +375,8 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VaeArgs a) {
           {{a.henc, 1, H}, {gh, L, 1}, H, L, B, EPI_ADAM, nullptr, nullptr,
            nullptr, L, BIR ? P_MU_W : P_LV_W}};
       run_gemms(a, jobs, 2, at, smem);
-      bias_adam(a, a.dhe, H, H, P_TR_B, at, 0);
-      bias_adam(a, gh, L, L, BIR ? P_MU_B : P_LV_B, at, far);
+      bias_adam<EMA>(a, a.dhe, H, H, P_TR_B, at, 0);
+      bias_adam<EMA>(a, gh, L, L, BIR ? P_MU_B : P_LV_B, at, far);
     }
     grid.sync();
   }
@@ -352,33 +389,38 @@ extern "C" long long gm_vae_chunk_scratch_floats(int B, int X, int H, int L) {
   return b * (4 * H + 2 * X + 7 * L + 2) + 2 * L;
 }
 
-static const void* kernel_of(int birvae) {
-  return birvae ? (const void*)vae_chunk_kernel<true>
-                : (const void*)vae_chunk_kernel<false>;
+static const void* kernel_of(int birvae, int ema) {
+  if (ema)
+    return birvae ? (const void*)vae_chunk_kernel<true, true>
+                  : (const void*)vae_chunk_kernel<true, false>;
+  return birvae ? (const void*)vae_chunk_kernel<false, true>
+                : (const void*)vae_chunk_kernel<false, false>;
 }
 
-// The grid a launch uses: every SM's co-resident blocks, at most
-// blocks_per_sm each. Returns 0 when the query fails.
-extern "C" int gm_vae_chunk_grid(int blocks_per_sm, int birvae) {
+// Whether this library's products take bf16 operands (GM_BF16).
+extern "C" int gm_vae_chunk_bf16() { return GM_BF16; }
+
+// The grid a launch of the VAE or BIR-VAE kernel, with or without the
+// EMA plane, uses: every SM's co-resident blocks, at most blocks_per_sm
+// each. Returns 0 when the query fails.
+extern "C" int gm_vae_chunk_grid(int blocks_per_sm, int birvae, int ema) {
   int dev = 0, sms = 0, occ = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
-  cudaError_t e =
-      birvae ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &occ, vae_chunk_kernel<true>, CT, 0)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &occ, vae_chunk_kernel<false>, CT, 0);
-  if (e != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, kernel_of(birvae, ema), CT, 0) != cudaSuccess)
+    return 0;
   if (occ > blocks_per_sm) occ = blocks_per_sm;
   return occ * sms;
 }
 
 // Launches one cooperative kernel on `stream` that runs `steps` steps and
-// updates the state tensors' planes (p, mu, nu: `state` holds 30
-// pointers, planes in that order, tensors tr_w tr_b mu_w mu_b lv_w lv_b
-// d1_w d1_b d2_w d2_b; the BIR-VAE's lv pointers are null) in place.
+// updates the state tensors' planes (p, mu, nu, and with ema the EMA
+// plane: `state` holds 40 pointers, planes in that order, tensors tr_w
+// tr_b mu_w mu_b lv_w lv_b d1_w d1_b d2_w d2_b; the BIR-VAE's lv pointers
+// are null, and without ema the EMA plane's) in place.
 // Allocates nothing, does not synchronise; returns the CUDA error code
 // of the launch (0 = queued).
 extern "C" int gm_vae_chunk(const float* xs, const float* es,
@@ -387,7 +429,8 @@ extern "C" int gm_vae_chunk(const float* xs, const float* es,
                             int L, int t0, float lr, float b1, float b2,
                             float omb1, float omb2, float eps, float log_b1,
                             float log_b2, float inv_b, float sigma_n,
-                            int mse, int birvae, int grid, void* stream) {
+                            int mse, int birvae, int ema, float ema_d,
+                            float ema_omd, int grid, void* stream) {
   if (steps < 1 || B < 1 || X < 1 || H < 1 || L < 1 || grid < 1)
     return (int)cudaErrorInvalidValue;
   VaeArgs a = {};
@@ -397,7 +440,12 @@ extern "C" int gm_vae_chunk(const float* xs, const float* es,
     a.p[q] = static_cast<float*>(state[q]);
     a.mu[q] = static_cast<float*>(state[N_PARAMS + q]);
     a.nu[q] = static_cast<float*>(state[2 * N_PARAMS + q]);
+    a.ema[q] = static_cast<float*>(state[3 * N_PARAMS + q]);
+    const bool lv = q == P_LV_W || q == P_LV_B;
+    if (ema && !a.ema[q] && !(birvae && lv)) return (int)cudaErrorInvalidValue;
   }
+  a.ema_d = ema_d;
+  a.ema_omd = ema_omd;
   a.metrics = metrics;
   const size_t b = B;
   float* s = scratch;
@@ -437,7 +485,7 @@ extern "C" int gm_vae_chunk(const float* xs, const float* es,
   a.mse = mse;
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(birvae), dim3(grid), dim3(CT), args, 0,
+      kernel_of(birvae, ema), dim3(grid), dim3(CT), args, 0,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -25,7 +25,9 @@ kernels are ``csrc/gan_chunk.cu`` built with ``-DGM_PHASE=1``: the chunk
 kernel's phases A-F (critic) and G1-G6 (G), whose epilogues write the
 gradient where the chunk steps the optimizer; one library a critic hook
 (:data:`DP_HOOKS`, nine), both phase kernels in each, built at first
-use. As the reference notes of its own path (``pallas_dp.py:26-40``),
+use; with ``dtype="bfloat16"`` a second library a hook, built with
+``-DGM_BF16=1``, whose products take bf16 operands as the reference's
+phase kernels do (``pallas_dp.py:128, 214``). As the reference notes of its own path (``pallas_dp.py:26-40``),
 the parameters round-trip device memory at every phase and each phase
 pays a launch, so the launch, the all-reduce and the optimizer outside
 the kernel set the pace at these sizes.
@@ -33,9 +35,11 @@ the kernel set the pace at these sizes.
 On a CUDA tensor :func:`d_phase` / :func:`g_phase` launch the kernel or
 raise; on a CPU tensor they run :func:`d_phase_plain` /
 :func:`g_phase_plain` (the chunk's plain math, ``ops/cuda_train.py::
-critic_grads`` and ``g_grads``, in the inputs' dtype), which are also
-the kernels' oracle on the card. ``d_launches`` and ``g_launches`` count
-the kernels' launches.
+critic_grads`` and ``g_grads``, in the inputs' dtype, bf16 operands per
+``hp.dtype``), which are also the kernels' oracle on the card.
+``d_launches`` and ``g_launches`` count the kernels' launches,
+``d_bf16_launches`` and ``g_bf16_launches`` those of the bf16 kernels
+among them.
 
 The flat buffer of a phase holds the gradients at their true widths, in
 the order W1, b1, W2, b2 (infogan's critic head: the D and Q heads side
@@ -77,6 +81,8 @@ M_D, M_G = 1, 2
 
 d_launches = 0
 g_launches = 0
+d_bf16_launches = 0
+g_bf16_launches = 0
 
 
 def fused_dp_supported(spec, cfg) -> Tuple[bool, str]:
@@ -86,7 +92,8 @@ def fused_dp_supported(spec, cfg) -> Tuple[bool, str]:
     (``cuda_train.fused_step_supported``) but for three that do not
     apply: the world (each rank runs its own launches), the optimizer
     and the EMA (both run after the all-reduce, outside the kernels; so
-    wgangp trains with RMSprop here too)."""
+    wgangp trains with RMSprop here too). ``dtype="bfloat16"`` takes the
+    bf16 phase libraries."""
     v = cfg.variant
     if v not in FUSED_DP_VARIANTS:
         if v in ("ragan", "fishergan"):
@@ -229,27 +236,32 @@ def bind(lib) -> None:
     lib.gm_gan_phase_grid.restype = i
     lib.gm_gan_phase_hook.argtypes = []
     lib.gm_gan_phase_hook.restype = i
+    lib.gm_gan_phase_bf16.argtypes = []
+    lib.gm_gan_phase_bf16.restype = i
 
 
 @functools.cache
-def _lib(hook: str):
+def _lib(hook: str, bf16: bool = False):
     from generative_models_tpu_torch.ops.build import build_library
-    lib = build_library(f"gan_phase_{hook}", ["gan_chunk.cu"],
-                        headers=["chunk_common.cuh"],
-                        flags=(f"-DGM_HOOK={HOOK_IDS[hook]}",
-                               "-DGM_PHASE=1"))
+    lib = build_library(cuda_train.lib_name("gan_phase", hook, bf16),
+                        ["gan_chunk.cu"], headers=["chunk_common.cuh"],
+                        flags=cuda_train.lib_flags(hook, bf16, phase=True))
     bind(lib)
-    if lib.gm_gan_phase_hook() != HOOK_IDS[hook]:
+    if (lib.gm_gan_phase_hook(), lib.gm_gan_phase_bf16()) != (
+            HOOK_IDS[hook], int(bf16)):
         raise RuntimeError(f"gan_phase: the library built for hook {hook!r} "
-                           f"reports hook {lib.gm_gan_phase_hook()}")
+                           f"(bf16 {bf16}) reports hook "
+                           f"{lib.gm_gan_phase_hook()}, bf16 "
+                           f"{lib.gm_gan_phase_bf16()}")
     return lib
 
 
-def build(hook: Optional[str] = None) -> None:
-    """Compile (or load) the phase library for `hook` now instead of at
-    first use; every hook of :data:`DP_HOOKS` when None."""
+def build(hook: Optional[str] = None, bf16: bool = False) -> None:
+    """Compile (or load) the phase library for `hook` (its bf16 build with
+    `bf16`) now instead of at first use; every hook of :data:`DP_HOOKS`
+    when None."""
     for h in ([hook] if hook else DP_HOOKS):
-        _lib(h)
+        _lib(h, bf16)
 
 
 def _check(hp, rows: Dict[str, Tuple[torch.Tensor, tuple]], g, d):
@@ -287,7 +299,7 @@ def _launch(mode: int, hp: ChunkHyper, b: int, x, zd, zg, xtra, g, d,
     z, h = g[0].shape
     x_w = g[2].shape[1]
     hd = d[0].shape[1]
-    lib = _lib(HOOKS[hp.variant])
+    lib = _lib(HOOKS[hp.variant], hp.bf16)
     params = list(g) + list(d)
     mine = d if mode == M_D else g
     with torch.cuda.device(dev):
@@ -335,7 +347,7 @@ def d_phase(x, zd, xtra, g, d, lam, hp: ChunkHyper) -> torch.Tensor:
     began's k (a float or a 0-dim tensor). Returns the flat buffer (see
     the module docstring). CPU tensors run :func:`d_phase_plain`; CUDA
     tensors launch the kernel on the current stream or raise."""
-    global d_launches
+    global d_launches, d_bf16_launches
     b = x.shape[0]
     lanes = aux_lanes(hp.variant, g[2].shape[1])
     if (xtra is None) != (lanes == 0):
@@ -350,6 +362,7 @@ def d_phase(x, zd, xtra, g, d, lam, hp: ChunkHyper) -> torch.Tensor:
         return d_phase_plain(x, zd, xtra, g, d, lam, hp)
     flat = _launch(M_D, hp, b, x, zd, None, xtra, g, d, lam)
     d_launches += 1
+    d_bf16_launches += int(hp.bf16)
     return flat
 
 
@@ -359,13 +372,14 @@ def g_phase(zg, g, d, hp: ChunkHyper) -> torch.Tensor:
     step's last critic batch; infogan: code rows). Returns the flat
     buffer; CPU tensors run :func:`g_phase_plain`, CUDA tensors launch
     the kernel or raise."""
-    global g_launches
+    global g_launches, g_bf16_launches
     b = zg.shape[0]
     _check(hp, {"zg": (zg, (b, g[0].shape[0]))}, g, d)
     if _device_of(zg) == "cpu":
         return g_phase_plain(zg, g, d, hp)
     flat = _launch(M_G, hp, b, None, None, zg, None, g, d, 0.0)
     g_launches += 1
+    g_bf16_launches += int(hp.bf16)
     return flat
 
 

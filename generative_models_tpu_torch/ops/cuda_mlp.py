@@ -49,8 +49,9 @@ def acts_tuple(n: int, hidden_act: str, out_act: str) -> Tuple[str, ...]:
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
-    """Round float32 to the nearest bfloat16 and back to float32."""
-    return t.to(torch.bfloat16).to(torch.float32)
+    """Round to the nearest bfloat16 and back to `t`'s dtype (float32, or
+    float64 in an oracle)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def mlp_fwd_plain(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],

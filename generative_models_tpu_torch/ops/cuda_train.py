@@ -16,7 +16,12 @@ descending after each critic update, the gradient penalty's double
 backward in each critic update (wgangp, dragan), began's k_t law after
 each G update, one metrics row of 8 lanes a step — on pre-gathered
 streams, and updates the 8 state tensors' planes in place (Adam:
-parameters, ``mu``, ``nu``; RMSprop: parameters and ``nu``).
+parameters, ``mu``, ``nu``; RMSprop: parameters and ``nu``). With
+``ema_decay > 0`` it also steps G's EMA plane (``state["g_ema"]``) after
+every G update, ``ema <- d ema + (1 - d) p`` (``pallas_train.py:755-762``);
+with ``dtype="bfloat16"`` every product takes bf16-rounded operands and
+sums in float32 (``_make_dots``, ``:192-211``), in the kernel (libraries
+built with ``-DGM_BF16=1``) and in the plain version (:func:`mm`).
 
 The critic's head ``W2d [Hd, L]`` is one logit wide (L = 1) but for two
 heads: infogan's holds the D head and the Q head side by side (L = 1 +
@@ -55,9 +60,8 @@ zero elsewhere).
 
 The state planes are at their true widths (no 128-lane padding), so the
 TPU kernel's padded-lane hazards (``pallas_train.py:92-102``) do not
-arise. The G-EMA plane and the bf16 path are not ported yet (ROADMAP.md
-Queue 2 item 6): :func:`fused_step_supported` refuses them with that
-reason.
+arise. ``launches`` counts every launch of the kernel; ``ema_launches``
+and ``bf16_launches`` those of the EMA and the bf16 kernels among them.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from generative_models_tpu_torch.models.nets import infogan_head, onehot
+from generative_models_tpu_torch.ops.cuda_mlp import round_bf16
 from generative_models_tpu_torch.ops.penalty import aux_lanes
 from generative_models_tpu_torch.train.optim import RMS_DECAY, RMS_EPS
 from generative_models_tpu_torch.train.step import (
@@ -105,9 +110,11 @@ INFO_MAX_LANES = 128
 CARRIED = {"fishergan": "lam", "began": "k"}
 # resident blocks per SM of the cooperative grid (at most what fits)
 BLOCKS_PER_SM = 2
-_QUEUED = "ROADMAP.md Queue 2 item 6"
+DTYPES = ("float32", "bfloat16")
 
 launches = 0
+ema_launches = 0
+bf16_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +141,8 @@ class ChunkHyper:
     info_lam: float = 0.0
     began_gamma: float = 0.0       # began: the k_t law
     began_lambda_k: float = 0.0
+    ema_decay: float = 0.0         # > 0: G's EMA plane after each G update
+    dtype: str = "float32"         # "bfloat16": bf16 operands, f32 sums
 
     def __post_init__(self):
         if self.variant not in HOOKS:
@@ -147,6 +156,12 @@ class ChunkHyper:
             raise ValueError("n_cls > 0 is cgan's, and cgan's only")
         if (self.variant == "infogan") != (self.info_cat > 0):
             raise ValueError("info_cat > 0 is infogan's, and infogan's only")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got "
+                             f"{self.dtype!r}")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got "
+                             f"{self.ema_decay}")
 
     @classmethod
     def from_config(cls, cfg) -> "ChunkHyper":
@@ -163,11 +178,16 @@ class ChunkHyper:
                    cfg.info_cont_dim if v == "infogan" else 0,
                    cfg.info_lambda if v == "infogan" else 0.0,
                    cfg.began_gamma if v == "began" else 0.0,
-                   cfg.began_lambda_k if v == "began" else 0.0)
+                   cfg.began_lambda_k if v == "began" else 0.0,
+                   cfg.ema_decay, compute_dtype(cfg))
 
     @property
     def adam(self) -> bool:
         return self.optimizer == "adam"
+
+    @property
+    def bf16(self) -> bool:
+        return self.dtype == "bfloat16"
 
     def head_width(self, x: int) -> int:
         """The critic head's lanes L: infogan 1 + cat + 2 cont, began the
@@ -175,6 +195,22 @@ class ChunkHyper:
         if self.variant == "infogan":
             return 1 + self.info_cat + 2 * self.info_cont
         return x if self.variant == "began" else 1
+
+
+def compute_dtype(cfg) -> str:
+    """The chunk kernels' product dtype for ``cfg.dtype``: "bfloat16",
+    or "float32" (for "auto" too, as the Trainer resolves it)."""
+    return "bfloat16" if cfg.dtype == "bfloat16" else "float32"
+
+
+def mm(a, b, bf16: bool):
+    """a @ b, with both operands rounded to bfloat16 when `bf16` (the
+    reference's ``_make_dots`` cast, ``pallas_train.py:192-211``); the sum
+    runs in the operands' dtype, float32, or float64 as the kernel's
+    oracle."""
+    if bf16:
+        a, b = round_bf16(a), round_bf16(b)
+    return a @ b
 
 
 def _d_layers(d):
@@ -194,6 +230,10 @@ def _d_params(like, layers):
             "q_head": {"w": w[:, 1:].contiguous(), "b": b[1:].clone()}}
 
 
+def _g_flat(g) -> List[torch.Tensor]:
+    return [l[k] for l in g for k in ("w", "b")]
+
+
 def state_planes(state) -> Tuple[List[torch.Tensor],
                                  Optional[List[torch.Tensor]],
                                  List[torch.Tensor]]:
@@ -202,11 +242,17 @@ def state_planes(state) -> Tuple[List[torch.Tensor],
     The state's own tensors, but infogan's critic head, which is packed
     (``models/nets.py::infogan_head``) into new ones."""
     def flat(g, d):
-        return [l[k] for l in list(g) + _d_layers(d) for k in ("w", "b")]
+        return _g_flat(g) + [l[k] for l in _d_layers(d) for k in ("w", "b")]
     g_opt, d_opt = state["g_opt"], state["d_opt"]
     return (flat(state["g_params"], state["d_params"]),
             flat(g_opt["mu"], d_opt["mu"]) if "mu" in g_opt else None,
             flat(g_opt["nu"], d_opt["nu"]))
+
+
+def ema_plane(state) -> Optional[List[torch.Tensor]]:
+    """G's EMA plane (``state["g_ema"]``: g_w1 g_b1 g_w2 g_b2, the
+    state's own tensors), None without one."""
+    return _g_flat(state["g_ema"]) if "g_ema" in state else None
 
 
 # ---------------------------------------------------------------------
@@ -285,9 +331,13 @@ def _info_q(hp: ChunkHyper, o, zrow, inv_b: float):
     """infogan's MI part on a batch of head outputs o [B, L] with its code
     rows `zrow` (``q_grads_loss``, ``pallas_train.py:294-310``): (its
     gradient [B, L], zero on lane 0 and the log-variance lanes; the MI
-    term, CE + the fixed-variance NLL)."""
+    term, CE + the fixed-variance NLL). With bf16 operands the targets
+    are the codes rounded to bf16, as the reference's product
+    ``tq = mm(zrow, mselq)`` rounds them."""
     nc, nm = hp.info_cat, hp.info_cont
     t = zrow[:, zrow.shape[1] - nc - nm:]
+    if hp.bf16:
+        t = round_bf16(t)
     t_cat, t_mu = t[:, :nc], t[:, nc:]
     q, mu = o[:, 1:1 + nc], o[:, 1 + nc:1 + nc + nm]
     inv_bc = inv_b / max(nm, 1)
@@ -441,7 +491,7 @@ def _watch(probe: Optional[dict], u) -> None:
 
 
 def _gp_backward(xh, w1d, b1d, w2d, *, lam: float, slope: float,
-                 inv_b: float, watch):
+                 inv_b: float, watch, bf16: bool = False):
     """The gradient penalty's double backward, hand-derived as the TPU
     kernel's ``_gp_backward`` (``pallas_train.py:227-245``, math at
     ``:525-535``). With D(x) = w2d^T leaky(W1d^T x + b1d) + b2d the input
@@ -451,18 +501,22 @@ def _gp_backward(xh, w1d, b1d, w2d, *, lam: float, slope: float,
         n_i = sqrt(sum g_i^2 + 1e-12),  c_i = 2 lam (n_i - 1) / (B n_i)
         dW1d += (c * g)^T u,  u = leaky'(hh) * w2d^T
         dw2d += sum_i c_i leaky'(hh_i) * (g W1d)_i;  db1d, db2d get nothing
+    With `bf16` each product's operands are rounded as the reference's
+    are: w2d in u (its ``w2row = dotT_rhs(lane0, w2d)``) and each term
+    c_i leaky'(hh_i) s_i of dw2d (``dotT_lhs(., lane0)``).
     Returns (dW1d part, dw2d part, gp, mean norm)."""
-    hh = xh @ w1d + b1d
+    rnd = round_bf16 if bf16 else (lambda t: t)
+    hh = mm(xh, w1d, bf16) + b1d
     watch(hh)
     dph = torch.where(hh >= 0, 1.0, slope)
-    u = dph * w2d.t()
-    g = u @ w1d.t()
+    u = dph * rnd(w2d.t())
+    g = mm(u, w1d.t(), bf16)
     nrm = torch.sqrt((g * g).sum(1, keepdim=True) + 1e-12)
     gp = lam * ((nrm - 1.0) ** 2).sum() * inv_b
     c = (2.0 * lam * inv_b) * (nrm - 1.0) / nrm
-    s_pen = g @ w1d
-    return ((g * c).t() @ u, (c * dph * s_pen).sum(0)[:, None], gp,
-            nrm.sum() * inv_b)
+    s_pen = mm(g, w1d, bf16)
+    return (mm((g * c).t(), u, bf16), rnd(c * dph * s_pen).sum(0)[:, None],
+            gp, nrm.sum() * inv_b)
 
 
 def _watch_abs(probe: Optional[dict], v, logits) -> None:
@@ -502,32 +556,35 @@ def critic_grads(hp: ChunkHyper, p, x, z, xt, lam, inv_b: float,
     (phases A-F): G's fake from the z rows `z`, the critic on the rows
     `x` and on the fake (cgan: with x's label lanes), the hook, the
     backward, and for a penalty hook its double backward at x_hat from
-    `xt` (wgangp's eps rows, dragan's x_hat rows). `p` holds the 8
+    `xt` (wgangp's eps rows, dragan's x_hat rows); with ``hp.dtype``
+    "bfloat16" every product's operands rounded (:func:`mm`), infogan's
+    MI targets too (:func:`_info_q`). `p` holds the 8
     parameters (:func:`state_planes` order); `lam` the carried scalar
     before the update. Returns ([dW1d, db1d, dW2d, db2d], [d_loss (with
     the penalty), lane 1, lane 2], [gp, mean norm] (zeros without a
     penalty), lane 6, lam after the update)."""
     w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
     leaky, relu, dleaky = _acts(hp, probe)
+    bf = hp.bf16
     x_g = w2g.shape[1]        # G's output width; D's input is x_g + n_cls
-    hgd = relu(z @ w1g + b1g)
-    fake = torch.sigmoid(hgd @ w2g + b2g)
+    hgd = relu(mm(z, w1g, bf) + b1g)
+    fake = torch.sigmoid(mm(hgd, w2g, bf) + b2g)
     # cgan: D sees the fake with its row's label, the x row's
     fake_d = torch.cat([fake, x[:, x_g:]], 1) if hp.n_cls else fake
-    hr = leaky(x @ w1d + b1d)
-    lr = hr @ w2d + b2d
-    hf = leaky(fake_d @ w1d + b1d)
-    lf = hf @ w2d + b2d
+    hr = leaky(mm(x, w1d, bf) + b1d)
+    lr = mm(hr, w2d, bf) + b2d
+    hf = leaky(mm(fake_d, w1d, bf) + b1d)
+    lf = mm(hf, w2d, bf) + b2d
     if hp.variant == "began":
         _watch_abs(probe, x, lr)
         _watch_abs(probe, fake, lf)
     glr, glf, row, aux6, lam = _d_hook(hp, lr, lf, lam, inv_b, x=x,
                                        fake=fake_d, zrow=z)
-    dw2 = hr.t() @ glr + hf.t() @ glf
+    dw2 = mm(hr.t(), glr, bf) + mm(hf.t(), glf, bf)
     db2 = (glr + glf).sum(0)
-    dhr = (glr @ w2d.t()) * dleaky(hr)
-    dhf = (glf @ w2d.t()) * dleaky(hf)
-    dw1 = x.t() @ dhr + fake_d.t() @ dhf
+    dhr = mm(glr, w2d.t(), bf) * dleaky(hr)
+    dhf = mm(glf, w2d.t(), bf) * dleaky(hf)
+    dw1 = mm(x.t(), dhr, bf) + mm(fake_d.t(), dhf, bf)
     db1 = (dhr + dhf).sum(0)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     pen = [zero, zero]
@@ -535,7 +592,7 @@ def critic_grads(hp: ChunkHyper, p, x, z, xt, lam, inv_b: float,
         xh = xt if hp.variant == "dragan" else xt * x + (1.0 - xt) * fake
         dw1_p, dw2_p, gp, gnorm = _gp_backward(
             xh, w1d, b1d, w2d, lam=hp.gp_lam, slope=hp.slope, inv_b=inv_b,
-            watch=lambda u: _watch(probe, u))
+            watch=lambda u: _watch(probe, u), bf16=bf)
         dw1 = dw1 + dw1_p
         dw2 = dw2 + dw2_p
         row = [row[0] + gp] + row[1:]
@@ -553,41 +610,50 @@ def g_grads(hp: ChunkHyper, p, z, inv_b: float, x_last=None,
     elsewhere))."""
     w1g, b1g, w2g, b2g, w1d, b1d, w2d, b2d = p
     leaky, relu, dleaky = _acts(hp, probe)
+    bf = hp.bf16
     x_g = w2g.shape[1]
     z_g = z.shape[1] - hp.n_cls
-    hg = relu(z @ w1g + b1g)
-    fake2 = torch.sigmoid(hg @ w2g + b2g)
+    hg = relu(mm(z, w1g, bf) + b1g)
+    fake2 = torch.sigmoid(mm(hg, w2g, bf) + b2g)
     fake2_d = torch.cat([fake2, z[:, z_g:]], 1) if hp.n_cls else fake2
-    hf2 = leaky(fake2_d @ w1d + b1d)
-    lf2 = hf2 @ w2d + b2d
+    hf2 = leaky(mm(fake2_d, w1d, bf) + b1d)
+    lf2 = mm(hf2, w2d, bf) + b2d
     lr2 = None
     if hp.variant == "ragan":  # the post-update critic on the last x
-        lr2 = leaky(x_last @ w1d + b1d) @ w2d + b2d
+        lr2 = mm(leaky(mm(x_last, w1d, bf) + b1d), w2d, bf) + b2d
     if hp.variant == "began":
         _watch_abs(probe, fake2, lf2)
     gl, g_loss, g6, dx_extra = _g_hook(hp, lf2, lr2, inv_b, fake2=fake2,
                                        zrow=z)
-    dh2 = (gl @ w2d.t()) * dleaky(hf2)
-    dx = dh2 @ w1d[:x_g].t()  # the label lanes carry nothing to G
+    dh2 = mm(gl, w2d.t(), bf) * dleaky(hf2)
+    dx = mm(dh2, w1d[:x_g].t(), bf)  # the label lanes carry nothing to G
     if dx_extra is not None:  # began: the direct L1 path into fake2
         dx = dx + dx_extra
     gu2 = (dx * fake2) * (1.0 - fake2)
-    dw2g = hg.t() @ gu2
+    dw2g = mm(hg.t(), gu2, bf)
     db2g = gu2.sum(0)
-    dhg = (gu2 @ w2g.t()) * (hg > 0).to(z.dtype)
-    dw1g = z.t() @ dhg
+    dhg = mm(gu2, w2g.t(), bf) * (hg > 0).to(z.dtype)
+    dw1g = mm(z.t(), dhg, bf)
     db1g = dhg.sum(0)
     return [dw1g, db1g, dw2g, db2g], g_loss, g6
 
 
+def ema_(ema, p, decay: float) -> None:
+    """ema <- decay ema + (1 - decay) p in place, each product rounded
+    on its own (the reference kernels' order; 1 - decay rounded once
+    from double, as there)."""
+    ema.copy_(ema * decay + p * (1.0 - decay))
+
+
 def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
                     batch: int, t_g: int, t_d: int, hp: ChunkHyper,
-                    lam=0.0, xtra=None, probe: Optional[dict] = None
-                    ) -> torch.Tensor:
+                    lam=0.0, xtra=None, ema=None,
+                    probe: Optional[dict] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the dtype of its
     inputs (float32, or float64 as the kernel's oracle). Updates `p`,
     `mu`, `nu` (lists of 8 tensors, :func:`state_planes` order; `mu`
-    None with RMSprop) in place and returns the metrics rows [steps, 8]
+    None with RMSprop) and, with ``hp.ema_decay > 0``, G's EMA plane
+    `ema` (4 tensors) in place and returns the metrics rows [steps, 8]
     (lanes: see the module docstring). `lam` is fishergan's multiplier
     before the chunk; after it, it is lane 7 of the last row. `xtra` is
     the penalty variants' stream (see :func:`gan_chunk`). With a `probe`
@@ -623,6 +689,9 @@ def gan_chunk_plain(xs, zd, zg, p, mu, nu, *, steps: int, ds: int,
                                     inv_b, x_last=x, probe=probe)
         for q, g in zip(range(4), grads):
             update(q, g, hp.g_lr, float(t_g + k + 1))
+        if hp.ema_decay > 0.0:  # G's EMA plane, after the G update
+            for q in range(4):
+                ema_(ema[q], p[q], hp.ema_decay)
         if g6 is not None:  # infogan: G's MI term
             aux6 = g6
         if began:  # the k_t law, with the last critic update's L(x)
@@ -642,11 +711,11 @@ class _Hyper(ctypes.Structure):
     """``GanChunkHyper`` of csrc/gan_chunk.cu, field for field."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "steps", "ds", "B", "Z", "H", "X", "Hd", "t_g", "t_d", "rmsprop",
-        "alt", "div", "n_cls", "Xd", "L", "n_cat", "n_cont")] + [
+        "alt", "div", "n_cls", "Xd", "L", "n_cat", "n_cont", "ema")] + [
             (n, ctypes.c_float) for n in (
                 "g_lr", "d_lr", "b1", "b2", "omb1", "omb2", "eps", "log_b1",
                 "log_b2", "slope", "inv_b", "clip", "rho", "gp_lam",
-                "info_lam", "gamma", "lambda_k")])
+                "info_lam", "gamma", "lambda_k", "ema_d", "ema_omd")])
 
 
 def bind(lib) -> None:
@@ -657,44 +726,65 @@ def bind(lib) -> None:
     lib.gm_gan_chunk.restype = i
     lib.gm_gan_chunk_scratch_floats.argtypes = [i] * 7
     lib.gm_gan_chunk_scratch_floats.restype = ctypes.c_longlong
-    lib.gm_gan_chunk_grid.argtypes = [i, i]
+    lib.gm_gan_chunk_grid.argtypes = [i, i, i]
     lib.gm_gan_chunk_grid.restype = i
     lib.gm_gan_chunk_hook.argtypes = []
     lib.gm_gan_chunk_hook.restype = i
+    lib.gm_gan_chunk_bf16.argtypes = []
+    lib.gm_gan_chunk_bf16.restype = i
+
+
+def lib_name(kind: str, hook: str, bf16: bool) -> str:
+    """A library's name: `kind` ("gan_chunk", "gan_phase") and hook, and
+    "_bf16" for a build whose products take bf16 operands."""
+    return f"{kind}_{hook}" + ("_bf16" if bf16 else "")
+
+
+def lib_flags(hook: str, bf16: bool, phase: bool = False) -> tuple:
+    """The nvcc flags of a build of csrc/gan_chunk.cu."""
+    return ((f"-DGM_HOOK={HOOK_IDS[hook]}",) + (("-DGM_PHASE=1",) if phase
+                                                 else ())
+            + (("-DGM_BF16=1",) if bf16 else ()))
 
 
 @functools.cache
-def _lib(hook: str):
+def _lib(hook: str, bf16: bool = False):
     from generative_models_tpu_torch.ops.build import build_library
-    lib = build_library(f"gan_chunk_{hook}", ["gan_chunk.cu"],
+    lib = build_library(lib_name("gan_chunk", hook, bf16), ["gan_chunk.cu"],
                         headers=["chunk_common.cuh"],
-                        flags=(f"-DGM_HOOK={HOOK_IDS[hook]}",))
+                        flags=lib_flags(hook, bf16))
     bind(lib)
-    if lib.gm_gan_chunk_hook() != HOOK_IDS[hook]:
+    if (lib.gm_gan_chunk_hook(), lib.gm_gan_chunk_bf16()) != (
+            HOOK_IDS[hook], int(bf16)):
         raise RuntimeError(f"gan_chunk: the library built for hook {hook!r} "
-                           f"reports hook {lib.gm_gan_chunk_hook()}")
+                           f"(bf16 {bf16}) reports hook "
+                           f"{lib.gm_gan_chunk_hook()}, bf16 "
+                           f"{lib.gm_gan_chunk_bf16()}")
     return lib
 
 
-def build(hook: Optional[str] = None) -> None:
+def build(hook: Optional[str] = None, bf16: bool = False) -> None:
     """Compile (or load) the kernel's library for `hook` (see
-    :data:`HOOKS`) now instead of at first use; every hook's when None."""
+    :data:`HOOKS`; its bf16 build with `bf16`) now instead of at first
+    use; every hook's when None."""
     for h in ([hook] if hook else HOOK_IDS):
-        _lib(h)
+        _lib(h, bf16)
 
 
 def hyper_struct(hp: ChunkHyper, *, steps, ds, batch, z, h, x, hd, t_g,
-                 t_d) -> _Hyper:
+                 t_d, ema: bool = False) -> _Hyper:
     """`hp` and the chunk's sizes and counts as the kernel takes them; `z`
     is G's input width and `x` its output width (cgan: D's input is x +
-    n_cls wide)."""
+    n_cls wide); `ema`: the launch steps G's EMA plane (the phase kernels
+    take none)."""
     return _Hyper(
         steps=steps, ds=ds, B=batch, Z=z, H=h, X=x, Hd=hd, t_g=t_g, t_d=t_d,
         n_cls=hp.n_cls, Xd=x + hp.n_cls, gp_lam=hp.gp_lam,
         L=hp.head_width(x), n_cat=hp.info_cat, n_cont=hp.info_cont,
         info_lam=hp.info_lam, gamma=hp.began_gamma,
         lambda_k=hp.began_lambda_k,
-        rmsprop=int(not hp.adam),
+        rmsprop=int(not hp.adam), ema=int(ema), ema_d=hp.ema_decay,
+        ema_omd=1.0 - hp.ema_decay,
         alt=int(hp.variant == "mmgan" or (hp.variant == "fgan"
                                           and hp.fgan_ns)),
         div=FGAN_DIV_IDS[hp.fgan_div], g_lr=hp.g_lr, d_lr=hp.d_lr, b1=hp.b1,
@@ -703,13 +793,20 @@ def hyper_struct(hp: ChunkHyper, *, steps, ds, batch, z, h, x, hd, t_g,
         inv_b=1.0 / batch, clip=hp.clip, rho=hp.fisher_rho)
 
 
-def _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp):
+def _check(xs, zd, zg, xtra, p, mu, nu, ema, steps, ds, batch, hp):
     planes = [("p", p), ("nu", nu)] + ([("mu", mu)] if hp.adam else [])
     if not hp.adam and mu is not None:
         raise ValueError("gan_chunk: an RMSprop state has no mu plane")
+    if (ema is None) != (hp.ema_decay == 0.0):
+        raise ValueError("gan_chunk takes G's EMA plane (4 tensors) exactly "
+                         "when hp.ema_decay > 0")
     if any(pl is None or len(pl) != 8 for _, pl in planes):
         raise ValueError("gan_chunk takes 8 tensors a state plane "
                          "(parameters, nu, and with Adam mu)")
+    if ema is not None:
+        if len(ema) != 4:
+            raise ValueError("gan_chunk: the EMA plane holds G's 4 tensors")
+        planes.append(("ema", list(ema)))
     z, h = p[0].shape
     x = p[2].shape[1]
     xd, hd = p[4].shape
@@ -753,7 +850,7 @@ def _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp):
 
 def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
               t_g: int, t_d: int, hp: ChunkHyper, lam=0.0,
-              xtra=None) -> torch.Tensor:
+              xtra=None, ema=None) -> torch.Tensor:
     """Run `steps` outer steps on the streams ``xs [steps*ds*B, Xd]``,
     ``zd [steps*ds*B, Z]``, ``zg [steps*B, Z]`` (cgan: Xd = X + n_cls and
     each x, zd and zg row ends in its one-hot label; the zg rows carry
@@ -764,27 +861,27 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
     side; began's critic is W1d [X, Hd], W2d [Hd, X]. `t_g`/`t_d` are the
     Adam counts before the chunk (unused with RMSprop, whose `mu` is
     None); `lam` (a float or a 0-dim tensor) is the carried scalar before
-    the chunk (fishergan's multiplier, began's k_t). Updates the state
-    planes in place and returns the metrics rows [steps, 8]; lane 7 of the
-    last row is `lam` after the chunk. CPU tensors run
-    :func:`gan_chunk_plain`; CUDA tensors launch the kernel on the
-    current stream or raise."""
-    global launches
-    _check(xs, zd, zg, xtra, p, mu, nu, steps, ds, batch, hp)
+    the chunk (fishergan's multiplier, began's k_t). `ema` is G's EMA
+    plane (g_w1 g_b1 g_w2 g_b2), given exactly when ``hp.ema_decay > 0``;
+    ``hp.dtype`` "bfloat16" takes the library whose products round their
+    operands to bf16. Updates the state planes in place and returns the
+    metrics rows [steps, 8]; lane 7 of the last row is `lam` after the
+    chunk. CPU tensors run :func:`gan_chunk_plain`; CUDA tensors launch
+    the kernel on the current stream or raise."""
+    global launches, ema_launches, bf16_launches
+    _check(xs, zd, zg, xtra, p, mu, nu, ema, steps, ds, batch, hp)
     if xs.device.type == "cpu":
         return gan_chunk_plain(xs, zd, zg, p, mu, nu, steps=steps, ds=ds,
                                batch=batch, t_g=t_g, t_d=t_d, hp=hp, lam=lam,
-                               xtra=xtra)
+                               xtra=xtra, ema=ema)
     if xs.device.type != "cuda":
         raise ValueError(f"gan_chunk runs on cuda or cpu tensors, not "
                          f"{xs.device}")
-    if hp.variant == "wgangp" and not hp.adam:
-        raise ValueError("gan_chunk: the wgangp kernel is adam-only (its "
-                         "RMSprop instantiation spills registers)")
     z, h = p[0].shape
     x = p[2].shape[1]
     hd = p[4].shape[1]
-    lib = _lib(HOOKS[hp.variant])
+    use_ema = ema is not None
+    lib = _lib(HOOKS[hp.variant], hp.bf16)
     with torch.cuda.device(xs.device):
         metrics = torch.zeros((steps, METRIC_LANES), dtype=torch.float32,
                               device=xs.device)
@@ -794,15 +891,17 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
             lib.gm_gan_chunk_scratch_floats(batch, z, h, x, hd,
                                             x + hp.n_cls, hp.head_width(x)),
             dtype=torch.float32, device=xs.device)
-        grid = lib.gm_gan_chunk_grid(BLOCKS_PER_SM, int(not hp.adam))
+        grid = lib.gm_gan_chunk_grid(BLOCKS_PER_SM, int(not hp.adam),
+                                     int(use_ema))
         if grid < 1:
             raise RuntimeError("gan_chunk: the occupancy query failed")
         ptrs = [t.data_ptr() for t in p]
         ptrs += [t.data_ptr() for t in mu] if hp.adam else [None] * 8
         ptrs += [t.data_ptr() for t in nu]
-        state = (ctypes.c_void_p * 24)(*ptrs)
+        ptrs += [t.data_ptr() for t in ema] if use_ema else [None] * 4
+        state = (ctypes.c_void_p * 28)(*ptrs)
         hyper = hyper_struct(hp, steps=steps, ds=ds, batch=batch, z=z, h=h,
-                             x=x, hd=hd, t_g=t_g, t_d=t_d)
+                             x=x, hd=hd, t_g=t_g, t_d=t_d, ema=use_ema)
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         rc = lib.gm_gan_chunk(
             xs.data_ptr(), zd.data_ptr(), zg.data_ptr(),
@@ -812,6 +911,8 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
     if rc != 0:
         raise RuntimeError(f"gan_chunk kernel launch failed: CUDA error {rc}")
     launches += 1
+    ema_launches += int(use_ema)
+    bf16_launches += int(hp.bf16)
     return metrics
 
 
@@ -823,21 +924,19 @@ def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
     """(ok, reason): the chunk kernels cover nsgan, mmgan, lsgan, wgan,
     fgan, ragan, fishergan, wgangp, dragan, cgan, infogan (the fixed
     variance, a head of at most 128 lanes) and began (the default
-    activations, Adam or RMSprop, any d_steps; wgangp with Adam), vae
+    activations, Adam or RMSprop, any d_steps), vae
     (the Bernoulli decoder) and birvae (mse or bce), both with Adam, on
-    the MLP stacks in float32 with no EMA; everything else keeps the
-    general step."""
+    the MLP stacks, in float32 or with bf16 operands, with or without the
+    EMA plane; everything else keeps the general step."""
     v = cfg.variant
-    if v not in FUSED_VARIANTS:
-        return False, (f"the chunk kernel covers {FUSED_VARIANTS} only so "
-                       f"far; {v} is queued ({_QUEUED})")
+    if v not in FUSED_VARIANTS:  # the reference's exclusions
+        return False, (f"the chunk kernel covers {FUSED_VARIANTS} only; "
+                       f"{v} keeps the general step, as in the reference "
+                       f"(pallas_train.py:1387-1400)")
     if cfg.arch != "mlp":
         return False, "the chunk kernel covers the mlp stacks only"
-    if v in ("vae", "birvae", "wgangp") and cfg.optimizer != "adam":
+    if v in ("vae", "birvae") and cfg.optimizer != "adam":
         return False, f"the {v} chunk kernel is adam-only"
-    if cfg.dtype == "bfloat16":  # "auto" is float32 in the port
-        return False, (f"the chunk kernel's bf16 path is not ported yet "
-                       f"({_QUEUED})")
     if v == "vae":
         if cfg.vae_recon != "bce":
             return False, ("the vae chunk kernel covers the Bernoulli (bce) "
@@ -854,9 +953,6 @@ def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
         if 1 + cfg.info_cat_dim + 2 * cfg.info_cont_dim > INFO_MAX_LANES:
             return False, (f"the infogan chunk kernel's head is at most "
                            f"{INFO_MAX_LANES} lanes")
-    if cfg.ema_decay > 0:
-        return False, (f"the chunk kernel's EMA plane is not ported yet "
-                       f"({_QUEUED})")
     if cfg.spectral_projection:
         return False, "the chunk kernel excludes the spectral projection hook"
     if cfg.dp > 1 or cfg.tp > 1:
@@ -881,15 +977,20 @@ def resolve_fused_step(spec, cfg, device) -> bool:
             and fused_step_supported(spec, cfg)[0])
 
 
-def _with_planes(state, p, mu, nu, g_updates: int, d_updates: int):
-    """The params and optimizer states of `state`'s trees holding the
-    chunk's planes (:func:`state_planes` order; infogan's head split back
-    into its two heads), the Adam counts advanced by the updates."""
+def _with_planes(state, p, mu, nu, ema, g_updates: int, d_updates: int):
+    """The params, optimizer states and G EMA (`ema`, None without one)
+    of `state`'s trees holding the chunk's planes (:func:`state_planes`
+    order; infogan's head split back into its two heads), the Adam counts
+    advanced by the updates."""
     def trees(plane):
-        layers = [{"w": plane[i], "b": plane[i + 1]} for i in range(0, 8, 2)]
+        layers = [{"w": plane[i], "b": plane[i + 1]}
+                  for i in range(0, len(plane), 2)]
         return layers[:2], _d_params(state["d_params"], layers[2:])
 
     out = dict(zip(("g_params", "d_params"), trees(p)))
+    if ema is not None:
+        out["g_ema"] = [{"w": ema[0], "b": ema[1]},
+                        {"w": ema[2], "b": ema[3]}]
     opts = {"g_opt": {}, "d_opt": {}}
     for slot, plane in (("mu", mu), ("nu", nu)):
         if slot in state["g_opt"]:
@@ -967,8 +1068,8 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
         sub = pick_sub(steps, stream_bytes_per_step(cfg))
         g_opt, d_opt = state["g_opt"], state["d_opt"]
         # copies of the planes, for the kernel to update in place
-        p, mu, nu = [None if pl is None else [t.clone() for t in pl]
-                     for pl in state_planes(state)]
+        p, mu, nu, ema = [None if pl is None else [t.clone() for t in pl]
+                          for pl in (*state_planes(state), ema_plane(state))]
         t_g, t_d = ((int(g_opt["count"]), int(d_opt["count"])) if hp.adam
                     else (0, 0))
         lam = state["vstate"][carried] if carried else 0.0
@@ -1001,11 +1102,11 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
                 xs.contiguous(), zd.contiguous(), zg.contiguous(), p, mu, nu,
                 steps=sub, ds=ds, batch=b, t_g=t_g + k0, t_d=t_d + k0 * ds,
                 hp=hp, lam=lam,
-                xtra=None if xtra is None else xtra.contiguous()))
+                xtra=None if xtra is None else xtra.contiguous(), ema=ema))
             if carried:  # the scalar rides out through lane 7
                 lam = rows[-1][-1, 7]
         new = dict(state, step=state["step"] + steps,
-                   **_with_planes(state, p, mu, nu, steps, steps * ds))
+                   **_with_planes(state, p, mu, nu, ema, steps, steps * ds))
         if carried == "lam":
             new["vstate"] = {"lam": lam.clone()}
         elif carried == "k":

@@ -2,13 +2,16 @@
 import path, to compare two versions of it on one card in one session.
 
     PYTHONPATH=<checkout A> python3 <this file> A nsgan
-    PYTHONPATH=<checkout B> python3 <this file> B nsgan ragan wgan:rmsprop
+    PYTHONPATH=<checkout B> python3 <this file> B nsgan ragan wgan:rmsprop vae
+    PYTHONPATH=<checkout B> python3 <this file> B nsgan:adam:ema nsgan:bf16
 
 Run the file by its path (not with ``-m``), so that the package comes
 from ``PYTHONPATH`` and the same script times both: it speaks the
 interface of every version of ``ops/cuda_train.py`` so far (the first,
 nsgan and mmgan only, took a boolean where later ones take the variant).
-Each argument after the tag is ``variant[:optimizer]``; wgan runs at
+Each argument after the tag is ``variant[:optimizer][:ema][:bf16]``
+(``ema``: the EMA kernel at decay 0.999; ``bf16``: the bf16 library;
+``vae`` and ``birvae`` time the VAE family's chunk kernel); wgan runs at
 d_steps 5 with the clip, wgangp at d_steps 5 with the penalty's eps
 stream (dragan: x_hat rows); cgan with its label lanes; infogan with its
 codes on G's input and a
@@ -36,8 +39,19 @@ def main(argv) -> int:
     tag, specs = argv[0], argv[1:] or ["nsgan"]
     b, steps = 100, 1000
     for spec in specs:
-        variant, _, optimizer = spec.partition(":")
-        optimizer = optimizer or "adam"
+        variant, *opts = spec.split(":")
+        optimizer = next((o for o in opts if o in ("adam", "rmsprop")),
+                         "adam")
+        new = {"ema_decay": 0.999} if "ema" in opts else {}
+        if "bf16" in opts:
+            new["dtype"] = "bfloat16"
+        if new and "ema_decay" not in getattr(ct.ChunkHyper,
+                                              "__dataclass_fields__", {}):
+            print(f"AB {tag} {spec}: not in this version")
+            continue
+        if variant in ("vae", "birvae"):
+            time_vae(tag, spec, variant, new, np, torch)
+            continue
         ds = 5 if variant in ("wgan", "wgangp") else 1
         extra = {"infogan": dict(info_cat=10, info_cont=2, info_lam=1.0),
                  "began": dict(began_gamma=0.75, began_lambda_k=1e-3),
@@ -48,7 +62,8 @@ def main(argv) -> int:
         if hasattr(ct, "HOOKS") and variant in ct.HOOKS:
             hp = ct.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, variant,
                                optimizer, 0.01 if variant == "wgan" else 0.0,
-                               fisher_rho=1e-6, **extra.get(variant, {}))
+                               fisher_rho=1e-6, **extra.get(variant, {}),
+                               **new)
         elif (variant, optimizer) == ("nsgan", "adam"):
             hp = ct.ChunkHyper(2e-4, 2e-4, 0.5, 0.999, 1e-8, 0.2, False)
         else:
@@ -75,30 +90,63 @@ def main(argv) -> int:
         zg = torch.randn(steps * b, z, device="cuda")
         more = ({"xtra": torch.rand(steps * ds * b, lanes, device="cuda")}
                 if lanes else {})
+        if new.get("ema_decay"):
+            more["ema"] = [t.clone() for t in planes[0][:4]]
         run = lambda: ct.gan_chunk(xs, zd, zg, *planes, steps=steps, ds=ds,
                                    batch=b, t_g=0, t_d=0, hp=hp, **more)
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            run()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        print(f"AB {tag} {spec}: " + " ".join(f"{t:.2f}" for t in times),
-              flush=True)
+        report(tag, spec, run, torch)
     for log in sorted(glob.glob(os.path.join(build.BUILD_DIR,
-                                             "*gan_chunk*.log"))):
+                                             "*_chunk*.log"))):
         with open(log) as f:
             for line in f:
                 if "registers" in line or "bytes spill" in line:
                     print(f"  {tag} {os.path.basename(log)[:20]} "
                           f"{line.strip()[:110]}")
     return 0
+
+
+def report(tag, spec, run, torch):
+    """Three warm-up runs, then five CUDA-event timings in ms."""
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    print(f"AB {tag} {spec}: " + " ".join(f"{t:.2f}" for t in times),
+          flush=True)
+
+
+def time_vae(tag, spec, variant, new, np, torch):
+    """The VAE (bce) or BIR-VAE (mse) chunk kernel, 1000 steps at full
+    width (784-400-20), B = 100; `new` the EMA and bf16 fields."""
+    from generative_models_tpu_torch.ops import cuda_train_vae as ctv
+    birvae = variant == "birvae"
+    b, steps, x, h, l = 100, 1000, 784, 400, 20
+    hp = ctv.VaeHyper(1e-3, 0.9, 0.999, 1e-8, "mse" if birvae else "bce",
+                      0.1 if birvae else 0.0, **new)
+    rng = np.random.default_rng(6)
+    dims = [(x, h), (h, l)] + ([] if birvae else [(h, l)]) + [(l, h), (h, x)]
+    p = []
+    for i, o in dims:
+        bound = 1.0 / np.sqrt(i)
+        p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
+              rng.uniform(-bound, bound, (o,)).astype(np.float32)]
+    planes = [[torch.from_numpy(a).cuda() for a in p]]
+    planes += [[torch.zeros_like(t) for t in planes[0]] for _ in range(2)]
+    more = ({"ema": [t.clone() for t in planes[0]]}
+            if new.get("ema_decay") else {})
+    xs = torch.rand(steps * b, x, device="cuda")
+    es = torch.randn(steps * b, l, device="cuda")
+    chunk = ctv.birvae_chunk if birvae else ctv.vae_chunk
+    report(tag, spec, lambda: chunk(xs, es, *planes, steps=steps, batch=b,
+                                    t=0, hp=hp, **more), torch)
 
 
 if __name__ == "__main__":

@@ -197,9 +197,9 @@ def gan_phases(np, torch, build) -> ctypes.CDLL:
         lam = torch.zeros(1, device="cuda")
         ptrs = ([t.data_ptr() for t in params]
                 + ([t.data_ptr() for t in mu] if hp.adam else [None] * 8)
-                + [t.data_ptr() for t in nu])
-        state = (ctypes.c_void_p * 24)(*ptrs)
-        grid = lib.gm_gan_chunk_grid(2, int(not hp.adam))
+                + [t.data_ptr() for t in nu] + [None] * 4)
+        state = (ctypes.c_void_p * 28)(*ptrs)
+        grid = lib.gm_gan_chunk_grid(2, int(not hp.adam), 0)
         hyper = ct.hyper_struct(hp, steps=steps, ds=ds, batch=b, z=zi, h=h,
                                 x=x, hd=h, t_g=0, t_d=0)
         for _ in range(2):  # the second run is the one read
@@ -220,10 +220,11 @@ def vae_phases(np, torch, build) -> None:
     lib = _build(build, "vae_chunk")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gm_vae_chunk.argtypes = ([p, p, ctypes.POINTER(p), p, p]
-                                 + [i] * 6 + [fl] * 10 + [i, i, i, p])
+                                 + [i] * 6 + [fl] * 10 + [i, i, i, fl, fl,
+                                                          i, p])
     lib.gm_vae_chunk_scratch_floats.argtypes = [i] * 4
     lib.gm_vae_chunk_scratch_floats.restype = ctypes.c_longlong
-    lib.gm_vae_chunk_grid.argtypes = [i, i]
+    lib.gm_vae_chunk_grid.argtypes = [i, i, i]
     b, steps, x, h, l = 100, 8, 784, 400, 20
     for birvae, phases in ((0, VAE_PHASES), (1, BIRVAE_PHASES)):
         torch.manual_seed(0)
@@ -240,14 +241,14 @@ def vae_phases(np, torch, build) -> None:
         scratch = torch.empty(lib.gm_vae_chunk_scratch_floats(b, x, h, l),
                               device="cuda")
         metrics = torch.empty(steps, 3, device="cuda")
-        state = (ctypes.c_void_p * 30)(*ptrs)
-        grid = lib.gm_vae_chunk_grid(2, birvae)
+        state = (ctypes.c_void_p * 40)(*(ptrs + [None] * 10))
+        grid = lib.gm_vae_chunk_grid(2, birvae, 0)
         for _ in range(2):  # the second run is the one read
             rc = lib.gm_vae_chunk(
                 xs.data_ptr(), es.data_ptr(), state, scratch.data_ptr(),
                 metrics.data_ptr(), steps, b, x, h, l, 0, 1e-3, 0.9, 0.999,
                 1.0 - 0.9, 1.0 - 0.999, 1e-8, math.log(0.9), math.log(0.999),
-                1.0 / b, 0.1, birvae, birvae, grid, None)
+                1.0 / b, 0.1, birvae, birvae, 0, 0.0, 1.0, grid, None)
             torch.cuda.synchronize()
             if rc != 0:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")

@@ -208,8 +208,8 @@ def test_pick_sub_matches_jax():
 
 @pytest.mark.parametrize("overrides,supported", [
     ({}, True), ({"variant": "mmgan"}, True), ({"d_steps": 3}, True),
-    ({"variant": "wgan"}, True), ({"ema_decay": 0.5}, False),
-    ({"dtype": "bfloat16"}, False), ({"optimizer": "rmsprop"}, True),
+    ({"variant": "wgan"}, True), ({"ema_decay": 0.5}, True),
+    ({"dtype": "bfloat16"}, True), ({"optimizer": "rmsprop"}, True),
     ({"g_hidden_act": "tanh"}, False), ({"arch": "conv"}, False),
     ({"variant": "lsgan"}, True), ({"variant": "fgan"}, True),
     ({"variant": "ragan"}, True), ({"variant": "fishergan"}, True),
@@ -219,11 +219,11 @@ def test_pick_sub_matches_jax():
     ({"variant": "cgan"}, True), ({"variant": "began"}, True),
     ({"variant": "infogan"}, True),
     ({"variant": "infogan", "info_cont_fixed_var": False}, False),
-    ({"variant": "wgangp", "optimizer": "rmsprop"}, False),
+    ({"variant": "wgangp", "optimizer": "rmsprop"}, True),
     ({"variant": "dragan", "optimizer": "rmsprop"}, True),
-    ({"variant": "cgan", "ema_decay": 0.5}, False),
-    ({"variant": "ragan", "ema_decay": 0.5}, False),
-    ({"variant": "wgan", "dtype": "bfloat16"}, False),
+    ({"variant": "cgan", "ema_decay": 0.5}, True),
+    ({"variant": "ragan", "ema_decay": 0.5}, True),
+    ({"variant": "wgan", "dtype": "bfloat16"}, True),
     ({"variant": "vae", "optimizer": "rmsprop"}, False),
 ])
 def test_fused_step_supported(overrides, supported):
@@ -231,8 +231,10 @@ def test_fused_step_supported(overrides, supported):
     cfg = variant_config(variant, **overrides)
     ok, reason = cuda_train.fused_step_supported(None, cfg)
     assert ok == supported
-    if not supported and ("ema_decay" in overrides or "dtype" in overrides):
-        assert "ROADMAP.md Queue 2 item 6" in reason
+    if "ema_decay" in overrides or "dtype" in overrides:  # ported (Q2.6)
+        assert reason == ""
+    if variant == "wgangp":  # RMSprop too, since Q2.6(e)
+        assert ok and reason == ""
     if "info_cont_fixed_var" in overrides:  # the reference's own reason
         assert "learned-variance" in reason
 
@@ -245,8 +247,10 @@ def test_resolve_fused_step():
                                          "cpu")
     assert not cuda_train.resolve_fused_step(
         None, cfg.replace(fused_step=False), "cuda")
+    assert cuda_train.resolve_fused_step(
+        None, cfg.replace(ema_decay=0.5, dtype="bfloat16"), "cuda")
     assert not cuda_train.resolve_fused_step(
-        None, cfg.replace(ema_decay=0.5), "cuda")
+        None, cfg.replace(ema_decay=0.5, dtype="bfloat16"), "cpu")
     # "auto" takes the chunk kernel wherever it is supported: no list of
     # variants measured on another device is carried over
     for v in ("lsgan", "wgan", "fgan", "ragan", "fishergan", "wgangp",

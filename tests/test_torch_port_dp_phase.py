@@ -68,11 +68,11 @@ def _case(variant, b, seed):
     return cfg, g, d, x, zd, zg, xtra
 
 
-def _jax_phases(cfg, b, g, d, x, zd, zg, xtra, k):
+def _jax_phases(cfg, b, g, d, x, zd, zg, xtra, k, dtype="float32"):
     """The reference's two phase kernels in interpret mode on padded
-    inputs, as build_fused_dp_many_steps calls them: the D phase's (dW1d,
-    db1d, dW2d, db2d) and G's (dW1g, ...) at true widths, and each
-    metrics row's lanes 0..7."""
+    inputs, as build_fused_dp_many_steps calls them (products in
+    `dtype`): the D phase's (dW1d, db1d, dW2d, db2d) and G's (dW1g, ...)
+    at true widths, and each metrics row's lanes 0..7."""
     v = cfg.variant
     bp = _ru(max(b, 8), 8)
     n_cls = cfg.num_classes if v == "cgan" else 0
@@ -85,7 +85,7 @@ def _jax_phases(cfg, b, g, d, x, zd, zg, xtra, k):
     kl = kx if began else 128
     lanes = kx if v == "dragan" else 128
     args = (b, bp, kz, kh, kx, kl, khd, cfg.image_dim, zin, cfg.leaky_slope,
-            v, "float32")
+            v, dtype)
     head = dict(fgan_div=cfg.fgan_divergence if v == "fgan" else "",
                 fgan_ns=v == "fgan" and cfg.fgan_g_loss == "nonsaturating",
                 q_cat=qc, q_cont=qn, info_lam=cfg.info_lambda if info else 0.0)

@@ -366,10 +366,9 @@ def test_fused_step_takes_the_penalty_and_label_variants_only():
     for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
         assert cuda_train.fused_step_supported(None, variant_config(v)) == (
             True, "")
-        for bad in ({"ema_decay": 0.5}, {"dtype": "bfloat16"}):
-            ok, reason = cuda_train.fused_step_supported(
-                None, variant_config(v, **bad))
-            assert not ok and "Queue 2 item 6" in reason
+        for more in ({"ema_decay": 0.5}, {"dtype": "bfloat16"}):
+            assert cuda_train.fused_step_supported(
+                None, variant_config(v, **more)) == (True, "")
     # infogan: the fixed variance only, a head of at most 128 lanes
     ok, reason = cuda_train.fused_step_supported(
         None, variant_config("infogan", info_cont_fixed_var=False))
@@ -380,9 +379,11 @@ def test_fused_step_takes_the_penalty_and_label_variants_only():
     assert cuda_train.fused_step_supported(
         None, variant_config("infogan", info_cat_dim=119, info_cont_dim=4)) \
         == (True, "")
+    assert cuda_train.fused_step_supported(
+        None, variant_config("wgangp", optimizer="rmsprop")) == (True, "")
     ok, reason = cuda_train.fused_step_supported(
-        None, variant_config("wgangp", optimizer="rmsprop"))
-    assert not ok and "adam-only" in reason
+        None, variant_config("wgangp", spectral_projection=True))
+    assert not ok and "spectral projection" in reason
 
 
 def test_penalty_and_label_kernels_run_on_cpu_without_building():

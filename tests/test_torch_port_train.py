@@ -168,8 +168,9 @@ def test_train_with_new_learning_rates_rebuilds_the_optimizers(tiny_data):
 
 
 def test_unsupported_fused_step_is_refused():
-    with pytest.raises(ValueError, match="Queue 2 item 6"):
-        Trainer("nsgan", device="cpu", fused_step=True, ema_decay=0.5)
+    with pytest.raises(ValueError, match="spectral projection"):
+        Trainer("nsgan", device="cpu", fused_step=True, ema_decay=0.5,
+                spectral_projection=True)
 
 
 def test_cli_training_run(tiny_data, tmp_path, capsys):

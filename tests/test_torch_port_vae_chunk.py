@@ -213,13 +213,12 @@ def test_chunk_wrappers_check_their_inputs():
     ({"variant": "vae", "vae_recon": "mse"}, False),
     ({"variant": "vae", "optimizer": "rmsprop"}, False),
     ({"variant": "birvae", "optimizer": "rmsprop"}, False),
-    ({"variant": "vae", "ema_decay": 0.5}, False),
-    ({"variant": "birvae", "dtype": "bfloat16"}, False),
+    ({"variant": "vae", "ema_decay": 0.5}, True),
+    ({"variant": "birvae", "dtype": "bfloat16"}, True),
 ])
 def test_fused_step_supported_for_the_vae_family(overrides, supported):
     """The same verdicts as the reference's ``fused_step_supported``
-    (``pallas_train.py:1405-1412``), but for the EMA plane and bf16, which
-    the port refuses until they are ported."""
+    (``pallas_train.py:1405-1412``), the EMA plane and bf16 included."""
     from generative_models_tpu.ops.pallas_train import (
         fused_step_supported as jax_supported,
     )
@@ -229,10 +228,9 @@ def test_fused_step_supported_for_the_vae_family(overrides, supported):
     ok, reason = cuda_train.fused_step_supported(get_variant(variant), cfg)
     assert ok == supported
     if "ema_decay" in overrides or "dtype" in overrides:
-        assert "ROADMAP.md Queue 2 item 6" in reason
-    else:
-        jok, _ = jax_supported(jax_variant(variant),
-                               jax_variant_config(variant, **overrides))
-        assert jok == supported
+        assert reason == ""
+    jok, _ = jax_supported(jax_variant(variant),
+                           jax_variant_config(variant, **overrides))
+    assert jok == supported
     assert cuda_train.resolve_fused_step(None, cfg, "cuda") == supported
     assert not cuda_train.resolve_fused_step(None, cfg, "cpu")
