@@ -15,14 +15,19 @@ imports nothing of JAX. Phases:
    each of these and vae_chunk also with -DGM_BF16=1 (bf16 operands):
    45 libraries, one nvcc each, all started together, in this process
    before any rank starts; sm_90a) and prints the build time and the
-   ptxas reports; it fails if a chunk or phase kernel spills registers;
+   ptxas reports; it fails if any kernel spills registers;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
-     at B 1/37/64/1000/1024/8192), the critic's shape, a 3-layer tanh
+     at B 1/37/64/100/1000/1024/8192), the critic's shape, a 3-layer tanh
      stack, and the one-layer ``linear_cuda`` (784->400 leaky_relu at
-     B 100/8192), in float32 and bf16 operands;
-   - the whole-MLP backward (every dW, db and dx): G at B 100/8192, D at
-     B 100, G at a ragged B 37, the tanh stack, float32 and bf16;
+     B 100/8192), in float32 and bf16 operands; then G at B 100 and D at
+     a ragged B 37 under one launch plan of every cluster size and item
+     height (``ops/cuda_mlp.py::chain_candidates``);
+   - the whole-MLP backward (every dW, db and dx): G at B 1/37/100/8192,
+     D at B 100, the tanh stack; G at B 100 under one pass-1 plan of every
+     cluster size and item height, G at B 8192 in 1, 3 and 7 slices and at
+     B 1000 in 2 and 3 (a ragged last slice); float32 and bf16; and G at
+     B 8192 twice, bitwise equal (the slices' sums run in a fixed order);
    - the chunk kernel: 8 steps at full width, B 100, from the same state
      and streams, against the plain version in float64, for nsgan and
      mmgan at d_steps 1, nsgan at 2, lsgan, wgan (d_steps 5, RMSprop,
@@ -106,7 +111,10 @@ imports nothing of JAX. Phases:
      then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
      same pair on nsgan, the two ranks' states equal;
 5. times, with CUDA events, each kernel beside its plain version, its
-   bound and one library call, and steps/s of each chunk kernel (nsgan,
+   bound and one library call (5a: the MLP kernels at the serving and the
+   general step's shapes, float32 and bf16 beside autocast, each with its
+   device time from torch.profiler, the backward's kernels apart, and the
+   library's device time summed over its kernels), and steps/s of each chunk kernel (nsgan,
    lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, infogan,
    began, vae, birvae), the general step and a library step loop (addmm
    + autograd + ``torch.optim.Adam`` or ``RMSprop`` with
@@ -346,20 +354,38 @@ def build_all(mods, build_dir):
                    if "0 bytes spill stores, 0 bytes spill loads" not in l]
     print(f"    ptxas: {chunk_kernels} chunk and phase kernel instantiations; "
           f"kernels with register spills: {spills or 'none'}")
-    if any("chunk" in sp or "phase" in sp for sp in spills):
-        raise AssertionError(f"a chunk or phase kernel spills registers: "
-                             f"{spills}")
+    if spills:  # mlp_fwd, mlp_bwd, reparam, chunk and phase kernels alike
+        raise AssertionError(f"a kernel spills registers: {spills}")
+
+
+def forced_plans(cuda_mlp, widths, b, bwd):
+    """One fitting chain plan per cluster size and per item height at
+    (widths, b), the first of each that chain_candidates lists."""
+    seen, plans = set(), []
+    for p in cuda_mlp.chain_candidates(b, widths, bwd):
+        keys = {("cluster", p.cluster), ("tr", p.tr)} - seen
+        if keys:
+            seen |= keys
+            plans.append(p)
+    return plans
 
 
 def check_fwd(cuda_mlp, linear_cuda, torch):
-    """Phase 3a: raises at the first output or hidden out of tolerance."""
+    """Phase 3a: raises at the first output or hidden out of tolerance.
+    The planner's choice at each case; then, at G B 100 and a ragged D
+    B 37, one plan of every cluster size and item height."""
     rng = np.random.default_rng(0)
-    cases = [("G", G_DIMS, G_ACTS, b) for b in SERVING_BATCHES + (1, 37, 1000)]
+    cases = [("G", G_DIMS, G_ACTS, b)
+             for b in SERVING_BATCHES + (1, 37, TRAIN_B, 1000)]
     cases += [("D", D_DIMS, D_ACTS, b) for b in (TRAIN_B, 1000)]
     cases += [("tanh3", [784, 96, 48, 24], ("tanh",) * 3, b) for b in (37, 8192)]
     cases += [("lin", [784, 400], ("leaky_relu",), b) for b in (TRAIN_B, 8192)]
+    cases += [(f"{name}:{p.tr}x{p.row_groups}/c{p.cluster}", dims, acts, b, p)
+              for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
+                                          ("D", D_DIMS, D_ACTS, 37))
+              for p in forced_plans(cuda_mlp, dims, b, False)]
     worst = 0.0
-    for name, dims, acts, b in cases:
+    for name, dims, acts, b, *plan in cases:
         ws, bs = make_stack(rng, dims, "cuda")
         x = torch.from_numpy(
             rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
@@ -367,6 +393,9 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
             key = "bfloat16" if cdt is not None else "float32"
             if name == "lin":  # the one-layer wrapper (row 2)
                 out, hid = linear_cuda(x, ws[0], bs[0], acts[0], 0.2, cdt), []
+            elif plan:
+                out, hid = cuda_mlp.launch_fwd(x, ws, bs, acts, 0.2, cdt,
+                                               plan[0])
             else:
                 out, hid = cuda_mlp.mlp_fwd(x, ws, bs, acts, 0.2, cdt)
             ref, ref_hid = cuda_mlp.mlp_fwd_plain(x, ws, bs, acts, 0.2, cdt)
@@ -375,7 +404,7 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
                       for a, r in zip([out] + hid, [ref] + ref_hid))
             ok = err <= TOL[key] and all(
                 bool(torch.isfinite(a).all()) for a in [out] + hid)
-            print(f"  fwd {name:5s} {dims} {acts} B={b:5d} {key:8s} "
+            print(f"  fwd {name:14s} {dims} {acts} B={b:5d} {key:8s} "
                   f"max_abs_err={err:.3e} tol={TOL[key]:.0e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -388,13 +417,25 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
 
 
 def check_bwd(cuda_mlp, torch):
-    """Phase 3b: every dW, db and dx against mlp_bwd_plain."""
+    """Phase 3b: every dW, db and dx against mlp_bwd_plain: the planner's
+    choice at each case; G B 100 under one pass-1 plan of every cluster
+    size and item height; G B 8192 at 1, 3 and 7 slices and B 1000 at 2
+    and 3 (a ragged last slice). Then G B 8192 twice, bitwise equal."""
     rng = np.random.default_rng(1)
-    cases = [("G", G_DIMS, G_ACTS, b) for b in (TRAIN_B, 8192, 37)]
-    cases += [("D", D_DIMS, D_ACTS, TRAIN_B),
-              ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37)]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [("G", G_DIMS, G_ACTS, b, None) for b in (TRAIN_B, 8192, 37, 1)]
+    cases += [("D", D_DIMS, D_ACTS, TRAIN_B, None),
+              ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37, None)]
+    base = cuda_mlp.bwd_plan(TRAIN_B, G_DIMS, sm)
+    cases += [(f"G:{p.tr}x{p.row_groups}/c{p.cluster}", G_DIMS, G_ACTS,
+               TRAIN_B, dataclasses.replace(base, rows=p))
+              for p in forced_plans(cuda_mlp, G_DIMS[::-1], TRAIN_B, True)]
+    cases += [(f"G:S{s}", G_DIMS, G_ACTS, b,
+               cuda_mlp.bwd_plan(b, G_DIMS, sm, slices=s))
+              for b, ss in ((8192, (1, 3, 7)), (1000, (2, 3))) for s in ss]
     worst = 0.0
-    for name, dims, acts, b in cases:
+    flat = lambda r: list(r[0]) + list(r[1]) + [r[2]]
+    for name, dims, acts, b, plan in cases:
         ws, bs = make_stack(rng, dims, "cuda")
         x = torch.from_numpy(
             rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
@@ -403,16 +444,20 @@ def check_bwd(cuda_mlp, torch):
             out, hid = cuda_mlp.mlp_fwd(x, ws, bs, acts, 0.2, cdt)
             dy = torch.from_numpy(rng.standard_normal(
                 tuple(out.shape)).astype(np.float32)).cuda()
-            got = cuda_mlp.mlp_bwd(x, hid, out, dy, ws, acts, 0.2, cdt)
+            if plan is None:
+                got = cuda_mlp.mlp_bwd(x, hid, out, dy, ws, acts, 0.2, cdt)
+            else:
+                got = cuda_mlp.launch_bwd(x, hid, out, dy, ws, acts, 0.2, cdt,
+                                          plan)
             ref = cuda_mlp.mlp_bwd_plain(x, hid, out, dy, ws, acts, 0.2, cdt)
             torch.cuda.synchronize()
-            flat = lambda r: list(r[0]) + list(r[1]) + [r[2]]
             rel = max(float((a - r).abs().max())
                       / max(float(r.abs().max()), 1e-30)
                       for a, r in zip(flat(got), flat(ref)))
             ok = rel <= BWD_TOL[key] and all(
                 bool(torch.isfinite(a).all()) for a in flat(got))
-            print(f"  bwd {name:5s} {dims} B={b:5d} {key:8s} "
+            slices = "" if plan is None else f" S={plan.slices}"
+            print(f"  bwd {name:14s} {dims} B={b:5d}{slices} {key:8s} "
                   f"max_err/max|ref|={rel:.3e} tol={BWD_TOL[key]:.0e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -421,6 +466,22 @@ def check_bwd(cuda_mlp, torch):
                     f"{dims} B={b} {key}: {rel} > {BWD_TOL[key]}")
             if key == "float32":
                 worst = max(worst, rel)
+    # the split-K sums run in a fixed order: the same inputs give the same
+    # bits
+    ws, bs = make_stack(rng, G_DIMS, "cuda")
+    x = torch.from_numpy(
+        rng.standard_normal((8192, G_DIMS[0])).astype(np.float32)).cuda()
+    out, hid = cuda_mlp.mlp_fwd(x, ws, bs, G_ACTS)
+    dy = torch.randn_like(out)
+    runs = [flat(cuda_mlp.mlp_bwd(x, hid, out, dy, ws, G_ACTS))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  bwd G B= 8192 twice ({cuda_mlp.bwd_plan(8192, G_DIMS, sm).slices}"
+          f" slices): bitwise equal {same}")
+    if not same:
+        raise AssertionError("mlp_bwd at G B 8192 gave different bits on "
+                             "the same inputs")
     return worst
 
 
@@ -1616,18 +1677,10 @@ def time_ms(torch, fn, iters: int) -> float:
 
 def kernel_device_ms(torch, fn, name: str, iters: int = 20):
     """Device time per call of the kernels whose names hold `name`, from
-    torch.profiler, or None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if name in e.key)
-    return us / iters / 1e3 if us > 0 else None
+    torch.profiler (device_ms_by_name), or None when the profiler records
+    no device time."""
+    by_name, _ = device_ms_by_name(torch, fn, iters)
+    return sum(v for k, v in by_name.items() if name in k) or None
 
 
 def bound_of(flops, nbytes, peak=FP32_FLOP_PER_S):
@@ -1639,21 +1692,32 @@ def bound_of(flops, nbytes, peak=FP32_FLOP_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def fwd_bytes(dims, b):
+    """The forward's bytes: x, W and b read once, every h written once."""
+    mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    return 4 * (b * dims[0] + mats + sum(dims[1:]) + b * sum(dims[1:]))
+
+
 def fwd_bound(dims, b):
     """Each input read once, each output written once; the FMAs at the
     float32 (non-tensor-core) peak."""
     mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
-    nbytes = 4 * (b * dims[0] + mats + sum(dims[1:]) + b * sum(dims[1:]))
-    return bound_of(2.0 * b * mats, nbytes)
+    return bound_of(2.0 * b * mats, fwd_bytes(dims, b))
+
+
+def bwd_bytes(dims, b):
+    """The backward's bytes: x, the hiddens, out, dy and W read once, dW,
+    db and dx written once."""
+    mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    return 4 * (b * dims[0] + b * sum(dims[1:]) + b * dims[-1]
+                + 2 * mats + sum(dims[1:]) + b * dims[0])
 
 
 def bwd_bound(dims, b):
-    """dW and the next g (or dx) of every layer: 4·B·ΣK·N FLOP; reads x,
-    the hiddens, out, dy and W, writes dW, db and dx."""
+    """dW and the next g (or dx) of every layer: 4·B·ΣK·N FLOP; the
+    bytes of bwd_bytes."""
     mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
-    nbytes = 4 * (b * dims[0] + b * sum(dims[1:]) + b * dims[-1]
-                  + 2 * mats + sum(dims[1:]) + b * dims[0])
-    return bound_of(4.0 * b * mats, nbytes)
+    return bound_of(4.0 * b * mats, bwd_bytes(dims, b))
 
 
 def phase_flops(b=TRAIN_B, z=128, h=400, x=784, hd=400, gp=False, n_cls=0,
@@ -1715,82 +1779,149 @@ def chunk_shape_kw(variant):
     return {}
 
 
+def device_ms_by_name(torch, fn, iters: int = 20):
+    """{kernel name: device ms a call} of every kernel `fn` launches, and
+    their sum, from torch.profiler: the events that ran on the card
+    (an operator's entry, which holds its kernels' time too, is left
+    out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.split("(")[0].split("<")[0].replace("void ", "")
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    return out, (sum(out.values()) if out else None)
+
+
+def library_mlp(torch, ws, bs, acts, x):
+    """The library's forward: addmm and the activation, layer by layer
+    (the yardstick the port never calls)."""
+    h = x
+    for w, b, act in zip(ws, bs, acts):
+        h = torch.addmm(b, h, w)
+        h = (torch.relu(h) if act == "relu" else torch.sigmoid(h)
+             if act == "sigmoid" else torch.nn.functional.leaky_relu(h, 0.2)
+             if act == "leaky_relu" else h)
+    return h
+
+
 def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
-    """Phase 5a: per-kernel times beside plain, library and bound."""
+    """Phase 5a: per-kernel times beside plain, library and bound: CUDA
+    events a call, and device time from torch.profiler (the backward's
+    kernels apart, the library's kernels summed). bf16 rows: the
+    kernels with bf16 operands beside the library under torch.autocast,
+    bounds at the bf16 dense peak."""
     rng = np.random.default_rng(4)
     rows = {"mlp_fwd": [], "linear": [], "mlp_bwd": []}
-    ws, bs = make_stack(rng, G_DIMS, "cuda")
-    for b in SERVING_BATCHES:
-        z = torch.randn(b, 128, device="cuda")
+    bf16 = torch.bfloat16
+
+    def autocast(cdt):
+        return (torch.autocast("cuda", dtype=bf16) if cdt is not None
+                else contextlib.nullcontext())
+
+    def bound(kind, dims, b, cdt):
+        mats = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+        flops = (2.0 if kind == "fwd" else 4.0) * b * mats
+        nbytes = (fwd_bytes if kind == "fwd" else bwd_bytes)(dims, b)
+        return bound_of(flops, nbytes, FP32_FLOP_PER_S if cdt is None
+                        else BF16_FLOP_PER_S)
+
+    fwd_cases = [("G", G_DIMS, G_ACTS, b, None)
+                 for b in SERVING_BATCHES[:1] + (TRAIN_B,) + SERVING_BATCHES[1:]]
+    fwd_cases += [("D", D_DIMS, D_ACTS, TRAIN_B, None)]
+    fwd_cases += [("G", G_DIMS, G_ACTS, b, bf16) for b in (TRAIN_B, 8192)]
+    for name, dims, acts, b, cdt in fwd_cases:
+        ws, bs = make_stack(rng, dims, "cuda")
+        z = torch.randn(b, dims[0], device="cuda")
         iters = 50 if b >= 8192 else 200
-        k_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd(z, ws, bs, G_ACTS), iters)
-        p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(z, ws, bs, G_ACTS),
-                       iters)
-        l_ms = time_ms(torch, lambda: torch.sigmoid(torch.addmm(
-            bs[1], torch.relu(torch.addmm(bs[0], z, ws[0])), ws[1])), iters)
-        d_ms = kernel_device_ms(
-            torch, lambda: cuda_mlp.mlp_fwd(z, ws, bs, G_ACTS), "mlp_fwd_kernel")
-        b_ms, b_by = fwd_bound(G_DIMS, b)
+        kern = lambda: cuda_mlp.mlp_fwd(z, ws, bs, acts, 0.2, cdt)
+        k_ms = time_ms(torch, kern, iters)
+        p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(
+            z, ws, bs, acts, 0.2, cdt), iters)
+
+        def lib():
+            with autocast(cdt):
+                return library_mlp(torch, ws, bs, acts, z)
+        l_ms = time_ms(torch, lib, iters)
+        _, d_ms = device_ms_by_name(torch, kern)
+        _, ld_ms = device_ms_by_name(torch, lib)
+        b_ms, b_by = bound("fwd", dims, b, cdt)
         rows["mlp_fwd"].append({
-            "shape": f"G B={b}", "ms": k_ms, "device_ms": d_ms,
-            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "images_per_s": b / k_ms * 1e3})
+            "shape": f"{name} B={b}" + (" bf16" if cdt else ""),
+            "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "library_device_ms": ld_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "images_per_s": b / k_ms * 1e3})
     lw, lb = make_stack(rng, [784, 400], "cuda")
     for b in (TRAIN_B, 8192):
         x = torch.randn(b, 784, device="cuda")
-        k_ms = time_ms(torch, lambda: linear_cuda(x, lw[0], lb[0],
-                                                  "leaky_relu"), 200)
+        kern = lambda: linear_cuda(x, lw[0], lb[0], "leaky_relu")
+        k_ms = time_ms(torch, kern, 200)
         p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(
             x, lw, lb, ("leaky_relu",)), 200)
-        l_ms = time_ms(torch, lambda: torch.nn.functional.leaky_relu(
-            torch.addmm(lb[0], x, lw[0]), 0.2), 200)
+        lib = lambda: torch.nn.functional.leaky_relu(
+            torch.addmm(lb[0], x, lw[0]), 0.2)
+        l_ms = time_ms(torch, lib, 200)
+        _, d_ms = device_ms_by_name(torch, kern)
+        _, ld_ms = device_ms_by_name(torch, lib)
         b_ms, b_by = fwd_bound([784, 400], b)
         rows["linear"].append({
-            "shape": f"784->400 leaky B={b}", "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
-    for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
-                                ("D", D_DIMS, D_ACTS, TRAIN_B),
-                                ("G", G_DIMS, G_ACTS, 8192)):
+            "shape": f"784->400 leaky B={b}", "ms": k_ms, "device_ms": d_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "library_device_ms": ld_ms,
+            "bound_ms": b_ms, "bound_by": b_by})
+    for name, dims, acts, b, cdt in (("G", G_DIMS, G_ACTS, TRAIN_B, None),
+                                     ("D", D_DIMS, D_ACTS, TRAIN_B, None),
+                                     ("G", G_DIMS, G_ACTS, 8192, None),
+                                     ("G", G_DIMS, G_ACTS, TRAIN_B, bf16),
+                                     ("G", G_DIMS, G_ACTS, 8192, bf16)):
         w, bias = make_stack(rng, dims, "cuda")
         x = torch.randn(b, dims[0], device="cuda")
-        out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts)
+        out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts, 0.2, cdt)
         dy = torch.randn_like(out)
         iters = 50 if b >= 8192 else 200
-        k_ms = time_ms(torch, lambda: cuda_mlp.mlp_bwd(x, hid, out, dy, w,
-                                                       acts), iters)
+        kern = lambda: cuda_mlp.mlp_bwd(x, hid, out, dy, w, acts, 0.2, cdt)
+        k_ms = time_ms(torch, kern, iters)
         p_ms = time_ms(torch, lambda: cuda_mlp.mlp_bwd_plain(
-            x, hid, out, dy, w, acts), iters)
+            x, hid, out, dy, w, acts, 0.2, cdt), iters)
         # the library: autograd through the addmm stack (backward only)
         lw2 = [t.clone().requires_grad_(True) for t in w]
         lb2 = [t.clone().requires_grad_(True) for t in bias]
         xg = x.clone().requires_grad_(True)
-        h = xg
-        for i, (wi, bi) in enumerate(zip(lw2, lb2)):
-            h = torch.addmm(bi, h, wi)
-            act = acts[i]
-            h = (torch.relu(h) if act == "relu" else torch.sigmoid(h)
-                 if act == "sigmoid" else
-                 torch.nn.functional.leaky_relu(h, 0.2)
-                 if act == "leaky_relu" else h)
+        with autocast(cdt):
+            h = library_mlp(torch, lw2, lb2, acts, xg)
         leaves = lw2 + lb2 + [xg]
-        l_ms = time_ms(torch, lambda: torch.autograd.grad(
-            h, leaves, dy, retain_graph=True), iters)
-        d_ms = kernel_device_ms(
-            torch, lambda: cuda_mlp.mlp_bwd(x, hid, out, dy, w, acts),
-            "mlp_bwd_")
-        b_ms, b_by = bwd_bound(dims, b)
+        dyl = dy.to(h.dtype)
+        lib = lambda: torch.autograd.grad(h, leaves, dyl, retain_graph=True)
+        l_ms = time_ms(torch, lib, iters)
+        by_kernel, d_ms = device_ms_by_name(torch, kern)
+        _, ld_ms = device_ms_by_name(torch, lib)
+        b_ms, b_by = bound("bwd", dims, b, cdt)
         rows["mlp_bwd"].append({
-            "shape": f"{name} B={b}", "ms": k_ms, "device_ms": d_ms,
-            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-            "bound_by": b_by})
+            "shape": f"{name} B={b}" + (" bf16" if cdt else ""),
+            "ms": k_ms, "device_ms": d_ms, "device_ms_by_kernel": by_kernel,
+            "plain_ms": p_ms, "library_ms": l_ms, "library_device_ms": ld_ms,
+            "bound_ms": b_ms, "bound_by": b_by})
     for key, rs in rows.items():
         for r in rs:
-            dev = r.get("device_ms")
+            dev, ldev = r.get("device_ms"), r.get("library_device_ms")
+            parts = r.get("device_ms_by_kernel")
             print(f"  {key:8s} {r['shape']:22s} kernel {r['ms']:.4f} ms"
-                  + (f" (device {dev:.4f})" if dev else "")
+                  + (f" (device {dev:.4f}" if dev else " (device -")
+                  + ("".join(f", {k} {v:.4f}" for k, v in sorted(parts.items()))
+                     if parts else "") + ")"
                   + f"  plain {r['plain_ms']:.4f}  library "
-                  f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
-                  f"({r['bound_by']})  [{card}]")
+                  f"{r['library_ms']:.4f}"
+                  + (f" (device {ldev:.4f})" if ldev else "")
+                  + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})  [{card}]")
     return rows
 
 
@@ -3185,7 +3316,8 @@ def main() -> int:
                                f"gan_phase_{m}_bf16"
                                and r["variant"] == "nsgan") for m in "dg"}
 
-    fwd_main = rows["mlp_fwd"][-1]   # B = 8192, the largest serving batch
+    fwd_main = next(r for r in rows["mlp_fwd"]  # the largest serving batch
+                    if r["shape"] == "G B=8192")
     bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
     rep_main = reparam_rows[0]       # [100, 20], the training batch
 

@@ -1,5 +1,6 @@
 // Whole-MLP backward, for Hopper (sm_90a): every dW, db and dx of an
-// MLP stack from one C entry (two launches on one stream).
+// MLP stack from one C entry (two launches on one stream, three when the
+// batch is split into slices).
 //
 // Replaces: generative_models_tpu/ops/pallas_mlp.py::_make_bwd_kernel and
 // ::_bwd_call (the TPU kernel behind mlp_pallas's custom VJP, _vjp_bwd).
@@ -16,317 +17,400 @@
 //
 // Design. On the TPU the grid runs in order and dW accumulates in VMEM
 // across batch tiles. Hopper blocks run in no order, so the cross-row sum
-// gets its own pass and every sum has one owner (deterministic, no
-// atomics):
-//   pass 1, row-parallel: a block owns TM rows and carries g down the
-//     stack with the current g tile in shared memory (two alternating
-//     buffers, as in mlp_fwd.cu); it stores every g_l to a scratch the
-//     caller allocates, and dx;
-//   pass 2, column-tiled: a block owns a 64x64 tile of one dW_l, loops
-//     over all B rows in chunks of 32 (h_l and g_l chunks staged in
-//     shared memory, coalesced) and keeps a 4x4 register tile a thread;
-//     the blocks of the first row of tiles also sum db_l.
+// gets passes of its own and every sum has one owner and a fixed order
+// (deterministic, no atomics):
+//   pass 1, mlp_bwd_rows: the row chain of mlp_chain.cuh run down the
+//     stack through W^T (a cluster of C CTAs a row tile, each a column
+//     slice of every layer; W staged by coalesced rows and read
+//     transposed from shared memory; streamed at large batches); it
+//     stores every g_l to a scratch the caller allocates, and dx;
+//   pass 2, mlp_bwd_dw: a block owns one 64x128 tile of one dW_l and one
+//     slice of the batch rows; h_l and g_l arrive in 32-row chunks through
+//     a 4-deep cp.async ring, and a thread keeps a 4x8 register tile (32
+//     FMAs for three float4 reads, the next row's read while they run).
+//     The blocks of the first row of tiles also sum their slice of db_l's
+//     columns. With one slice (small B) they write dW and db; with S
+//     slices they write partials to [S, K, N] and [S, N] scratch, and
+//   pass 3, mlp_bwd_sum, adds the S partials of every element in slice
+//     order.
+// The launch plan (the chain's TR, row groups, C, chunk depth; S and the
+// rows a slice) comes from ops/cuda_mlp.py::bwd_plan; this entry
+// recomputes the shared bytes and the scratch size and refuses a plan it
+// cannot run.
 //
 // Bound on the H100 (SXM, 700 W data-sheet peaks). The products run on
 // the float32 FMA pipes in both modes, 67 TFLOP/s. nsgan D (784->400->1)
 // at B = 100: 125.6 MFLOP, 1.9 us; nsgan G (128->400->784) at B = 100:
 // 145.9 MFLOP, 2.2 us — far under one launch's latency, so at training
-// batches the kernel is bound by latency, not by the card. G at B = 8192:
-// 11.95 GFLOP, 0.178 ms (operations; its bytes, ~100 MB, take 0.03 ms).
-// What the design gives away: pass 1 reads W_l row-wise per thread (not
-// coalesced across a warp; W is L2-resident), and at small B pass 1 has
-// few blocks. Tensor-core tiles are left for a later change.
+// batches the kernel is bound by latency: pass 1 spreads each layer over
+// C CTAs with every W chunk in flight ahead of use, and pass 2 runs with
+// one slice (two launches, as before). G at B = 8192: 11.95 GFLOP,
+// 0.178 ms (operations; its bytes, ~100 MB, take 0.03 ms): pass 2 takes
+// S slices, ~8 blocks an SM. What is still left (PERF.md): pass 1
+// at B 8192 is held back as the forward is (W re-read for every row
+// tile, a fixed cost per chunk and CTA), 64x128 tiles waste the edges of
+// 400- and 784-wide layers (78-89% of the FMAs useful), the three passes
+// run one after the other, and the FMAs stay on the float32 pipes in
+// bf16 mode.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mlp_chain.cuh"
 
-#define BWD_MAX_LAYERS 8
-#define BWD_THREADS 256
-#define BWD_COLS 2
-#define DW_TILE 64
-#define DW_ROWS 32
+#define DW_TK 64
+#define DW_TN 128
+#define DW_RC 32
+#define DW_STAGES 4
 
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY_RELU = 2, ACT_SIGMOID = 3,
-       ACT_TANH = 4 };
+template <int TR>
+__global__ void __launch_bounds__(CH_THREADS, 1)
+mlp_bwd_rows(const ChainArgs a) {
+  chain_body<TR, true>(a);
+}
 
-struct BwdArgs {
-  const float* x;
-  const float* h[BWD_MAX_LAYERS + 1];  // h_0 = x, h_1..h_{n-1}, h_n = out
-  const float* dy;
-  const float* w[BWD_MAX_LAYERS];
-  float* g[BWD_MAX_LAYERS];            // g_l [B, K_{l+1}] (scratch)
-  float* dw[BWD_MAX_LAYERS];
-  float* db[BWD_MAX_LAYERS];
-  float* dx;
-  int dims[BWD_MAX_LAYERS + 1];
-  int acts[BWD_MAX_LAYERS];
-  int tile_start[BWD_MAX_LAYERS + 1];  // pass 2: first tile of each layer
+struct DwArgs {
+  const float* h[CH_MAX_LAYERS];  // h_0 = x, h_1..h_{n-1}
+  const float* g[CH_MAX_LAYERS];  // g_l [B, K_{l+1}]
+  float* dw[CH_MAX_LAYERS];       // dW_l, or its [S, K, N] partials
+  float* db[CH_MAX_LAYERS];       // db_l, or its [S, N] partials
+  int dims[CH_MAX_LAYERS + 1];
+  int tile_start[CH_MAX_LAYERS + 1];
+  int vec_h[CH_MAX_LAYERS];
+  int vec_g[CH_MAX_LAYERS];
+  int vec_dw[CH_MAX_LAYERS];
   int n_layers;
   int batch;
-  int stride_a;  // shared row stride of g_{n-1}, g_{n-3}, ...
-  int stride_b;  // ... of g_{n-2}, g_{n-4}, ...
-  float slope;
+  int slice_rows;  // a multiple of DW_RC
+  int slices;
   int bf16;
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// act'(pre-activation) written through the activation's output y
-__device__ __forceinline__ float act_deriv(float y, int act, float slope) {
-  switch (act) {
-    case ACT_RELU: return y > 0.0f ? 1.0f : 0.0f;
-    case ACT_LEAKY_RELU: return y >= 0.0f ? 1.0f : slope;
-    case ACT_SIGMOID: return y * (1.0f - y);
-    case ACT_TANH: return 1.0f - y * y;
-    default: return 1.0f;
-  }
-}
-
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-
-template <int TM>
-__global__ void __launch_bounds__(BWD_THREADS)
-mlp_bwd_rows(const BwdArgs a) {
+__global__ void __launch_bounds__(CH_THREADS)
+mlp_bwd_dw(const DwArgs a) {
   extern __shared__ __align__(16) float smem[];
-  float* const buf_a = smem;
-  float* const buf_b = smem + TM * a.stride_a;
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TM;
-  const int n = a.n_layers;
-
-  {  // g_{n-1} = dy * act'(out); ragged rows and the column tail are zero
-    const int K = a.dims[n];
-    const int S = a.stride_a;
-    const float* out = a.h[n];
-    for (int i = tid; i < TM * S; i += BWD_THREADS) {
-      const int m = i / S;
-      const int k = i - m * S;
-      const int r = row0 + m;
-      float v = 0.0f;
-      if (r < a.batch && k < K) {
-        const size_t o = (size_t)r * K + k;
-        v = a.dy[o] * act_deriv(out[o], a.acts[n - 1], a.slope);
-        a.g[n - 1][o] = v;
-      }
-      buf_a[i] = a.bf16 ? round_bf16(v) : v;
-    }
-  }
-  __syncthreads();
-
-  for (int l = n - 1; l >= 0; --l) {
-    const int N = a.dims[l + 1];  // width of g_l (the product's depth)
-    const int K = a.dims[l];      // width of the product's output
-    const int Np = round4(N);
-    const bool first = (l == 0);
-    const bool odd = (n - 1 - l) & 1;
-    const float* __restrict__ in = odd ? buf_b : buf_a;
-    const int in_stride = odd ? a.stride_b : a.stride_a;
-    float* nxt = odd ? buf_a : buf_b;
-    const int nxt_stride = odd ? a.stride_a : a.stride_b;
-    const float* __restrict__ W = a.w[l];
-    const int k_end = first ? K : round4(K);
-
-    for (int k0 = 0; k0 < k_end; k0 += BWD_THREADS * BWD_COLS) {
-      int k[BWD_COLS];
-      bool ok[BWD_COLS];
-      float acc[TM][BWD_COLS];
-#pragma unroll
-      for (int c = 0; c < BWD_COLS; ++c) {
-        k[c] = k0 + c * BWD_THREADS + tid;
-        ok[c] = k[c] < K;
-#pragma unroll
-        for (int m = 0; m < TM; ++m) acc[m][c] = 0.0f;
-      }
-      for (int j0 = 0; j0 < Np; j0 += 4) {
-        float w[BWD_COLS][4];
-#pragma unroll
-        for (int c = 0; c < BWD_COLS; ++c) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float v = (ok[c] && j0 + j < N)
-                          ? __ldg(W + (size_t)k[c] * N + j0 + j) : 0.0f;
-            w[c][j] = a.bf16 ? round_bf16(v) : v;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(in + m * in_stride + j0);
-#pragma unroll
-          for (int c = 0; c < BWD_COLS; ++c) {
-            acc[m][c] = fmaf(v.x, w[c][0], acc[m][c]);
-            acc[m][c] = fmaf(v.y, w[c][1], acc[m][c]);
-            acc[m][c] = fmaf(v.z, w[c][2], acc[m][c]);
-            acc[m][c] = fmaf(v.w, w[c][3], acc[m][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < BWD_COLS; ++c) {
-        if (k[c] >= k_end) continue;
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          const int r = row0 + m;
-          float v = 0.0f;
-          if (ok[c] && r < a.batch) {
-            const size_t o = (size_t)r * K + k[c];
-            if (first) {
-              a.dx[o] = acc[m][c];
-            } else {
-              v = acc[m][c] * act_deriv(a.h[l][o], a.acts[l - 1], a.slope);
-              a.g[l - 1][o] = v;
-            }
-          }
-          if (!first) nxt[m * nxt_stride + k[c]] = a.bf16 ? round_bf16(v) : v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(BWD_THREADS)
-mlp_bwd_dw(const BwdArgs a) {
-  __shared__ float hs[DW_ROWS][DW_TILE];
-  __shared__ float gs[DW_ROWS][DW_TILE];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int ty = tid / 16;  // k: 4 ty .. 4 ty + 3
+  const int tx = tid % 16;  // n: 4 tx .. +3 and 64 + 4 tx .. +3
   int l = 0;
-  while (blockIdx.x >= a.tile_start[l + 1]) ++l;
+  while ((int)blockIdx.x >= a.tile_start[l + 1]) ++l;
   const int K = a.dims[l];
   const int N = a.dims[l + 1];
-  const int tiles_n = (N + DW_TILE - 1) / DW_TILE;
+  const int tiles_n = (N + DW_TN - 1) / DW_TN;
   const int t = blockIdx.x - a.tile_start[l];
-  const int k0 = (t / tiles_n) * DW_TILE;
-  const int n0 = (t % tiles_n) * DW_TILE;
+  const int k0 = (t / tiles_n) * DW_TK;
+  const int n0 = (t % tiles_n) * DW_TN;
+  const int s = blockIdx.y;
+  const int r_begin = s * a.slice_rows;
+  int r_end = r_begin + a.slice_rows;
+  r_end = r_end < a.batch ? r_end : a.batch;
+  const int chunks = (r_end - r_begin + DW_RC - 1) / DW_RC;
   const float* __restrict__ H = a.h[l];
   const float* __restrict__ G = a.g[l];
+  const int stage = DW_RC * (DW_TK + DW_TN);
+  const bool vh = a.vec_h[l], vg = a.vec_g[l];
 
-  float acc[4][4];
+  auto issue = [&](int c) {
+    if (c >= chunks) return;
+    float* hs = smem + (c % DW_STAGES) * stage;
+    float* gs = hs + DW_RC * DW_TK;
+    const int rb = r_begin + c * DW_RC;
+    if (vh) {
+      for (int e = tid; e < DW_RC * DW_TK / 4; e += CH_THREADS) {
+        const int rr = e / (DW_TK / 4), c4 = e - rr * (DW_TK / 4);
+        const int r = rb + rr, k = k0 + 4 * c4;
+        const bool ok = r < r_end && k < K;
+        cp_async16(hs + rr * DW_TK + 4 * c4, ok ? H + (size_t)r * K + k : H,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < DW_RC * DW_TK; e += CH_THREADS) {
+        const int rr = e / DW_TK, cc = e - rr * DW_TK;
+        const int r = rb + rr, k = k0 + cc;
+        const bool ok = r < r_end && k < K;
+        cp_async4(hs + e, ok ? H + (size_t)r * K + k : H, ok);
+      }
+    }
+    if (vg) {
+      for (int e = tid; e < DW_RC * DW_TN / 4; e += CH_THREADS) {
+        const int rr = e / (DW_TN / 4), c4 = e - rr * (DW_TN / 4);
+        const int r = rb + rr, nn = n0 + 4 * c4;
+        const bool ok = r < r_end && nn < N;
+        cp_async16(gs + rr * DW_TN + 4 * c4, ok ? G + (size_t)r * N + nn : G,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < DW_RC * DW_TN; e += CH_THREADS) {
+        const int rr = e / DW_TN, cc = e - rr * DW_TN;
+        const int r = rb + rr, nn = n0 + cc;
+        const bool ok = r < r_end && nn < N;
+        cp_async4(gs + e, ok ? G + (size_t)r * N + nn : G, ok);
+      }
+    }
+  };
+
+  for (int c = 0; c < DW_STAGES - 1; ++c) {
+    issue(c);
+    cp_async_commit();
+  }
+  float acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const bool db_thread = k0 == 0 && tid < DW_TN;
+  float dbs = 0.0f;
 
-  for (int r0 = 0; r0 < a.batch; r0 += DW_ROWS) {
-    for (int i = tid; i < DW_ROWS * DW_TILE; i += BWD_THREADS) {
-      const int rr = i / DW_TILE;
-      const int cc = i - rr * DW_TILE;
-      const int r = r0 + rr;
-      float hv = 0.0f, gv = 0.0f;
-      if (r < a.batch) {
-        if (k0 + cc < K) hv = H[(size_t)r * K + k0 + cc];
-        if (n0 + cc < N) gv = G[(size_t)r * N + n0 + cc];
-      }
-      hs[rr][cc] = a.bf16 ? round_bf16(hv) : hv;
-      gs[rr][cc] = a.bf16 ? round_bf16(gv) : gv;
-    }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<DW_STAGES - 2>();
     __syncthreads();
+    issue(c + DW_STAGES - 1);
+    cp_async_commit();
+    float* hs = smem + (c % DW_STAGES) * stage;
+    float* gs = hs + DW_RC * DW_TK;
+    if (db_thread) {  // db sums the float32 g; zero-filled rows add 0
+#pragma unroll
+      for (int rr = 0; rr < DW_RC; ++rr) dbs += gs[rr * DW_TN + tid];
+    }
+    if (a.bf16) {
+      __syncthreads();
+      for (int e = tid; e < stage; e += CH_THREADS) hs[e] = round_bf16(hs[e]);
+      __syncthreads();
+    }
+    // the next row's fragments load while this row's FMAs run
+    float4 hv = *reinterpret_cast<const float4*>(hs + 4 * ty);
+    float4 g0 = *reinterpret_cast<const float4*>(gs + 4 * tx);
+    float4 g1 = *reinterpret_cast<const float4*>(gs + 64 + 4 * tx);
 #pragma unroll 4
-    for (int rr = 0; rr < DW_ROWS; ++rr) {
-      float hv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hv[i] = hs[rr][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = gs[rr][tx + 16 * j];
+    for (int rr = 0; rr < DW_RC; ++rr) {
+      const int rn = rr + 1 < DW_RC ? rr + 1 : rr;
+      const float4 hn = *reinterpret_cast<const float4*>(hs + rn * DW_TK + 4 * ty);
+      const float4 gn0 = *reinterpret_cast<const float4*>(gs + rn * DW_TN + 4 * tx);
+      const float4 gn1 =
+          *reinterpret_cast<const float4*>(gs + rn * DW_TN + 64 + 4 * tx);
+      const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
+      const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hv[i], gv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(hh[i], gg[j], acc[i][j]);
+      hv = hn;
+      g0 = gn0;
+      g1 = gn1;
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
+  const size_t part = a.slices > 1 ? (size_t)s * K * N : 0;
+  float* const dW = a.dw[l] + part;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
+    const int k = k0 + 4 * ty + i;
     if (k >= K) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tx + 16 * j;
-      if (nn < N) a.dw[l][(size_t)k * N + nn] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int nb = n0 + 64 * half + 4 * tx;
+      float* dst = dW + (size_t)k * N + nb;
+      if (a.vec_dw[l] && nb < N) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * half], acc[i][4 * half + 1],
+                        acc[i][4 * half + 2], acc[i][4 * half + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nb + j < N) dst[j] = acc[i][4 * half + j];
+      }
     }
   }
-  if (k0 == 0 && tid < DW_TILE && n0 + tid < N) {  // db_l: float32 g
-    float s = 0.0f;
-    for (int r = 0; r < a.batch; ++r) s += G[(size_t)r * N + n0 + tid];
-    a.db[l][n0 + tid] = s;
+  if (db_thread && n0 + tid < N)
+    a.db[l][(a.slices > 1 ? (size_t)s * N : 0) + n0 + tid] = dbs;
+}
+
+struct SumArgs {
+  const float* part[CH_MAX_LAYERS];  // [S, K*N] then [S, N] of layer l
+  float* dw[CH_MAX_LAYERS];
+  float* db[CH_MAX_LAYERS];
+  int kn[CH_MAX_LAYERS];      // K_l * N_l
+  int nn[CH_MAX_LAYERS];      // N_l
+  int start[CH_MAX_LAYERS + 1];  // first element of layer l (dW then db)
+  int n_layers;
+  int slices;
+};
+
+// dW and db as the sum of their S slice partials, in slice order.
+__global__ void __launch_bounds__(CH_THREADS)
+mlp_bwd_sum(const SumArgs a) {
+  const int total = a.start[a.n_layers];
+  for (int e = blockIdx.x * CH_THREADS + threadIdx.x; e < total;
+       e += gridDim.x * CH_THREADS) {
+    int l = 0;
+    while (e >= a.start[l + 1]) ++l;
+    const int i = e - a.start[l];
+    const bool is_w = i < a.kn[l];
+    const float* src = is_w ? a.part[l] + i
+                            : a.part[l] + (size_t)a.slices * a.kn[l] +
+                                  (i - a.kn[l]);
+    const size_t step = is_w ? a.kn[l] : a.nn[l];
+    float v = 0.0f;
+    for (int s = 0; s < a.slices; ++s) v += src[s * step];
+    if (is_w) a.dw[l][i] = v;
+    else a.db[l][i - a.kn[l]] = v;
   }
 }
 
-template <int TM>
-static cudaError_t launch_rows(const BwdArgs& a, size_t smem,
-                               cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlp_bwd_rows<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+// Floats of scratch the sliced pass 2 needs (0 with one slice); each
+// layer's partials start on a 16-byte boundary. The same formula as
+// ops/cuda_mlp.py::bwd_plan.
+static size_t scratch_floats(const int* dims, int n, int slices,
+                             size_t* offs) {
+  size_t total = 0;
+  for (int l = 0; l < n; ++l) {
+    if (offs) offs[l] = total;
+    if (slices > 1)
+      total += ((size_t)slices * (dims[l] * (size_t)dims[l + 1] + dims[l + 1])
+                + 3) / 4 * 4;
   }
-  const int grid = (a.batch + TM - 1) / TM;
-  mlp_bwd_rows<TM><<<grid, BWD_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+  return total;
 }
 
-// Launches both passes on `stream`; allocates nothing and does not
+template <int TR>
+static cudaError_t launch_rows(const ChainArgs& a, int grid, int csize,
+                               size_t smem, cudaStream_t s) {
+  return launch_cluster(mlp_bwd_rows<TR>, a, grid, csize, smem, s);
+}
+
+// Launches the passes on `stream`; allocates nothing and does not
 // synchronise. hiddens: h_1..h_{n-1}; gs: n scratch buffers g_l
-// [batch, dims[l+1]]. Returns the CUDA error code (0 = queued).
+// [batch, dims[l+1]]; plan: {tr, rg, cluster, kc, smem bytes, streamed,
+// slices, slice rows, scratch floats} from ops/cuda_mlp.py::bwd_plan; scratch:
+// that many floats (unused with one slice). Returns the CUDA error code
+// (0 = queued); cudaErrorInvalidValue for a plan it cannot run.
 extern "C" int gm_mlp_bwd(const float* x, int batch, int n_layers,
                           const int* dims, void* const* ws,
                           void* const* hiddens, const float* out,
                           const float* dy, void* const* gs, void* const* dws,
                           void* const* dbs, float* dx, const int* acts,
-                          float slope, int bf16, int tile_rows, void* stream) {
-  if (n_layers < 1 || n_layers > BWD_MAX_LAYERS || batch < 1 ||
-      (tile_rows != 16 && tile_rows != 32))
+                          float slope, int bf16, const int* plan,
+                          float* scratch, void* stream) {
+  if (n_layers < 1 || n_layers > CH_MAX_LAYERS || batch < 1)
     return (int)cudaErrorInvalidValue;
-  BwdArgs a = {};
-  a.x = x;
-  a.dy = dy;
-  a.dx = dx;
-  a.n_layers = n_layers;
+  const int n = n_layers;
+  for (int l = 0; l <= n; ++l)
+    if (dims[l] < 1) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n; ++l)
+    if (acts[l] < ACT_NONE || acts[l] > ACT_TANH)
+      return (int)cudaErrorInvalidValue;
+  const float* h[CH_MAX_LAYERS];
+  h[0] = x;
+  for (int l = 1; l < n; ++l) h[l] = static_cast<const float*>(hiddens[l - 1]);
+
+  // pass 1: the chain runs layer n-1 first (chain layer i = layer n-1-i)
+  ChainArgs a = {};
+  a.in = dy;
+  a.in_act = out;
+  a.in_act_code = acts[n - 1];
+  a.in_store = static_cast<float*>(gs[n - 1]);
+  a.n_layers = n;
   a.batch = batch;
   a.slope = slope;
   a.bf16 = bf16 ? 1 : 0;
-  a.h[0] = x;
-  a.h[n_layers] = out;
-  a.dims[0] = dims[0];
-  int tiles = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    if (dims[l] < 1 || dims[l + 1] < 1 || acts[l] < ACT_NONE ||
-        acts[l] > ACT_TANH)
-      return (int)cudaErrorInvalidValue;
-    a.dims[l + 1] = dims[l + 1];
-    a.acts[l] = acts[l];
-    a.w[l] = static_cast<const float*>(ws[l]);
-    a.g[l] = static_cast<float*>(gs[l]);
-    a.dw[l] = static_cast<float*>(dws[l]);
-    a.db[l] = static_cast<float*>(dbs[l]);
-    if (l > 0) a.h[l] = static_cast<const float*>(hiddens[l - 1]);
-    const int s = round4(dims[l + 1]);
-    if ((n_layers - 1 - l) & 1) a.stride_b = s > a.stride_b ? s : a.stride_b;
-    else a.stride_a = s > a.stride_a ? s : a.stride_a;
-    a.tile_start[l] = tiles;
-    tiles += ((dims[l] + DW_TILE - 1) / DW_TILE) *
-             ((dims[l + 1] + DW_TILE - 1) / DW_TILE);
+  for (int i = 0; i <= n; ++i) a.width[i] = dims[n - i];
+  for (int i = 0; i < n; ++i) {
+    const int l = n - 1 - i;
+    a.w[i] = static_cast<const float*>(ws[l]);
+    a.vec_w[i] = dims[l + 1] % 4 == 0 && aligned16(ws[l]);
+    if (l > 0) {
+      a.hact[i] = h[l];
+      a.act[i] = acts[l - 1];
+      a.out[i] = static_cast<float*>(gs[l - 1]);
+    } else {
+      a.out[i] = dx;
+    }
   }
-  a.tile_start[n_layers] = tiles;
-  // two alternating g tiles (ops/cuda_mlp.py::bwd_smem_bytes)
-  const size_t smem =
-      (size_t)tile_rows * (a.stride_a + a.stride_b) * sizeof(float);
+  for (int i = 0; i < n; ++i) {  // streamed: chain layer i's input g_l
+    a.a_src[i] = static_cast<const float*>(gs[n - 1 - i]);
+    a.vec_a[i] = a.width[i] % 4 == 0 && aligned16(a.a_src[i]);
+  }
+  a.vec_in = dims[n] % 4 == 0 && aligned16(dy);
+  a.vec_in_act = dims[n] % 4 == 0 && aligned16(out);
+  const int tr = plan[0], csize = plan[2];
+  a.rg = plan[1];
+  a.kc = plan[3];
+  const int slices = plan[6], slice_rows = plan[7];
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess) return (int)e;
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const size_t smem = chain_plan(a, tr, csize, true, plan[5], (size_t)optin);
+  if (smem == 0 || smem != (size_t)plan[4]) return (int)cudaErrorInvalidValue;
+  if (slices < 1 || slice_rows < DW_RC || slice_rows % DW_RC ||
+      (size_t)slices * slice_rows < (size_t)batch ||
+      (size_t)(slices - 1) * slice_rows >= (size_t)batch)
+    return (int)cudaErrorInvalidValue;
+  size_t offs[CH_MAX_LAYERS];
+  if (scratch_floats(dims, n, slices, offs) != (size_t)(unsigned)plan[8] ||
+      (slices > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = tile_rows == 32 ? launch_rows<32>(a, smem, s)
-                      : launch_rows<16>(a, smem, s);
+  const int tm = a.rg * tr;
+  const int grid = (batch + tm - 1) / tm * csize;
+  switch (tr) {
+    case 1: e = launch_rows<1>(a, grid, csize, smem, s); break;
+    case 4: e = launch_rows<4>(a, grid, csize, smem, s); break;
+    default: e = launch_rows<8>(a, grid, csize, smem, s); break;
+  }
   if (e != cudaSuccess) return (int)e;
-  mlp_bwd_dw<<<tiles, BWD_THREADS, 0, s>>>(a);
+
+  // pass 2: dW and db tiles, one slice of the rows each
+  DwArgs d = {};
+  d.n_layers = n;
+  d.batch = batch;
+  d.slices = slices;
+  d.slice_rows = slice_rows;
+  d.bf16 = a.bf16;
+  int tiles = 0;
+  SumArgs sa = {};
+  sa.n_layers = n;
+  sa.slices = slices;
+  sa.start[0] = 0;
+  for (int l = 0; l < n; ++l) {
+    const int K = dims[l], N = dims[l + 1];
+    d.dims[l] = K;
+    d.h[l] = h[l];
+    d.g[l] = static_cast<const float*>(gs[l]);
+    if (slices > 1) {
+      d.dw[l] = scratch + offs[l];
+      d.db[l] = scratch + offs[l] + (size_t)slices * K * N;
+    } else {
+      d.dw[l] = static_cast<float*>(dws[l]);
+      d.db[l] = static_cast<float*>(dbs[l]);
+    }
+    d.vec_h[l] = K % 4 == 0 && aligned16(h[l]);
+    d.vec_g[l] = N % 4 == 0 && aligned16(gs[l]);
+    d.vec_dw[l] = N % 4 == 0 && aligned16(d.dw[l]);
+    d.tile_start[l] = tiles;
+    tiles += ((K + DW_TK - 1) / DW_TK) * ((N + DW_TN - 1) / DW_TN);
+    sa.part[l] = scratch + offs[l];
+    sa.dw[l] = static_cast<float*>(dws[l]);
+    sa.db[l] = static_cast<float*>(dbs[l]);
+    sa.kn[l] = K * N;
+    sa.nn[l] = N;
+    sa.start[l + 1] = sa.start[l] + K * N + N;
+  }
+  d.dims[n] = dims[n];
+  d.tile_start[n] = tiles;
+  const size_t dw_smem = sizeof(float) * DW_STAGES * DW_RC * (DW_TK + DW_TN);
+  e = cudaFuncSetAttribute(mlp_bwd_dw,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dw_smem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_bwd_dw<<<dim3(tiles, slices, 1), CH_THREADS, dw_smem, s>>>(d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || slices == 1) return (int)e;
+
+  // pass 3: the slices' partials, summed in slice order
+  int blocks = (sa.start[n] + CH_THREADS - 1) / CH_THREADS;
+  blocks = blocks < 1024 ? blocks : 1024;
+  mlp_bwd_sum<<<blocks, CH_THREADS, 0, s>>>(sa);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,13 @@ kernel to its plain version. A kernel's outputs carry no autograd graph,
 so :func:`mlp_fwd` refuses a CUDA input that requires grad while grad
 mode is on: such a call must go through :class:`MLPFunction`.
 
+Each launch follows a plan, a pure function of the batch, the widths and
+the SM count (:func:`fwd_plan`, :func:`bwd_plan`; chosen at the call,
+cached, never at import): the kernels' item rows, tile rows, cluster
+size, W chunk depth and whether the input streams from device memory,
+and for the backward its dW slices and scratch. The C entries recompute
+the shared bytes and refuse a plan they cannot run.
+
 ``launches`` and ``bwd_launches`` count the kernels' launches, so a run
 can show that its main path went through them.
 """
@@ -25,7 +32,9 @@ can show that its main path went through them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -112,11 +121,12 @@ def _check(x, ws, bs, acts, compute_dtype):
 @functools.cache
 def _lib():
     from generative_models_tpu_torch.ops.build import build_library
-    lib = build_library("mlp_fwd", ["mlp_fwd.cu"])
+    lib = build_library("mlp_fwd", ["mlp_fwd.cu"], ["mlp_chain.cuh"])
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gm_mlp_fwd.argtypes = [p, i, i, ctypes.POINTER(i), ctypes.POINTER(p),
                                ctypes.POINTER(p), ctypes.POINTER(p),
-                               ctypes.POINTER(i), ctypes.c_float, i, i, p]
+                               ctypes.POINTER(i), ctypes.c_float, i,
+                               ctypes.POINTER(i), p]
     lib.gm_mlp_fwd.restype = i
     return lib
 
@@ -126,25 +136,227 @@ def build() -> None:
     _lib()
 
 
-def smem_bytes(dims: Sequence[int], tile_rows: int) -> int:
-    """Shared memory a launch needs: two alternating input tiles, sized by
-    the widest even-layer and odd-layer inputs (rounded up to 4 floats).
-    The same formula as gm_mlp_fwd in csrc/mlp_fwd.cu."""
-    r4 = [-(-d // 4) * 4 for d in dims[:-1]]
-    return tile_rows * (max(r4[0::2]) + max(r4[1::2], default=0)) * 4
+# ---------------------------------------------------------------------
+# Launch plans (pure functions of the shapes and the SM count)
+# ---------------------------------------------------------------------
+
+CHAIN_WARPS = 8                # CH_WARPS in csrc/mlp_chain.cuh
+CHAIN_STAGES = 4               # CH_STAGES: W chunks in the ring
+ITEM_ROWS = (1, 4, 8)          # TR: the kernels' instantiations
+CLUSTER_SIZES = (1, 2, 4, 8)   # portable cluster sizes
+CHUNK_DEPTHS = (16, 32, 64)
+TILE_ROWS = (4, 8, 16, 24, 32, 48, 64, 80, 96, 128)
+DW_TILE = (64, 128)            # DW_TK x DW_TN in csrc/mlp_bwd.cu
+DW_CHUNK_ROWS = 32             # DW_RC
+SLICE_MIN_ROWS = 512           # fewest rows a slice of pass 2 takes
 
 
-def tile_rows_for(batch: int, dims: Sequence[int], sm_count: int) -> int:
-    """Rows per block: 32 when the batch fills every SM with 32-row tiles,
-    else 16 (twice the blocks at small batches). Raises when even a
-    16-row tile does not fit in shared memory."""
-    for t in ((32, 16) if batch >= 32 * sm_count else (16,)):
-        if smem_bytes(dims, t) <= MAX_SMEM_BYTES:
-            return t
-    raise ValueError(
-        f"mlp_fwd: layer widths {list(dims)} need "
-        f"{smem_bytes(dims, 16)} bytes of shared memory for a 16-row tile; "
-        f"a block has {MAX_SMEM_BYTES}")
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_stride(width: int) -> int:
+    """Row stride (floats) of an input tile in shared memory: rounded up
+    to 4 floats, plus 4 when a multiple of 16 (tile_stride in
+    mlp_chain.cuh)."""
+    s = _cdiv(width, 4) * 4
+    return s + 4 if s % 16 == 0 else s
+
+
+def column_groups(width: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """The groups of 4 output columns [g0, g1) that cluster rank `rank`
+    computes in a layer `width` wide (rank_groups in mlp_chain.cuh)."""
+    g = _cdiv(width, 4)
+    return rank * g // cluster, (rank + 1) * g // cluster
+
+
+def warp_shape(row_groups: int, pairs: int) -> Tuple[int, int, int, int]:
+    """(lr, lc, wr, wc): lanes lr x lc over (row groups x column pairs),
+    warps wr x wc over a CTA's items (warp_shape in mlp_chain.cuh)."""
+    lr = 4 if row_groups >= 4 else (2 if row_groups >= 2 else 1)
+    lc = 32 // lr
+    return lr, lc, _cdiv(row_groups, lr), _cdiv(pairs, lc)
+
+
+def chain_smem_bytes(widths: Sequence[int], tr: int, row_groups: int,
+                     cluster: int, kc: int, bwd: bool, stream: bool = False):
+    """Shared bytes of a chain CTA (chain_plan in mlp_chain.cuh): two
+    alternating input tiles and the W ring (backward: at least two tiles
+    of the first input's stride, dy's and out's); `stream`: the ring alone,
+    each slot a W chunk and an A chunk; None when some layer's items
+    (row groups x column pairs) need more warps than a CTA has."""
+    n = len(widths) - 1
+    gc = 0
+    for i in range(n):
+        gmax = _cdiv(_cdiv(widths[i + 1], 4), cluster)
+        _, _, wr, wc = warp_shape(row_groups, _cdiv(gmax, 2))
+        if wr * wc > CHAIN_WARPS:
+            return None
+        gc = max(gc, gmax)
+    gc = _cdiv(gc, 2) * 2
+    sa = max(tile_stride(widths[i]) for i in range(0, n, 2))
+    sb = max((tile_stride(widths[i]) for i in range(1, n, 2)), default=0)
+    stage = 4 * gc * (kc + 4) if bwd else kc * 4 * gc
+    tm = tr * row_groups
+    if stream:  # a ring slot holds the W chunk and the A chunk
+        return 4 * CHAIN_STAGES * (stage + tm * (kc + 4))
+    rest = tm * sb + CHAIN_STAGES * stage
+    if bwd:  # out's tile is staged over buffer B and the ring
+        rest = max(rest, tm * sa)
+    return 4 * (tm * sa + rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """A chain launch: items of `tr` rows, `row_groups` of them a tile
+    (tile_rows = tr x row_groups), a cluster of `cluster` CTAs a tile, W
+    in chunks `kc` deep, `smem_bytes` a CTA, `grid` CTAs; `stream`: each
+    layer's input streams from device memory beside W instead of staying
+    in shared memory (a cluster barrier between layers)."""
+    tr: int
+    row_groups: int
+    cluster: int
+    kc: int
+    smem_bytes: int
+    grid: int
+    stream: bool = False
+
+    @property
+    def tile_rows(self) -> int:
+        return self.tr * self.row_groups
+
+    def c_args(self) -> List[int]:
+        return [self.tr, self.row_groups, self.cluster, self.kc,
+                self.smem_bytes, int(self.stream)]
+
+
+def chain_candidates(batch: int, widths: Sequence[int], bwd: bool):
+    """Every chain plan that fits: each item height, tile (no larger than
+    the smallest listed tile that holds the batch), cluster size and
+    chunk depth whose CTA fits in shared memory."""
+    for tr in ITEM_ROWS:
+        for prev, tm in zip((0,) + TILE_ROWS, TILE_ROWS):
+            if prev >= batch:  # a smaller tile already holds the batch
+                break
+            if tm % tr:
+                continue
+            rg = tm // tr
+            for c in CLUSTER_SIZES:
+                for kc in CHUNK_DEPTHS:
+                    for stream in (False, True):
+                        smem = chain_smem_bytes(widths, tr, rg, c, kc, bwd,
+                                                stream)
+                        if smem is not None and smem <= MAX_SMEM_BYTES:
+                            yield FwdPlan(tr, rg, c, kc, smem,
+                                          _cdiv(batch, tm) * c, stream)
+
+
+def preferred_plans(batch: int, sm_count: int):
+    """(tr, tile_rows, cluster, kc, stream) in the order the chip sweeps
+    of every candidate favoured them (PERF.md; ``tools/mlp_ab.py
+    --sweep``): up to 256 rows, one row an item, 8 or 16 rows a tile,
+    clusters of 8, W in 64-deep chunks (fewer steps of the ring) and the
+    hidden tile on chip (latency: about one wave of CTAs); up to 2048, 4-row items, about one CTA an SM in clusters of 2,
+    the input streamed; beyond, 8-row items in 64-row tiles (32 where a
+    layer is too wide for the CTA's warps), clusters of 2, streamed."""
+    if batch <= 256:
+        return [(1, 8 * _cdiv(batch, 128), 8, 64, False)]
+    if batch <= 2048:
+        return [(4, _cdiv(_cdiv(2 * batch, sm_count), 4) * 4, 2, 32, True)]
+    return [(8, 64, 2, 32, True), (8, 32, 2, 32, True)]
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_plan(batch: int, widths: Tuple[int, ...], sm_count: int,
+                bwd: bool) -> FwdPlan:
+    for tr, tm, c, kc, stream in preferred_plans(batch, sm_count):
+        smem = chain_smem_bytes(widths, tr, tm // tr, c, kc, bwd, stream)
+        if smem is not None and smem <= MAX_SMEM_BYTES:
+            return FwdPlan(tr, tm // tr, c, kc, smem, _cdiv(batch, tm) * c,
+                           stream)
+    # a stack too wide for the preferred shape: the fitting plan of the
+    # preferred item height nearest one CTA an SM
+    tr0 = preferred_plans(batch, sm_count)[0][0]
+    best = min(chain_candidates(batch, widths, bwd), default=None,
+               key=lambda p: (p.tr != tr0, abs(math.log(p.grid / sm_count)),
+                              p.cluster, p.smem_bytes))
+    if best is None:
+        raise ValueError(
+            f"mlp_{'bwd' if bwd else 'fwd'}: layer widths {list(widths)} "
+            f"fit no plan: the smallest tile needs "
+            f"{chain_smem_bytes(widths, 1, 1, CLUSTER_SIZES[-1], CHUNK_DEPTHS[0], bwd, True)}"
+            f" bytes of shared memory; a block has {MAX_SMEM_BYTES}")
+    return best
+
+
+def fwd_plan(batch: int, dims: Sequence[int], sm_count: int) -> FwdPlan:
+    """The forward's launch plan for a batch of `batch` rows through a
+    stack `dims` wide on a card of `sm_count` SMs: the first of
+    :func:`preferred_plans` that fits, else the nearest fitting
+    candidate. Raises ValueError when none fits."""
+    return _chain_plan(int(batch), tuple(int(d) for d in dims),
+                       int(sm_count), False)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launches: pass 1's chain (`rows`, over the widths
+    in reverse), pass 2's `slices` slices of `slice_rows` rows
+    (`slice_ranges`, in order) and `dw_grid` blocks (tiles, slices), and
+    the `scratch_floats` of partials that pass 3 sums (0 with one
+    slice)."""
+    rows: FwdPlan
+    slices: int
+    slice_rows: int
+    slice_ranges: Tuple[Tuple[int, int], ...]
+    scratch_floats: int
+    dw_grid: Tuple[int, int]
+
+    def c_args(self) -> List[int]:
+        return self.rows.c_args() + [self.slices, self.slice_rows,
+                                     self.scratch_floats]
+
+
+def dw_tiles(dims: Sequence[int]) -> int:
+    """Pass 2's tiles: every dW_l cut in DW_TILE tiles."""
+    tk, tn = DW_TILE
+    return sum(_cdiv(k, tk) * _cdiv(n, tn) for k, n in zip(dims[:-1], dims[1:]))
+
+
+def scratch_floats(dims: Sequence[int], slices: int) -> int:
+    """Floats of the partials [S, K, N] and [S, N] of every layer, each
+    rounded up to 4 (scratch_floats in csrc/mlp_bwd.cu); 0 with one
+    slice."""
+    if slices == 1:
+        return 0
+    return sum(_cdiv(slices * (k * n + n), 4) * 4
+               for k, n in zip(dims[:-1], dims[1:]))
+
+
+def bwd_plan(batch: int, dims: Sequence[int], sm_count: int, *,
+             slices=None) -> BwdPlan:
+    """The backward's launch plan: pass 1 as :func:`fwd_plan` plans the
+    chain over the reversed widths (its W chunks transposed); pass 2
+    splits the batch into slices so that tiles x slices make about eight
+    blocks an SM (the sweeps' best at G B 8192: 16 slices), each slice at
+    least SLICE_MIN_ROWS rows (one slice at small
+    batches: two launches), slices of equal rows (whole DW_CHUNK_ROWS chunks) but the ragged last.
+    `slices` asks for a slice count instead (a check or a timing tool;
+    it may come out smaller, as whole DW_CHUNK_ROWS chunks allow). Raises
+    ValueError when pass 1 fits no plan."""
+    dims = tuple(int(d) for d in dims)
+    batch = int(batch)
+    rows = _chain_plan(batch, dims[::-1], int(sm_count), True)
+    tiles = dw_tiles(dims)
+    if slices is None:
+        slices = max(1, min(_cdiv(8 * sm_count, tiles),
+                            batch // SLICE_MIN_ROWS))
+    slice_rows = _cdiv(_cdiv(batch, slices), DW_CHUNK_ROWS) * DW_CHUNK_ROWS
+    slices = _cdiv(batch, slice_rows)
+    ranges = tuple((s * slice_rows, min(batch, (s + 1) * slice_rows))
+                   for s in range(slices))
+    return BwdPlan(rows, slices, slice_rows, ranges,
+                   scratch_floats(dims, slices), (tiles, slices))
 
 
 def mlp_fwd(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -156,36 +368,52 @@ def mlp_fwd(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     kernel on the current stream (no synchronisation) or raise. A
     non-CPU input that requires grad under grad mode raises: the
     kernel's outputs would carry no graph (use :class:`MLPFunction`)."""
-    global launches
     _check(x, ws, bs, acts, compute_dtype)
     if x.device.type == "cpu":
         return mlp_fwd_plain(x, ws, bs, acts, slope, compute_dtype)
     _refuse_untracked_grad("mlp_fwd", [x, *ws, *bs])
     if x.device.type != "cuda":
         raise ValueError(f"mlp_fwd runs on cuda or cpu tensors, not {x.device}")
+    dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    batch = x.shape[0]
+    if batch == 0:
+        outs = [torch.empty((0, d), device=x.device, dtype=torch.float32)
+                for d in dims[1:]]
+        return outs[-1], outs[:-1]
+    return launch_fwd(x, ws, bs, acts, slope, compute_dtype,
+                      fwd_plan(batch, dims, _sm_count(x.device)))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_fwd(x, ws, bs, acts, slope, compute_dtype, plan: FwdPlan):
+    """Launches the forward kernel with `plan` on CUDA tensors already
+    checked by :func:`mlp_fwd` (a timing tool passes plans of its own);
+    raises if the launch fails."""
+    global launches
     n = len(ws)
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
     batch = x.shape[0]
     outs = [torch.empty((batch, d), device=x.device, dtype=torch.float32)
             for d in dims[1:]]
-    if batch == 0:
-        return outs[-1], outs[:-1]
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile_rows = tile_rows_for(batch, dims, sm_count)
     lib = _lib()
     c_dims = (ctypes.c_int * (n + 1))(*dims)
     c_ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w in ws])
     c_bs = (ctypes.c_void_p * n)(*[b.data_ptr() for b in bs])
     c_outs = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     c_acts = (ctypes.c_int * n)(*[ACT_CODES[a] for a in acts])
+    c_plan = (ctypes.c_int * 6)(*plan.c_args())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gm_mlp_fwd(x.data_ptr(), batch, n, c_dims, c_ws, c_bs, c_outs,
                             c_acts, float(slope),
-                            int(compute_dtype == torch.bfloat16), tile_rows,
+                            int(compute_dtype == torch.bfloat16), c_plan,
                             stream)
     if rc != 0:
-        raise RuntimeError(f"mlp_fwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"mlp_fwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
     launches += 1
     return outs[-1], outs[:-1]
 
@@ -240,12 +468,12 @@ def mlp_bwd_plain(x, hiddens, out, dy, ws, acts: Sequence[str],
 @functools.cache
 def _bwd_lib():
     from generative_models_tpu_torch.ops.build import build_library
-    lib = build_library("mlp_bwd", ["mlp_bwd.cu"])
+    lib = build_library("mlp_bwd", ["mlp_bwd.cu"], ["mlp_chain.cuh"])
     p, i = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(p)
     lib.gm_mlp_bwd.argtypes = [p, i, i, ctypes.POINTER(i), pp, pp, p, p, pp,
                                pp, pp, p, ctypes.POINTER(i), ctypes.c_float,
-                               i, i, p]
+                               i, ctypes.POINTER(i), p, p]
     lib.gm_mlp_bwd.restype = i
     return lib
 
@@ -261,7 +489,6 @@ def mlp_bwd(x, hiddens, out, dy, ws, acts: Sequence[str], slope: float = 0.2,
     `x`, its `hiddens` and `out`, the output cotangent `dy` and the
     weights. CPU tensors run :func:`mlp_bwd_plain`; CUDA tensors launch
     the kernel on the current stream or raise."""
-    global bwd_launches
     n = len(ws)
     _check(x, ws, None, acts, compute_dtype)
     batch = x.shape[0]
@@ -285,17 +512,32 @@ def mlp_bwd(x, hiddens, out, dy, ws, acts: Sequence[str], slope: float = 0.2,
     if x.device.type != "cuda":
         raise ValueError(f"mlp_bwd runs on cuda or cpu tensors, not {x.device}")
 
+    if batch == 0:
+        def zeros(*shape):
+            return torch.zeros(shape, device=x.device, dtype=torch.float32)
+        return ([zeros(*w.shape) for w in ws], [zeros(w.shape[1]) for w in ws],
+                zeros(0, dims[0]))
+    return launch_bwd(x, hiddens, out, dy, ws, acts, slope, compute_dtype,
+                      bwd_plan(batch, dims, _sm_count(x.device)))
+
+
+def launch_bwd(x, hiddens, out, dy, ws, acts, slope, compute_dtype,
+               plan: BwdPlan):
+    """Launches the backward's passes with `plan` on CUDA tensors already
+    checked by :func:`mlp_bwd`; raises if a launch fails."""
+    global bwd_launches
+    n = len(ws)
+    batch = x.shape[0]
+    dims = [x.shape[1]] + [w.shape[1] for w in ws]
+
     def empty(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
 
     dws = [empty(*w.shape) for w in ws]
     dbs = [empty(w.shape[1]) for w in ws]
     dx = empty(batch, dims[0])
-    if batch == 0:
-        return [d.zero_() for d in dws], [d.zero_() for d in dbs], dx
     gs = [empty(batch, d) for d in dims[1:]]
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile_rows = bwd_tile_rows_for(batch, dims, sm_count)
+    scratch = empty(plan.scratch_floats) if plan.scratch_floats else None
 
     def ptrs(ts):
         return (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])
@@ -308,29 +550,14 @@ def mlp_bwd(x, hiddens, out, dy, ws, acts: Sequence[str], slope: float = 0.2,
             ptrs(hiddens), out.data_ptr(), dy.data_ptr(), ptrs(gs), ptrs(dws),
             ptrs(dbs), dx.data_ptr(), (ctypes.c_int * n)(
                 *[ACT_CODES[a] for a in acts]), float(slope),
-            int(compute_dtype == torch.bfloat16), tile_rows, stream)
+            int(compute_dtype == torch.bfloat16),
+            (ctypes.c_int * 9)(*plan.c_args()),
+            None if scratch is None else scratch.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
     bwd_launches += 1
     return dws, dbs, dx
-
-
-def bwd_smem_bytes(dims: Sequence[int], tile_rows: int) -> int:
-    """Shared memory of the backward's row pass: two alternating g
-    tiles, sized by the widest g_{n-1}, g_{n-3}, ... and g_{n-2}, ...
-    (rounded up to 4 floats). The same formula as gm_mlp_bwd."""
-    r4 = [-(-d // 4) * 4 for d in dims[1:]][::-1]
-    return tile_rows * (max(r4[0::2]) + max(r4[1::2], default=0)) * 4
-
-
-def bwd_tile_rows_for(batch: int, dims: Sequence[int], sm_count: int) -> int:
-    for t in ((32, 16) if batch >= 32 * sm_count else (16,)):
-        if bwd_smem_bytes(dims, t) <= MAX_SMEM_BYTES:
-            return t
-    raise ValueError(
-        f"mlp_bwd: layer widths {list(dims)} need "
-        f"{bwd_smem_bytes(dims, 16)} bytes of shared memory for a 16-row "
-        f"tile; a block has {MAX_SMEM_BYTES}")
 
 
 class MLPFunction(torch.autograd.Function):

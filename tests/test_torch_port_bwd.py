@@ -26,6 +26,9 @@ from generative_models_tpu.ops.pallas_mlp import (
 from generative_models_tpu_torch.models.mlp import mlp_apply
 from generative_models_tpu_torch.ops import cuda_mlp
 from generative_models_tpu_torch.ops.cuda_linear import linear_cuda
+from tests.test_torch_port_mlp import (
+    PLAN_CASES, SERVED_STACKS, check_chain_plan,
+)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
        "bfloat16": dict(rtol=0.0, atol=2e-2)}
@@ -167,11 +170,47 @@ def test_mlp_bwd_rejects_bad_inputs():
                          ws, ("relu", "sigmoid"))
 
 
-@pytest.mark.parametrize("dims,batch,want", [
-    ([128, 400, 784], 100, 16), ([128, 400, 784], 8192, 32),
-    ([784, 400, 1], 100, 16)])
-def test_bwd_tile_rows(dims, batch, want):
-    assert cuda_mlp.bwd_tile_rows_for(batch, dims, 132) == want
-    # two alternating g tiles: G's are 784 and 400 wide
-    if dims[-1] == 784:
-        assert cuda_mlp.bwd_smem_bytes(dims, want) == want * (784 + 400) * 4
+@pytest.mark.parametrize("name,batch", PLAN_CASES,
+                         ids=[f"{n}-B{b}" for n, b in PLAN_CASES])
+def test_bwd_plan(name, batch):
+    """bwd_plan for every served stack and batch: pass 1's chain over the
+    reversed widths fits and covers every row and column once; the
+    slices partition [0, B) in order, equal but the last, in whole
+    DW_CHUNK_ROWS chunks; one slice (two launches) up to 2 x SLICE_MIN_ROWS
+    rows; the scratch holds [S, K, N] and [S, N] of every layer."""
+    dims = SERVED_STACKS[name]
+    plan = cuda_mlp.bwd_plan(batch, dims, 132)
+    check_chain_plan(dims[::-1], batch, plan.rows, bwd=True)
+    rngs = plan.slice_ranges
+    assert len(rngs) == plan.slices >= 1
+    assert rngs[0][0] == 0 and rngs[-1][1] == batch
+    assert all(a[1] == b[0] for a, b in zip(rngs, rngs[1:]))
+    assert all(r1 - r0 == plan.slice_rows for r0, r1 in rngs[:-1])
+    assert 0 < rngs[-1][1] - rngs[-1][0] <= plan.slice_rows
+    assert plan.slice_rows % cuda_mlp.DW_CHUNK_ROWS == 0
+    if batch < 2 * cuda_mlp.SLICE_MIN_ROWS:
+        assert plan.slices == 1
+    else:
+        assert all(r1 - r0 >= cuda_mlp.SLICE_MIN_ROWS // 2 for r0, r1 in rngs)
+    tk, tn = cuda_mlp.DW_TILE
+    tiles = sum(-(-k // tk) * -(-n // tn) for k, n in zip(dims[:-1], dims[1:]))
+    assert plan.dw_grid == (tiles, plan.slices)
+    want = 0 if plan.slices == 1 else sum(
+        -(-plan.slices * (k * n + n) // 4) * 4
+        for k, n in zip(dims[:-1], dims[1:]))
+    assert plan.scratch_floats == want
+    assert plan.c_args() == plan.rows.c_args() + [
+        plan.slices, plan.slice_rows, plan.scratch_floats]
+
+
+def test_bwd_plan_fills_the_card_at_large_batches():
+    """At G B 8192 the dW tiles times the slices fill at least two waves
+    of a 132-SM card; at a training batch one slice."""
+    big = cuda_mlp.bwd_plan(8192, [128, 400, 784], 132)
+    assert big.dw_grid[0] * big.slices >= 2 * 132
+    assert cuda_mlp.bwd_plan(100, [128, 400, 784], 132).slices == 1
+
+
+def test_bwd_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_mlp.bwd_plan(8192, [128, 30000, 784], 132)

@@ -152,16 +152,84 @@ def test_mlp_fwd_rejects_too_many_layers():
                          ("tanh",) * (cuda_mlp.MAX_LAYERS + 1))
 
 
-@pytest.mark.parametrize("batch,want", [(64, 16), (1024, 16), (8192, 32)])
-def test_tile_rows_for_serving_batches(batch, want):
-    """32-row tiles only once they fill every SM of a 132-SM card, and
-    the shared-memory request stays under the per-block limit."""
-    dims = [128, 400, 784]
-    t = cuda_mlp.tile_rows_for(batch, dims, 132)
-    assert t == want
-    assert cuda_mlp.smem_bytes(dims, t) == t * (128 + 400) * 4
+# The MLP stacks the 14 served variants build (nets.py): G and D,
+# cgan's and infogan's wider inputs, infogan's 15-lane head, began's
+# autoencoder critic, the VAE family's encoder trunk, heads and decoder.
+SERVED_STACKS = {
+    "g": [128, 400, 784], "d": [784, 400, 1], "cgan_g": [138, 400, 784],
+    "cgan_d": [794, 400, 1], "infogan_g": [140, 400, 784],
+    "infogan_d": [784, 400, 15], "began_d": [784, 400, 784],
+    "vae_trunk": [784, 400], "vae_head": [400, 20],
+    "vae_dec": [20, 400, 784],
+}
+PLAN_BATCHES = (1, 37, 64, 100, 1024, 8192)
+PLAN_CASES = [(name, b) for name in SERVED_STACKS for b in PLAN_BATCHES]
 
 
-def test_tile_rows_for_raises_when_tile_does_not_fit():
+def chain_items(widths, plan, bwd):
+    """Every (layer, rank, row group, column) a chain plan's threads
+    compute, by the kernel's own index arithmetic (mlp_chain.cuh), as a
+    list: a column covered twice shows up twice."""
+    got = []
+    for i, o in enumerate(widths[1:]):
+        for rank in range(plan.cluster):
+            g0, g1 = cuda_mlp.column_groups(o, plan.cluster, rank)
+            ng = g1 - g0
+            h = (ng + 1) // 2
+            lr, lc, wr_n, wc_n = cuda_mlp.warp_shape(plan.row_groups, h)
+            for tid in range(8 * 32):
+                warp, lane = divmod(tid, 32)
+                wr = warp // max(wc_n, 1)
+                rg = wr * lr + lane // lc
+                cp = (warp - wr * wc_n) * lc + lane % lc
+                if not (warp < wr_n * wc_n and rg < plan.row_groups
+                        and cp < h):
+                    continue
+                if bwd:
+                    cols = [4 * g0 + cp + h * c for c in range(8)
+                            if cp + h * c < 4 * ng]
+                else:
+                    cols = [4 * (g0 + grp) + c for grp in (cp, cp + h)
+                            if grp < ng for c in range(4)]
+                got += [(i, rg, col) for col in cols]
+    return got
+
+
+def check_chain_plan(widths, batch, plan, bwd):
+    assert plan.tr in cuda_mlp.ITEM_ROWS
+    assert plan.cluster in cuda_mlp.CLUSTER_SIZES
+    assert plan.cluster <= 8  # the portable cluster size
+    assert plan.kc in cuda_mlp.CHUNK_DEPTHS
+    assert plan.smem_bytes == cuda_mlp.chain_smem_bytes(
+        widths, plan.tr, plan.row_groups, plan.cluster, plan.kc, bwd,
+        plan.stream)
+    assert plan.smem_bytes <= cuda_mlp.MAX_SMEM_BYTES
+    tiles = -(-batch // plan.tile_rows)
+    assert plan.grid == tiles * plan.cluster
+    # the row tiles cover [0, B): the last tile holds the last row, and
+    # no tile starts past it
+    assert (tiles - 1) * plan.tile_rows < batch <= tiles * plan.tile_rows
+    # every column of every layer (padded to groups of 4), and every row
+    # group, exactly once
+    got = chain_items(widths, plan, bwd)
+    want = [(i, rg, col) for i, o in enumerate(widths[1:])
+            for rg in range(plan.row_groups)
+            for col in range(-(-o // 4) * 4)]
+    assert sorted(got) == sorted(want)
+
+
+@pytest.mark.parametrize("name,batch", PLAN_CASES,
+                         ids=[f"{n}-B{b}" for n, b in PLAN_CASES])
+def test_fwd_plan_fits_and_covers(name, batch):
+    """fwd_plan for every served stack and batch: shared bytes within the
+    limit, a cluster size the card takes, tiles covering every row and
+    column exactly once."""
+    dims = SERVED_STACKS[name]
+    plan = cuda_mlp.fwd_plan(batch, dims, 132)
+    check_chain_plan(dims, batch, plan, bwd=False)
+    assert plan == cuda_mlp.fwd_plan(batch, tuple(dims), 132)  # pure
+
+
+def test_fwd_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_mlp.tile_rows_for(8192, [4000, 4000, 10], 132)
+        cuda_mlp.fwd_plan(8192, [128, 30000, 784], 132)
