@@ -15,7 +15,11 @@ imports nothing of JAX. Phases:
    each of these and vae_chunk also with -DGM_BF16=1 (bf16 operands):
    45 libraries, one nvcc each, all started together, in this process
    before any rank starts; sm_90a) and prints the build time and the
-   ptxas reports; it fails if any kernel spills registers;
+   ptxas reports; it fails if any kernel spills registers; then a line a
+   chunk or phase library: its largest register count, spill bytes, the
+   dynamic shared bytes a block and the blocks an SM the occupancy query
+   grants each kernel; and the product engine's tile rule on the card
+   against ops/chunk_plan.py's for every flagship job;
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/100/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -60,6 +64,12 @@ imports nothing of JAX. Phases:
      rank's rows at world 1 and 2), each gradient tensor by its max abs
      error over its max |ref|, the metrics lanes by abs error, data by
      the tie rule;
+   - the product engine (3j) at widths ragged for every tile class
+     (nsgan B 37, 70->203->389, 389->211->1; the VAE 389-203-13, B 37): 8
+     steps against the float64 plain versions by CHUNK_TOL and
+     VAE_CHUNK_TOL; and (3k) nsgan, wgangp, infogan and the VAE, float32
+     and bf16, 8 steps twice from one state: every plane and the metrics
+     bitwise equal;
    - the EMA and bf16 kernels (3i): every hook's Adam and RMSprop EMA
      chunk kernels, 8 steps at ema_decay 0.999, and the VAE and BIR-VAE EMA kernels, held as 3c
      and 3f hold theirs with the EMA plane as one more state plane; every
@@ -147,6 +157,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3195,6 +3206,220 @@ def library_err(torch, lib_grads, plain_flat, like):
                for a, r in zip(lib_grads, ref))
 
 
+# Phase 3j: the product engine (csrc/chunk_common.cuh) at widths ragged
+# for every tile class: rows, columns and depth none a multiple of 16
+# (the tiles are 16 or 32 rows, 32 or 64 columns, 16-deep stages). nsgan
+# and the VAE over 8 steps against their plain versions in float64, held
+# by CHUNK_TOL and VAE_CHUNK_TOL, the data by the tie rule.
+RAGGED_GAN = dict(b=37, z=70, h=203, x=389, hd=211)
+RAGGED_VAE = dict(b=37, x=389, h=203, l=13)
+# Phase 3k: the chunk kernels twice from one state give the same bits in
+# every plane and in the metrics (every sum has a fixed order).
+REPEAT_CASES = (("nsgan", 1, {}), ("wgangp", 5, dict(b2=0.9, gp_lam=GP_LAM)),
+                ("infogan", 1, dict(info_cat=INFO_CAT, info_cont=INFO_CONT,
+                                    info_lam=INFO_LAM)), ("vae", 1, {}))
+
+
+def check_chunk_ragged(cuda_train, ctv, torch):
+    """Phase 3j. Returns the worst metrics error (GAN: absolute; VAE:
+    over max |ref|)."""
+    steps, w, v = 8, RAGGED_GAN, RAGGED_VAE
+    hp = chunk_hyper(cuda_train, "nsgan")
+    kws = dict(steps=steps, ds=1, batch=w["b"], t_g=3, t_d=5, hp=hp)
+    cuda = lambda a: torch.from_numpy(a).cuda()
+
+    def make(seed):
+        rng = np.random.default_rng(seed)
+        state = chunk_state(rng, torch, z=w["z"], h=w["h"], x=w["x"],
+                            hd=w["hd"]) + (None,)
+        rows = steps * w["b"]
+        return (state, cuda(rng.random((rows, w["x"]), dtype=np.float32)),
+                cuda(rng.standard_normal((rows, w["z"]), dtype=np.float32)),
+                cuda(rng.standard_normal((rows, w["z"]), dtype=np.float32)))
+
+    planes = functools.partial(chunk_planes, torch, hp)
+
+    def run_ref(case, probe):
+        state, xs, zd, zg = case
+        ref = planes(state, torch.float64)
+        return ref, cuda_train.gan_chunk_plain(
+            xs.double(), zd.double(), zg.double(), *ref[:3], probe=probe,
+            **kws)
+
+    tag = "chunk nsgan ragged " + " ".join(f"{k}={n}" for k, n in w.items())
+    (state, xs, zd, zg), (ref, m_ref) = tie_free_case(tag, make, run_ref)
+    got = planes(state, torch.float32)
+    m = cuda_train.gan_chunk(xs, zd, zg, *got[:3], **kws)
+    torch.cuda.synchronize()
+    g_err = float((m - m_ref).abs().max())
+    s_l2, s_name, s_err, _ = held_state_err("nsgan", got, ref, PLANE_NAMES)
+    ok = (g_err <= CHUNK_TOL["metrics"] and s_err <= CHUNK_TOL["state"]
+          and bool(torch.isfinite(m).all()))
+    print(f"  {tag} steps={steps} vs plain(float64): metrics_max_abs_err="
+          f"{g_err:.3e} (tol {CHUNK_TOL['metrics']:.0e}) state max_err/max="
+          f"{s_err:.3e} ({s_name}; tol {CHUNK_TOL['state']:.0e}) rel L2="
+          f"{s_l2:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"gan_chunk disagrees with its plain version: "
+                             f"{tag}")
+
+    vhp = vae_hyper(ctv, "vae", "bce")
+    vkw = dict(steps=steps, batch=v["b"], t=3, hp=vhp)
+    dims = [(v["x"], v["h"]), (v["h"], v["l"]), (v["h"], v["l"]),
+            (v["l"], v["h"]), (v["h"], v["x"])]
+
+    def make_vae(seed):
+        rng = np.random.default_rng(seed)
+        p = []
+        for i, o in dims:
+            bound = 1.0 / np.sqrt(i)
+            p += [rng.uniform(-bound, bound, (i, o)).astype(np.float32),
+                  rng.uniform(-bound, bound, (o,)).astype(np.float32)]
+        mu = [rng.normal(0, 1e-3, a.shape).astype(np.float32) for a in p]
+        nu = [rng.uniform(0, 1e-5, a.shape).astype(np.float32) for a in p]
+        rows = steps * v["b"]
+        return ((p, mu, nu, None),
+                cuda(rng.random((rows, v["x"]), dtype=np.float32)),
+                cuda(rng.standard_normal((rows, v["l"]), dtype=np.float32)))
+
+    vplanes = functools.partial(vae_planes, torch)
+
+    def run_vae_ref(case, probe):
+        state, xs, es = case
+        ref = vplanes(state, torch.float64)
+        return ref, ctv.vae_chunk_plain(xs.double(), es.double(), *ref[:3],
+                                        probe=probe, **vkw)
+
+    vtag = "chunk vae bce ragged " + " ".join(f"{k}={n}" for k, n in v.items())
+    (state, xs, es), (ref, m_ref) = tie_free_case(vtag, make_vae, run_vae_ref)
+    got = vplanes(state, torch.float32)
+    m = ctv.vae_chunk(xs, es, *got[:3], **vkw)
+    torch.cuda.synchronize()
+    v_err = float((m - m_ref).abs().max()) / float(m_ref.abs().max())
+    s_l2, s_name, s_err, _ = held_state_err("vae", got, ref,
+                                            vae_plane_names(False))
+    ok = (v_err <= VAE_CHUNK_TOL["metrics"]
+          and s_err <= VAE_CHUNK_TOL["state"] and bool(torch.isfinite(m).all()))
+    print(f"  {vtag} steps={steps} vs plain(float64): metrics max_err/max="
+          f"{v_err:.3e} (tol {VAE_CHUNK_TOL['metrics']:.0e}) state "
+          f"max_err/max={s_err:.3e} ({s_name}; tol "
+          f"{VAE_CHUNK_TOL['state']:.0e}) rel L2={s_l2:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"vae_chunk disagrees with its plain version: "
+                             f"{vtag}")
+    return max(g_err, v_err)
+
+
+def check_chunk_repeat(cuda_train, ctv, torch):
+    """Phase 3k: each REPEAT_CASES kernel, float32 and bf16, run twice
+    for 8 steps from one state: every plane and the metrics bitwise
+    equal."""
+    steps = 8
+    for variant, ds, kw in REPEAT_CASES:
+        for dtype in ("float32", "bfloat16"):
+            if variant == "vae":
+                hp = vae_hyper(ctv, "vae", "bce", dtype=dtype)
+                state, xs, es = vae_case(torch, False, steps, 3,
+                                         bf16=hp.bf16)
+
+                def run(pl):
+                    return ctv.vae_chunk(xs, es, *pl[:3], steps=steps,
+                                         batch=TRAIN_B, t=3, hp=hp)
+                planes = functools.partial(vae_planes, torch)
+            else:
+                hp = chunk_hyper(cuda_train, variant, dtype=dtype, **kw)
+                state, xs, zd, zg, xtra = chunk_case(torch, hp, steps, ds, 3)
+
+                def run(pl):
+                    return cuda_train.gan_chunk(
+                        xs, zd, zg, *pl[:3], steps=steps, ds=ds,
+                        batch=TRAIN_B, t_g=3, t_d=5, hp=hp, xtra=xtra)
+                planes = functools.partial(chunk_planes, torch, hp)
+            a, b = planes(state, torch.float32), planes(state, torch.float32)
+            m_a, m_b = run(a), run(b)
+            torch.cuda.synchronize()
+            flat = lambda pl: [t for part in pl[:3] if part for t in part]
+            same = torch.equal(m_a, m_b) and all(
+                torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+            print(f"  repeat {variant} d_steps={ds} {dtype}: 8 steps twice "
+                  f"from one state, {len(flat(a))} tensors and the metrics "
+                  f"bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"the {variant} {dtype} chunk kernel "
+                                     f"does not repeat bit for bit")
+
+
+def chunk_libraries(cuda_train, cuda_dp, ctv, build_dir):
+    """Phase 2's line a chunk library: its kernels' largest register
+    count and spill bytes (ptxas), the dynamic shared bytes a block and
+    the blocks an SM the occupancy query grants each kernel; and the
+    engine's tile rule on the card against ops/chunk_plan.py's."""
+    from generative_models_tpu_torch.ops import chunk_plan
+    libs = {}
+    for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
+        name = os.path.basename(log).split("-")[0][3:]
+        if "chunk" not in name and "phase" not in name:
+            continue
+        with open(log) as f:
+            text = f.read()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spill = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        libs[name] = (max(regs or [0]), sum(spill))
+    granted = {}
+    for hook in cuda_train.HOOK_IDS:
+        for bf16 in (False, True):
+            lib = cuda_train._lib(hook, bf16)
+            name = cuda_train.lib_name("gan_chunk", hook, bf16)
+            granted[name] = (lib.gm_gan_chunk_smem_bytes(), [
+                lib.gm_gan_chunk_blocks_per_sm(r, e)
+                for r in (0, 1) for e in (0, 1)])
+    for hook in cuda_dp.DP_HOOKS:
+        for bf16 in (False, True):
+            lib = cuda_dp._lib(hook, bf16)
+            name = cuda_train.lib_name("gan_phase", hook, bf16)
+            granted[name] = (lib.gm_gan_phase_smem_bytes(), [
+                lib.gm_gan_phase_blocks_per_sm(m) for m in (1, 2)])
+    for bf16 in (False, True):
+        lib = ctv._lib(bf16)
+        granted["vae_chunk" + ("_bf16" if bf16 else "")] = (
+            lib.gm_vae_chunk_smem_bytes(), [
+                lib.gm_vae_chunk_blocks_per_sm(b, e)
+                for b in (0, 1) for e in (0, 1)])
+    for name, (smem, occ) in granted.items():
+        regs, spill = libs.get(name, (None, None))
+        print(f"    {name}: {regs} registers (the most of its kernels), "
+              f"{spill} spill bytes, {smem} dynamic shared bytes a block, "
+              f"blocks an SM granted {occ}")
+    lib = cuda_train._lib("bce")
+    sms = torch_sms()
+    jobs = set()
+    for hook in cuda_train.HOOK_IDS:
+        for phase in chunk_plan.gan_phase_jobs(
+                hook, b=TRAIN_B, z=128, h=400, x=784, hd=400,
+                l=INFO_L if hook == "info" else 784 if hook == "be" else 1):
+            jobs.update(phase[1])
+    for phase in chunk_plan.vae_phase_jobs(False, b=TRAIN_B, x=VAE_X, h=VAE_H,
+                                           l=VAE_L):
+        jobs.update(phase[1])
+    wrong = [(m, n, k, nb) for m, n, k in sorted(jobs)
+             for nb in (1, 37, sms, 2 * sms)
+             if lib.gm_gan_chunk_tile_class(m, n, k, nb)
+             != chunk_plan.tile_class(m, n, k, nb)]
+    print(f"    tile classes of {len(jobs)} flagship jobs at 4 block counts: "
+          f"the card's rule and ops/chunk_plan.py's agree: {not wrong}")
+    if wrong:
+        raise AssertionError(f"the tile rule differs from chunk_plan's: "
+                             f"{wrong[:5]}")
+    return granted
+
+
+def torch_sms():
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3230,6 +3455,7 @@ def main() -> int:
               + [functools.partial(cuda_dp.build, hook, bf16)
                  for hook in cuda_dp.DP_HOOKS for bf16 in (False, True)],
               build_mod.BUILD_DIR)
+    granted = chunk_libraries(cuda_train, cuda_dp, ctv, build_mod.BUILD_DIR)
     mods = (cuda_mlp, cuda_train, cuda_reparam, ctv)
 
     print("[3] kernels vs their plain versions on the card")
@@ -3249,6 +3475,9 @@ def main() -> int:
                    check_chunk_bf16(cuda_train, torch, EMA_DECAY))
     vae_bf16_err = check_vae_bf16(ctv, torch)
     phase_bf16_err = check_phases_bf16(cuda_dp, cuda_train, torch)
+    print("[3j] the product engine at ragged widths; [3k] bitwise repeats")
+    ragged_err = check_chunk_ragged(cuda_train, ctv, torch)
+    check_chunk_repeat(cuda_train, ctv, torch)
 
     print("[4] main paths (launch counts set to 0 before each, read after)")
     paths = {}  # path name -> launch counts of that path's run

@@ -75,11 +75,12 @@
 //   B  fake (and at i = 0 fake2)
 //   C  hf
 //   DE one warp per row: logit, its gradient, and the row of dh
-//   F  dW1d with the optimizer in the tile's epilogue; dW2d, db1d, db2d
-//      with the optimizer and the critic's metrics, one warp per column
+//   F  dW1d with the optimizer in the tile's epilogue; beside it dW2d,
+//      db1d, db2d with the optimizer, a block per 64 columns, and the
+//      critic's metrics
 //   G1 hf2;  G23 one warp per row: lf2, gl, dh2;  G4 dx -> gu2, g_loss
-//   G5 dhg;  G6 dW2g, dW1g with the optimizer in the epilogue; db2g, db1g
-//      one warp per column
+//   G5 dhg;  G6 dW2g, dW1g with the optimizer in the epilogue; beside
+//      them db2g, db1g, a block per 64 columns
 // The gradient penalty (gpw, gpb), per critic update, at x_hat (gpw: eps
 // x + (1 - eps) fake, formed in B's epilogue from the xtra stream's eps
 // column; gpb: streamed rows, dragan's perturbed real batch):
@@ -91,11 +92,11 @@
 //   s = g W1d [B, Hd] (beside those rows: gpw in a phase N of its own
 //     after DE, gpb in DE)
 //   dW1d += (c g)^T u: F's product runs K = 3B, [x; fake; c g]^T
-//     [dhr; dhf; u]; dw2d += sum_i c_i leaky'(hh_i) s_i in F's column loop;
+//     [dhr; dhf; u]; dw2d += sum_i c_i leaky'(hh_i) s_i in F's column sums;
 //     db1d, db2d get nothing; d_loss += gp = lam mean((n - 1)^2), lanes 4
 //     and 5 hold gp and mean(n)
-// A phase with both row warps and product tiles gives the tiles to the
-// blocks past the row warps (run_gemms_beside). cgan's rows are x + label
+// A phase with both row (or column) work and product tiles gives the
+// tiles to the blocks past it (run_gemms' `first`). cgan's rows are x + label
 // (Xd = X + n_cls wide) and z + label; fake and fake2 take the label of
 // their x row and zg row (copied in phase A), D's products run K = Xd,
 // and G4's dx covers G's X columns only: with true widths no selection
@@ -111,14 +112,16 @@
 // device scalar: the gradient phase reads it, and the one warp that
 // writes the critic's metrics in phase F, a barrier later, descends it,
 // so no warp sees the new value early.
-// Every output element has one owner and every sum a fixed order (a sum
-// over rows: a warp's lanes stride the rows, then a shuffle tree), so a
-// run is deterministic. State and scratch, which other SMs write between
-// phases, are read with ordinary (L1-cached) loads: the grid barrier is
-// an acquire — its spin ends in CCTL.IVALL, an invalidation of the SM's
-// L1, in the SASS nvcc 12.8 emits — so a line written in an earlier
-// phase is read afresh. (A dependent L2 load on an H100: 220 ns with
-// ld.global.cg, 146 ns without; tools/chunk_phases.py measures both.)
+// Every output element has one owner and every sum a fixed order (a row
+// warp's sum: its lanes stride the row, then a shuffle tree; a column
+// sum: col_sums' warps in order; a product: chunk_common.cuh), so a run
+// is deterministic. State and scratch, which other SMs write between
+// phases, are read with ordinary (L1-cached) loads and the tiles'
+// cp.async.ca copies, which go through L1 too: the grid barrier is an
+// acquire — its spin ends in CCTL.IVALL, an invalidation of the SM's L1,
+// in the SASS nvcc 12.8 emits — so a line written in an earlier phase is
+// read afresh. (A dependent L2 load on an H100: 197-220 ns with
+// ld.global.cg, 145 ns without; tools/chunk_phases.py measures both.)
 // infogan: the critic's head is L = 1 + cat + 2 cont wide (lane 0 the D
 // logit, then Q's categorical logits, means and log-variances: the
 // d_head and q_head side by side in W2d [Hd, L]), and the z rows are G's
@@ -140,7 +143,7 @@
 //      the row's pixel of [x; fake], and |v - r|
 //   E  dh = g W2d^T * leaky'(h), beside it one warp a row sums |v - r|
 //   F  dW1d, dW2d = [hr; hf]^T g (K = 2B) with the optimizer; db1d, db2d
-//      one warp a column
+//      a block per 64 columns
 // and for G: G2 rf2 = sigmoid(hf2 W2d + b2d), whose epilogue writes gl =
 // -s2 rf2 (1 - rf2) and d2 = fake2 - rf2 (s2 = sign(d2)/(B X)); G3 dh2 =
 // gl W2d^T * leaky'(hf2), beside it the rows of |d2|; G4's epilogue adds
@@ -154,20 +157,28 @@
 // lane hazards (pallas_train.py:92-102) and its lane0/rowm/xcols masks
 // have no counterpart.
 //
-// Products: the 16x32 split-depth tiles of chunk_common.cuh, which this
-// source shares with vae_chunk.cu.
+// Products: the engine of chunk_common.cuh (tile classes by job, depth
+// groups, a cp.async ring running on across a block's tiles, the
+// 16-byte copies along the contiguous index, mma.sync in the bf16 builds), which
+// this source shares with vae_chunk.cu.
 //
 // Bound on the H100 (SXM, 700 W data-sheet peaks), per step at B 100,
 // ds 1, flagship widths: D update 324.3 MFLOP, G update 334.2 MFLOP,
 // 658.6 MFLOP = 9.83 us at the 67 TFLOP/s float32 FMA peak, against
 // 416 KB of streams (x 313.6 KB, zd 51.2 KB, zg 51.2 KB) = 0.12 us from
-// HBM: the kernel is bound by operations. It gives away the FMA rate
-// (no tensor cores; small tiles at B = 100 leave SMs idle in the narrow
-// phases) and about 10 grid barriers a step. The bf16 builds do the same
-// work on bf16 operands, whose bound is the 989 TFLOP/s dense bf16
-// tensor-core peak (0.67 us a step); they still run FFMA on rounded
-// values. The EMA plane adds a read and a write of G's 4 tensors a step
-// (2.93 MB), 0.87 us at 3.35 TB/s.
+// HBM: the kernel is bound by operations. What holds it back on the
+// card is latency: a product of 5-63 MFMA is ~1-3 us of FMA work over 132
+// SMs, and each of the ~10 phases a step ends in a grid barrier (1.1-1.3
+// us). The parent design lost ~5 us a tile to serial L2 round trips (a
+// slice's loads, then its FMAs, then the next; the epilogue's dependent
+// loads; one 255-register block an SM): 173.8 us a step in
+// tools/chunk_phases.py, against 9.83 of operations. The engine keeps the
+// loads in flight instead (see chunk_common.cuh), one block an SM, each
+// phase's tiles in one round at the flagship widths. The bf16 builds do the
+// same work on bf16 operands, whose bound is the 989 TFLOP/s dense bf16
+// tensor-core peak (0.67 us a step), on mma.sync. The EMA plane adds a
+// read and a write of G's 4 tensors a step (2.93 MB), 0.87 us at 3.35
+// TB/s.
 
 
 #include "chunk_common.cuh"
@@ -332,7 +343,7 @@ __device__ __forceinline__ void update(const Args& a, int q, size_t i,
   } else {
     const float p = adam(a, q, i, g, t);
     if (HOOK == HOOK_W && q >= P_D_W1 && a.clip > 0.0f)
-      a.p[q][i] = fminf(fmaxf(ld(a.p[q] + i), -a.clip), a.clip);
+      a.p[q][i] = fminf(fmaxf(p, -a.clip), a.clip);
     if constexpr (EMA)
       if (q < P_D_W1)
         a.ema[q][i] = ema_step(a.ema_d, ld(a.ema[q] + i), a.ema_omd, p);
@@ -350,16 +361,16 @@ __device__ __forceinline__ AdamT step_t(const Args& a, float lr, int t) {
 // w2d (`aux` = w2d) with leaky'(hh) kept in `dph`; the fake with x_hat =
 // eps x + (1 - eps) fake beside it (gpw).
 __device__ __forceinline__ void gp_epi(const Args& a, const Gemm& g, int m,
-                                       int n, float c) {
+                                       int n, float c, float bv, float xv) {
   const size_t o = (size_t)m * g.ldo + n;
   if (g.epi == EPI_STORE) {
     g.out[o] = c;
   } else if (g.epi == EPI_GPU) {
-    const float d = dleaky(c + ld(g.bias + n), a.slope);
-    g.out[o] = d * opnd(ld(g.aux + n));
+    const float d = dleaky(c + bv, a.slope);
+    g.out[o] = d * opnd(xv);
     a.dph[o] = d;
   } else {
-    const float f = sigm(c + ld(g.bias + n));
+    const float f = sigm(c + bv);
     const float e = ld(a.epsb + m);
     g.out[o] = f;
     a.xh[o] = e * ld(a.xin + o) + (1.0f - e) * f;
@@ -380,63 +391,123 @@ __device__ __forceinline__ float sgn(float v) {
 //   BGX: (c + sign(d2)/(B X)) f (1 - f), f = aux (fake2): gu2 with the
 //        direct L1 path
 __device__ __forceinline__ void be_epi(const Args& a, const Gemm& g, int m,
-                                       int n, float c) {
+                                       int n, float c, float bv, float xv) {
   const size_t o = (size_t)m * g.ldo + n;
   if (g.epi == EPI_BGR) {
-    const float r = sigm(c + ld(g.bias + n));
-    const float v = ld(g.aux + o);
+    const float r = sigm(c + bv);
+    const float v = xv;
     float gr = ((sgn(r - v) * r) * (1.0f - r)) * a.inv_bx;
     if (m >= a.B) gr = -ld(a.lam) * gr;
     g.out[o] = gr;
     a.ab[o] = fabsf(v - r);
   } else if (g.epi == EPI_BGD) {
-    g.out[o] = c * dleaky(ld(g.aux + o), a.slope);
+    g.out[o] = c * dleaky(xv, a.slope);
   } else if (g.epi == EPI_BGG) {
-    const float r = sigm(c + ld(g.bias + n));
-    const float d = ld(g.aux + o) - r;
+    const float r = sigm(c + bv);
+    const float d = xv - r;
     a.d2[o] = d;
     g.out[o] = ((-(sgn(d) * a.inv_bx) * r) * (1.0f - r));
   } else {
-    const float f = ld(g.aux + o);
+    const float f = xv;
     const float dx = c + sgn(ld(a.d2 + o)) * a.inv_bx;
     g.out[o] = (dx * f) * (1.0f - f);
   }
 }
 
-template <bool RMS, bool EMA>
+// Element (m, n) of a product that does not step the optimizer, with its
+// bias-row value bv and aux value xv loaded (0 where the job has none).
 __device__ __forceinline__ void epi(const Args& a, const Gemm& g, int m, int n,
-                                    float c, const AdamT& at) {
+                                    float c, float bv, float xv) {
   if constexpr (GP) {
     if (g.epi > EPI_OPT) {
-      gp_epi(a, g, m, n, c);
+      gp_epi(a, g, m, n, c, bv, xv);
       return;
     }
   }
   if constexpr (BEGAN) {
     if (g.epi > EPI_OPT) {
-      be_epi(a, g, m, n, c);
+      be_epi(a, g, m, n, c, bv, xv);
       return;
     }
   }
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
-    case EPI_RELU: g.out[o] = fmaxf(c + ld(g.bias + n), 0.0f); break;
-    case EPI_LEAKY: g.out[o] = leaky(c + ld(g.bias + n), a.slope); break;
-    case EPI_SIGMOID: g.out[o] = sigm(c + ld(g.bias + n)); break;
-    case EPI_SIGD: {
-      const float f = ld(g.aux + o);
-      g.out[o] = (c * f) * (1.0f - f);
-      break;
-    }
-    case EPI_RELUD: g.out[o] = c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f); break;
-    default: update<RMS, EMA>(a, g.param, (size_t)m * g.N + n, c, at); break;
+    case EPI_RELU: g.out[o] = fmaxf(c + bv, 0.0f); break;
+    case EPI_LEAKY: g.out[o] = leaky(c + bv, a.slope); break;
+    case EPI_SIGMOID: g.out[o] = sigm(c + bv); break;
+    case EPI_SIGD: g.out[o] = (c * xv) * (1.0f - xv); break;
+    default: g.out[o] = c * (xv > 0.0f ? 1.0f : 0.0f); break;  // EPI_RELUD
   }
 }
 
-template <class A>
-__device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
-                                         int n, float c, const AdamT& at) {
-  epi<A::RMS, A::EMA>(a, g, m, n, c, at);
+// A batch of the optimizer's elements (update<> for each, every load of
+// the batch before its first store); the other epilogues element by
+// element.
+template <int EB, class A>
+__device__ __forceinline__ void epilogue(const A& a, const Gemm& g,
+                                         const int (&m)[EB],
+                                         const int (&n)[EB],
+                                         const float (&c)[EB],
+                                         const bool (&ok)[EB],
+                                         const AdamT& at) {
+  if (g.epi != EPI_OPT) {  // the bias and aux values first, then each
+    float bv[EB], xv[EB];
+#pragma unroll
+    for (int k = 0; k < EB; ++k) {
+      bv[k] = ok[k] && g.bias ? ld(g.bias + n[k]) : 0.0f;
+      xv[k] = ok[k] && g.aux ? ld(g.aux + (g.epi == EPI_GPU
+                                               ? (size_t)n[k]
+                                               : (size_t)m[k] * g.ldo + n[k]))
+                             : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < EB; ++k)
+      if (ok[k]) epi(a, g, m[k], n[k], c[k], bv[k], xv[k]);
+    return;
+  }
+  const int q = g.param;
+  size_t i[EB];
+#pragma unroll
+  for (int k = 0; k < EB; ++k) i[k] = (size_t)m[k] * g.N + n[k];
+#if GM_PHASE  // the gradients themselves
+#pragma unroll
+  for (int k = 0; k < EB; ++k)
+    if (ok[k]) a.gr[q][i[k]] = c[k];
+#else
+  constexpr bool RMS = A::RMS, EMA = A::EMA;
+  float* const pp = a.p[q];
+  float* const nu = a.nu[q];
+  float* const mu = RMS ? nullptr : a.mu[q];
+  float* const em = EMA && q < P_D_W1 ? a.ema[q] : nullptr;
+  const bool clipped = HOOK == HOOK_W && q >= P_D_W1 && a.clip > 0.0f;
+  float p0[EB], v0[EB], m0[EB], e0[EB];
+#pragma unroll
+  for (int k = 0; k < EB; ++k)
+    if (ok[k]) {
+      p0[k] = ld(pp + i[k]);
+      v0[k] = ld(nu + i[k]);
+      m0[k] = RMS ? 0.0f : ld(mu + i[k]);
+      e0[k] = em ? ld(em + i[k]) : 0.0f;
+    }
+#pragma unroll
+  for (int k = 0; k < EB; ++k)
+    if (ok[k]) {  // update<>'s arithmetic
+      const float gk = c[k];
+      float p, v;
+      if (RMS) {
+        const float lr = q >= P_D_W1 ? a.d_lr : a.g_lr;
+        v = RMS_DECAY * v0[k] + (RMS_OMD * gk) * gk;
+        p = p0[k] - (lr * gk) / (sqrtf(v) + RMS_EPS);
+      } else {
+        float mk;
+        p = adam_step(a, at, gk, m0[k], v0[k], p0[k], mk, v);
+        mu[i[k]] = mk;
+      }
+      nu[i[k]] = v;
+      pp[i[k]] = clipped ? fminf(fmaxf(p, -a.clip), a.clip) : p;
+      if (em) em[i[k]] = ema_step(a.ema_d, e0[k], a.ema_omd, p);
+    }
+#endif
 }
 
 // f-GAN: the output activation g_f, its derivative, the conjugate f* and
@@ -936,28 +1007,14 @@ __device__ void gp_rows(const Args& a, int norms) {
   }
 }
 
-// A phase's product tiles on the blocks past the `rows` row warps of the
-// same phase, so that both run at once; on every block, each after its
-// rows, when the grid has no blocks to spare.
-template <class A>
-__device__ void run_gemms_beside(const A& a, const Gemm* jobs, int njobs,
-                                 const AdamT& at, float* smem, int rows) {
-  int first = (rows + WARPS - 1) / WARPS;
-  if (first >= (int)gridDim.x) first = 0;
-  if ((int)blockIdx.x < first) return;
-  int total = 0;
-  for (int j = 0; j < njobs; ++j) total += tiles_of(jobs[j]);
-  for (int t = blockIdx.x - first; t < total; t += gridDim.x - first) {
-    int j = 0, s = t;
-    while (s >= tiles_of(jobs[j])) s -= tiles_of(jobs[j++]);
-    gemm_tile(a, jobs[j], s, at, smem);
-  }
-}
-
 template <bool RMS, bool EMA, int MODE = M_CHUNK>
-__global__ void __launch_bounds__(CT)
-    gan_chunk_kernel(const KArgs<RMS, EMA> a) {
-  __shared__ __align__(16) float smem[WARPS * WARP_SMEM];
+__global__ void __launch_bounds__(CT, MIN_BLOCKS)
+    gan_chunk_kernel(const __grid_constant__ KArgs<RMS, EMA> a) {
+  extern __shared__ __align__(16) float smem[];  // SMEM_BYTES
+  // the arguments in shared memory for the tile walker (which reads them
+  // at every element of an epilogue)
+  __shared__ KArgs<RMS, EMA> sa;
+  copy_args(sa, a);
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * CT + threadIdx.x;
   const int gsz = gridDim.x * CT;
@@ -977,7 +1034,7 @@ __global__ void __launch_bounds__(CT)
       {
         const Gemm job = {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
                           a.p[P_G_B1], nullptr, a.hgg, H, 0};
-        run_gemms(a, &job, 1, none, smem);
+        run_gemms(sa, &job, 1, none, smem);
         if constexpr (COND)
           for (int e = gtid; e < B * a.n_cls; e += gsz) {
             const int r = e / a.n_cls, j = e % a.n_cls;
@@ -989,7 +1046,7 @@ __global__ void __launch_bounds__(CT)
       {
         const Gemm job = {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
                           EPI_SIGMOID, a.p[P_G_B2], nullptr, a.fk2, Xd, 0};
-        run_gemms(a, &job, 1, none, smem);
+        run_gemms(sa, &job, 1, none, smem);
       }
       grid.sync();
     }
@@ -1014,7 +1071,7 @@ __global__ void __launch_bounds__(CT)
                a.dh + (size_t)2 * B * Hd, Hd, 0},
               {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
                a.p[P_G_B1], nullptr, a.hgg, H, 0}};
-          run_gemms(a, jobs, g0 ? 4 : 3, none, smem);
+          run_gemms(sa, jobs, g0 ? 4 : 3, none, smem);
         } else {
           const int B = gp_fresh(a.B);
           Gemm jobs[3] = {
@@ -1024,7 +1081,7 @@ __global__ void __launch_bounds__(CT)
                a.p[P_D_B1], nullptr, a.hd, Hd, 0},
               {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
                a.p[P_G_B1], nullptr, a.hgg, H, 0}};
-          run_gemms(a, jobs, g0 ? 3 : 2, none, smem);
+          run_gemms(sa, jobs, g0 ? 3 : 2, none, smem);
         }
         for (size_t e = gtid; e < (size_t)B * Xd; e += gsz) a.xin[e] = ld(x + e);
         if constexpr (COND) {  // the labels of fake (x's) and fake2 (zg's)
@@ -1049,7 +1106,7 @@ __global__ void __launch_bounds__(CT)
              fake, Xd, 0},
             {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H, EPI_SIGMOID,
              a.p[P_G_B2], nullptr, a.fk2, Xd, 0}};
-        run_gemms(a, jobs, g0 ? 2 : 1, none, smem);
+        run_gemms(sa, jobs, g0 ? 2 : 1, none, smem);
       }
       grid.sync();
       {  // C: hf (wgangp: and the penalty's hh -> u; dragan: and g = u W1d^T)
@@ -1062,16 +1119,16 @@ __global__ void __launch_bounds__(CT)
                           {{a.xh, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
                            EPI_GPU, a.p[P_D_B1], a.p[P_D_W2],
                            a.dh + (size_t)2 * B * Hd, Hd, 0}};
-          run_gemms(a, jobs, gp_fresh(2), none, smem);
+          run_gemms(sa, jobs, gp_fresh(2), none, smem);
         } else if constexpr (HOOK == HOOK_GPB) {
           const int B = fresh(a.B);
           Gemm jobs[2] = {hf,
                           {{a.dh + (size_t)2 * B * Hd, Hd, 1},
                            {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_STORE, nullptr,
                            nullptr, a.gbuf, X, 0}};
-          run_gemms(a, jobs, gp_fresh(2), none, smem);
+          run_gemms(sa, jobs, gp_fresh(2), none, smem);
         } else {
-          run_gemms(a, &hf, 1, none, smem);
+          run_gemms(sa, &hf, 1, none, smem);
         }
       }
       grid.sync();
@@ -1118,13 +1175,13 @@ __global__ void __launch_bounds__(CT)
                          EPI_STORE, nullptr, nullptr, a.sbuf, Hd, 0};
         if constexpr (HOOK == HOOK_GPW) {
           gp_rows(a, 0);
-          run_gemms_beside(a, &gj, gp_fresh(1), none, smem, 2 * B);
+          run_gemms(sa, &gj, gp_fresh(1), none, smem, row_blocks(2 * B));
           grid.sync();
           for (int r = gwarp, n = gp_fresh(B); r < n; r += nwarps) norm_row(a, r);
-          run_gemms_beside(a, &sj, gp_fresh(1), none, smem, B);
+          run_gemms(sa, &sj, gp_fresh(1), none, smem, row_blocks(B));
         } else {
           gp_rows(a, B);
-          run_gemms_beside(a, &sj, gp_fresh(1), none, smem, 3 * B);
+          run_gemms(sa, &sj, gp_fresh(1), none, smem, row_blocks(3 * B));
         }
       } else if constexpr (INFO) {  // the head's L outputs a row
         float* const gs = smem + (threadIdx.x >> 5) * WARP_SMEM;
@@ -1136,7 +1193,7 @@ __global__ void __launch_bounds__(CT)
         {  // R: rec of [hr; hf], the logit gradient and |v - r|
           const Gemm rj = {{a.hd, Hd, 1}, {a.p[P_D_W2], X, 1}, 2 * B, X, Hd,
                            EPI_BGR, a.p[P_D_B2], a.xin, a.gl, X, 0};
-          run_gemms(a, &rj, fresh(1), none, smem);
+          run_gemms(sa, &rj, fresh(1), none, smem);
         }
         grid.sync();
         {  // E: dh = g W2d^T * leaky'(h); beside it the rows of |v - r|
@@ -1148,7 +1205,7 @@ __global__ void __launch_bounds__(CT)
             e = warp_sum(e);
             if (lane == 0) a.erow[r] = e;
           }
-          run_gemms_beside(a, &ej, fresh(1), none, smem, 2 * B);
+          run_gemms(sa, &ej, fresh(1), none, smem, row_blocks(2 * B));
         }
       } else {
         logit_rows(a, a.hd, 2 * B, a.lg, a.gl, a.dh,
@@ -1156,78 +1213,72 @@ __global__ void __launch_bounds__(CT)
       }
       grid.sync();
       if constexpr (INFO || BEGAN) {  // F: dW1d and dW2d = [hr; hf]^T gl
-        // with the optimizer; db1d, db2d one warp a column; the metrics
+        // with the optimizer; db1d, db2d a block per 64 columns, the
+        // metrics on the block after them, the tiles beside
         const AdamT td = step_t<RMS>(a, a.d_lr, a.t_d + k * a.ds + i + 1);
         const int L = fresh(a.L);
+        const int ncb = col_blocks(Hd + L);
+        col_sums<1>(
+            Hd + L, 2 * B, 0, smem,
+            [&](int r, int v, float(&s)[1]) {
+              s[0] += v < Hd ? ld(a.dh + (size_t)r * Hd + v)
+                             : ld(a.gl + (size_t)r * L + (v - Hd));
+            },
+            [&](int v, float(&s)[1]) {
+              if (v < Hd) update<RMS, EMA>(a, P_D_B1, v, s[0], td);
+              else update<RMS, EMA>(a, P_D_B2, v - Hd, s[0], td);
+            });
+        if ((int)blockIdx.x == ncb && threadIdx.x < 32) critic_metrics(a, k);
         Gemm jobs[2] = {{{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd, 2 * B, EPI_OPT,
                          nullptr, nullptr, nullptr, Hd, P_D_W1},
                         {{a.hd, 1, Hd}, {a.gl, L, 1}, Hd, L, 2 * B, EPI_OPT,
                          nullptr, nullptr, nullptr, L, P_D_W2}};
-        run_gemms(a, jobs, fresh(2), td, smem);
-        for (int v = gwarp; v < Hd + L + 1; v += nwarps) {
-          if (v < Hd + L) {
-            const float* src = v < Hd ? a.dh + v : a.gl + (v - Hd);
-            const int stride = v < Hd ? Hd : L;
-            float db = 0.0f;
-            for (int r = lane; r < 2 * B; r += 32)
-              db += ld(src + (size_t)r * stride);
-            db = warp_sum(db);
-            if (lane == 0) {
-              if (v < Hd) update<RMS, EMA>(a, P_D_B1, v, db, td);
-              else update<RMS, EMA>(a, P_D_B2, v - Hd, db, td);
-            }
-          } else {
-            critic_metrics(a, k);
-          }
-        }
-      } else {  // F: dW1d = [x; fake]^T [dhr; dhf] with the optimizer (the
-         // penalty: K = 3B, [x; fake; c g]^T [dhr; dhf; u]); small grads
+        run_gemms(sa, jobs, fresh(2), td, smem, ncb + 1);
+      } else {  // F
         const AdamT td = step_t<RMS>(a, a.d_lr, a.t_d + k * a.ds + i + 1);
+        // a block per 64 columns (a lane a column, the warps over the rows):
+        // dW2d and db1d for column v < Hd, db2d at v = Hd; the critic's
+        // metrics from this (the last) update on the block after them
+        constexpr int NF = GP ? 3 : 2;
+        const int ncb = col_blocks(Hd + 1);
+        col_sums<NF>(
+            Hd + 1, 2 * B, 0, smem,
+            [&](int r, int v, float(&s)[NF]) {
+              if (v < Hd) {
+                const size_t o = (size_t)r * Hd + v;
+                s[0] = fmaf(opnd(ld(a.hd + o)), opnd(ld(a.gl + r)), s[0]);
+                s[1] += ld(a.dh + o);
+                if constexpr (GP) {  // sum_i c_i leaky'(hh_i) s_i
+                  if (r < B) {
+                    if constexpr (BF16)  // dotT_lhs(c dph s, lane0): one
+                      s[NF - 1] += bf16r(  // rounded operand a term
+                          (ld(a.nrm + B + r) * ld(a.dph + o)) * ld(a.sbuf + o));
+                    else
+                      s[NF - 1] = fmaf(ld(a.nrm + B + r) * ld(a.dph + o),
+                                       ld(a.sbuf + o), s[NF - 1]);
+                  }
+                }
+              } else {
+                s[1] += ld(a.gl + r);
+              }
+            },
+            [&](int v, float(&s)[NF]) {
+              if (v < Hd) {
+                float dw = s[0];
+                if constexpr (GP) dw += s[NF - 1];
+                update<RMS, EMA>(a, P_D_W2, v, dw, td);
+                update<RMS, EMA>(a, P_D_B1, v, s[1], td);
+              } else {
+                update<RMS, EMA>(a, P_D_B2, 0, s[1], td);
+              }
+            });
+        if ((int)blockIdx.x == ncb && threadIdx.x < 32) critic_metrics(a, k);
+        // dW1d = [x; fake]^T [dhr; dhf] with the optimizer (the penalty:
+        // K = 3B, [x; fake; c g]^T [dhr; dhf; u]), beside them
         Gemm job = {{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd,
                     GP ? 3 * fresh(B) : 2 * B, EPI_OPT, nullptr, nullptr,
                     nullptr, Hd, P_D_W1};
-        run_gemms(a, &job, gp_fresh(1), td, smem);
-        // one warp per column (lanes over the rows, then a fixed-order
-        // shuffle sum): dW2d and db1d for column v < Hd, db2d at v = Hd,
-        // the critic's metrics from this (the last) update at v = Hd + 1
-        for (int v = gwarp; v < Hd + 2; v += nwarps) {
-          if (v < Hd) {
-            float dw = 0.0f, db = 0.0f;
-            for (int r = lane; r < 2 * B; r += 32) {
-              dw = fmaf(opnd(ld(a.hd + (size_t)r * Hd + v)),
-                        opnd(ld(a.gl + r)), dw);
-              db += ld(a.dh + (size_t)r * Hd + v);
-            }
-            dw = warp_sum(dw);
-            db = warp_sum(db);
-            if constexpr (GP) {  // sum_i c_i leaky'(hh_i) s_i
-              float dp = 0.0f;
-              // (the count fresh: with it hoisted the RMSprop kernels
-              // spilled 4 bytes, the bf16 Adam kernel 8)
-              for (int r = lane; r < gp_fresh(B); r += 32) {
-                if constexpr (BF16)  // dotT_lhs(c dph s, lane0): one
-                  dp += bf16r(       // rounded operand a term
-                      (ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v)) *
-                      ld(a.sbuf + (size_t)r * Hd + v));
-                else
-                  dp = fmaf(ld(a.nrm + B + r) * ld(a.dph + (size_t)r * Hd + v),
-                            ld(a.sbuf + (size_t)r * Hd + v), dp);
-              }
-              dw += warp_sum(dp);
-            }
-            if (lane == 0) {
-              update<RMS, EMA>(a, P_D_W2, v, dw, td);
-              update<RMS, EMA>(a, P_D_B1, v, db, td);
-            }
-          } else if (v == Hd) {
-            float db = 0.0f;
-            for (int r = lane; r < 2 * B; r += 32) db += ld(a.gl + r);
-            db = warp_sum(db);
-            if (lane == 0) update<RMS, EMA>(a, P_D_B2, 0, db, td);
-          } else {
-            critic_metrics(a, k);
-          }
-        }
+        run_gemms(sa, &job, gp_fresh(1), td, smem, ncb + 1);
       }
       grid.sync();
     }
@@ -1238,7 +1289,7 @@ __global__ void __launch_bounds__(CT)
        // 2B rows gives [hf2; hr2]
       Gemm job = {{a.fk2, Xd, 1}, {a.p[P_D_W1], Hd, 1}, COUPLED_G ? 2 * B : B,
                   Hd, Xd, EPI_LEAKY, a.p[P_D_B1], nullptr, a.hf2, Hd, 0};
-      run_gemms(a, &job, gp_fresh(1), none, smem);
+      run_gemms(sa, &job, gp_fresh(1), none, smem);
     }
     grid.sync();
     // G23: lf2, gl, dh2
@@ -1260,7 +1311,7 @@ __global__ void __launch_bounds__(CT)
       {  // G2: rf2 of hf2; gl = -s2 rf2 (1 - rf2) and d2 = fake2 - rf2
         const Gemm rj = {{a.hf2, Hd, 1}, {a.p[P_D_W2], X, 1}, B, X, Hd,
                          EPI_BGG, a.p[P_D_B2], a.fk2, a.gl2, X, 0};
-        run_gemms(a, &rj, fresh(1), none, smem);
+        run_gemms(sa, &rj, fresh(1), none, smem);
       }
       grid.sync();
       {  // G3: dh2 = gl W2d^T * leaky'(hf2); beside it the rows of |d2|
@@ -1273,7 +1324,7 @@ __global__ void __launch_bounds__(CT)
           e = warp_sum(e);
           if (lane == 0) a.erow2[r] = e;
         }
-        run_gemms_beside(a, &ej, fresh(1), none, smem, B);
+        run_gemms(sa, &ej, fresh(1), none, smem, row_blocks(B));
       }
     } else {
       logit_rows(a, a.hf2, B, a.lf2, a.gl2, a.dh2,
@@ -1285,14 +1336,15 @@ __global__ void __launch_bounds__(CT)
        // began: dx + s2, the direct L1 path, then the k_t law)
       Gemm job = {{a.dh2, Hd, 1}, {a.p[P_D_W1], 1, Hd}, B, X, Hd,
                   BEGAN ? EPI_BGX : EPI_SIGD, nullptr, a.fk2, a.gu2, Xd, 0};
-      run_gemms(a, &job, gp_fresh(1), none, smem);
-      if (gwarp == 0) g_metrics(a, k);
+      if ((int)blockIdx.x == (int)gridDim.x - 1 && threadIdx.x < 32)
+        g_metrics(a, k);
+      run_gemms(sa, &job, gp_fresh(1), none, smem);
     }
     grid.sync();
     {  // G5: dhg = gu2 W2g^T * (hg > 0)
       Gemm job = {{a.gu2, Xd, 1}, {a.p[P_G_W2], 1, X}, B, H, X, EPI_RELUD,
                   nullptr, a.hgg, a.dhg, H, 0};
-      run_gemms(a, &job, gp_fresh(1), none, smem);
+      run_gemms(sa, &job, gp_fresh(1), none, smem);
     }
     grid.sync();
     {  // G6: dW2g = hg^T gu2, dW1g = zg^T dhg with the optimizer; db2g, db1g
@@ -1302,18 +1354,19 @@ __global__ void __launch_bounds__(CT)
            nullptr, X, P_G_W2},
           {{zg, 1, Z}, {a.dhg, H, 1}, Z, H, B, EPI_OPT, nullptr, nullptr,
            nullptr, H, P_G_W1}};
-      run_gemms(a, jobs, COUPLED_D ? fresh(2) : gp_fresh(2), tg, smem);
-      for (int v = gwarp; v < X + H; v += nwarps) {  // a warp per column
-        const float* src = v < X ? a.gu2 + v : a.dhg + (v - X);
-        const int stride = v < X ? Xd : H;
-        float db = 0.0f;
-        for (int r = lane; r < B; r += 32) db += ld(src + (size_t)r * stride);
-        db = warp_sum(db);
-        if (lane == 0) {
-          if (v < X) update<RMS, EMA>(a, P_G_B2, v, db, tg);
-          else update<RMS, EMA>(a, P_G_B1, v - X, db, tg);
-        }
-      }
+      // (db2g, db1g: a block per 64 columns, the tiles beside)
+      col_sums<1>(
+          X + H, B, 0, smem,
+          [&](int r, int v, float(&s)[1]) {
+            s[0] += v < X ? ld(a.gu2 + (size_t)r * Xd + v)
+                          : ld(a.dhg + (size_t)r * H + (v - X));
+          },
+          [&](int v, float(&s)[1]) {
+            if (v < X) update<RMS, EMA>(a, P_G_B2, v, s[0], tg);
+            else update<RMS, EMA>(a, P_G_B1, v - X, s[0], tg);
+          });
+      run_gemms(sa, jobs, COUPLED_D ? fresh(2) : gp_fresh(2), tg, smem,
+                col_blocks(X + H));
     }
     grid.sync();
   }
@@ -1444,14 +1497,12 @@ static bool set_args(Args& a, const float* xs, const float* zd,
 // Every SM's co-resident blocks of `kernel`, at most blocks_per_sm each;
 // 0 when the query fails.
 static int grid_of(const void* kernel, int blocks_per_sm) {
-  int dev = 0, sms = 0, occ = 0;
+  int dev = 0, sms = 0;
   if (!kernel || cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, CT, 0) !=
-      cudaSuccess)
-    return 0;
+  int occ = chunk_occupancy(kernel);
   if (occ > blocks_per_sm) occ = blocks_per_sm;
   return occ * sms;
 }
@@ -1460,10 +1511,7 @@ static int grid_of(const void* kernel, int blocks_per_sm) {
 // what is co-resident, or the launch is refused); the CUDA error code.
 static int launch(const void* kernel, Args& a, int grid, void* stream) {
   void* args[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(CT), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return chunk_launch(kernel, args, grid, stream);
 }
 
 #if GM_PHASE
@@ -1505,6 +1553,14 @@ extern "C" long long gm_gan_phase_scratch_floats(int B, int H, int X, int Hd,
 extern "C" int gm_gan_phase_grid(int blocks_per_sm, int mode) {
   return grid_of(phase_kernel_of(mode), blocks_per_sm);
 }
+
+// The blocks an SM holds of the mode's kernel (the occupancy query, at
+// gm_gan_phase_smem_bytes of dynamic shared memory a block; 0 on failure),
+// and those bytes.
+extern "C" int gm_gan_phase_blocks_per_sm(int mode) {
+  return chunk_occupancy(phase_kernel_of(mode));
+}
+extern "C" int gm_gan_phase_smem_bytes() { return SMEM_BYTES; }
 
 // Launches one phase kernel on `stream`: mode 1 the critic update's
 // gradients from x [B, Xd], zd [B, Z] (and xtra: gpw eps [B, 1], gpb
@@ -1562,6 +1618,20 @@ extern "C" long long gm_gan_chunk_scratch_floats(int B, int Z, int H, int X,
 // blocks_per_sm each. Returns 0 when the query fails.
 extern "C" int gm_gan_chunk_grid(int blocks_per_sm, int rmsprop, int ema) {
   return grid_of(kernel_of(rmsprop, ema), blocks_per_sm);
+}
+
+// The blocks an SM holds of that kernel (the occupancy query, at
+// gm_gan_chunk_smem_bytes of dynamic shared memory a block; 0 on
+// failure), and those bytes.
+extern "C" int gm_gan_chunk_blocks_per_sm(int rmsprop, int ema) {
+  return chunk_occupancy(kernel_of(rmsprop, ema));
+}
+extern "C" int gm_gan_chunk_smem_bytes() { return SMEM_BYTES; }
+
+// The product engine's tile class of an M x N x K job given nb blocks
+// (chunk_common.cuh::tile_class; ops/chunk_plan.py mirrors it).
+extern "C" int gm_gan_chunk_tile_class(int M, int N, int K, int nb) {
+  return nb < 1 ? -1 : tile_class(M, N, K, nb);
 }
 
 // Launches one cooperative kernel on `stream` that runs `steps` outer

@@ -58,6 +58,9 @@
 //   9  dhe = (g_mu Wmu^T) * (henc > 0)
 //   9b VAE only: dhe += (g_lv Wlv^T) * (henc > 0); dWmu, dbmu with Adam
 //   10 dWlv, dblv (BIR-VAE: dWmu, dbmu) and dWtr, dbtr with Adam
+// The products run on chunk_common.cuh's engine; a phase's bias sums
+// (bias_adam: a block per 64 columns) and its row or metrics work take
+// blocks of their own beside the tiles.
 // The TPU kernel computes every gradient before its first update. Here
 // an Adam epilogue writes its weight in place, so no phase updates a
 // weight that a product of the same phase reads: W2 is read in 5 and 6
@@ -74,10 +77,12 @@
 // 67.5: 328.0 MFLOP = 4.90 us at the 67 TFLOP/s float32 FMA peak,
 // against 321.6 KB of streams (x 313.6, e 8.0) = 0.10 us from HBM: the
 // kernel is bound by operations. The BIR-VAE has no lv head: 323.2
-// MFLOP. It gives away the FMA rate (no tensor cores; the narrow phases
-// leave SMs idle) and 10-11 grid barriers a step. The bf16 build's bound
-// is the same work at the 989 TFLOP/s dense bf16 tensor-core peak (0.33
-// us a step). The EMA plane adds a read and a write of every parameter a
+// MFLOP. What holds it back on the card is latency, as in gan_chunk.cu:
+// 156.5 us a step on the parent design (tools/chunk_phases.py; phase 2,
+// 14 tiles of 16x32 at K 400, took 13.8 us of serial L2 round trips) and
+// 10-11 grid barriers a step; the engine keeps loads in flight (see
+// chunk_common.cuh), one block an SM. The bf16 build's bound is the same work at the 989
+// TFLOP/s dense bf16 tensor-core peak (0.33 us a step), on mma.sync. The EMA plane adds a read and a write of every parameter a
 // step (5.2 MB, 1.56 us at 3.35 TB/s; the state stays L2-resident).
 
 
@@ -126,18 +131,19 @@ __device__ __forceinline__ void vae_adam(const VaeArgs& a, int q, size_t i,
     a.ema[q][i] = ema_step(a.ema_d, ld(a.ema[q] + i), a.ema_omd, p);
 }
 
-template <bool EMA>
+// Element (m, n) of a product that does not step Adam, with its bias-row
+// value bv and aux value xv loaded (0 where the job has none).
 __device__ __forceinline__ void vae_epi(const VaeArgs& a, const Gemm& g,
-                                        int m, int n, float c,
-                                        const AdamT& at) {
+                                        int m, int n, float c, float bv,
+                                        float xv) {
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
-    case EPI_RELU: g.out[o] = fmaxf(c + ld(g.bias + n), 0.0f); break;
-    case EPI_BIAS: g.out[o] = c + ld(g.bias + n); break;
+    case EPI_RELU: g.out[o] = fmaxf(c + bv, 0.0f); break;
+    case EPI_BIAS: g.out[o] = c + bv; break;
     case EPI_STORE: g.out[o] = c; break;
     case EPI_LOSS: {  // out = glg, then the pixels' losses ppx; aux = x
-      const float l = c + ld(g.bias + n);
-      const float x = ld(g.aux + o);
+      const float l = c + bv;
+      const float x = xv;
       float* const ppx = g.out + (size_t)g.M * g.ldo;  // scratch: glg, ppx
       if (a.mse) {
         const float s = sigm(l), d = s - x;
@@ -149,42 +155,85 @@ __device__ __forceinline__ void vae_epi(const VaeArgs& a, const Gemm& g,
       }
       break;
     }
-    case EPI_RELUD: g.out[o] = c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f); break;
-    case EPI_RELUD_ACC:
-      g.out[o] = ld(g.out + o) + c * (ld(g.aux + o) > 0.0f ? 1.0f : 0.0f);
+    case EPI_RELUD: g.out[o] = c * (xv > 0.0f ? 1.0f : 0.0f); break;
+    default:  // EPI_RELUD_ACC
+      g.out[o] = ld(g.out + o) + c * (xv > 0.0f ? 1.0f : 0.0f);
       break;
-    default: vae_adam<EMA>(a, g.param, (size_t)m * g.N + n, c, at); break;
   }
 }
 
-template <class A>
-__device__ __forceinline__ void epilogue(const A& a, const Gemm& g, int m,
-                                         int n, float c, const AdamT& at) {
-  vae_epi<A::EMA>(a, g, m, n, c, at);
+// A batch of Adam's elements (vae_adam<> for each, every load of the
+// batch before its first store); the other epilogues element by element.
+template <int EB, class A>
+__device__ __forceinline__ void epilogue(const A& a, const Gemm& g,
+                                         const int (&m)[EB],
+                                         const int (&n)[EB],
+                                         const float (&c)[EB],
+                                         const bool (&ok)[EB],
+                                         const AdamT& at) {
+  if (g.epi != EPI_ADAM) {  // the bias and aux values first, then each
+    float bv[EB], xv[EB];
+#pragma unroll
+    for (int k = 0; k < EB; ++k) {
+      bv[k] = ok[k] && g.bias ? ld(g.bias + n[k]) : 0.0f;
+      xv[k] = ok[k] && g.aux ? ld(g.aux + (size_t)m[k] * g.ldo + n[k]) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < EB; ++k)
+      if (ok[k]) vae_epi(a, g, m[k], n[k], c[k], bv[k], xv[k]);
+    return;
+  }
+  const int q = g.param;
+  float* const pp = a.p[q];
+  float* const mu = a.mu[q];
+  float* const nu = a.nu[q];
+  float* const em = A::EMA ? a.ema[q] : nullptr;
+  size_t i[EB];
+  float p0[EB], m0[EB], v0[EB], e0[EB];
+#pragma unroll
+  for (int k = 0; k < EB; ++k) {
+    i[k] = (size_t)m[k] * g.N + n[k];
+    if (ok[k]) {
+      p0[k] = ld(pp + i[k]);
+      m0[k] = ld(mu + i[k]);
+      v0[k] = ld(nu + i[k]);
+      e0[k] = em ? ld(em + i[k]) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < EB; ++k)
+    if (ok[k]) {
+      float mk, vk;
+      const float p = adam_step(a, at, c[k], m0[k], v0[k], p0[k], mk, vk);
+      mu[i[k]] = mk;
+      nu[i[k]] = vk;
+      pp[i[k]] = p;
+      if (em) em[i[k]] = ema_step(a.ema_d, e0[k], a.ema_omd, p);
+    }
 }
 
 // Column sums over the B rows of src [B, ld] with Adam on bias tensor q,
-// one warp per column (lanes stride the rows, then a shuffle tree).
-// Column v goes to warp (first + v) mod the grid's warps, so two calls
-// of one phase can take different warps (0 <= first < the grid's warps).
+// by blocks b0 .. b0 + col_blocks(n) - 1 (col_sums: a lane a column, the
+// warps over the rows, summed in warp order).
 template <bool EMA>
 __device__ __forceinline__ void bias_adam(const VaeArgs& a, const float* src,
                                           int ld_, int n, int q,
-                                          const AdamT& at, int first) {
-  const int lane = threadIdx.x & 31;
-  const int gwarp = (blockIdx.x * CT + threadIdx.x) >> 5;
-  const int nwarps = (gridDim.x * CT) >> 5;
-  for (int v = (gwarp - first + nwarps) % nwarps; v < n; v += nwarps) {
-    float s = 0.0f;
-    for (int r = lane; r < a.B; r += 32) s += ld(src + (size_t)r * ld_ + v);
-    s = warp_sum(s);
-    if (lane == 0) vae_adam<EMA>(a, q, v, s, at);
-  }
+                                          const AdamT& at, int b0,
+                                          float* smem) {
+  col_sums<1>(
+      n, a.B, b0, smem,
+      [&](int r, int v, float(&s)[1]) { s[0] += ld(src + (size_t)r * ld_ + v); },
+      [&](int v, float(&s)[1]) { vae_adam<EMA>(a, q, v, s[0], at); });
 }
 
 template <bool EMA, bool BIR>
-__global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
-  __shared__ __align__(16) float smem[WARPS * WARP_SMEM];
+__global__ void __launch_bounds__(CT, MIN_BLOCKS)
+    vae_chunk_kernel(const __grid_constant__ VArgs<EMA> a) {
+  extern __shared__ __align__(16) float smem[];  // SMEM_BYTES
+  // the arguments in shared memory for the tile walker (which reads them
+  // at every element of an epilogue)
+  __shared__ VArgs<EMA> sa;
+  copy_args(sa, a);
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * CT + threadIdx.x;
   const int gsz = gridDim.x * CT;
@@ -193,8 +242,6 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
   const int nwarps = gsz >> 5;
   const int B = a.B, X = a.X, H = a.H, L = a.L;
   const AdamT none = {0.0f, 1.0f, 1.0f};
-  // the head's bias sums start L warps from the end of the grid
-  const int far = nwarps > L ? nwarps - L : 0;
 
   for (int k = 0; k < a.steps; ++k) {
     const float* x = a.xs + (size_t)k * B * X;
@@ -204,7 +251,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
     {  // 1: henc
       Gemm job = {{x, X, 1}, {a.p[P_TR_W], H, 1}, B, H, X, EPI_RELU,
                   a.p[P_TR_B], nullptr, a.henc, H, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(sa, &job, 1, none, smem);
     }
     grid.sync();
     {  // 2: mu (and lv)
@@ -213,7 +260,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
            a.p[P_MU_B], nullptr, a.m, L, 0},
           {{a.henc, H, 1}, {a.p[P_LV_W], L, 1}, B, L, H, EPI_BIAS,
            a.p[P_LV_B], nullptr, a.lv, L, 0}};
-      run_gemms(a, jobs, BIR ? 1 : 2, none, smem);
+      run_gemms(sa, jobs, BIR ? 1 : 2, none, smem);
     }
     grid.sync();
     if (BIR) {
@@ -260,19 +307,19 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
     {  // 4: hd
       Gemm job = {{a.z, L, 1}, {a.p[P_D1_W], H, 1}, B, H, L, EPI_RELU,
                   a.p[P_D1_B], nullptr, a.hd, H, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(sa, &job, 1, none, smem);
     }
     grid.sync();
     {  // 5: lg -> glg, the pixels' losses
       Gemm job = {{a.hd, H, 1}, {a.p[P_D2_W], X, 1}, B, X, H, EPI_LOSS,
                   a.p[P_D2_B], x, a.glg, X, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(sa, &job, 1, none, smem);
     }
     grid.sync();
     {  // 6: dhd = glg W2^T * (hd > 0); the rows' loss sums
       Gemm job = {{a.glg, X, 1}, {a.p[P_D2_W], 1, X}, B, H, X, EPI_RELUD,
                   nullptr, a.hd, a.dhd, H, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(sa, &job, 1, none, smem);
       // from the far end of the grid: the tiles take the first blocks
       for (int r = nwarps - 1 - gwarp; r < B; r += nwarps) {
         float s = 0.0f;
@@ -282,15 +329,12 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
       }
     }
     grid.sync();
-    {  // 7: dW2, db2 with Adam; dz = dhd W1^T; the metrics row
-      Gemm jobs[2] = {
-          {{a.hd, 1, H}, {a.glg, X, 1}, H, X, B, EPI_ADAM, nullptr, nullptr,
-           nullptr, X, P_D2_W},
-          {{a.dhd, H, 1}, {a.p[P_D1_W], 1, H}, B, L, H, EPI_STORE, nullptr,
-           nullptr, a.dz, L, 0}};
-      run_gemms(a, jobs, 2, at, smem);
-      bias_adam<EMA>(a, a.glg, X, X, P_D2_B, at, 0);
-      if (gwarp == nwarps - 1) {
+    {  // 7: dW2, db2 with Adam; dz = dhd W1^T; the metrics row (db2 on
+       // blocks of their own, the metrics on the block after them, the
+       // tiles beside)
+      const int ncb = col_blocks(X);
+      bias_adam<EMA>(a, a.glg, X, X, P_D2_B, at, 0, smem);
+      if ((int)blockIdx.x == ncb && threadIdx.x < 32) {
         float sr = 0.0f, s2 = 0.0f;
         for (int r = lane; r < B; r += 32) sr += ld(a.rrow + r);
         if (BIR) {
@@ -314,13 +358,19 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
           }
         }
       }
+      Gemm jobs[2] = {
+          {{a.hd, 1, H}, {a.glg, X, 1}, H, X, B, EPI_ADAM, nullptr, nullptr,
+           nullptr, X, P_D2_W},
+          {{a.dhd, H, 1}, {a.p[P_D1_W], 1, H}, B, L, H, EPI_STORE, nullptr,
+           nullptr, a.dz, L, 0}};
+      run_gemms(sa, jobs, 2, at, smem, ncb + 1);
     }
     grid.sync();
     {  // 8: dW1, db1 with Adam; g_mu (and g_lv)
+      bias_adam<EMA>(a, a.dhd, H, H, P_D1_B, at, 0, smem);
       Gemm job = {{a.z, 1, L}, {a.dhd, H, 1}, L, H, B, EPI_ADAM, nullptr,
                   nullptr, nullptr, H, P_D1_W};
-      run_gemms(a, &job, 1, at, smem);
-      bias_adam<EMA>(a, a.dhd, H, H, P_D1_B, at, 0);
+      run_gemms(sa, &job, 1, at, smem, col_blocks(H));
       if (BIR) {
         // one warp per latent dim, from the far end of the grid: the two
         // batch means of the normalisation's backward
@@ -353,7 +403,7 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
     {  // 9: dhe = (g_mu Wmu^T) * (henc > 0)
       Gemm job = {{a.gmu, L, 1}, {a.p[P_MU_W], 1, L}, B, H, L, EPI_RELUD,
                   nullptr, a.henc, a.dhe, H, 0};
-      run_gemms(a, &job, 1, none, smem);
+      run_gemms(sa, &job, 1, none, smem);
     }
     grid.sync();
     if (!BIR) {
@@ -363,8 +413,8 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
            nullptr, a.henc, a.dhe, H, 0},
           {{a.henc, 1, H}, {a.gmu, L, 1}, H, L, B, EPI_ADAM, nullptr, nullptr,
            nullptr, L, P_MU_W}};
-      run_gemms(a, jobs, 2, at, smem);
-      bias_adam<EMA>(a, a.gmu, L, L, P_MU_B, at, far);
+      bias_adam<EMA>(a, a.gmu, L, L, P_MU_B, at, 0, smem);
+      run_gemms(sa, jobs, 2, at, smem, col_blocks(L));
       grid.sync();
     }
     {  // 10: the last head's and the trunk's dW, db with Adam
@@ -374,9 +424,10 @@ __global__ void __launch_bounds__(CT) vae_chunk_kernel(const VArgs<EMA> a) {
            nullptr, H, P_TR_W},
           {{a.henc, 1, H}, {gh, L, 1}, H, L, B, EPI_ADAM, nullptr, nullptr,
            nullptr, L, BIR ? P_MU_W : P_LV_W}};
-      run_gemms(a, jobs, 2, at, smem);
-      bias_adam<EMA>(a, a.dhe, H, H, P_TR_B, at, 0);
-      bias_adam<EMA>(a, gh, L, L, BIR ? P_MU_B : P_LV_B, at, far);
+      bias_adam<EMA>(a, a.dhe, H, H, P_TR_B, at, 0, smem);
+      bias_adam<EMA>(a, gh, L, L, BIR ? P_MU_B : P_LV_B, at, col_blocks(H),
+                     smem);
+      run_gemms(sa, jobs, 2, at, smem, col_blocks(H) + col_blocks(L));
     }
     grid.sync();
   }
@@ -404,17 +455,23 @@ extern "C" int gm_vae_chunk_bf16() { return GM_BF16; }
 // EMA plane, uses: every SM's co-resident blocks, at most blocks_per_sm
 // each. Returns 0 when the query fails.
 extern "C" int gm_vae_chunk_grid(int blocks_per_sm, int birvae, int ema) {
-  int dev = 0, sms = 0, occ = 0;
+  int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, kernel_of(birvae, ema), CT, 0) != cudaSuccess)
-    return 0;
+  int occ = chunk_occupancy(kernel_of(birvae, ema));
   if (occ > blocks_per_sm) occ = blocks_per_sm;
   return occ * sms;
 }
+
+// The blocks an SM holds of that kernel (the occupancy query, at
+// gm_vae_chunk_smem_bytes of dynamic shared memory a block; 0 on
+// failure), and those bytes.
+extern "C" int gm_vae_chunk_blocks_per_sm(int birvae, int ema) {
+  return chunk_occupancy(kernel_of(birvae, ema));
+}
+extern "C" int gm_vae_chunk_smem_bytes() { return SMEM_BYTES; }
 
 // Launches one cooperative kernel on `stream` that runs `steps` steps and
 // updates the state tensors' planes (p, mu, nu, and with ema the EMA
@@ -484,9 +541,5 @@ extern "C" int gm_vae_chunk(const float* xs, const float* es,
   a.sigma_n = sigma_n;
   a.mse = mse;
   void* args[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(birvae, ema), dim3(grid), dim3(CT), args, 0,
-      static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return chunk_launch(kernel_of(birvae, ema), args, grid, stream);
 }

@@ -234,6 +234,10 @@ def bind(lib) -> None:
     lib.gm_gan_phase_scratch_floats.restype = ctypes.c_longlong
     lib.gm_gan_phase_grid.argtypes = [i, i]
     lib.gm_gan_phase_grid.restype = i
+    lib.gm_gan_phase_blocks_per_sm.argtypes = [i]
+    lib.gm_gan_phase_blocks_per_sm.restype = i
+    lib.gm_gan_phase_smem_bytes.argtypes = []
+    lib.gm_gan_phase_smem_bytes.restype = i
     lib.gm_gan_phase_hook.argtypes = []
     lib.gm_gan_phase_hook.restype = i
     lib.gm_gan_phase_bf16.argtypes = []

@@ -108,8 +108,9 @@ INFO_MAX_LANES = 128
 # variant -> its carried scalar (the vstate key) that rides in and out
 # through lane 7
 CARRIED = {"fishergan": "lam", "began": "k"}
-# resident blocks per SM of the cooperative grid (at most what fits)
-BLOCKS_PER_SM = 2
+# resident blocks per SM of the cooperative grid (at most what fits: the
+# chunk and phase kernels take 255 registers a thread, so one)
+BLOCKS_PER_SM = 1
 DTYPES = ("float32", "bfloat16")
 
 launches = 0
@@ -728,6 +729,12 @@ def bind(lib) -> None:
     lib.gm_gan_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.gm_gan_chunk_grid.argtypes = [i, i, i]
     lib.gm_gan_chunk_grid.restype = i
+    lib.gm_gan_chunk_blocks_per_sm.argtypes = [i, i]
+    lib.gm_gan_chunk_blocks_per_sm.restype = i
+    lib.gm_gan_chunk_smem_bytes.argtypes = []
+    lib.gm_gan_chunk_smem_bytes.restype = i
+    lib.gm_gan_chunk_tile_class.argtypes = [i] * 4
+    lib.gm_gan_chunk_tile_class.restype = i
     lib.gm_gan_chunk_hook.argtypes = []
     lib.gm_gan_chunk_hook.restype = i
     lib.gm_gan_chunk_bf16.argtypes = []

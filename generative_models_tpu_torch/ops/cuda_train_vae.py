@@ -261,6 +261,10 @@ def _lib(bf16: bool = False):
     lib.gm_vae_chunk_scratch_floats.restype = ctypes.c_longlong
     lib.gm_vae_chunk_grid.argtypes = [i, i, i]
     lib.gm_vae_chunk_grid.restype = i
+    lib.gm_vae_chunk_blocks_per_sm.argtypes = [i, i]
+    lib.gm_vae_chunk_blocks_per_sm.restype = i
+    lib.gm_vae_chunk_smem_bytes.argtypes = []
+    lib.gm_vae_chunk_smem_bytes.restype = i
     lib.gm_vae_chunk_bf16.argtypes = []
     lib.gm_vae_chunk_bf16.restype = i
     if lib.gm_vae_chunk_bf16() != int(bf16):

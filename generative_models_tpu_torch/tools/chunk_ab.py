@@ -16,12 +16,19 @@ d_steps 5 with the clip, wgangp at d_steps 5 with the penalty's eps
 stream (dragan: x_hat rows); cgan with its label lanes; infogan with its
 codes on G's input and a
 15-lane head, began with its 784-400-784 autoencoder critic (versions
-without their hooks print "not in this version"). For each it builds that version's kernel, runs a
-1000-step chunk at full width (B = 100) three times to warm up and prints
-five CUDA-event timings in ms, then that build's ptxas lines on registers
-and spills. Alternate the checkouts (A B B A) within one session; compare
-nothing across sessions, and expect a few percent between allocations of
-the same binary. Needs a CUDA card and nvcc.
+without their hooks print "not in this version"). It first builds every
+library the specs need, one nvcc each, all started together; then for
+each spec it runs a 1000-step chunk at full width (B = 100) three times
+to warm up and prints five CUDA-event timings in ms, then the builds'
+ptxas lines on registers and spills. Alternate the checkouts (A B B A)
+on one card in one command; compare nothing across commands, and expect
+a few percent between allocations of the same binary. Needs a CUDA card and
+nvcc. A whole A B B A comparison in one command:
+
+    git archive <commit> generative_models_tpu_torch | tar -x -C build/parent
+    for t in A B B A; do d=$([ $t = A ] && echo build/parent || echo .)
+      PYTHONPATH=$d python3 generative_models_tpu_torch/tools/chunk_ab.py \
+        $t nsgan nsgan:adam:ema nsgan:bf16 vae; done
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ def main(argv) -> int:
 
     from generative_models_tpu_torch.ops import build, cuda_train as ct
     tag, specs = argv[0], argv[1:] or ["nsgan"]
+    prebuild(ct, specs)
     b, steps = 100, 1000
     for spec in specs:
         variant, *opts = spec.split(":")
@@ -103,6 +111,34 @@ def main(argv) -> int:
                     print(f"  {tag} {os.path.basename(log)[:20]} "
                           f"{line.strip()[:110]}")
     return 0
+
+
+def prebuild(ct, specs):
+    """Every library the specs time, one nvcc each, all at once (versions
+    since the bf16 libraries; older ones build at first use)."""
+    import concurrent.futures
+    from generative_models_tpu_torch.ops import cuda_train_vae as ctv
+    if "bf16" not in getattr(ct.ChunkHyper, "__dataclass_fields__", {}) and \
+            not hasattr(ct, "compute_dtype"):
+        return
+    builds = set()
+    for spec in specs:
+        variant, *opts = spec.split(":")
+        bf16 = "bf16" in opts
+        if variant in ("vae", "birvae"):
+            builds.add(("vae", bf16))
+        elif variant in getattr(ct, "HOOKS", {}):
+            builds.add((ct.HOOKS[variant], bf16))
+
+    def one(b):
+        hook, bf16 = b
+        if hook == "vae":
+            ctv.build(bf16)
+        else:
+            ct.build(hook, bf16)
+
+    with concurrent.futures.ThreadPoolExecutor(max(len(builds), 1)) as ex:
+        list(ex.map(one, sorted(builds)))
 
 
 def report(tag, spec, run, torch):

@@ -26,6 +26,7 @@ card and nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import subprocess
@@ -125,9 +126,11 @@ def instrumented_source(src: str) -> str:
     return src
 
 
+@functools.cache
 def _build(build, name: str, probe: str = "", flags=(),
            tag: str = "") -> ctypes.CDLL:
-    """Compile an instrumented copy of csrc/<name>.cu and load it."""
+    """Compile an instrumented copy of csrc/<name>.cu and load it (once a
+    process)."""
     out_dir = os.path.join(build.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
@@ -159,16 +162,22 @@ def _report(np, lib, name, grid, steps, phases):
 
 def gan_phases(np, torch, build) -> ctypes.CDLL:
     """Times each case of GAN_CASES; returns nsgan's library (it carries
-    the barrier and load probes)."""
+    the barrier and load probes). The instrumented copies build at once,
+    one nvcc each."""
+    import concurrent.futures
     from generative_models_tpu_torch.ops import cuda_train as ct
     from generative_models_tpu_torch.ops.penalty import aux_lanes
     b, steps, z, h, x = 100, 8, 128, 400, 784
-    first = None
-    for variant, ds, kw, phases in GAN_CASES:
-        hook = ct.HOOKS[variant]
-        lib = _build(build, "gan_chunk", _PROBE if first is None else "",
-                     flags=(f"-DGM_HOOK={ct.HOOK_IDS[hook]}",), tag=f"_{hook}")
-        first = first or lib
+    hooks = [ct.HOOKS[v] for v, *_ in GAN_CASES]
+    with concurrent.futures.ThreadPoolExecutor(len(hooks) + 1) as ex:
+        vae = ex.submit(_build, build, "vae_chunk")
+        libs = list(ex.map(
+            lambda hk: _build(build, "gan_chunk", _PROBE if hk == hooks[0]
+                              else "", flags=(f"-DGM_HOOK={ct.HOOK_IDS[hk]}",),
+                              tag=f"_{hk}"), hooks))
+        vae.result()
+    first = libs[0]
+    for (variant, ds, kw, phases), lib in zip(GAN_CASES, libs):
         ct.bind(lib)
         hp = ct.ChunkHyper(**{**dict(g_lr=2e-4, d_lr=2e-4, b1=0.5, b2=0.999,
                                      eps=1e-8, slope=0.2, variant=variant),
