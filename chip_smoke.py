@@ -19,7 +19,8 @@ imports nothing of JAX. Phases:
    chunk or phase library: its largest register count, spill bytes, the
    dynamic shared bytes a block and the blocks an SM the occupancy query
    grants each kernel; and the product engine's tile rule on the card
-   against ops/chunk_plan.py's for every flagship job;
+   against ops/chunk_plan.py's for every flagship job (the chunk's, and
+   the phase kernels' at b = 100 and 50);
 3. holds each kernel against its plain PyTorch version on the card:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/100/1000/1024/8192), the critic's shape, a 3-layer tanh
@@ -62,8 +63,10 @@ imports nothing of JAX. Phases:
    - the data-parallel phase kernels (3h): each of the nine hooks' D and
      G phase against its plain version in float64 at b = 100 and 50 (a
      rank's rows at world 1 and 2), each gradient tensor by its max abs
-     error over its max |ref|, the metrics lanes by abs error, data by
-     the tie rule;
+     error over its max |ref|, the metrics lanes (every one of the 8,
+     which the kernels write themselves) by abs error, data by the tie
+     rule; began's D phase with k passed by pointer and by value, the
+     same bits;
    - the product engine (3j) at widths ragged for every tile class
      (nsgan B 37, 70->203->389, 389->211->1; the VAE 389-203-13, B 37): 8
      steps against the float64 plain versions by CHUNK_TOL and
@@ -102,7 +105,11 @@ imports nothing of JAX. Phases:
      penalty (``ops/penalty.py``: no kernel is twice differentiable);
      ragan 100 steps, 6 and 4; began and infogan 100 steps, 5 and 4; vae
      100 steps, 4 forward, 4 backward and 1 ``reparam`` launch a step;
-     birvae 100 steps, 3 forward and 3 backward;
+     birvae 100 steps, 3 forward and 3 backward; then the CLI's nsgan with
+     ``--spectral-projection`` in both ``--sn-mode``s (SN_STEPS steps):
+     ``fused_step="auto"`` takes the general step (no chunk launch), D's
+     largest singular value ends at most sn_target (SN_SIGMA_TOL), the
+     amortized run's checkpoint holds ``sn_v``;
    - ``--sample-only`` from full-width wgan, cgan, began and infogan
      checkpoints in the JAX layout (cgan: G 138->400->784, D
      794->400->1; began: D 784->400->784; infogan: G 140->400->784, D's
@@ -134,7 +141,13 @@ imports nothing of JAX. Phases:
    hook's loss (held first against the float64 plain version), and steps/s of both DP routes at world 1 and on two ranks sharing the
    card, with the all-reduce's time; (5f) the EMA and bf16 chunk
    kernels of every hook and of the VAE family and the bf16 phase
-   kernels the same way (their library yardsticks with an EMA step or
+   kernels the same way; every phase kernel's row has the host µs a call
+   beside its CUDA-event and device times (the device time: calls
+   queued behind a spin kernel, ``tools/phase_trace.py::queued_ms``),
+   and in 5e the phase kernels of nsgan, wgangp, infogan and began are
+   traced phase by phase (``tools/phase_trace.py``, an instrumented
+   copy; float32 at b = 100 and 50, bf16 at b = 100), each trace holding
+   its kernel's device time to 0.9-1.5x of it (their library yardsticks with an EMA step or
    under autocast, bf16 bounds at the tensor cores' dense peak; each
    bf16 phase's yardstick held to its function by LIBRARY_BF16_TOL, which
    the same yardstick with a wrong loss term must exceed);
@@ -1616,6 +1629,64 @@ def drive_training_general(variant, steps, mods, torch):
     return counts, sps
 
 
+# Phase 4c's spectral runs: the CLI with --spectral-projection trains
+# nsgan through the general step (the chunk kernels refuse the
+# projection, as the reference's do), SN_STEPS steps in each sn_mode. D's
+# largest singular value (SVD, float64) must end at most sn_target (1 +
+# SN_SIGMA_TOL): the fresh estimate is exact at the target after each
+# projection (a scale leaves power iteration's vectors as they were) and
+# lies below the true sigma by the iteration's error; the amortized one
+# trails the weights by one critic update (a CPU run at full width read
+# 1 + 3.5e-6 after 40 steps, the fresh form 1 + 8e-8).
+SN_STEPS, SN_SIGMA_TOL = 60, 1e-4
+
+
+def drive_spectral_cli(mods, torch):
+    """Phase 4c: ``--spectral-projection`` (nsgan, fused_step auto) in both
+    sn_modes: no chunk launch, the general step's MLP kernels, D's sigma
+    at most sn_target, the amortized vectors in the checkpoint. Returns
+    the launch counts of the two runs."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.utils.checkpoint import read_leaves
+    run_dir = os.path.join(OUT_DIR, "spectral")
+    reset(*mods)
+    for mode in ("amortized", "fresh"):
+        ck = os.path.join(run_dir, f"nsgan_{mode}")
+        buf = io.StringIO()
+        before = launch_counts(mods)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--variant", "nsgan", "--dataset", "synthetic",
+                           "--steps", str(SN_STEPS), "--scan-steps", "30",
+                           "--echo-every", "0", "--spectral-projection",
+                           "--sn-mode", mode, "--out-dir", run_dir,
+                           "--ckpt", ck])
+        counts = {k: v - before[k] for k, v in launch_counts(mods).items()}
+        leaves = read_leaves(ck)
+        sigmas = [float(torch.linalg.svdvals(torch.from_numpy(a).double())[0])
+                  for k, a in sorted(leaves.items())
+                  if k.startswith("['d_params']") and a.ndim == 2]
+        sn = {k: a.shape for k, a in leaves.items() if k.startswith("['sn_v']")}
+        ok = (rc == 0 and counts["gan_chunk"] == 0
+              and counts["mlp_fwd"] >= 5 * SN_STEPS  # (+ eval, samples)
+              and counts["mlp_bwd"] == 4 * SN_STEPS
+              and all(sg <= 1.0 * (1 + SN_SIGMA_TOL) for sg in sigmas)
+              and len(sigmas) == 2
+              and (sn == {"['sn_v'][0]['b']": (0,), "['sn_v'][0]['w']": (400,),
+                          "['sn_v'][1]['b']": (0,), "['sn_v'][1]['w']": (1,)}
+                   if mode == "amortized" else not sn))
+        print(f"  cli nsgan --spectral-projection --sn-mode {mode} "
+              f"({SN_STEPS} steps): rc={rc} launches gan_chunk="
+              f"{counts['gan_chunk']} mlp_fwd={counts['mlp_fwd']} mlp_bwd="
+              f"{counts['mlp_bwd']}; D's sigma (SVD) "
+              + ", ".join(f"{sg:.7f}" for sg in sigmas)
+              + f" (sn_target 1.0, tol {SN_SIGMA_TOL:.0e}); sn_v leaves "
+              f"{len(sn)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the spectral projection's {mode} CLI run "
+                                 "failed its checks")
+    return launch_counts(mods)
+
+
 def write_vae_checkpoint(path: str, seed: int) -> None:
     """A full-width vae checkpoint in the JAX package's npz layout (key
     paths as jax.tree_util.keystr prints them, dict keys sorted)."""
@@ -1691,7 +1762,7 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 20):
     torch.profiler (device_ms_by_name), or None when the profiler records
     no device time."""
     by_name, _ = device_ms_by_name(torch, fn, iters)
-    return sum(v for k, v in by_name.items() if name in k) or None
+    return sum(v for k, v in (by_name or {}).items() if name in k) or None
 
 
 def bound_of(flops, nbytes, peak=FP32_FLOP_PER_S):
@@ -1790,27 +1861,37 @@ def chunk_shape_kw(variant):
     return {}
 
 
-def device_ms_by_name(torch, fn, iters: int = 20):
+def device_ms_by_name(torch, fn, iters: int = 20, tries: int = 3):
     """{kernel name: device ms a call} of every kernel `fn` launches, and
     their sum, from torch.profiler: the events that ran on the card
     (an operator's entry, which holds its kernels' time too, is left
-    out)."""
+    out). Every name must show a whole multiple of `iters` events (the
+    profiler has been seen to lose a kernel's events and so under-read
+    it): else it profiles again, and after `tries` returns (None, None)
+    and says so, so that no lost events become a device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name.split("(")[0].split("<")[0].replace("void ", "")
-        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
-    return out, (sum(out.values()) if out else None)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = e.name.split("(")[0].split("<")[0].replace("void ", "")
+            out[name] = (out.get(name, 0.0)
+                         + e.time_range.elapsed_us() / iters / 1e3)
+            count[name] = count.get(name, 0) + 1
+        if out and all(c % iters == 0 for c in count.values()):
+            return out, sum(out.values())
+    print(f"    (torch.profiler: events a kernel over {iters} calls "
+          f"{count}; no device time kept)")
+    return None, None
 
 
 def library_mlp(torch, ws, bs, acts, x):
@@ -2478,6 +2559,12 @@ def check_phases(cuda_dp, cuda_train, torch):
             got = {"d": cuda_dp.d_phase(x, zd, xt, p[:4], p[4:], lam, hp),
                    "g": cuda_dp.g_phase(zg, p[:4], p[4:], hp)}
             torch.cuda.synchronize()
+            if variant == "began":  # k through its pointer: the same bits
+                k_dev = torch.tensor(lam, dtype=torch.float32, device="cuda")
+                if not torch.equal(cuda_dp.d_phase(x, zd, xt, p[:4], p[4:],
+                                                   k_dev, hp), got["d"]):
+                    raise AssertionError(f"{tag}: k by pointer and by value "
+                                         "differ")
             ok, errs, m_err = True, [], 0.0
             for mode, ref, like in (("d", d_ref, p[4:]), ("g", g_ref, p[:4])):
                 gs, m = phase_split(got[mode], like)
@@ -3036,6 +3123,7 @@ def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32"):
     float64 plain version (LIBRARY_TOL); with `dtype` "bfloat16" (phase
     5f) the bf16 kernels at b = 100, the library under autocast
     (LIBRARY_BF16_TOL), the bound at the tensor cores' peak."""
+    from generative_models_tpu_torch.tools import phase_trace
     rows = []
     bf16 = dtype == "bfloat16"
     for variant, kw in PHASE_CASES:
@@ -3083,8 +3171,8 @@ def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32"):
                        "variant": variant,
                        "hook": cuda_train.HOOKS[variant], "b": b,
                        "ms": time_ms(torch, kern, 50),
-                       "device_ms": kernel_device_ms(torch, kern,
-                                                    "gan_chunk_kernel"),
+                       "host_us": host_us(torch, kern, 50),
+                       "device_ms": phase_trace.queued_ms(torch, kern),
                        "plain_ms": time_ms(torch, plain, 10),
                        "library_ms": time_ms(torch, lib[mode], 50),
                        "library_err": l_err, "library_planted_err": p_err,
@@ -3094,11 +3182,70 @@ def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32"):
                 print(f"  {row['kernel']} {variant:7s} b={b:3d} kernel "
                       f"{row['ms']:.4f} ms"
                       + (f" (device {dev:.4f})" if dev else "")
+                      + f" host {row['host_us']:.1f} us a call"
                       + f"  plain {row['plain_ms']:.4f}"
                       + f"  library {row['library_ms']:.4f} (err {l_err:.1e};"
                       + f" wrong loss {p_err:.1e})"
                       + f"  bound {b_ms:.5f} ({b_by})  [{card}]")
     return rows
+
+
+def host_us(torch, fn, iters: int) -> float:
+    """The host's clock around `iters` enqueues of fn, over `iters`, in
+    us: what a call costs the host (the card may still be working)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+# the phase kernels traced phase by phase (tools/phase_trace.py) in 5e
+# (float32, b 100 and 50) and 5f (bf16, b 100)
+TRACE_VARIANTS = ("nsgan", "wgangp", "infogan", "began")
+
+
+def trace_phases(card):
+    """Phase 5e/5f: the phase kernels' µs a phase (an instrumented copy:
+    block 0 reads the global timer at each phase's end), with the call's
+    CUDA-event and host times beside: float32 at b = 100 and 50, bf16 at
+    b = 100 (the instrumented libraries built at once). Returns the rows
+    of each dtype."""
+    from generative_models_tpu_torch.tools import phase_trace
+    specs = ([f"{v}:{b}" for v in TRACE_VARIANTS for b in PHASE_BATCHES]
+             + [f"{v}:{TRAIN_B}:bf16" for v in TRACE_VARIANTS])
+    rows = phase_trace.measure(specs, trace=True)
+    for row in rows:
+        print("  " + phase_trace.line("trace", row) + f"  [{card}]")
+    return ([r for r in rows if not r["spec"].endswith("bf16")],
+            [r for r in rows if r["spec"].endswith("bf16")])
+
+
+def check_phase_device(rows, trace_rows, card):
+    """Phase 5e/5f: each phase kernel's device ms a call (queued behind a
+    spin, time_phases) against the instrumented copy's trace of the same
+    spec (entry to the last mark, trace_phases): within 0.9-1.5x of it
+    (the call adds its launch and the kernel's entry and exit), or a
+    device time is wrong and the phase fails."""
+    for t in trace_rows:
+        variant, b, _ = t["spec"].split(":") + [""] * (3 - len(
+            t["spec"].split(":")))
+        kernel = f"gan_phase_{t['mode']}" + ("_bf16" if "bf16" in t["spec"]
+                                              else "")
+        row = next(r for r in rows if r["kernel"] == kernel
+                   and r["variant"] == variant and r["b"] == int(b))
+        ratio = row["device_ms"] * 1e3 / t["device_us"]
+        print(f"  {kernel} {variant:7s} b={b:3s} device {row['device_ms']:.4f}"
+              f" ms, trace {t['device_us'] / 1e3:.4f} ms: {ratio:.3f}x  "
+              f"[{card}]")
+        if not 0.9 <= ratio <= 1.5:
+            raise AssertionError(f"{kernel} {variant} b={b}: device "
+                                 f"{row['device_ms']:.4f} ms against a "
+                                 f"trace of {t['device_us'] / 1e3:.4f} ms")
 
 
 def under_autocast(torch, fn):
@@ -3396,10 +3543,14 @@ def chunk_libraries(cuda_train, cuda_dp, ctv, build_dir):
     sms = torch_sms()
     jobs = set()
     for hook in cuda_train.HOOK_IDS:
-        for phase in chunk_plan.gan_phase_jobs(
-                hook, b=TRAIN_B, z=128, h=400, x=784, hd=400,
-                l=INFO_L if hook == "info" else 784 if hook == "be" else 1):
-            jobs.update(phase[1])
+        for mode in ("chunk",) + (("d", "g") if hook in cuda_dp.DP_HOOKS
+                                  else ()):
+            for b in (TRAIN_B,) if mode == "chunk" else PHASE_BATCHES:
+                for phase in chunk_plan.gan_phase_jobs(
+                        hook, b=b, z=128, h=400, x=784, hd=400,
+                        l=INFO_L if hook == "info" else 784 if hook == "be"
+                        else 1, mode=mode):
+                    jobs.update(phase[1])
     for phase in chunk_plan.vae_phase_jobs(False, b=TRAIN_B, x=VAE_X, h=VAE_H,
                                            l=VAE_L):
         jobs.update(phase[1])
@@ -3407,11 +3558,29 @@ def chunk_libraries(cuda_train, cuda_dp, ctv, build_dir):
              for nb in (1, 37, sms, 2 * sms)
              if lib.gm_gan_chunk_tile_class(m, n, k, nb)
              != chunk_plan.tile_class(m, n, k, nb)]
-    print(f"    tile classes of {len(jobs)} flagship jobs at 4 block counts: "
+    print(f"    tile classes of {len(jobs)} flagship jobs (the chunk's, and "
+          f"the phase kernels' at b {PHASE_BATCHES}) at 4 block counts: "
           f"the card's rule and ops/chunk_plan.py's agree: {not wrong}")
     if wrong:
         raise AssertionError(f"the tile rule differs from chunk_plan's: "
                              f"{wrong[:5]}")
+    least = {(hook, m, dims): (
+        cuda_dp._lib(hook).gm_gan_phase_min_grid(
+            1 if m == "d" else 2, *dims, l),
+        chunk_plan.dp_min_grid(m, x=dims[0], h=dims[1], hd=dims[2], l=l))
+        for hook in cuda_dp.DP_HOOKS for m in ("d", "g")
+        for dims in ((784, 400, 400), (389, 203, 211))
+        for l in ((INFO_L if hook == "info" else dims[0] if hook == "be"
+                   else 1),)}
+    wrong = {k: v for k, v in least.items() if v[0] != v[1]}
+    print(f"    the phase kernels' least grid ({len(least)} hooks, modes "
+          f"and widths): the card's and ops/chunk_plan.py's agree: "
+          f"{not wrong}; flagship D {least[('bce', 'd', (784, 400, 400))][0]}"
+          f", G {least[('bce', 'g', (784, 400, 400))][0]} blocks, the grid "
+          f"{sms}")
+    if wrong or max(v[0] for v in least.values()) > sms:
+        raise AssertionError(f"the phase kernels' least grid: {wrong} "
+                             f"(the grid {sms})")
     return granted
 
 
@@ -3493,6 +3662,7 @@ def main() -> int:
     for variant, steps in GENERAL_STEPS:
         paths[f"general_{variant}"], general_sps[variant] = \
             drive_training_general(variant, steps, mods, torch)
+    paths["cli_nsgan_spectral"] = drive_spectral_cli(mods, torch)
     vae_serve_fwd, vae_serve_err = drive_vae_serving(mods, torch)
     paths["serving_vae"] = {"mlp_fwd": vae_serve_fwd}
     paths["serving_wgan"] = {"mlp_fwd": drive_wgan_sample_only(mods)}
@@ -3532,6 +3702,8 @@ def main() -> int:
     phase_main = {m: next(r for r in phase_rows if r["kernel"] ==
                           f"gan_phase_{m}" and r["variant"] == "nsgan"
                           and r["b"] == TRAIN_B) for m in "dg"}
+    phase_trace_rows, phase_bf16_trace = trace_phases(card)
+    check_phase_device(phase_rows, phase_trace_rows, card)
     print("[5f] the EMA and bf16 kernels' times")
     ema_rows = time_training(cuda_train, torch, card, {}, ema_decay=EMA_DECAY)
     bf16_rows = time_training(cuda_train, torch, card, {}, dtype="bfloat16")
@@ -3541,6 +3713,7 @@ def main() -> int:
                                       dtype="bfloat16")
     phase_bf16_rows = time_phases(cuda_dp, cuda_train, torch, card,
                                   dtype="bfloat16")
+    check_phase_device(phase_bf16_rows, phase_bf16_trace, card)
     phase_bf16_main = {m: next(r for r in phase_bf16_rows if r["kernel"] ==
                                f"gan_phase_{m}_bf16"
                                and r["variant"] == "nsgan") for m in "dg"}
@@ -3595,6 +3768,7 @@ def main() -> int:
                f"nsgan b={TRAIN_B} (world 1), full width", counted=f"{m}_phase",
                per_hook=[r for r in phase_rows
                          if r["kernel"] == f"gan_phase_{m}"],
+               phase_trace=[r for r in phase_trace_rows if r["mode"] == m],
                dp_steps_per_s=dp_sps) for m in "dg"]
         + [
         entry("gan_chunk_ema", cuda_train.SOURCE,
@@ -3628,7 +3802,8 @@ def main() -> int:
                phase_bf16_main[m], f"nsgan b={TRAIN_B} (world 1), full "
                "width, bf16 operands", counted=f"{m}_phase_bf16",
                per_hook=[r for r in phase_bf16_rows
-                         if r["kernel"] == f"gan_phase_{m}_bf16"])
+                         if r["kernel"] == f"gan_phase_{m}_bf16"],
+               phase_trace=[r for r in phase_bf16_trace if r["mode"] == m])
          for m in "dg"]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -652,13 +652,16 @@ __device__ __forceinline__ void run_gemms(const A& a, const Gemm* jobs,
   }
   __syncthreads();
   if ((int)threadIdx.x < n) {  // a thread a job: its class by its share
-    double work = 0.0;
-    for (int j = 0; j < n; ++j)
-      work += (double)pt.job[j].M * pt.job[j].N * pt.job[j].K;
     const Gemm& g = pt.job[threadIdx.x];
-    const int share =
-        work > 0.0 ? (int)((double)nb * ((double)g.M * g.N * g.K) / work)
-                   : nb;
+    int share = nb;  // one job: all of them (what the share below gives)
+    if (n > 1) {
+      double work = 0.0;
+      for (int j = 0; j < n; ++j)
+        work += (double)pt.job[j].M * pt.job[j].N * pt.job[j].K;
+      share = work > 0.0
+                  ? (int)((double)nb * ((double)g.M * g.N * g.K) / work)
+                  : nb;
+    }
     const int c = tile_class(g.M, g.N, g.K, share > 0 ? share : 1);
     const int tm = c == 0 ? T1::TM : c == 1 ? T2::TM : c == 2 ? T4::TM : T8::TM;
     const int tn = c == 0 ? T1::TN : c == 1 ? T2::TN : c == 2 ? T4::TN : T8::TN;
@@ -697,7 +700,9 @@ __device__ __forceinline__ int row_blocks(int rows) {
 }
 
 // The blocks col_sums takes for `cols` columns.
-__device__ __forceinline__ int col_blocks(int cols) { return (cols + 63) / 64; }
+__host__ __device__ __forceinline__ int col_blocks(int cols) {
+  return (cols + 63) / 64;
+}
 
 // NS column sums of `rows` rows for each of `cols` columns, by blocks
 // b0 .. b0 + col_blocks(cols) - 1 of the grid: block b0 + c takes columns

@@ -26,7 +26,7 @@
 // MI targets (the reference's tq = mm(zrow, mselq)), and the penalty's
 // u = leaky'(hh) w2d (w2row = dotT_rhs(lane0, w2d)) and its dw2d terms.
 // Built with -DGM_PHASE=1, a hook's library holds instead its two phase
-// kernels for data-parallel training (see gm_gan_phase): one critic
+// kernels for data-parallel training (see gan_phase_kernel): one critic
 // update's gradients and one G update's, which the caller all-reduces
 // before its optimizer runs.
 //
@@ -200,9 +200,9 @@ enum { DIV_TV = 0, DIV_KL, DIV_RKL, DIV_PEARSON, DIV_HELLINGER, DIV_JS,
        DIV_GAN };
 constexpr int HOOK = GM_HOOK;
 constexpr bool PHASE = GM_PHASE != 0;
-// what a kernel runs: the whole chunk, or (PHASE) one critic update's or
-// one G update's gradients
-enum { M_CHUNK = 0, M_D, M_G };
+// what a phase kernel computes (the mode of gm_gan_phase_plan): one
+// critic update's gradients, or one G update's
+enum { M_D = 1, M_G };
 static_assert(HOOK >= HOOK_BCE && HOOK <= HOOK_BEGAN,
               "GM_HOOK must be 0..10");
 // the gradient penalty's hooks, cgan's label lanes, infogan's Q head,
@@ -276,9 +276,11 @@ struct Args {
   float* ema[4];
   float ema_d, ema_omd;
   // the phase kernels: where each state tensor's gradient goes (segments
-  // of one flat buffer), in place of its optimizer step
+  // of one flat buffer), in place of its optimizer step; and the carried
+  // scalar by value where `lam` is null
 #if GM_PHASE
   float* gr[N_PARAMS];
+  float lam_v;
 #endif
 };
 
@@ -289,6 +291,16 @@ template <bool R, bool E>
 struct KArgs : Args {
   static constexpr bool RMS = R, EMA = E;
 };
+
+// The carried scalar (began's k_t): through `lam`, or in the phase
+// kernels by value when the caller passed no pointer.
+__device__ __forceinline__ float carried(const Args& a) {
+#if GM_PHASE
+  return a.lam ? ld(a.lam) : a.lam_v;
+#else
+  return ld(a.lam);
+#endif
+}
 
 __device__ __forceinline__ float leaky(float v, float s) {
   return v >= 0.0f ? v : s * v;
@@ -397,7 +409,7 @@ __device__ __forceinline__ void be_epi(const Args& a, const Gemm& g, int m,
     const float r = sigm(c + bv);
     const float v = xv;
     float gr = ((sgn(r - v) * r) * (1.0f - r)) * a.inv_bx;
-    if (m >= a.B) gr = -ld(a.lam) * gr;
+    if (m >= a.B) gr = -carried(a) * gr;
     g.out[o] = gr;
     a.ab[o] = fabsf(v - r);
   } else if (g.epi == EPI_BGD) {
@@ -825,7 +837,7 @@ __device__ void critic_metrics(const Args& a, int k) {
   const int B = a.B;
   float* row = a.metrics + (size_t)k * LANES;
   if constexpr (PHASE)  // the carried scalar the update read (began's k)
-    if (lane == 0) row[7] = ld(a.lam);
+    if (lane == 0) row[7] = carried(a);
   if constexpr (BEGAN) {  // the energies L(x), L(G(z)); k_t before G
     float er = 0.0f, ef = 0.0f;
     for (int r = lane; r < B; r += 32) {
@@ -835,7 +847,7 @@ __device__ void critic_metrics(const Args& a, int k) {
     er = warp_sum(er) * a.inv_bx;
     ef = warp_sum(ef) * a.inv_bx;
     if (lane == 0) {
-      row[0] = er - ld(a.lam) * ef;
+      row[0] = er - carried(a) * ef;
       row[1] = er;
       row[2] = ef;
     }
@@ -1007,7 +1019,7 @@ __device__ void gp_rows(const Args& a, int norms) {
   }
 }
 
-template <bool RMS, bool EMA, int MODE = M_CHUNK>
+template <bool RMS, bool EMA>
 __global__ void __launch_bounds__(CT, MIN_BLOCKS)
     gan_chunk_kernel(const __grid_constant__ KArgs<RMS, EMA> a) {
   extern __shared__ __align__(16) float smem[];  // SMEM_BYTES
@@ -1030,33 +1042,12 @@ __global__ void __launch_bounds__(CT, MIN_BLOCKS)
   for (int k = 0; k < a.steps; ++k) {
     const float* zg = a.zg + (size_t)k * B * Z;
 
-    if constexpr (MODE == M_G) {  // hg, then fake2 (cgan: its label lanes)
-      {
-        const Gemm job = {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
-                          a.p[P_G_B1], nullptr, a.hgg, H, 0};
-        run_gemms(sa, &job, 1, none, smem);
-        if constexpr (COND)
-          for (int e = gtid; e < B * a.n_cls; e += gsz) {
-            const int r = e / a.n_cls, j = e % a.n_cls;
-            a.fk2[(size_t)r * Xd + X + j] =
-                ld(zg + (size_t)r * Z + Z - a.n_cls + j);
-          }
-      }
-      grid.sync();
-      {
-        const Gemm job = {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
-                          EPI_SIGMOID, a.p[P_G_B2], nullptr, a.fk2, Xd, 0};
-        run_gemms(sa, &job, 1, none, smem);
-      }
-      grid.sync();
-    }
-
-    for (int i = 0; i < (MODE == M_G ? 0 : a.ds); ++i) {
+    for (int i = 0; i < a.ds; ++i) {
       const size_t row0 = (size_t)(k * a.ds + i) * B;
       const float* x = a.xs + row0 * Xd;
       const float* zd = a.zd + row0 * Z;
-      // the chunk computes G's hidden and fake2 beside the first update
-      const bool g0 = MODE == M_CHUNK && i == 0;
+      // G's hidden and fake2 beside the first update
+      const bool g0 = i == 0;
 
       {  // A: hgd, hr (and hg; dragan: the penalty's hh -> u); x beside fake
         if constexpr (HOOK == HOOK_GPB) {
@@ -1282,7 +1273,6 @@ __global__ void __launch_bounds__(CT, MIN_BLOCKS)
       }
       grid.sync();
     }
-    if constexpr (MODE == M_D) continue;  // the critic's gradients only
 
     {  // G1: hf2 through the post-update critic; ragan: also the hidden
        // of x, whose rows follow fake2's in the scratch, so one product of
@@ -1494,6 +1484,534 @@ static bool set_args(Args& a, const float* xs, const float* zd,
   return true;
 }
 
+#if GM_PHASE
+// Phase kernels (the data-parallel path, ops/cuda_dp.py). Replaces:
+// generative_models_tpu/ops/pallas_dp.py::_make_d_phase_kernel (:107,
+// launched at :324) and ::_make_g_phase_kernel (:195, launched at :337).
+// One update a launch on the rank's local rows (B = b), no optimizer, no
+// state written:
+//   M_D: one critic update; where the chunk steps the optimizer, the
+//     kernel writes the gradient (dW1d, db1d, dW2d, db2d) into `gr`, and
+//     the whole metrics row: lanes 0, 1, 2 (4, 5 the penalty's), 7 the
+//     carried k it read, the others 0
+//   M_G: hg and fake2, then G1-G6 through the critic it is given, the G
+//     gradients (dW1g, db1g, dW2g, db2g) into `gr`, the whole metrics row:
+//     lane 3 g_loss (infogan: lane 6 its MI term), the others 0; began's
+//     k_t law is left to the caller
+// The all-reduce, the optimizer, wgan's clip, began's law and the G EMA
+// run after the launch, as the TPU path runs them outside its kernels
+// (pallas_dp.py:525-527). A -DGM_BF16=1 build takes bf16 operands in
+// every product, as _make_d_phase_kernel and _make_g_phase_kernel do
+// (pallas_dp.py:128, 214).
+//
+// Design. A kernel of each mode's own (gan_phase_kernel<MODE>): its
+// phases and nothing else of the chunk (no step loop, no optimizer, no
+// EMA plane, not the other mode's phases), each phase a run_gemms of the
+// chunk's engine (chunk_common.cuh) or the chunk's row warps, a grid
+// barrier between phases: D runs A, B, C, DE, F (the penalty and began
+// one more), G runs hg, fake2, G1, G23, G4, G5, G6 (began G2 and G3 in
+// place of G23). A product phase pays ~5 us of fixed cost (the barrier,
+// the phase table, the first stage's and the epilogue's L2 round trips;
+// tools/phase_trace.py, PERF.md §6), so the phases carry their work
+// where it waits least: hr, the critic on the real rows, beside hf in C
+// (the penalty hooks: in A), leaving A hgd alone; G5 dW2g and db2g, which
+// need only gu2 (G4's), beside dhg, leaving G6 dW1g and db1g. That bounds
+// these kernels on the H100: latency, at ~4-8% of the float32 FMA bound
+// (H100 SXM: D 0.0048 ms of operations at b 100). What a call costs the
+// host was the other half (0.09-0.22 ms a call against 0.04-0.12 ms on
+// the card): a launch plan (gm_gan_phase_plan) holds everything of a
+// launch that does not change from call to call (the arguments' sizes
+// and hyperparameters, the scratch cut into its buffers, the grid, the
+// kernel's attributes, set once), and gm_gan_phase_run fills in the
+// call's pointers and launches: no occupancy query, no argument struct
+// built in Python, no memset (every gradient element and metrics lane
+// has a writer), no copy of the carried scalar (a pointer to the
+// caller's, or the value).
+#ifndef PHASE_MARK  // tools/phase_trace.py: a timer read in block 0
+#define PHASE_MARK()
+#endif
+#ifndef PHASE_END   // tools/phase_trace.py: a last barrier, then a mark
+#define PHASE_END()
+#endif
+
+// Every lane of the metrics row to 0, by one warp, before its writers.
+__device__ __forceinline__ void clear_lanes(const Args& a) {
+  if ((threadIdx.x & 31) < LANES) a.metrics[threadIdx.x & 31] = 0.0f;
+  __syncwarp();
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(CT, MIN_BLOCKS)
+    gan_phase_kernel(const __grid_constant__ KArgs<true, false> a) {
+  extern __shared__ __align__(16) float smem[];  // SMEM_BYTES
+  __shared__ KArgs<true, false> sa;
+  copy_args(sa, a);
+  PHASE_MARK();
+  cg::grid_group grid = cg::this_grid();
+  const int gtid = blockIdx.x * CT + threadIdx.x;
+  const int gsz = gridDim.x * CT;
+  const int lane = threadIdx.x & 31;
+  const int gwarp = gtid >> 5;
+  const int nwarps = gsz >> 5;
+  const int B = a.B, Z = a.Z, H = a.H, X = a.X, Hd = a.Hd;
+  const AdamT none = {0.0f, 1.0f, 1.0f};
+  const int Xd = COND ? a.Xd : X;
+
+  if constexpr (MODE == M_D) {
+    float* const fake = a.xin + (size_t)B * Xd;  // rows B..2B-1 of xin
+    const float* x = a.xs;
+    const float* zd = a.zd;
+    // hr, the critic on the real rows, waits for nothing: it runs beside
+    // hf in C (A then holds hgd alone, a short phase), but for the penalty
+    // hooks, whose C holds the penalty's product already, in A
+    // (tools/phase_trace.py at b 100: nsgan A 14.7 -> 6.4, C 12.8 -> 18.7
+    // us; in C wgangp's C 20.3 -> 31.9, dragan's 20.3 -> 41.8)
+    const Gemm hr = {{x, Xd, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, Xd, EPI_LEAKY,
+                     a.p[P_D_B1], nullptr, a.hd, Hd, 0};
+    {  // A: hgd (dragan: the penalty's hh -> u; the penalty hooks: hr);
+       // x beside fake
+      const Gemm hgd = {{zd, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+                        a.p[P_G_B1], nullptr, a.hgd, H, 0};
+      if constexpr (HOOK == HOOK_GPB) {
+        Gemm jobs[3] = {
+            hgd,
+            {{a.xtra, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X, EPI_GPU,
+             a.p[P_D_B1], a.p[P_D_W2], a.dh + (size_t)2 * B * Hd, Hd, 0},
+            hr};
+        run_gemms(sa, jobs, 3, none, smem);
+      } else if constexpr (HOOK == HOOK_GPW) {
+        Gemm jobs[2] = {hgd, hr};
+        run_gemms(sa, jobs, 2, none, smem);
+      } else {
+        run_gemms(sa, &hgd, 1, none, smem);
+      }
+      for (size_t e = gtid; e < (size_t)B * Xd; e += gsz) a.xin[e] = ld(x + e);
+      if constexpr (COND) {  // fake's labels: its x row's
+        const int nc = a.n_cls;
+        for (int e = gtid; e < B * nc; e += gsz) {
+          const int r = e / nc, j = e % nc;
+          a.xin[(size_t)(B + r) * Xd + X + j] =
+              ld(x + (size_t)r * Xd + X + j);
+        }
+      }
+      if constexpr (HOOK == HOOK_GPW)  // this update's eps
+        for (int r = gtid; r < B; r += gsz) a.epsb[r] = ld(a.xtra + r);
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // B: fake (wgangp: and x_hat beside it)
+      const Gemm job = {{a.hgd, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
+                        HOOK == HOOK_GPW ? EPI_SIGXH : EPI_SIGMOID,
+                        a.p[P_G_B2], nullptr, fake, Xd, 0};
+      run_gemms(sa, &job, 1, none, smem);
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // C: hf, hr (wgangp: hf and the penalty's hh -> u; dragan: hf and
+       // g = u W1d^T)
+      const Gemm hf = {{fake, Xd, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, Xd,
+                       EPI_LEAKY, a.p[P_D_B1], nullptr, a.hd + (size_t)B * Hd,
+                       Hd, 0};
+      if constexpr (HOOK == HOOK_GPW) {
+        Gemm jobs[2] = {hf,
+                        {{a.xh, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
+                         EPI_GPU, a.p[P_D_B1], a.p[P_D_W2],
+                         a.dh + (size_t)2 * B * Hd, Hd, 0}};
+        run_gemms(sa, jobs, 2, none, smem);
+      } else if constexpr (HOOK == HOOK_GPB) {
+        Gemm jobs[2] = {hf,
+                        {{a.dh + (size_t)2 * B * Hd, Hd, 1},
+                         {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_STORE, nullptr,
+                         nullptr, a.gbuf, X, 0}};
+        run_gemms(sa, jobs, 2, none, smem);
+      } else {
+        Gemm jobs[2] = {hf, hr};
+        run_gemms(sa, jobs, 2, none, smem);
+      }
+    }
+    grid.sync();
+    PHASE_MARK();
+    // DE: logits of [hr; hf], their gradients, dh = [dhr; dhf]
+    if constexpr (GP) {
+      // beside the logit rows: wgangp g = u W1d^T, then (phase N) the
+      // norm rows beside s = g W1d; dragan the norm rows and s at once
+      const Gemm gj = {{a.dh + (size_t)2 * B * Hd, Hd, 1},
+                       {a.p[P_D_W1], 1, Hd}, B, X, Hd, EPI_STORE, nullptr,
+                       nullptr, a.gbuf, X, 0};
+      const Gemm sj = {{a.gbuf, X, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, X,
+                       EPI_STORE, nullptr, nullptr, a.sbuf, Hd, 0};
+      if constexpr (HOOK == HOOK_GPW) {
+        gp_rows(a, 0);
+        run_gemms(sa, &gj, 1, none, smem, row_blocks(2 * B));
+        grid.sync();
+        PHASE_MARK();
+        for (int r = gwarp; r < B; r += nwarps) norm_row(a, r);
+        run_gemms(sa, &sj, 1, none, smem, row_blocks(B));
+      } else {
+        gp_rows(a, B);
+        run_gemms(sa, &sj, 1, none, smem, row_blocks(3 * B));
+      }
+    } else if constexpr (INFO) {  // the head's L outputs a row
+      float* const gs = smem + (threadIdx.x >> 5) * WARP_SMEM;
+      for (int r = gwarp; r < 2 * B; r += nwarps)
+        info_row(a, a.hd, r, r < B, false,
+                 r < B ? nullptr : zd + (size_t)(r - B) * Z, a.gl, a.lg,
+                 a.dh, r < B ? nullptr : a.mib + (r - B), gs);
+    } else if constexpr (BEGAN) {
+      {  // R: rec of [hr; hf], the logit gradient and |v - r|
+        const Gemm rj = {{a.hd, Hd, 1}, {a.p[P_D_W2], X, 1}, 2 * B, X, Hd,
+                         EPI_BGR, a.p[P_D_B2], a.xin, a.gl, X, 0};
+        run_gemms(sa, &rj, 1, none, smem);
+      }
+      grid.sync();
+      PHASE_MARK();
+      {  // E: dh = g W2d^T * leaky'(h); beside it the rows of |v - r|
+        const Gemm ej = {{a.gl, X, 1}, {a.p[P_D_W2], 1, X}, 2 * B, Hd, X,
+                         EPI_BGD, nullptr, a.hd, a.dh, Hd, 0};
+        for (int r = gwarp; r < 2 * B; r += nwarps) {
+          float e = 0.0f;
+          for (int n = lane; n < X; n += 32) e += ld(a.ab + (size_t)r * X + n);
+          e = warp_sum(e);
+          if (lane == 0) a.erow[r] = e;
+        }
+        run_gemms(sa, &ej, 1, none, smem, row_blocks(2 * B));
+      }
+    } else {
+      logit_rows(a, a.hd, 2 * B, a.lg, a.gl, a.dh,
+                 [&](int r, float l) { return d_grad(a, r < B, l); });
+    }
+    grid.sync();
+    PHASE_MARK();
+    if constexpr (INFO || BEGAN) {  // F: dW1d and dW2d = [hr; hf]^T gl;
+      // db1d, db2d a block per 64 columns, the metrics on the block after
+      // them, the tiles beside
+      const int L = a.L;
+      const int ncb = col_blocks(Hd + L);
+      col_sums<1>(
+          Hd + L, 2 * B, 0, smem,
+          [&](int r, int v, float(&s)[1]) {
+            s[0] += v < Hd ? ld(a.dh + (size_t)r * Hd + v)
+                           : ld(a.gl + (size_t)r * L + (v - Hd));
+          },
+          [&](int v, float(&s)[1]) {
+            if (v < Hd) update<true>(a, P_D_B1, v, s[0], none);
+            else update<true>(a, P_D_B2, v - Hd, s[0], none);
+          });
+      if ((int)blockIdx.x == ncb && threadIdx.x < 32) {
+        clear_lanes(a);
+        critic_metrics(a, 0);
+      }
+      Gemm jobs[2] = {{{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd, 2 * B, EPI_OPT,
+                       nullptr, nullptr, nullptr, Hd, P_D_W1},
+                      {{a.hd, 1, Hd}, {a.gl, L, 1}, Hd, L, 2 * B, EPI_OPT,
+                       nullptr, nullptr, nullptr, L, P_D_W2}};
+      run_gemms(sa, jobs, 2, none, smem, ncb + 1);
+    } else {  // F
+      // a block per 64 columns (a lane a column, the warps over the rows):
+      // dW2d and db1d for column v < Hd, db2d at v = Hd; the critic's
+      // metrics on the block after them
+      constexpr int NF = GP ? 3 : 2;
+      const int ncb = col_blocks(Hd + 1);
+      col_sums<NF>(
+          Hd + 1, 2 * B, 0, smem,
+          [&](int r, int v, float(&s)[NF]) {
+            if (v < Hd) {
+              const size_t o = (size_t)r * Hd + v;
+              s[0] = fmaf(opnd(ld(a.hd + o)), opnd(ld(a.gl + r)), s[0]);
+              s[1] += ld(a.dh + o);
+              if constexpr (GP) {  // sum_i c_i leaky'(hh_i) s_i
+                if (r < B) {
+                  if constexpr (BF16)  // dotT_lhs(c dph s, lane0): one
+                    s[NF - 1] += bf16r(  // rounded operand a term
+                        (ld(a.nrm + B + r) * ld(a.dph + o)) * ld(a.sbuf + o));
+                  else
+                    s[NF - 1] = fmaf(ld(a.nrm + B + r) * ld(a.dph + o),
+                                     ld(a.sbuf + o), s[NF - 1]);
+                }
+              }
+            } else {
+              s[1] += ld(a.gl + r);
+            }
+          },
+          [&](int v, float(&s)[NF]) {
+            if (v < Hd) {
+              float dw = s[0];
+              if constexpr (GP) dw += s[NF - 1];
+              update<true>(a, P_D_W2, v, dw, none);
+              update<true>(a, P_D_B1, v, s[1], none);
+            } else {
+              update<true>(a, P_D_B2, 0, s[1], none);
+            }
+          });
+      if ((int)blockIdx.x == ncb && threadIdx.x < 32) {
+        clear_lanes(a);
+        critic_metrics(a, 0);
+      }
+      // dW1d = [x; fake]^T [dhr; dhf] (the penalty: K = 3B, [x; fake;
+      // c g]^T [dhr; dhf; u]), beside them
+      const Gemm job = {{a.xin, 1, Xd}, {a.dh, Hd, 1}, Xd, Hd,
+                        GP ? 3 * B : 2 * B, EPI_OPT, nullptr, nullptr,
+                        nullptr, Hd, P_D_W1};
+      run_gemms(sa, &job, 1, none, smem, ncb + 1);
+    }
+    PHASE_END();
+  } else {
+    const float* zg = a.zg;
+    {  // hg (cgan: fake2's label lanes, zg's)
+      const Gemm job = {{zg, Z, 1}, {a.p[P_G_W1], H, 1}, B, H, Z, EPI_RELU,
+                        a.p[P_G_B1], nullptr, a.hgg, H, 0};
+      run_gemms(sa, &job, 1, none, smem);
+      if constexpr (COND)
+        for (int e = gtid; e < B * a.n_cls; e += gsz) {
+          const int r = e / a.n_cls, j = e % a.n_cls;
+          a.fk2[(size_t)r * Xd + X + j] =
+              ld(zg + (size_t)r * Z + Z - a.n_cls + j);
+        }
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // fake2
+      const Gemm job = {{a.hgg, H, 1}, {a.p[P_G_W2], X, 1}, B, X, H,
+                        EPI_SIGMOID, a.p[P_G_B2], nullptr, a.fk2, Xd, 0};
+      run_gemms(sa, &job, 1, none, smem);
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // G1: hf2 through the critic
+      const Gemm job = {{a.fk2, Xd, 1}, {a.p[P_D_W1], Hd, 1}, B, Hd, Xd,
+                        EPI_LEAKY, a.p[P_D_B1], nullptr, a.hf2, Hd, 0};
+      run_gemms(sa, &job, 1, none, smem);
+    }
+    grid.sync();
+    PHASE_MARK();
+    // G23: lf2, gl, dh2
+    if constexpr (INFO) {  // G's rows: bce toward 1 and the MI
+      float* const gs = smem + (threadIdx.x >> 5) * WARP_SMEM;
+      for (int r = gwarp; r < B; r += nwarps)
+        info_row(a, a.hf2, r, false, true, zg + (size_t)r * Z, a.gl2, a.lf2,
+                 a.dh2, a.mib2 + r, gs);
+    } else if constexpr (BEGAN) {
+      {  // G2: rf2 of hf2; gl = -s2 rf2 (1 - rf2) and d2 = fake2 - rf2
+        const Gemm rj = {{a.hf2, Hd, 1}, {a.p[P_D_W2], X, 1}, B, X, Hd,
+                         EPI_BGG, a.p[P_D_B2], a.fk2, a.gl2, X, 0};
+        run_gemms(sa, &rj, 1, none, smem);
+      }
+      grid.sync();
+      PHASE_MARK();
+      {  // G3: dh2 = gl W2d^T * leaky'(hf2); beside it the rows of |d2|
+        const Gemm ej = {{a.gl2, X, 1}, {a.p[P_D_W2], 1, X}, B, Hd, X,
+                         EPI_BGD, nullptr, a.hf2, a.dh2, Hd, 0};
+        for (int r = gwarp; r < B; r += nwarps) {
+          float e = 0.0f;
+          for (int n = lane; n < X; n += 32)
+            e += fabsf(ld(a.d2 + (size_t)r * X + n));
+          e = warp_sum(e);
+          if (lane == 0) a.erow2[r] = e;
+        }
+        run_gemms(sa, &ej, 1, none, smem, row_blocks(B));
+      }
+    } else {
+      logit_rows(a, a.hf2, B, a.lf2, a.gl2, a.dh2,
+                 [&](int, float l) { return g_grad(a, l); });
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // G4: dx = dh2 W1d^T -> gu2 = dx * fake2 * (1 - fake2); the metrics
+       // row (cgan: G's X columns only; began: dx + s2, the direct L1 path)
+      const Gemm job = {{a.dh2, Hd, 1}, {a.p[P_D_W1], 1, Hd}, B, X, Hd,
+                        BEGAN ? EPI_BGX : EPI_SIGD, nullptr, a.fk2, a.gu2, Xd,
+                        0};
+      if ((int)blockIdx.x == (int)gridDim.x - 1 && threadIdx.x < 32) {
+        clear_lanes(a);
+        g_metrics(a, 0);
+      }
+      run_gemms(sa, &job, 1, none, smem);
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // G5: dhg = gu2 W2g^T * (hg > 0); beside it dW2g = hg^T gu2, and
+       // db2g a block per 64 columns
+      Gemm jobs[2] = {{{a.gu2, Xd, 1}, {a.p[P_G_W2], 1, X}, B, H, X,
+                       EPI_RELUD, nullptr, a.hgg, a.dhg, H, 0},
+                      {{a.hgg, 1, H}, {a.gu2, Xd, 1}, H, X, B, EPI_OPT,
+                       nullptr, nullptr, nullptr, X, P_G_W2}};
+      col_sums<1>(
+          X, B, 0, smem,
+          [&](int r, int v, float(&s)[1]) {
+            s[0] += ld(a.gu2 + (size_t)r * Xd + v);
+          },
+          [&](int v, float(&s)[1]) {
+            update<true>(a, P_G_B2, v, s[0], none);
+          });
+      run_gemms(sa, jobs, 2, none, smem, col_blocks(X));
+    }
+    grid.sync();
+    PHASE_MARK();
+    {  // G6: dW1g = zg^T dhg; db1g a block per 64 columns
+      const Gemm job = {{zg, 1, Z}, {a.dhg, H, 1}, Z, H, B, EPI_OPT, nullptr,
+                        nullptr, nullptr, H, P_G_W1};
+      col_sums<1>(
+          H, B, 0, smem,
+          [&](int r, int v, float(&s)[1]) {
+            s[0] += ld(a.dhg + (size_t)r * H + v);
+          },
+          [&](int v, float(&s)[1]) {
+            update<true>(a, P_G_B1, v, s[0], none);
+          });
+      run_gemms(sa, &job, 1, none, smem, col_blocks(H));
+    }
+    PHASE_END();
+  }
+}
+
+static const void* phase_kernel_of(int mode) {
+  if (mode == M_D) return (const void*)gan_phase_kernel<M_D>;
+  if (mode == M_G) return (const void*)gan_phase_kernel<M_G>;
+  return nullptr;
+}
+
+// The phases of each mode, as tools/phase_trace.py names its marks
+// (separated by ';').
+extern "C" const char* gm_gan_phase_names(int mode) {
+  if (mode == M_D)
+    return HOOK == HOOK_GPW   ? "A;B (+x_hat);C (+hh);DE (+g);N (norms, s);F"
+           : HOOK == HOOK_GPB ? "A (+hh);B;C (+g);DE (+norms, s);F"
+           : BEGAN            ? "A;B;C;R rec;E dh;F"
+                              : "A;B;C;DE;F";
+  return BEGAN ? "hg;fake2;G1;G2 rf2;G3 dh2;G4;G5 (+dW2g);G6"
+               : "hg;fake2;G1;G23;G4;G5 (+dW2g);G6";
+}
+
+// The hook this library was compiled for (GM_HOOK), and whether its
+// products take bf16 operands (GM_BF16).
+extern "C" int gm_gan_phase_hook() { return HOOK; }
+extern "C" int gm_gan_phase_bf16() { return GM_BF16; }
+
+extern "C" long long gm_gan_phase_scratch_floats(int B, int H, int X, int Hd,
+                                                 int Xd, int L) {
+  return scratch_floats(B, H, X, Hd, Xd, L);
+}
+
+// The blocks an SM holds of the mode's kernel (the occupancy query, at
+// gm_gan_phase_smem_bytes of dynamic shared memory a block; 0 on failure),
+// and those bytes.
+extern "C" int gm_gan_phase_blocks_per_sm(int mode) {
+  return chunk_occupancy(phase_kernel_of(mode));
+}
+extern "C" int gm_gan_phase_smem_bytes() { return SMEM_BYTES; }
+
+// The fewest blocks a grid of the mode's kernel may have: every column
+// sum's block (col_sums returns on the blocks past its columns and none
+// takes a second), and D's metrics block, the one after them; on fewer,
+// floats of the flat buffer would be left unwritten
+// (ops/chunk_plan.py::dp_min_grid mirrors it).
+extern "C" int gm_gan_phase_min_grid(int mode, int X, int H, int Hd, int L) {
+  if (mode == M_D) return col_blocks(Hd + L) + 1;
+  const int gx = col_blocks(X), gh = col_blocks(H);
+  return gx > gh ? gx : gh;
+}
+
+// A launch plan: the arguments but the call's pointers, the kernel, its
+// grid, and where each gradient and the metrics row sit in the caller's
+// flat buffer (in floats).
+struct PhasePlan {
+  KArgs<true, false> a;
+  const void* kernel;
+  int grid, mode;
+  long long off[5];
+};
+
+// The plan of the mode's kernel (1: D, 2: G) at these sizes (h->steps and
+// h->ds 1, no EMA) with `scratch` (gm_gan_phase_scratch_floats floats,
+// which the caller keeps for the plan's life) on the current device: the
+// kernel's attributes set, its grid every SM's co-resident blocks (at
+// most blocks_per_sm each). Null when the sizes do not fit the hook, the
+// occupancy query fails or the grid is below gm_gan_phase_min_grid. A
+// plan lives as long as the process.
+extern "C" void* gm_gan_phase_plan(int mode, const GanChunkHyper* h,
+                                   float* scratch, int blocks_per_sm) {
+  const void* kernel = phase_kernel_of(mode);
+  int dev = 0, sms = 0;
+  if (!kernel || !scratch || blocks_per_sm < 1 || h->steps != 1 ||
+      h->ds != 1 || h->ema || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return nullptr;
+  PhasePlan* p = new PhasePlan();
+  if (!set_args(p->a, nullptr, nullptr, nullptr, nullptr, scratch, nullptr,
+                nullptr, h, false)) {
+    delete p;
+    return nullptr;
+  }
+  int occ = chunk_occupancy(kernel);
+  if (occ > blocks_per_sm) occ = blocks_per_sm;
+  p->kernel = kernel;
+  p->grid = occ * sms;
+  p->mode = mode;
+  const long long Xd = h->Xd, L = h->L;
+  const long long sz[4] = {
+      mode == M_D ? Xd * h->Hd : (long long)h->Z * h->H,
+      mode == M_D ? h->Hd : h->H,
+      mode == M_D ? (long long)h->Hd * L : (long long)h->H * h->X,
+      mode == M_D ? L : h->X};
+  p->off[0] = 0;
+  for (int q = 0; q < 4; ++q) p->off[q + 1] = p->off[q] + sz[q];
+  if (p->grid < 1 ||
+      p->grid < gm_gan_phase_min_grid(mode, h->X, h->H, h->Hd, h->L)) {
+    delete p;
+    return nullptr;
+  }
+  return p;
+}
+
+// The floats of the plan's flat buffer: the four gradients, then the
+// LANES of the metrics row.
+extern "C" long long gm_gan_phase_plan_floats(const void* plan) {
+  return static_cast<const PhasePlan*>(plan)->off[4] + LANES;
+}
+
+// One launch of the plan's kernel on `stream`: mode 1 from x [B, Xd], zd
+// [B, Z] (and xtra: gpw eps [B, 1], gpb x_hat [B, X]), mode 2 from zg [B,
+// Z]; p0..p7 the parameters (g_w1 g_b1 g_w2 g_b2 d_w1 d_b1 d_w2 d_b2),
+// read only; `flat` the output, every float of it written (the mode's
+// four gradients at the plan's offsets, then the metrics row); the carried
+// scalar (began's k) read from `lam`, or lam_v when `lam` is null. The
+// current device must be the plan's. Allocates nothing, does not
+// synchronise; returns the CUDA error code of the launch (0 = queued).
+extern "C" int gm_gan_phase_run(const void* plan, const float* x,
+                                const float* zd, const float* zg,
+                                const float* xtra, const float* p0,
+                                const float* p1, const float* p2,
+                                const float* p3, const float* p4,
+                                const float* p5, const float* p6,
+                                const float* p7, float* flat,
+                                const float* lam, float lam_v, void* stream) {
+  const PhasePlan& pl = *static_cast<const PhasePlan*>(plan);
+  KArgs<true, false> a = pl.a;
+  const float* ps[N_PARAMS] = {p0, p1, p2, p3, p4, p5, p6, p7};
+  for (int q = 0; q < N_PARAMS; ++q) {
+    if (!ps[q]) return (int)cudaErrorInvalidValue;
+    a.p[q] = const_cast<float*>(ps[q]);
+  }
+  if (!flat || (pl.mode == M_D ? !x || !zd || (GP && !xtra) : !zg))
+    return (int)cudaErrorInvalidValue;
+  a.xs = x;
+  a.zd = zd;
+  a.zg = zg;
+  a.xtra = xtra;
+  const int q0 = pl.mode == M_D ? P_D_W1 : P_G_W1;
+  for (int q = 0; q < 4; ++q) a.gr[q0 + q] = flat + pl.off[q];
+  a.metrics = flat + pl.off[4];
+  a.lam = const_cast<float*>(lam);
+  a.lam_v = lam_v;
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      pl.kernel, dim3(pl.grid), dim3(CT), args, SMEM_BYTES,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+#else
 // Every SM's co-resident blocks of `kernel`, at most blocks_per_sm each;
 // 0 when the query fails.
 static int grid_of(const void* kernel, int blocks_per_sm) {
@@ -1514,82 +2032,6 @@ static int launch(const void* kernel, Args& a, int grid, void* stream) {
   return chunk_launch(kernel, args, grid, stream);
 }
 
-#if GM_PHASE
-// Phase kernels (the data-parallel path, ops/cuda_dp.py). Replaces:
-// generative_models_tpu/ops/pallas_dp.py::_make_d_phase_kernel (:107,
-// launched at :324) and ::_make_g_phase_kernel (:195, launched at :337).
-// The same phases as the chunk, one update a launch on the rank's local
-// rows (B = b, steps = ds = 1, no optimizer, no state written):
-//   M_D: one critic update, phases A-F; where the chunk steps the
-//     optimizer, the kernel writes the gradient (dW1d, db1d, dW2d, db2d)
-//     into `gr`, and the critic's metrics row (lanes 0, 1, 2, 4, 5; lane 7
-//     the carried k it read)
-//   M_G: hg and fake2, then G1-G6 through the critic it is given, the G
-//     gradients (dW1g, db1g, dW2g, db2g) into `gr`, lane 3 g_loss (infogan:
-//     lane 6 its MI term); began's k_t law is left to the caller
-// The all-reduce, the optimizer, wgan's clip, began's law and the G EMA
-// run after the launch, as the TPU path runs them outside its kernels
-// (pallas_dp.py:525-527). A -DGM_BF16=1 build takes bf16 operands in
-// every product, as _make_d_phase_kernel and _make_g_phase_kernel do
-// (pallas_dp.py:128, 214). RMS = true
-// only selects the step_t that reads no Adam constants.
-static const void* phase_kernel_of(int mode) {
-  if (mode == M_D) return (const void*)gan_chunk_kernel<true, false, M_D>;
-  if (mode == M_G) return (const void*)gan_chunk_kernel<true, false, M_G>;
-  return nullptr;
-}
-
-// The hook this library was compiled for (GM_HOOK), and whether its
-// products take bf16 operands (GM_BF16).
-extern "C" int gm_gan_phase_hook() { return HOOK; }
-extern "C" int gm_gan_phase_bf16() { return GM_BF16; }
-
-extern "C" long long gm_gan_phase_scratch_floats(int B, int H, int X, int Hd,
-                                                 int Xd, int L) {
-  return scratch_floats(B, H, X, Hd, Xd, L);
-}
-
-// The grid a launch of the D (mode 1) or G (mode 2) phase kernel uses.
-extern "C" int gm_gan_phase_grid(int blocks_per_sm, int mode) {
-  return grid_of(phase_kernel_of(mode), blocks_per_sm);
-}
-
-// The blocks an SM holds of the mode's kernel (the occupancy query, at
-// gm_gan_phase_smem_bytes of dynamic shared memory a block; 0 on failure),
-// and those bytes.
-extern "C" int gm_gan_phase_blocks_per_sm(int mode) {
-  return chunk_occupancy(phase_kernel_of(mode));
-}
-extern "C" int gm_gan_phase_smem_bytes() { return SMEM_BYTES; }
-
-// Launches one phase kernel on `stream`: mode 1 the critic update's
-// gradients from x [B, Xd], zd [B, Z] (and xtra: gpw eps [B, 1], gpb
-// x_hat [B, X]), mode 2 G's from zg [B, Z]. `params` holds the 8
-// parameter pointers (g_w1 g_b1 g_w2 g_b2 d_w1 d_b1 d_w2 d_b2), read
-// only, `grads` the 8 gradient pointers (mode 1 writes the last four,
-// mode 2 the first four), `metrics` one row of 8 floats that the caller
-// has zeroed, `lam` began's k (read only). h->steps and h->ds must be 1.
-// Allocates nothing, does not synchronise; returns the CUDA error code of
-// the launch (0 = queued).
-extern "C" int gm_gan_phase(int mode, const float* x, const float* zd,
-                            const float* zg, const float* xtra,
-                            void* const* params, void* const* grads,
-                            float* scratch, float* metrics, float* lam,
-                            const GanChunkHyper* h, int grid, void* stream) {
-  Args a = {};
-  if (!phase_kernel_of(mode) || grid < 1 || h->steps != 1 || h->ds != 1 ||
-      h->ema || !set_args(a, x, zd, zg, xtra, scratch, metrics, lam, h, mode == M_D))
-    return (int)cudaErrorInvalidValue;
-  const int q0 = mode == M_D ? P_D_W1 : P_G_W1;
-  for (int q = 0; q < N_PARAMS; ++q) {
-    a.p[q] = static_cast<float*>(params[q]);
-    a.gr[q] = static_cast<float*>(grads[q]);
-    if (!a.p[q] || (q >= q0 && q < q0 + 4 && !a.gr[q]))
-      return (int)cudaErrorInvalidValue;
-  }
-  return launch(phase_kernel_of(mode), a, grid, stream);
-}
-#else
 // The Adam (rmsprop = 0) or RMSprop kernel, without or with (ema = 1) the
 // G EMA plane.
 static const void* kernel_of(int rmsprop, int ema) {

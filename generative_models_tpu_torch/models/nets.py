@@ -32,7 +32,7 @@ def _mlp_only(cfg: Config) -> None:
     if cfg.arch != "mlp":
         raise NotImplementedError(
             f"arch={cfg.arch!r} is not ported to generative_models_tpu_torch "
-            "yet (ROADMAP.md Queue 1: conv stacks and spectral projection)")
+            "yet (ROADMAP.md Queue 1 item 8: the conv stacks)")
 
 
 # --------------------------------------------------------------------

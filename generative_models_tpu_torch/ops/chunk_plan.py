@@ -14,7 +14,9 @@ out in Python so that a CPU test can check that every output element has
 one owner, that the shared memory fits, and that the depth split sums in
 one order. :func:`gan_phase_jobs` and :func:`vae_phase_jobs` list every
 phase's jobs (M, N, K) and the blocks it leaves to row or column work, as
-the kernels build them. Nothing here runs on the card.
+the kernels build them; :func:`dp_flat_writers` says which job or column
+sum writes each float of a data-parallel phase kernel's output. Nothing
+here runs on the card.
 """
 
 from __future__ import annotations
@@ -177,7 +179,8 @@ def gan_phase_jobs(hook: str, *, b: int, z: int, h: int, x: int, hd: int,
                    mode: str = "chunk") -> List[Tuple[str, list, int]]:
     """Every product phase of one outer step of gan_chunk_kernel for
     `hook`, in order: (name, [(M, N, K)], the blocks before the tiles).
-    mode "chunk", "d" (one critic update) or "g" (one G update)."""
+    mode "chunk", "d" (one critic update) or "g" (one G update: the
+    phase kernel, whose G5 takes dW2g and db2g beside dhg)."""
     xd = x + n_cls
     gp = hook in GP_HOOKS
     out = []
@@ -185,13 +188,17 @@ def gan_phase_jobs(hook: str, *, b: int, z: int, h: int, x: int, hd: int,
         out += [("hg", [(b, h, z)], 0), ("fake2", [(b, x, h)], 0)]
     for i in range(0 if mode == "g" else ds):
         g0 = mode == "chunk" and i == 0
+        # the phase kernel ("d") runs hr beside hf in C, but for the
+        # penalty hooks (in A as the chunk)
+        hr_in_c = mode == "d" and not gp
         if hook == "gpb":
             a = [(b, h, z), (b, hd, x), (b, hd, x)] + ([(b, h, z)] if g0 else [])
         else:
-            a = [(b, h, z), (b, hd, xd)] + ([(b, h, z)] if g0 else [])
+            a = [(b, h, z)] + ([] if hr_in_c else [(b, hd, xd)]) + (
+                [(b, h, z)] if g0 else [])
         out.append((f"A{i}", a, 0))
         out.append((f"B{i}", [(b, x, h)] + ([(b, x, h)] if g0 else []), 0))
-        c = [(b, hd, xd)]
+        c = [(b, hd, xd)] + ([(b, hd, xd)] if hr_in_c else [])
         if hook == "gpw":
             c.append((b, hd, x))
         elif hook == "gpb":
@@ -218,9 +225,58 @@ def gan_phase_jobs(hook: str, *, b: int, z: int, h: int, x: int, hd: int,
         out.append(("G2", [(b, x, hd)], 0))
         out.append(("G3", [(b, hd, x)], row_blocks(b)))
     out.append(("G4", [(b, x, hd)], 0))
+    if mode == "g":  # the phase kernel: dW2g and db2g beside dhg
+        out.append(("G5", [(b, h, x), (h, x, b)], col_blocks(x)))
+        out.append(("G6", [(z, h, b)], col_blocks(h)))
+        return out
     out.append(("G5", [(b, h, x)], 0))
     out.append(("G6", [(h, x, b), (z, h, b)], col_blocks(x + h)))
     return out
+
+
+LANES = 8  # floats of a metrics row
+
+
+def dp_flat_writers(hook: str, mode: str, *, b: int, z: int, h: int, x: int,
+                    hd: int, l: int = 1, n_cls: int = 0):
+    """Who writes each float of a phase kernel's flat buffer
+    (``ops/cuda_dp.py``'s layout: the mode's four gradients, then the
+    metrics row), as ``gan_phase_kernel`` writes them: [(tensor, shape,
+    writer)], the writer ("tile", phase, job): that job of the phase's
+    product epilogue writes element (m, n) of the [M, N] tensor; ("cols",
+    phase, c0, cols): col_sums column c0 + v writes element v of the
+    tensor (flattened), block c of the grid taking columns 64 c .. 64 c +
+    63; ("warp", phase, block): the metrics warp of that block (-1: the
+    grid's last), every lane."""
+    xd = x + n_cls
+    if mode == "d":
+        if hook in ("info", "be"):  # F: dW2d a product, the bias sums
+            return [("dW1d", (xd, hd), ("tile", "F0", 0)),
+                    ("db1d", (hd,), ("cols", "F0", 0, hd + l)),
+                    ("dW2d", (hd, l), ("tile", "F0", 1)),
+                    ("db2d", (l,), ("cols", "F0", hd, hd + l)),
+                    ("metrics", (LANES,), ("warp", "F0",
+                                           col_blocks(hd + l)))]
+        return [("dW1d", (xd, hd), ("tile", "F0", 0)),
+                ("db1d", (hd,), ("cols", "F0", 0, hd + 1)),
+                ("dW2d", (hd, 1), ("cols", "F0", 0, hd + 1)),
+                ("db2d", (1,), ("cols", "F0", hd, hd + 1)),
+                ("metrics", (LANES,), ("warp", "F0", col_blocks(hd + 1)))]
+    return [("dW1g", (z, h), ("tile", "G6", 0)),
+            ("db1g", (h,), ("cols", "G6", 0, h)),
+            ("dW2g", (h, x), ("tile", "G5", 1)),
+            ("db2g", (x,), ("cols", "G5", 0, x)),
+            ("metrics", (LANES,), ("warp", "G4", -1))]
+
+
+def dp_min_grid(mode: str, *, x: int, h: int, hd: int, l: int = 1) -> int:
+    """The fewest blocks a phase kernel's grid may have
+    (``gm_gan_phase_min_grid``, whose plan refuses a smaller grid): a
+    block for every column sum's 64 columns, and in D the metrics block
+    after them."""
+    if mode == "d":
+        return col_blocks(hd + l) + 1
+    return max(col_blocks(x), col_blocks(h))
 
 
 def vae_phase_jobs(birvae: bool, *, b: int, x: int, h: int,

@@ -21,16 +21,22 @@ The step around the launches is the general step's
 (``train/step.py::build_adversarial_step`` with :func:`phase_grads` as
 its gradient source), driven by ``parallel/dp.py``'s chunk loop. So a
 step makes ds + 1 phase launches and ds + 1 all-reduces. The
-kernels are ``csrc/gan_chunk.cu`` built with ``-DGM_PHASE=1``: the chunk
-kernel's phases A-F (critic) and G1-G6 (G), whose epilogues write the
-gradient where the chunk steps the optimizer; one library a critic hook
+kernels are ``gan_phase_kernel<M_D>`` and ``<M_G>`` of
+``csrc/gan_chunk.cu`` built with ``-DGM_PHASE=1``: a body of each mode's
+own on the chunk's product engine, whose epilogues write the gradient
+where the chunk steps the optimizer; one library a critic hook
 (:data:`DP_HOOKS`, nine), both phase kernels in each, built at first
 use; with ``dtype="bfloat16"`` a second library a hook, built with
 ``-DGM_BF16=1``, whose products take bf16 operands as the reference's
-phase kernels do (``pallas_dp.py:128, 214``). As the reference notes of its own path (``pallas_dp.py:26-40``),
-the parameters round-trip device memory at every phase and each phase
-pays a launch, so the launch, the all-reduce and the optimizer outside
-the kernel set the pace at these sizes.
+phase kernels do (``pallas_dp.py:128, 214``). A launch goes through a
+plan (:class:`_Plan`, cached per mode, hyperparameters, shapes, device
+and stream: the C side's arguments but the call's pointers, its
+scratch, its grid), so a call allocates its flat buffer from the
+caching allocator, fills in pointers and launches: no memset (the
+kernels write every float of it), no occupancy query, began's k read
+through the caller's tensor. As the reference notes of its own path
+(``pallas_dp.py:26-40``), the all-reduce and the optimizer outside the
+kernels still set much of a step's pace at these sizes.
 
 On a CUDA tensor :func:`d_phase` / :func:`g_phase` launch the kernel or
 raise; on a CPU tensor they run :func:`d_phase_plain` /
@@ -226,14 +232,17 @@ def bind(lib) -> None:
     """The C interface of a library built from csrc/gan_chunk.cu with
     -DGM_PHASE=1."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gm_gan_phase.argtypes = [i, p, p, p, p, ctypes.POINTER(p),
-                                 ctypes.POINTER(p), p, p, p,
-                                 ctypes.POINTER(cuda_train._Hyper), i, p]
-    lib.gm_gan_phase.restype = i
+    lib.gm_gan_phase_plan.argtypes = [i, ctypes.POINTER(cuda_train._Hyper),
+                                      p, i]
+    lib.gm_gan_phase_plan.restype = p
+    lib.gm_gan_phase_plan_floats.argtypes = [p]
+    lib.gm_gan_phase_plan_floats.restype = ctypes.c_longlong
+    lib.gm_gan_phase_run.argtypes = [p] * 15 + [ctypes.c_float, p]
+    lib.gm_gan_phase_run.restype = i
     lib.gm_gan_phase_scratch_floats.argtypes = [i] * 6
     lib.gm_gan_phase_scratch_floats.restype = ctypes.c_longlong
-    lib.gm_gan_phase_grid.argtypes = [i, i]
-    lib.gm_gan_phase_grid.restype = i
+    lib.gm_gan_phase_min_grid.argtypes = [i] * 5
+    lib.gm_gan_phase_min_grid.restype = i
     lib.gm_gan_phase_blocks_per_sm.argtypes = [i]
     lib.gm_gan_phase_blocks_per_sm.restype = i
     lib.gm_gan_phase_smem_bytes.argtypes = []
@@ -268,10 +277,13 @@ def build(hook: Optional[str] = None, bf16: bool = False) -> None:
         _lib(h, bf16)
 
 
-def _check(hp, rows: Dict[str, Tuple[torch.Tensor, tuple]], g, d):
+def _covers(hp) -> None:
     if hp.variant not in FUSED_DP_VARIANTS:
         raise ValueError(f"the phase kernels cover {FUSED_DP_VARIANTS}, "
                          f"not {hp.variant!r}")
+
+
+def _check(hp, rows: Dict[str, Tuple[torch.Tensor, tuple]], g, d):
     z, h = g[0].shape
     x = g[2].shape[1]
     xd, hd = d[0].shape
@@ -284,12 +296,16 @@ def _check(hp, rows: Dict[str, Tuple[torch.Tensor, tuple]], g, d):
         if tuple(t.shape) != want[q]:
             raise ValueError(f"gan_phase: parameter {q} must be {want[q]}, "
                              f"got {tuple(t.shape)}")
-    dev = g[0].device
     for name, (t, shape) in rows.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"gan_phase: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    for t in [t for t, _ in rows.values()] + list(g) + list(d):
+
+
+def _check_tensors(tensors, dev) -> None:
+    """What every call checks: float32, contiguous, on the parameters'
+    device (the shapes are the plan's key)."""
+    for t in tensors:
         if t.dtype != torch.float32 or t.device != dev:
             raise TypeError(f"gan_phase takes float32 tensors on one device; "
                             f"got {t.dtype} on {t.device}")
@@ -297,39 +313,76 @@ def _check(hp, rows: Dict[str, Tuple[torch.Tensor, tuple]], g, d):
             raise ValueError("gan_phase takes contiguous tensors")
 
 
-def _launch(mode: int, hp: ChunkHyper, b: int, x, zd, zg, xtra, g, d,
-            lam) -> torch.Tensor:
-    dev = g[0].device
-    z, h = g[0].shape
-    x_w = g[2].shape[1]
-    hd = d[0].shape[1]
-    lib = _lib(HOOKS[hp.variant], hp.bf16)
-    params = list(g) + list(d)
-    mine = d if mode == M_D else g
-    with torch.cuda.device(dev):
-        flat = torch.zeros(sum(_sizes(mine)) + METRIC_LANES,
-                           dtype=torch.float32, device=dev)
-        parts = flat.split(_sizes(mine) + [METRIC_LANES])
-        lam_buf = torch.as_tensor(lam, dtype=torch.float32,
-                                  device=dev).reshape(1).clone()
-        scratch = torch.empty(lib.gm_gan_phase_scratch_floats(
-            b, h, x_w, hd, x_w + hp.n_cls, hp.head_width(x_w)),
+class _Plan:
+    """A launch plan of one phase kernel (csrc/gan_chunk.cu
+    gm_gan_phase_plan): the C plan, the scratch it cuts (kept for its
+    life), the floats of its flat buffer and the library's run entry."""
+
+
+    def __init__(self, mode: int, hp: ChunkHyper, b: int, g, d):
+        z, h = g[0].shape
+        x = g[2].shape[1]
+        hd = d[0].shape[1]
+        dev = g[0].device
+        lib = _lib(HOOKS[hp.variant], hp.bf16)
+        self.scratch = torch.empty(lib.gm_gan_phase_scratch_floats(
+            b, h, x, hd, x + hp.n_cls, hp.head_width(x)),
             dtype=torch.float32, device=dev)
-        grid = lib.gm_gan_phase_grid(BLOCKS_PER_SM, mode)
-        if grid < 1:
-            raise RuntimeError("gan_phase: the occupancy query failed")
-        grads = [None] * 8
-        for q, t in enumerate(parts[:4]):
-            grads[q + (4 if mode == M_D else 0)] = t.data_ptr()
         hyper = cuda_train.hyper_struct(hp, steps=1, ds=1, batch=b, z=z, h=h,
-                                        x=x_w, hd=hd, t_g=0, t_d=0)
-        ptr = lambda t: None if t is None else t.data_ptr()
-        rc = lib.gm_gan_phase(
-            mode, ptr(x), ptr(zd), ptr(zg), ptr(xtra),
-            (ctypes.c_void_p * 8)(*[t.data_ptr() for t in params]),
-            (ctypes.c_void_p * 8)(*grads), scratch.data_ptr(),
-            parts[4].data_ptr(), lam_buf.data_ptr(), ctypes.byref(hyper),
-            grid, torch.cuda.current_stream(dev).cuda_stream)
+                                        x=x, hd=hd, t_g=0, t_d=0)
+        with torch.cuda.device(dev):
+            self.handle = lib.gm_gan_phase_plan(
+                mode, ctypes.byref(hyper), self.scratch.data_ptr(),
+                BLOCKS_PER_SM)
+        if not self.handle:
+            raise RuntimeError("gan_phase: no launch plan at these sizes "
+                               "(the occupancy query failed, the sizes do "
+                               "not fit the hook or the grid is below "
+                               "gm_gan_phase_min_grid)")
+        self.floats = lib.gm_gan_phase_plan_floats(self.handle)
+        self.run = lib.gm_gan_phase_run
+
+
+# (mode, hp, the tensors' shapes, device, stream) -> _Plan: a plan's
+# scratch serves one stream, on which its launches run in order
+_plans: Dict[tuple, _Plan] = {}
+
+
+def _launch(mode: int, hp: ChunkHyper, rows, shapes, g, d,
+            lam) -> torch.Tensor:
+    """One launch: the plan of these sizes (built, and the sizes checked
+    against `shapes` (:func:`_check`), at the first call of each), a flat
+    buffer from the caching allocator, the call's pointers. `rows` are x,
+    zd, zg, xtra (None where the mode takes none); `lam` began's k, a
+    0-dim float32 tensor on the device (read through its pointer) or a
+    number (passed by value)."""
+    params = list(g) + list(d)
+    dev = params[0].device
+    given = [t for t in rows if t is not None]
+    _check_tensors(params + given, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (mode, hp, dev.index, stream,
+           tuple(tuple(t.shape) for t in params + given))
+    plan = _plans.get(key)
+    if plan is None:
+        _check(hp, shapes, g, d)
+        plan = _plans[key] = _Plan(mode, hp, given[0].shape[0], g, d)
+    flat = torch.empty(plan.floats, dtype=torch.float32, device=dev)
+    if isinstance(lam, torch.Tensor) and lam.device == dev:
+        if lam.dtype != torch.float32 or lam.numel() != 1:
+            raise TypeError("gan_phase: the carried scalar is one float32")
+        lam_ptr, lam_v = lam.data_ptr(), 0.0
+    else:
+        lam_ptr, lam_v = None, float(lam)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = ([plan.handle] + [ptr(t) for t in rows]
+            + [t.data_ptr() for t in params]
+            + [flat.data_ptr(), lam_ptr, lam_v, stream])
+    if dev.index == torch.cuda.current_device():
+        rc = plan.run(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = plan.run(*args)
     if rc != 0:
         raise RuntimeError(f"gan_phase kernel launch failed: CUDA error {rc}")
     return flat
@@ -352,6 +405,7 @@ def d_phase(x, zd, xtra, g, d, lam, hp: ChunkHyper) -> torch.Tensor:
     the module docstring). CPU tensors run :func:`d_phase_plain`; CUDA
     tensors launch the kernel on the current stream or raise."""
     global d_launches, d_bf16_launches
+    _covers(hp)
     b = x.shape[0]
     lanes = aux_lanes(hp.variant, g[2].shape[1])
     if (xtra is None) != (lanes == 0):
@@ -361,10 +415,12 @@ def d_phase(x, zd, xtra, g, d, lam, hp: ChunkHyper) -> torch.Tensor:
     rows = {"x": (x, (b, d[0].shape[0])), "zd": (zd, (b, g[0].shape[0]))}
     if lanes:
         rows["xtra"] = (xtra, (b, lanes))
-    _check(hp, rows, g, d)
     if _device_of(x) == "cpu":
+        _check(hp, rows, g, d)
+        _check_tensors(list(g) + list(d) + [t for t, _ in rows.values()],
+                       x.device)
         return d_phase_plain(x, zd, xtra, g, d, lam, hp)
-    flat = _launch(M_D, hp, b, x, zd, None, xtra, g, d, lam)
+    flat = _launch(M_D, hp, (x, zd, None, xtra), rows, g, d, lam)
     d_launches += 1
     d_bf16_launches += int(hp.bf16)
     return flat
@@ -377,11 +433,14 @@ def g_phase(zg, g, d, hp: ChunkHyper) -> torch.Tensor:
     buffer; CPU tensors run :func:`g_phase_plain`, CUDA tensors launch
     the kernel or raise."""
     global g_launches, g_bf16_launches
+    _covers(hp)
     b = zg.shape[0]
-    _check(hp, {"zg": (zg, (b, g[0].shape[0]))}, g, d)
+    rows = {"zg": (zg, (b, g[0].shape[0]))}
     if _device_of(zg) == "cpu":
+        _check(hp, rows, g, d)
+        _check_tensors(list(g) + list(d) + [zg], zg.device)
         return g_phase_plain(zg, g, d, hp)
-    flat = _launch(M_G, hp, b, None, None, zg, None, g, d, 0.0)
+    flat = _launch(M_G, hp, (None, None, zg, None), rows, g, d, 0.0)
     g_launches += 1
     g_bf16_launches += int(hp.bf16)
     return flat

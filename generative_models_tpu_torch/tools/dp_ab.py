@@ -9,12 +9,14 @@ Run the file by its path (not with ``-m``), so that the package comes
 from ``PYTHONPATH``. In a group of one rank over NCCL it trains nsgan at
 full width (global batch 100, float32) through ``Trainer(fused_step=True,
 group=...)`` (the phase kernels) and ``fused_step=False`` (the general DP
-step): 20 steps to warm up, then five runs of 200 steps, each printed as
+step): 200 steps to warm up, then five runs of 200 steps, each printed as
 steps/s on the host clock to the last step's completion (no sample
 images and no evaluation fall inside them); then the mean time of one
 all-reduce of nsgan's D-phase buffer (CUDA events over 50 calls) and
-the card's nvidia-smi line. Alternate the checkouts (A B B A) within one
-session; compare nothing across sessions. Needs a CUDA card and nvcc.
+the card's nvidia-smi line. Alternate the checkouts (A B B A, and again
+B A A B: the host-bound rates drift by tens of percent within a call)
+within one sitting; compare nothing across sittings. Needs a CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def main(argv) -> int:
                                  fused_step=fused, sample_every=10 ** 9,
                                  out_dir=tempfile.mkdtemp(prefix="dp_ab_"))
             t = Trainer(config=cfg, group=group, data=data)
-            t.train(steps=20)
+            t.train(steps=200)
             rates = []
             for _ in range(5):
                 t.train(steps=200)

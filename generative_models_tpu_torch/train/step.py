@@ -50,6 +50,12 @@ import torch
 
 from generative_models_tpu_torch.data.mnist import INV_255
 from generative_models_tpu_torch.ops.penalty import aux_lanes
+from generative_models_tpu_torch.ops.spectral import (
+    amortized_sn,
+    init_sn_vectors,
+    project_spectral,
+    project_spectral_amortized,
+)
 from generative_models_tpu_torch.train.optim import apply_opt, init_opt
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
@@ -114,7 +120,8 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
     and the two ``rng`` words (uint32) that seed the run's noise
     (:func:`noise_generator`). The variant's carried scalars (``vstate``:
     0-dim float32 tensors) live on `device` too. The EMA of G starts at
-    G."""
+    G. With the amortized spectral projection the state also carries
+    ``sn_v`` (``ops/spectral.py::init_sn_vectors`` at the init critic)."""
     g_params = spec.init_g(gen, cfg, device=device)
     d_params = spec.init_d(gen, cfg, device=device)
     st: State = {
@@ -129,6 +136,10 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
     }
     if cfg.ema_decay > 0:
         st["g_ema"] = [dict(l) for l in g_params]
+    if amortized_sn(cfg):
+        # the carried power-iteration vectors (ops/spectral.py), burned in
+        # at the init weights
+        st["sn_v"] = init_sn_vectors(d_params, cfg.sn_iters)
     return st
 
 
@@ -322,15 +333,28 @@ def build_adversarial_step(spec, cfg, group=None, grads=None):
     `grads` is where each update's gradients come from: a pair as
     :func:`autograd_grads` returns (its default), or the phase kernels'
     (``ops/cuda_dp.py::phase_grads``). The optimizer, ``spec.d_post``,
-    the state hooks and the EMA are the same for every source."""
+    the state hooks and the EMA are the same for every source.
+
+    With ``cfg.spectral_projection`` the critic is projected after each
+    update, as the reference composes it (``ops/spectral.py``):
+    ``sn_mode="fresh"`` after ``spec.d_post``, ``"amortized"`` after the
+    state hook, refining the carried ``state["sn_v"]``, which the new
+    state holds. Under a data group every rank computes the same vectors
+    from the same parameters."""
     d_steps = max(cfg.d_steps, 1)
     d_grads, g_grads = grads or autograd_grads(spec, cfg, group)
+    carried = amortized_sn(cfg)
+    d_post = spec.d_post
+    if cfg.spectral_projection and not carried:
+        def d_post(p, c, _base=spec.d_post):
+            return project_spectral(_base(p, c), c.sn_target, c.sn_iters)
 
     def train_step(state: State, d_batches, z_d, z_g,
                    aux_d=None) -> Tuple[State, Dict]:
         g_params = state["g_params"]
         d_params, d_opt, vstate = (state["d_params"], state["d_opt"],
                                    state["vstate"])
+        sn_v = state["sn_v"] if carried else None
         for i in range(d_steps):
             batch = {k: v[i] for k, v in d_batches.items()}
             grads_d, d_metrics = d_grads(
@@ -338,8 +362,11 @@ def build_adversarial_step(spec, cfg, group=None, grads=None):
                 None if aux_d is None else aux_d[i], vstate)
             d_params, d_opt = apply_opt(cfg, d_params, grads_d, d_opt,
                                         cfg.d_lr)
-            d_params = spec.d_post(d_params, cfg)
+            d_params = d_post(d_params, cfg)
             vstate = spec.d_state_update(vstate, d_metrics, cfg)
+            if carried:
+                d_params, sn_v = project_spectral_amortized(
+                    d_params, sn_v, cfg.sn_target)
 
         g_batch = {k: v[-1] for k, v in d_batches.items()}
         grads_g, g_metrics = g_grads(g_params, d_params, g_batch, z_g,
@@ -354,6 +381,8 @@ def build_adversarial_step(spec, cfg, group=None, grads=None):
         if cfg.ema_decay > 0:
             new_state["g_ema"] = _ema_update(state["g_ema"], new_g,
                                              cfg.ema_decay)
+        if carried:
+            new_state["sn_v"] = sn_v
         metrics = {**d_metrics, **g_metrics}
         for k, v in vstate.items():
             metrics[f"vstate_{k}"] = v

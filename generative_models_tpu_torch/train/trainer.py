@@ -57,6 +57,7 @@ from generative_models_tpu_torch.data.pipeline import make_perm
 from generative_models_tpu_torch.losses.registry import get_variant
 from generative_models_tpu_torch.ops import cuda_dp, cuda_train
 from generative_models_tpu_torch.ops.penalty import aux_draw, aux_lanes
+from generative_models_tpu_torch.ops.spectral import init_sn_vectors
 from generative_models_tpu_torch.parallel import dp
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
@@ -502,9 +503,9 @@ class Trainer:
         """Load a checkpoint written by either package's ``save_model``
         (npz layout); raises on any shape/dtype/config mismatch. The
         optimizer slots, counts, carried scalars (fishergan's ``lam``, began's
-        ``k`` and ``m``) and
-        rng words are restored when the file has them, so training resumes
-        where it stopped."""
+        ``k`` and ``m``), the spectral projection's carried vectors
+        (``sn_v``) and rng words are restored when the file has them, so
+        training resumes where it stopped."""
         self._npz_only()
         loaded = load_jax_checkpoint(path, self.cfg)
         st = dict(self.state)
@@ -515,4 +516,8 @@ class Trainer:
                 st["step"] = int(v)
             else:
                 st[key] = params_from_numpy(v, self.device)
+        if "sn_v" in st and "sn_v" not in loaded:
+            # a file without the carried vectors: burned in afresh at the
+            # loaded critic, as init_sn_vectors does at the init weights
+            st["sn_v"] = init_sn_vectors(st["d_params"], self.cfg.sn_iters)
         self.state = st

@@ -26,6 +26,12 @@ both directions hold them.
 A single-model state (vae, birvae) holds ``['ema']`` (with an EMA),
 ``['opt'][0].count``, ``['opt'][0].mu['decoder'][1]['b']`` ...,
 ``['params']['encoder']['trunk'][0]['w']`` ..., ``['rng']``, ``['step']``.
+With the amortized spectral projection (``Config.spectral_projection``,
+``sn_mode="amortized"``) an adversarial state also holds the carried
+vectors ``['sn_v']``, a tree shaped as ``['d_params']``: a weight's leaf
+``['sn_v'][0]['w']`` is its vector [shape[-1]], every other leaf
+(``['sn_v'][0]['b']``) an empty float32 [0], as the reference's
+``init_sn_vectors`` builds them.
 
 :func:`save_state` writes the port's state in exactly that layout, so a
 port checkpoint restores into the JAX package's ``Trainer.load_model``;
@@ -50,6 +56,10 @@ import torch
 
 from generative_models_tpu_torch.config import Config
 from generative_models_tpu_torch.losses.registry import get_variant
+from generative_models_tpu_torch.ops.spectral import (
+    amortized_sn,
+    init_sn_vectors,
+)
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves_with_path,
     tree_unflatten,
@@ -57,6 +67,9 @@ from generative_models_tpu_torch.utils.tree import (
 
 _META_KEY = "__meta__"
 _PARAM_KEYS = ("g_params", "d_params", "g_ema", "params", "ema")
+# trees of the state that are not parameters: the variant's carried
+# scalars and the spectral projection's carried vectors
+_TREE_KEYS = ("vstate", "sn_v")
 _OPT_KEYS = ("g_opt", "d_opt", "opt")
 
 
@@ -112,7 +125,7 @@ def state_leaves(state: Dict[str, Any]) -> List[Tuple[str, Any]]:
         v = state[key]
         if key in _OPT_KEYS:
             out += _opt_leaves(f"['{key}']", v)
-        elif key in _PARAM_KEYS or key == "vstate":
+        elif key in _PARAM_KEYS or key in _TREE_KEYS:
             out += tree_leaves_with_path(v, f"['{key}']")
         else:
             out.append((f"['{key}']", v))
@@ -205,7 +218,9 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
     each ``{"count", "mu", "nu"}`` (Adam) or ``{"nu"}`` (RMSprop), the
     variant's carried scalars ``"vstate"`` (fishergan: ``{"lam"}``; began:
     ``{"k", "m"}``) and
-    ``"rng"`` when the file has them. Raises if
+    ``"rng"`` when the file has them, and the spectral projection's
+    carried vectors ``"sn_v"`` when the file has them and `cfg` carries
+    them (amortized mode). Raises if
     a param leaf is missing, if any leaf has another shape or dtype than
     `cfg` implies, if the optimizer slots are partial or of another
     optimizer, or if a param subtree holds extra leaves (another depth,
@@ -257,6 +272,12 @@ def load_jax_checkpoint(path: str, cfg: Config) -> Dict[str, Any]:
         want_vs = _want(tree_leaves_with_path(vstate, "['vstate']"))
         _check_leaves(path, leaves, want_vs, mismatch)
         out["vstate"] = subtree(vstate, "['vstate']")
+    if ("g_params" in tmpl and amortized_sn(cfg)
+            and any(p.startswith("['sn_v']") for p in leaves)):
+        sn = init_sn_vectors(tmpl["d_params"], 0)  # shapes only
+        want_sn = _want(tree_leaves_with_path(sn, "['sn_v']"))
+        _check_leaves(path, leaves, want_sn, mismatch)
+        out["sn_v"] = subtree(sn, "['sn_v']")
     if "['rng']" in leaves:
         rng = leaves["['rng']"]
         if rng.shape != (2,) or rng.dtype != np.uint32:

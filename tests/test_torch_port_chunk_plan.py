@@ -81,6 +81,74 @@ def test_gan_chunk_plan_covers_every_output_once(hook, widths, grid):
             check_phases(hook_phases(hook, w, mode), grid)
 
 
+# the data-parallel phase kernels at a rank's rows: the flagship's b 100
+# (world 1) and 50 (world 2), a ragged b, and the CPU tests' widths
+DP_WIDTHS = {"b100": WIDTHS["flagship"],
+             "b50": dict(WIDTHS["flagship"], b=50),
+             "ragged": dict(WIDTHS["ragged"], b=61),
+             "cpu": WIDTHS["cpu"]}
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("widths", sorted(DP_WIDTHS))
+@pytest.mark.parametrize("mode", ("d", "g"))
+@pytest.mark.parametrize("hook", DP_HOOKS)
+def test_phase_kernels_write_every_output_float_once(hook, mode, widths,
+                                                     grid):
+    """Every float of a phase kernel's flat buffer (its four gradients,
+    the 8 metrics lanes) has exactly one writer on a grid the plan
+    accepts (dp_min_grid blocks or more), so the wrapper's buffer needs
+    no memset: a product job's tiles own its elements once (the engine's
+    plan on the blocks the phase leaves it), a column sum's block owns
+    its columns, the metrics warp's block every lane. On a smaller grid
+    some float has no writer, which is why the plan refuses it."""
+    w = DP_WIDTHS[widths]
+    phases = {name: (jobs, first)
+              for name, jobs, first in hook_phases(hook, w, mode)}
+    z = w["z"] + (w["n_cls"] if hook == "cond" else 0) + (
+        w["cat"] + w["cont"] if hook == "info" else 0)
+    l = {"info": 1 + w["cat"] + 2 * w["cont"], "be": w["x"]}.get(hook, 1)
+    parts = cp.dp_flat_writers(hook, mode, b=w["b"], z=z, h=w["h"],
+                               x=w["x"], hd=w["hd"], l=l,
+                               n_cls=w["n_cls"] if hook == "cond" else 0)
+    cols_of = {}  # (phase, cols) -> the columns its blocks finish
+    once = []
+    for name, shape, writer in parts:
+        count = np.zeros(shape, np.int32).reshape(-1)
+        if writer[0] == "tile":
+            jobs, first = phases[writer[1]]
+            m, n, _ = jobs[writer[2]]
+            assert (m, n) == shape, (name, jobs)
+            nb = grid - (first if first < grid else 0)
+            plan, _ = cp.phase_plan(jobs, nb)
+            c, tiles_n, _ = plan[writer[2]]
+            tm, tn = cp.CLASSES[c][:2]
+            grid_ = count.reshape(shape)
+            for tile in range(-(-m // tm) * tiles_n):
+                m0, n0 = (tile // tiles_n) * tm, (tile % tiles_n) * tn
+                for mm, nn in (e for t in cp.finish_map(c).values()
+                               for e in t):
+                    if m0 + mm < m and n0 + nn < n:
+                        grid_[m0 + mm, n0 + nn] += 1
+        elif writer[0] == "cols":
+            _, phase, c0, cols = writer
+            done = cols_of.setdefault((phase, cols), [
+                blk * 64 + lane + half * 32
+                for blk in range(min(cp.col_blocks(cols), grid))
+                for lane in range(32) for half in (0, 1)
+                if blk * 64 + lane + half * 32 < cols])
+            for v in done:
+                if 0 <= v - c0 < count.size:
+                    count[v - c0] += 1
+        else:  # the one metrics warp: clear_lanes, then its lanes
+            blk = writer[2] if writer[2] >= 0 else grid - 1
+            count += blk < grid
+        assert (count <= 1).all(), (hook, mode, name)
+        once.append(bool((count == 1).all()))
+    least = cp.dp_min_grid(mode, x=w["x"], h=w["h"], hd=w["hd"], l=l)
+    assert all(once) == (grid >= least), (hook, mode, once, least)
+
+
 @pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("widths", sorted(VAE_WIDTHS))
 @pytest.mark.parametrize("birvae", (False, True))

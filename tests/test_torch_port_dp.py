@@ -14,6 +14,8 @@ permutation, the global batch's noise, each rank slicing its rows):
 - ragan, fishergan and birvae, whose losses couple the batch, equal the
   single-device step with their statistics all-reduced, by the
   reference's two tolerances (``tests/test_parallel.py``);
+- with the spectral projection on (nsgan amortized, lsgan fresh) the
+  general DP step equals the single-device step, ``sn_v`` included;
 - the fused DP path equals the general DP step for every variant of
   ``FUSED_DP_VARIANTS``, the EMA included; ``dp_impl`` "jit" and
   "shard_map" are one path.
@@ -64,6 +66,8 @@ COUPLED = ("ragan", "fishergan", "birvae")
 # a step of order lr. At 1e-3 the three agree with the single device to
 # ~1e-6 over the six steps.
 COUPLED_KW = {"adam_eps": 1e-3}
+# the spectral projection on the critic: (variant, sn_mode)
+SPECTRAL = (("nsgan", "amortized"), ("lsgan", "fresh"))
 
 
 def _case(variant, path, **kw):
@@ -98,6 +102,10 @@ def _cases():
             out[(v, path, "fused")] = _case(v, path, **FUSED_KW.get(v, {}))
     for v in COUPLED:
         out[(v, "general", "coupled")] = _case(v, "general", **COUPLED_KW)
+    for v, mode in SPECTRAL:
+        out[(v, "general", mode)] = _case(v, "general",
+                                          spectral_projection=True,
+                                          sn_mode=mode)
     return out
 
 
@@ -226,6 +234,20 @@ def test_batch_coupled_dp_equals_single_device(world2, variant):
                                    rtol=2e-4, atol=1e-5, err_msg=k)
         np.testing.assert_allclose(res[0]["metrics"][k], m1[k], rtol=5e-3,
                                    atol=5e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("variant,mode", SPECTRAL)
+def test_general_dp_with_projection_equals_single_device(world2, variant,
+                                                         mode):
+    """Every rank projects its critic from the same averaged update, and
+    (amortized) carries the same vectors: the single device's run."""
+    case, res = world2[(variant, "general", mode)]
+    _ranks_agree(res)
+    assert any(k.startswith("['sn_v']") for k in res[0]["state"]) == (
+        mode == "amortized")
+    s1, m1 = _single(case)
+    _close(res[0]["state"], s1, f"{variant} {mode} DP vs single state")
+    _close(res[0]["metrics"], m1, f"{variant} {mode} DP vs single metrics")
 
 
 @pytest.mark.parametrize("variant", cuda_dp.FUSED_DP_VARIANTS)

@@ -517,7 +517,7 @@ def test_phase_libraries_are_one_a_dp_hook_and_need_nvcc(monkeypatch):
         "ragan", "fishergan"}
     with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
         src = f.read()
-    assert "GM_PHASE" in src and "gm_gan_phase(" in src
+    assert "GM_PHASE" in src and "gm_gan_phase_run(" in src
     import torch.utils.cpp_extension as ext
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
@@ -550,3 +550,23 @@ def test_chip_smoke_kernels_line_names_the_phase_kernels():
                  "drive_dp_world1(", "drive_dp_shared_card(",
                  "time_phases("):
         assert line in src, line
+
+
+def test_phase_trace_instruments_both_source_styles():
+    """tools/phase_trace.py marks a source with PHASE_MARK() at its marks
+    (and a last barrier at PHASE_END()), and an older source, which has
+    none, at the kernel's entry and after every grid barrier."""
+    from generative_models_tpu_torch.tools import phase_trace
+    with open(os.path.join(build.CSRC_DIR, "gan_chunk.cu")) as f:
+        src = f.read()
+    new = phase_trace.instrumented_source(src)
+    assert new.endswith(src) and "#define PHASE_MARK() {" in new
+    assert "#define PHASE_END() { grid.sync(); PHASE_MARK(); }" in new
+    old = ("namespace cg = cooperative_groups;\n"
+           "__global__ void k() {\n  copy_args(sa, a);\n"
+           "  grid.sync();\n  grid.sync();\n}\n")
+    marked = phase_trace.instrumented_source(old)
+    assert marked.count("globaltimer") == 3
+    assert marked.index("g_ts[64]") < marked.index("__global__")
+    assert phase_trace.parse("wgangp:50:bf16") == ("wgangp", 50, True)
+    assert phase_trace.parse("nsgan") == ("nsgan", 100, False)
