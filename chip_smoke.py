@@ -25,11 +25,13 @@ imports nothing of JAX. Phases:
    - the whole-MLP forward at the serving shapes (nsgan G 128->400->784
      at B 1/37/64/100/1000/1024/8192), the critic's shape, a 3-layer tanh
      stack, and the one-layer ``linear_cuda`` (784->400 leaky_relu at
-     B 100/8192), in float32 and bf16 operands; then G at B 100 and D at
+     B 100/8192), the quality scorer's classifier 784->128->10 and its
+     feature layer 784->128 at B 256/1024/10000, in float32 and bf16
+     operands; then G at B 100 and D at
      a ragged B 37 under one launch plan of every cluster size and item
      height (``ops/cuda_mlp.py::chain_candidates``);
    - the whole-MLP backward (every dW, db and dx): G at B 1/37/100/8192,
-     D at B 100, the tanh stack; G at B 100 under one pass-1 plan of every
+     D at B 100, the tanh stack, the classifier at B 256; G at B 100 under one pass-1 plan of every
      cluster size and item height, G at B 8192 in 1, 3 and 7 slices and at
      B 1000 in 2 and 3 (a ragged last slice); float32 and bf16; and G at
      B 8192 twice, bitwise equal (the slices' sums run in a fixed order);
@@ -53,9 +55,11 @@ imports nothing of JAX. Phases:
      plain version over the same 20 steps;
    - the sampling kernel ``reparam`` at [100, 20], [8192, 20], a ragged
      [37, 20] and a wide [64, 200]: z element by element against the
-     plain version's reproduced eps, the row KL, and the backward through
-     autograd against the analytic rule; the moments of 1.3 million
-     draws, and distinct offsets giving distinct noise;
+     plain version's reproduced eps, the row KL, z and kl bitwise equal
+     across two calls; the backward kernel ``reparam_bwd`` against the
+     plain rule (dkl as given and expanded from one value), and through
+     autograd; the moments of 1.3 million draws, and distinct offsets
+     giving distinct noise;
    - the VAE and BIR-VAE (mse and bce) chunk kernels: 8 steps at full
      width (784-400-20), B 100, against their plain versions in float64;
      and 20 steps of each against the general step from one state with
@@ -104,12 +108,20 @@ imports nothing of JAX. Phases:
      and 12; wgangp 60 steps, 17 and 12 and 5 plain critic passes of the
      penalty (``ops/penalty.py``: no kernel is twice differentiable);
      ragan 100 steps, 6 and 4; began and infogan 100 steps, 5 and 4; vae
-     100 steps, 4 forward, 4 backward and 1 ``reparam`` launch a step;
+     100 steps, 4 forward, 4 backward, 1 ``reparam`` and 1
+     ``reparam_bwd`` launch a step;
      birvae 100 steps, 3 forward and 3 backward; then the CLI's nsgan with
      ``--spectral-projection`` in both ``--sn-mode``s (SN_STEPS steps):
      ``fused_step="auto"`` takes the general step (no chunk launch), D's
      largest singular value ends at most sn_target (SN_SIGMA_TOL), the
      amortized run's checkpoint holds ``sn_v``;
+   - quality scoring and the sampler export (4h): the CLI's nsgan and
+     vae runs again with ``--score-samples --export-sampler`` and a grid
+     every 500 steps: the scorer's MLP launches counted apart (500
+     training steps of the classifier, its accuracy on the 10,000 test
+     images > 0.9, the scores and FID finite); the artifact loaded on the
+     card and on the CPU, bit for bit per seed and against
+     ``Trainer.sample`` with the same Philox z; a GIF of the run's grids;
    - ``--sample-only`` from full-width wgan, cgan, began and infogan
      checkpoints in the JAX layout (cgan: G 138->400->784, D
      794->400->1; began: D 784->400->784; infogan: G 140->400->784, D's
@@ -131,7 +143,9 @@ imports nothing of JAX. Phases:
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
    device time from torch.profiler, the backward's kernels apart, and the
-   library's device time summed over its kernels), and steps/s of each chunk kernel (nsgan,
+   library's device time summed over its kernels), (5c) ``reparam`` and
+   ``reparam_bwd`` at [100, 20], [8192, 20] and [64, 200] with their
+   device ms (``queued_ms``) and host us a call, and steps/s of each chunk kernel (nsgan,
    lsgan, wgan, fgan, ragan, fishergan, wgangp, dragan, cgan, infogan,
    began, vae, birvae), the general step and a library step loop (addmm
    + autograd + ``torch.optim.Adam`` or ``RMSprop`` with
@@ -333,6 +347,12 @@ SERVING_BATCHES = (64, 1024, 8192)
 TRAIN_B = 100
 VAE_X, VAE_H, VAE_L = 784, 400, 20
 VAE_CASES = (("vae", "bce"), ("birvae", "mse"), ("birvae", "bce"))
+# the quality scorer's classifier (utils/quality.py) and its feature
+# layer: trained at B 256, scored on 1024 samples and the 10,000 test
+# images
+CLF_STACKS = (("clf", [784, 128, 10], ("relu", "none")),
+              ("clf_feat", [784, 128], ("relu",)))
+CLF_BATCHES = (256, 1024, 10000)
 
 
 def nvidia_smi_line() -> str:
@@ -404,6 +424,8 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
     cases += [("D", D_DIMS, D_ACTS, b) for b in (TRAIN_B, 1000)]
     cases += [("tanh3", [784, 96, 48, 24], ("tanh",) * 3, b) for b in (37, 8192)]
     cases += [("lin", [784, 400], ("leaky_relu",), b) for b in (TRAIN_B, 8192)]
+    cases += [(name, dims, acts, b) for name, dims, acts in CLF_STACKS
+              for b in CLF_BATCHES]
     cases += [(f"{name}:{p.tr}x{p.row_groups}/c{p.cluster}", dims, acts, b, p)
               for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
                                           ("D", D_DIMS, D_ACTS, 37))
@@ -449,7 +471,8 @@ def check_bwd(cuda_mlp, torch):
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("G", G_DIMS, G_ACTS, b, None) for b in (TRAIN_B, 8192, 37, 1)]
     cases += [("D", D_DIMS, D_ACTS, TRAIN_B, None),
-              ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37, None)]
+              ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37, None),
+              ("clf",) + CLF_STACKS[0][1:] + (CLF_BATCHES[0], None)]
     base = cuda_mlp.bwd_plan(TRAIN_B, G_DIMS, sm)
     cases += [(f"G:{p.tr}x{p.row_groups}/c{p.cluster}", G_DIMS, G_ACTS,
                TRAIN_B, dataclasses.replace(base, rows=p))
@@ -1000,10 +1023,14 @@ def check_cross_pair(cuda_train, variant, cfg, ds, what, ref_name, s_a, m_a,
 
 def check_reparam(cuda_reparam, torch):
     """Phase 3e: the sampling kernel against its plain version (the same
-    seed and offset reproduce the kernel's eps), its backward, and the
-    moments of its noise. Returns the worst z error."""
+    seed and offset reproduce the kernel's eps) and the backward kernel
+    against the plain rule (dkl as given and as a mean's expanded
+    cotangent), at the four shapes; the backward through autograd; the
+    forward's z and kl bitwise equal across two calls; the moments of its
+    noise. Returns (the worst z error, the worst backward error)."""
     rng = np.random.default_rng(7)
-    worst = 0.0
+    worst, worst_bwd = 0.0, 0.0
+    rel = lambda a, r: float((a - r).abs().max()) / float(r.abs().max())
     for b, l in ((TRAIN_B, VAE_L), (8192, VAE_L), (37, VAE_L), (64, 200)):
         mu = torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).cuda()
         lv = torch.from_numpy(
@@ -1011,33 +1038,40 @@ def check_reparam(cuda_reparam, torch):
         seed = torch.tensor([b * 7919 + 1, l * 104729 + 3], device="cuda")
         offset = b + (l << 33)
         z, kl = cuda_reparam.reparam_fwd(mu, lv, seed, offset)
+        z2, kl2 = cuda_reparam.reparam_fwd(mu, lv, seed, offset)
         z_ref, kl_ref = cuda_reparam.reparam_and_kl_plain(mu, lv, seed, offset)
-        # the backward through autograd against the analytic rule
-        gm, gl = mu.clone().requires_grad_(True), lv.clone().requires_grad_(True)
-        zz, kk = cuda_reparam.ReparamFunction.apply(gm, gl, seed, offset)
         dz = torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).cuda()
         dkl = torch.from_numpy(rng.normal(size=(b,)).astype(np.float32)).cuda()
+        # the backward kernel against the plain rule; dkl also stride 0
+        b_err = max(rel(a, r) for d in (dkl, dkl[:1].expand(b))
+                    for a, r in zip(cuda_reparam.reparam_bwd(mu, lv, z, dz, d),
+                                    cuda_reparam.reparam_bwd_plain(
+                                        mu, lv, z, dz, d)))
+        # and through autograd
+        gm, gl = mu.clone().requires_grad_(True), lv.clone().requires_grad_(True)
+        zz, kk = cuda_reparam.ReparamFunction.apply(gm, gl, seed, offset)
         dmu, dlv = torch.autograd.grad([zz, kk], [gm, gl], [dz, dkl])
-        dmu_ref = dz + dkl[:, None] * mu
-        dlv_ref = (dz * 0.5 * (z_ref - mu)
-                   - dkl[:, None] * 0.5 * (1.0 - torch.exp(lv)))
+        g_err = max(rel(a, r) for a, r in zip(
+            (dmu, dlv), cuda_reparam.reparam_bwd_plain(mu, lv, z_ref, dz, dkl)))
         torch.cuda.synchronize()
         z_err = float((z - z_ref).abs().max())
-        kl_err = float((kl - kl_ref).abs().max()) / float(kl_ref.abs().max())
-        g_err = max(float((a - r).abs().max()) / float(r.abs().max())
-                    for a, r in ((dmu, dmu_ref), (dlv, dlv_ref)))
+        kl_err = rel(kl, kl_ref)
+        repeat = torch.equal(z, z2) and torch.equal(kl, kl2)
         ok = (z_err <= REPARAM_TOL["z"] and kl_err <= REPARAM_TOL["kl"]
-              and g_err <= REPARAM_TOL["grad"] and torch.equal(zz, z)
+              and max(b_err, g_err) <= REPARAM_TOL["grad"]
+              and torch.equal(zz, z) and repeat
               and bool(torch.isfinite(z).all()))
         print(f"  reparam [{b}, {l}] vs plain (reproduced eps): "
               f"z_max_abs_err={z_err:.3e} (tol {REPARAM_TOL['z']:.0e}) "
-              f"kl max_err/max={kl_err:.3e} (tol {REPARAM_TOL['kl']:.0e}) "
-              f"backward max_err/max={g_err:.3e} (tol "
-              f"{REPARAM_TOL['grad']:.0e}) {'ok' if ok else 'FAIL'}")
+              f"kl max_err/max={kl_err:.3e} (tol {REPARAM_TOL['kl']:.0e}); "
+              f"two calls bitwise equal {repeat}; reparam_bwd vs the plain "
+              f"rule max_err/max={b_err:.3e}, through autograd {g_err:.3e} "
+              f"(tol {REPARAM_TOL['grad']:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"reparam disagrees with its plain version "
                                  f"at [{b}, {l}]")
         worst = max(worst, z_err)
+        worst_bwd = max(worst_bwd, b_err, g_err)
     # mu = 0, logvar = 0: z is eps itself
     zero = torch.zeros(65536, VAE_L, device="cuda")
     seed = torch.tensor([2024, 10], device="cuda")
@@ -1060,7 +1094,7 @@ def check_reparam(cuda_reparam, torch):
           f"distinct {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the reparam kernel's noise failed its checks")
-    return worst
+    return worst, worst_bwd
 
 
 def vae_state(rng, birvae):
@@ -1442,6 +1476,7 @@ def launch_counts(mods):
     cuda_mlp, cuda_train, cuda_reparam, ctv = mods
     return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
             "mlp_bwd": cuda_mlp.bwd_launches, "reparam": cuda_reparam.launches,
+            "reparam_bwd": cuda_reparam.bwd_launches,
             "vae_chunk": ctv.launches, "birvae_chunk": ctv.birvae_launches,
             "gan_chunk_ema": cuda_train.ema_launches,
             "gan_chunk_bf16": cuda_train.bf16_launches,
@@ -1576,7 +1611,114 @@ def drive_training_cli(variant, mods, torch, flags=()):
     return counts, line
 
 
-# launches a step of the general step: (mlp_fwd, mlp_bwd, reparam)
+# Phase 4h: the CLI's run of nsgan and of vae (as in 4b) again with
+# --score-samples --export-sampler and a sample grid every
+# SCORE_SAMPLE_EVERY steps. The scorer (cli.py::_score) launches the MLP
+# kernels CLF_LAUNCHES times: CLF_STEPS training steps of one forward and
+# one backward launch (784->128->10 at B 256), the accuracy on the 10,000
+# test images, t.sample(1024), the scores of those samples and FID's two
+# feature passes (784->128 at B 1024 and 1024 test images): one forward
+# each. The accuracy must exceed 0.9 (the reference test's bar on these
+# digits) and every score must be finite. The artifact, loaded on the card
+# and on the CPU, repeats bit for bit for a seed and matches
+# Trainer.sample given the same Philox z within TOL["float32"] (the card's
+# forward kernel against aten ops, and the CPU's transcendentals in the
+# noise). The run's grids make a GIF.
+SCORE_SAMPLE_EVERY = 500
+CLF_STEPS = 500
+CLF_LAUNCHES = {"mlp_fwd": CLF_STEPS + 5, "mlp_bwd": CLF_STEPS}
+SCORE_VARIANTS = ("nsgan", "vae")
+EXPORT_SEED = 20261017
+
+
+def drive_score_export(variant, mods, torch):
+    """Phase 4h. Returns (the run's launch counts with the scorer's MLP
+    launches apart as clf_mlp_fwd and clf_mlp_bwd, the quality line)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import export, gif
+    cuda_mlp = mods[0]
+    run_dir = os.path.join(OUT_DIR, "score")
+    ckpt = os.path.join(run_dir, f"{variant}_trained")
+    art = os.path.join(run_dir, f"{variant}_sampler.pt2")
+    clf = {}
+    score = cli._score
+
+    def counted(t):
+        before = cuda_mlp.launches, cuda_mlp.bwd_launches
+        out = score(t)
+        clf["mlp_fwd"] = cuda_mlp.launches - before[0]
+        clf["mlp_bwd"] = cuda_mlp.bwd_launches - before[1]
+        return out
+
+    buf = io.StringIO()
+    reset(*mods)
+    cli._score = counted
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--variant", variant, "--dataset", "synthetic",
+                           "--steps", "1000", "--scan-steps", "500",
+                           "--echo-every", "500", "--out-dir", run_dir,
+                           "--sample-every", str(SCORE_SAMPLE_EVERY),
+                           "--ckpt", ckpt, "--score-samples",
+                           "--export-sampler", art])
+    finally:
+        cli._score = score
+    counts = launch_counts(mods)
+    out = buf.getvalue().strip().splitlines()
+    print("  " + "\n  ".join(out))
+    line = json.loads(next(l for l in out
+                           if l.startswith('{"classifier_test_acc"')))
+    chunk = "gan_chunk" if variant == "nsgan" else "vae_chunk"
+    ok = (rc == 0 and counts[chunk] == 2 and clf == CLF_LAUNCHES
+          and line["classifier_test_acc"] > 0.9
+          and all(math.isfinite(v) for v in line.values())
+          and out[-2] == f"saved: {ckpt}.npz" and out[-1] == f"exported: {art}")
+    print(f"  cli {variant} --score-samples --export-sampler: rc={rc} "
+          f"{line}; the scorer's MLP launches {clf} (expect {CLF_LAUNCHES}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the scoring and export run of {variant} "
+                             f"failed its checks")
+    t = Trainer(variant, dataset="synthetic")
+    t.load_model(ckpt)
+    n = t.cfg.sample_n
+    z = export.sampler_noise(torch.tensor(EXPORT_SEED, device="cuda"), n,
+                             export.noise_width(t.spec, t.cfg))
+    ref = t.sample(z=z)
+    errs, same = {}, {}
+    for dev in ("cuda", "cpu"):
+        fn = export.load_sampler(art, dev)
+        a, b = fn(EXPORT_SEED), fn(EXPORT_SEED)
+        same[dev] = (torch.equal(a, b) and a.shape == (n, 784)
+                     and a.device.type == dev)
+        errs[dev] = float(np.abs(a.cpu().numpy() - ref).max())
+    other = export.load_sampler(art, "cuda")(EXPORT_SEED + 1)
+    vdir = os.path.join(run_dir, variant)
+    pngs = sorted(glob.glob(os.path.join(vdir, "step*.png"))) + [
+        os.path.join(vdir, "final.png")]
+    path = gif.pngs_to_gif(pngs, os.path.join(vdir, "training.gif"))
+    with open(path, "rb") as f:
+        data = f.read()
+    frames = data.count(b"\x21\xF9\x04")
+    ok = (all(same.values()) and max(errs.values()) <= TOL["float32"]
+          and not np.array_equal(other.cpu().numpy(), ref)
+          and data[:6] == b"GIF89a" and frames == len(pngs) == 3)
+    print(f"  {variant} sampler artifact ({os.path.getsize(art)} bytes), "
+          f"seed {EXPORT_SEED}: repeats bit for bit {same}; vs Trainer.sample "
+          f"with the same Philox z max_abs_err {errs} (tol "
+          f"{TOL['float32']:.0e}); another seed other images; GIF of "
+          f"{frames} frames from {[os.path.basename(p) for p in pngs]}, "
+          f"{len(data)} bytes {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {variant} sampler artifact or GIF failed")
+    os.remove(ckpt + ".npz")
+    counts.update({f"clf_{k}": v for k, v in clf.items()})
+    return counts, line
+
+
+# launches a step of the general step: (mlp_fwd, mlp_bwd, reparam,
+# reparam_bwd)
 # A critic update runs 3 forwards (G, D on x, D on the fake) and 2
 # backwards, the G update 2 and 2: 5 and 4 at d_steps 1, 5 * 3 + 2 = 17
 # and 5 * 2 + 2 = 12 for wgan at d_steps 5; ragan's G loss also runs D on
@@ -1587,10 +1729,10 @@ def drive_training_cli(variant, mods, torch, flags=()):
 # began's critic (the autoencoder) and infogan's (trunk and both heads as
 # one stack; its MI term reads the fake's pass of the D loss) launch as
 # nsgan's.
-GENERAL_LAUNCHES = {"nsgan": (5, 4, 0), "wgan": (17, 12, 0),
-                    "wgangp": (17, 12, 0), "ragan": (6, 4, 0),
-                    "began": (5, 4, 0), "infogan": (5, 4, 0),
-                    "vae": (4, 4, 1), "birvae": (3, 3, 0)}
+GENERAL_LAUNCHES = {"nsgan": (5, 4, 0, 0), "wgan": (17, 12, 0, 0),
+                    "wgangp": (17, 12, 0, 0), "ragan": (6, 4, 0, 0),
+                    "began": (5, 4, 0, 0), "infogan": (5, 4, 0, 0),
+                    "vae": (4, 4, 1, 1), "birvae": (3, 3, 0, 0)}
 PENALTY_PASSES = {"wgangp": 5}
 GENERAL_STEPS = (("nsgan", 200), ("wgan", 60), ("wgangp", 60), ("ragan", 100),
                  ("began", 100), ("infogan", 100), ("vae", 100),
@@ -1610,9 +1752,10 @@ def drive_training_general(variant, steps, mods, torch):
     counts = launch_counts(mods)
     passes = penalty.plain_passes
     finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
-    fwd, bwd, rep = GENERAL_LAUNCHES[variant]
+    fwd, bwd, rep, rep_bwd = GENERAL_LAUNCHES[variant]
     want = {"gan_chunk": 0, "mlp_fwd": fwd * steps, "mlp_bwd": bwd * steps,
-            "reparam": rep * steps, "vae_chunk": 0, "birvae_chunk": 0,
+            "reparam": rep * steps, "reparam_bwd": rep_bwd * steps,
+            "vae_chunk": 0, "birvae_chunk": 0,
             "gan_chunk_ema": 0, "gan_chunk_bf16": 0, "vae_family_ema": 0,
             "vae_family_bf16": 0}
     pen = PENALTY_PASSES.get(variant, 0)
@@ -1620,9 +1763,10 @@ def drive_training_general(variant, steps, mods, torch):
           and all(len(v) == steps for v in hist.values()))
     sps = steps / t.wall_time
     print(f"  Trainer({variant!r}, fused_step=False).train(steps={steps}): "
-          f"launches={counts} (expect {fwd} fwd + {bwd} bwd + {rep} reparam a "
-          f"step); the penalty's plain critic passes {passes} (expect {pen} "
-          f"a step) finite={finite} {sps:.1f} steps/s "
+          f"launches={counts} (expect {fwd} fwd + {bwd} bwd + {rep} reparam "
+          f"+ {rep_bwd} reparam_bwd a step); the penalty's plain critic "
+          f"passes {passes} (expect {pen} a step) finite={finite} "
+          f"{sps:.1f} steps/s "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the general step's {variant} run failed")
@@ -1755,14 +1899,6 @@ def time_ms(torch, fn, iters: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
-
-
-def kernel_device_ms(torch, fn, name: str, iters: int = 20):
-    """Device time per call of the kernels whose names hold `name`, from
-    torch.profiler (device_ms_by_name), or None when the profiler records
-    no device time."""
-    by_name, _ = device_ms_by_name(torch, fn, iters)
-    return sum(v for k, v in (by_name or {}).items() if name in k) or None
 
 
 def bound_of(flops, nbytes, peak=FP32_FLOP_PER_S):
@@ -2319,36 +2455,58 @@ def vae_chunk_bound(steps, birvae, b=TRAIN_B, x=VAE_X, h=VAE_H, l=VAE_L,
 
 
 def time_reparam(cuda_reparam, torch, card):
-    """Phase 5c: the sampling kernel beside its plain version, the library
-    call (torch.randn and the four-op formula) and its bound: mu and
-    logvar read once, z and the row KL written once."""
-    rows = []
-    for b in (TRAIN_B, 8192):
-        mu = torch.randn(b, VAE_L, device="cuda")
-        lv = torch.randn(b, VAE_L, device="cuda") * 0.3
+    """Phase 5c: the sampling kernel and its backward kernel at [100, 20],
+    [8192, 20] and [64, 200], each beside its plain version, one library
+    call and its bound: ms (CUDA events over 200 back-to-back calls), the
+    host's us a call, and the device ms a call with the host out of the
+    way (tools/phase_trace.py::queued_ms), the library's too. The library:
+    torch.randn and the four-op formula; for the backward
+    autograd.grad through that formula's graph. Bounds: mu and logvar
+    read, z and kl written; dz, mu, logvar, z and dkl read, dmu and
+    dlogvar written. Returns (forward rows, backward rows)."""
+    from generative_models_tpu_torch.tools import phase_trace
+    rows = {"fwd": [], "bwd": []}
+    for b, l in ((TRAIN_B, VAE_L), (8192, VAE_L), (64, 200)):
+        mu = torch.randn(b, l, device="cuda")
+        lv = torch.randn(b, l, device="cuda") * 0.3
+        dz = torch.randn(b, l, device="cuda")
+        dkl = torch.randn(b, device="cuda")
         seed = torch.tensor([11, 13], device="cuda")
-        k_ms = time_ms(torch, lambda: cuda_reparam.reparam_fwd(mu, lv, seed, 5),
-                       200)
-        p_ms = time_ms(torch, lambda: cuda_reparam.reparam_and_kl_plain(
-            mu, lv, seed, 5), 50)
+        z, _ = cuda_reparam.reparam_fwd(mu, lv, seed, 5)
 
         def library():
             z = mu + torch.exp(0.5 * lv) * torch.randn_like(mu)
             return z, -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv), -1)
 
-        l_ms = time_ms(torch, library, 200)
-        d_ms = kernel_device_ms(
-            torch, lambda: cuda_reparam.reparam_fwd(mu, lv, seed, 5),
-            "reparam_kernel")
-        b_ms, b_by = bound_of(0.0, 4 * (3 * b * VAE_L + b))
-        rows.append({"shape": f"[{b}, {VAE_L}]", "ms": k_ms, "device_ms": d_ms,
-                     "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                     "bound_by": b_by})
-        print(f"  reparam  {rows[-1]['shape']:22s} kernel {k_ms:.4f} ms"
-              + (f" (device {d_ms:.4f})" if d_ms else "")
-              + f"  plain {p_ms:.4f}  library {l_ms:.4f}  bound {b_ms:.6f} "
-              f"({b_by})  [{card}]")
-    return rows
+        lm, ll = mu.clone().requires_grad_(True), lv.clone().requires_grad_(True)
+        lz = lm + torch.exp(0.5 * ll) * torch.randn_like(mu)
+        lk = -0.5 * torch.sum(1.0 + ll - lm * lm - torch.exp(ll), -1)
+        calls = {
+            "fwd": (lambda: cuda_reparam.reparam_fwd(mu, lv, seed, 5),
+                    lambda: cuda_reparam.reparam_and_kl_plain(mu, lv, seed, 5),
+                    library, 4 * (3 * b * l + b)),
+            "bwd": (lambda: cuda_reparam.reparam_bwd(mu, lv, z, dz, dkl),
+                    lambda: cuda_reparam.reparam_bwd_plain(mu, lv, z, dz, dkl),
+                    lambda: torch.autograd.grad([lz, lk], [lm, ll], [dz, dkl],
+                                                retain_graph=True),
+                    4 * (6 * b * l + b))}
+        for d, (kern, plain, lib, nbytes) in calls.items():
+            b_ms, b_by = bound_of(0.0, nbytes)
+            row = {"shape": f"[{b}, {l}]", "ms": time_ms(torch, kern, 200),
+                   "host_us": host_us(torch, kern, 200),
+                   "device_ms": phase_trace.queued_ms(torch, kern),
+                   "plain_ms": time_ms(torch, plain, 50),
+                   "library_ms": time_ms(torch, lib, 200),
+                   "library_device_ms": phase_trace.queued_ms(torch, lib),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows[d].append(row)
+            print(f"  reparam{'_bwd' if d == 'bwd' else ''} {row['shape']:11s}"
+                  f" kernel {row['ms']:.4f} ms (device {row['device_ms']:.5f},"
+                  f" host {row['host_us']:.1f} us)  plain {row['plain_ms']:.4f}"
+                  f"  library {row['library_ms']:.4f} (device "
+                  f"{row['library_device_ms']:.5f})  bound {b_ms:.6f} ({b_by})"
+                  f"  [{card}]")
+    return rows["fwd"], rows["bwd"]
 
 
 def library_vae_step_loop(torch, steps, birvae, recon, bf16=False,
@@ -3632,7 +3790,7 @@ def main() -> int:
     bwd_err = check_bwd(cuda_mlp, torch)
     chunk_err = check_chunk(cuda_train, torch)
     cross_check(cuda_train, step_lib, torch)
-    reparam_err = check_reparam(cuda_reparam, torch)
+    reparam_err, reparam_bwd_err = check_reparam(cuda_reparam, torch)
     vae_err = check_vae_chunk(ctv, torch)
     cross_check_vae(cuda_train, ctv, step_lib, torch)
     phase_err = check_phases(cuda_dp, cuda_train, torch)
@@ -3663,6 +3821,10 @@ def main() -> int:
         paths[f"general_{variant}"], general_sps[variant] = \
             drive_training_general(variant, steps, mods, torch)
     paths["cli_nsgan_spectral"] = drive_spectral_cli(mods, torch)
+    score_lines = {}
+    for variant in SCORE_VARIANTS:
+        paths[f"score_{variant}"], score_lines[variant] = drive_score_export(
+            variant, mods, torch)
     vae_serve_fwd, vae_serve_err = drive_vae_serving(mods, torch)
     paths["serving_vae"] = {"mlp_fwd": vae_serve_fwd}
     paths["serving_wgan"] = {"mlp_fwd": drive_wgan_sample_only(mods)}
@@ -3685,7 +3847,8 @@ def main() -> int:
         return {name: c[kernel] for name, c in paths.items()
                 if c.get(kernel, 0)}
 
-    for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam", "vae_chunk",
+    for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam",
+                   "reparam_bwd", "clf_mlp_fwd", "clf_mlp_bwd", "vae_chunk",
                    "birvae_chunk", "d_phase", "g_phase", "gan_chunk_ema",
                    "gan_chunk_bf16", "vae_family_ema", "vae_family_bf16",
                    "d_phase_bf16", "g_phase_bf16"):
@@ -3696,7 +3859,7 @@ def main() -> int:
     rows = time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card)
     train_rows = time_training(cuda_train, torch, card, general_sps)
     train_row = train_rows["nsgan"]
-    reparam_rows = time_reparam(cuda_reparam, torch, card)
+    reparam_rows, reparam_bwd_rows = time_reparam(cuda_reparam, torch, card)
     vae_rows = time_vae_training(ctv, torch, card, general_sps)
     phase_rows = time_phases(cuda_dp, cuda_train, torch, card)
     phase_main = {m: next(r for r in phase_rows if r["kernel"] ==
@@ -3722,6 +3885,7 @@ def main() -> int:
                     if r["shape"] == "G B=8192")
     bwd_main = rows["mlp_bwd"][0]    # G at B = 100, the training batch
     rep_main = reparam_rows[0]       # [100, 20], the training batch
+    rep_bwd_main = reparam_bwd_rows[0]
 
     def entry(name, source, replaces, err, row, shape, counted=None, **more):
         launched = by_path(counted or name)
@@ -3739,7 +3903,7 @@ def main() -> int:
               max(fwd_err, serve_err, vae_serve_err, cgan_err, info_err),
               fwd_main,
               fwd_main["shape"], per_shape=rows["mlp_fwd"],
-              linear_cuda=rows["linear"]),
+              linear_cuda=rows["linear"], quality_runs=score_lines),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",
@@ -3751,7 +3915,14 @@ def main() -> int:
               cli_runs={v: cli_lines[v] for v in CLI_GAN}),
         entry("reparam", cuda_reparam.SOURCE,
               "generative_models_tpu/ops/pallas_reparam.py:41", reparam_err,
-              rep_main, rep_main["shape"], per_shape=reparam_rows),
+              rep_main, rep_main["shape"], per_shape=reparam_rows,
+              device_ms=rep_main["device_ms"], host_us=rep_main["host_us"]),
+        entry("reparam_bwd", cuda_reparam.SOURCE,
+              "generative_models_tpu/ops/pallas_reparam.py:115",
+              reparam_bwd_err, rep_bwd_main, rep_bwd_main["shape"],
+              max_abs_err_is="relative to max|ref|",
+              per_shape=reparam_bwd_rows, device_ms=rep_bwd_main["device_ms"],
+              host_us=rep_bwd_main["host_us"]),
         entry("vae_chunk", ctv.SOURCE,
               "generative_models_tpu/ops/pallas_train.py:1442", vae_err["vae"],
               vae_rows["vae"], chunk_shape,

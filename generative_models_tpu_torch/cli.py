@@ -19,9 +19,17 @@ global batch, ``--fused-step`` takes the phase kernels
 (``ops/cuda_dp.py``) and ``--dp-impl`` either value the general DP step
 (``parallel/dp.py``); rank 0 alone writes and prints. ``--sample-only`` loads a checkpoint written by either
 package and writes a sample grid (cgan's cycles the classes: row i has
-label i % num_classes), printing ``{"variant", "step", "samples"}``. The
-flags whose paths are not ported yet exit with a usage error that names
-them. ``--device`` defaults to ``cuda``; ``cpu`` runs the
+label i % num_classes), printing ``{"variant", "step", "samples"}``.
+``--score-samples`` trains the quality scorer's classifier on the train
+split after training (``utils/quality.py``) and prints the reference's
+line ``{"classifier_test_acc", "confidence", "class_entropy",
+"is_score", "fid"}``; ``--export-sampler PATH`` writes the sampler as a
+``torch.export`` program after the checkpoint (``utils/export.py``; with
+``--sample-only``, from the loaded one); ``--debug-nans`` turns on
+autograd's anomaly mode and checks every chunk's metrics and the state
+for finite values, raising ``FloatingPointError`` at the first step that
+is not. The flags whose paths are not ported yet exit with a usage
+error that names them. ``--device`` defaults to ``cuda``; ``cpu`` runs the
 kernels' plain versions.
 """
 
@@ -37,8 +45,6 @@ from generative_models_tpu_torch.config import Config, VARIANTS, variant_config
 
 # flag -> the ROADMAP.md item that ports its path
 _NOT_PORTED = {
-    "export_sampler": "Queue 1 item 11, quality scoring and outputs",
-    "score_samples": "Queue 1 item 11, quality scoring and outputs",
     "reflow_from": "Queue 1 item 9, the diffusion family",
     "vq_from": "Queue 1 item 10, the VQ family",
     "multihost": "Queue 1 item 12, parallelism",
@@ -73,8 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the "
                         "kernels' plain versions)")
     p.add_argument("--echo-every", type=int, default=100)
-    p.add_argument("--export-sampler", default=None, metavar="PATH")
-    p.add_argument("--score-samples", action="store_true")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd's anomaly mode, and every chunk's metrics "
+                        "and the state checked for finite values: raise "
+                        "FloatingPointError at the first step that is not")
+    p.add_argument("--score-samples", action="store_true",
+                   help="train a held-out classifier and report IS-style "
+                        "sample-quality scores and FID at the end")
+    p.add_argument("--export-sampler", default=None, metavar="PATH",
+                   help="after training (or from --ckpt with "
+                        "--sample-only), save the sampler as a torch.export "
+                        "program: seed -> [sample_n, 784] images, the "
+                        "parameters baked in, loadable with torch alone")
     p.add_argument("--reflow-from", default=None, metavar="CKPT")
     p.add_argument("--vq-from", default=None, metavar="CKPT")
     p.add_argument("--multihost", action="store_true")
@@ -133,9 +149,18 @@ def _train_rank(group, argv) -> list:
 
 
 def _run(args, cfg, say, group=None) -> int:
+    if not args.debug_nans:
+        return _run_body(args, cfg, say, group)
+    import torch
+    with torch.autograd.detect_anomaly():
+        return _run_body(args, cfg, say, group)
+
+
+def _run_body(args, cfg, say, group) -> int:
     from generative_models_tpu_torch.train.trainer import Trainer
     from generative_models_tpu_torch.utils.checkpoint import exists
-    t = Trainer(config=cfg, device=args.device, group=group)
+    t = Trainer(config=cfg, device=args.device, group=group,
+                debug_nans=args.debug_nans)
     if args.sample_only:
         if not args.ckpt or not exists(args.ckpt):
             print("--sample-only needs an existing --ckpt", file=sys.stderr)
@@ -143,8 +168,10 @@ def _run(args, cfg, say, group=None) -> int:
         t.load_model(args.ckpt)
         step = t.state["step"]
         path = t.generate_images(tag=f"samples_step{step:06d}")
-        say(json.dumps({"variant": cfg.variant, "step": step,
-                        "samples": path}))
+        out = {"variant": cfg.variant, "step": step, "samples": path}
+        if args.export_sampler and t.writes:
+            out["sampler"] = _export_sampler(t, args.export_sampler)
+        say(json.dumps(out))
         return 0
     if args.ckpt and cfg.resume and exists(args.ckpt):
         t.load_model(args.ckpt)
@@ -169,9 +196,40 @@ def _run(args, cfg, say, group=None) -> int:
     }))
     t.generate_images(tag="final")
     t.viz_loss()
+    if args.score_samples and t.writes:
+        say(json.dumps(_score(t)))
+    # the checkpoint first: a failed export must not cost the run
     if args.ckpt:
         say(f"saved: {t.save_model(args.ckpt)}")
+    if args.export_sampler and t.writes:
+        say(f"exported: {_export_sampler(t, args.export_sampler)}")
     return 0
+
+
+def _score(t) -> dict:
+    """The reference's quality line: a classifier trained on the train
+    split (decoded to float32), scored on the test split, and the scores
+    of 1024 samples, FID against the first 1024 test images."""
+    from generative_models_tpu_torch.utils.quality import (
+        classifier_accuracy,
+        fid_score,
+        score_samples,
+        train_classifier,
+    )
+    xs, ys = t.train_split_f32()
+    clf = train_classifier(xs, ys, device=t.device)
+    acc = classifier_accuracy(clf, t.x_test, t.y_test)
+    samples = t.sample(1024)
+    scores = score_samples(clf, samples)
+    scores["fid"] = fid_score(clf, t.x_test[:1024], samples)
+    return {"classifier_test_acc": round(acc, 4),
+            **{k: round(v, 4) for k, v in scores.items()}}
+
+
+def _export_sampler(t, path: str) -> str:
+    from generative_models_tpu_torch.utils.export import save_sampler
+    return save_sampler(path, t.spec, t.cfg, t.generator_params,
+                        t.cfg.sample_n)
 
 
 if __name__ == "__main__":

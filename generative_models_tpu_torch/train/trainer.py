@@ -67,6 +67,7 @@ from generative_models_tpu_torch.utils.checkpoint import (
     save_state,
 )
 from generative_models_tpu_torch.utils.metrics import MetricsLogger
+from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
 from generative_models_tpu_torch.utils.viz import plot_losses, save_image_grid
 
 
@@ -93,7 +94,7 @@ class Trainer:
     def __init__(self, variant: str = "nsgan",
                  config: Optional[Config] = None, device="cuda",
                  data: Optional[Dict[str, np.ndarray]] = None,
-                 group=None, **overrides):
+                 group=None, debug_nans: bool = False, **overrides):
         cfg = config if config is not None else variant_config(
             variant, **overrides)
         if cfg.dtype == "auto":
@@ -101,6 +102,9 @@ class Trainer:
             cfg = cfg.replace(dtype="float32")
         self.cfg = cfg
         self.group = group
+        # every chunk's metrics and the state checked for finite values
+        # (the CLI's --debug-nans, which also turns on anomaly mode)
+        self.debug_nans = debug_nans
         self.device = resolve_device(device if group is None
                                      else group.device)
         self.spec = get_variant(cfg.variant)
@@ -318,9 +322,18 @@ class Trainer:
             perm_stack = self._perm_window(e0, win)
             rel = (start_row - e0 * self.rows_per_epoch) + torch.arange(
                 chunk, device=self.device) * self.rows_per_step
-            self.state, stacked = self._many_steps(
-                self.state, self.x_train, self.y_train, perm_stack, rel,
-                lambda k0, n, first=first: self._noise(first + k0, n))
+            try:
+                self.state, stacked = self._many_steps(
+                    self.state, self.x_train, self.y_train, perm_stack, rel,
+                    lambda k0, n, first=first: self._noise(first + k0, n))
+            except RuntimeError as e:
+                if not (self.debug_nans and "nan" in str(e).lower()):
+                    raise
+                raise FloatingPointError(
+                    f"--debug-nans: a non-finite value in the backward of a "
+                    f"step of steps {first}-{first + chunk - 1}: {e}") from e
+            if self.debug_nans:
+                self._check_finite(first, chunk, stacked)
             prev_epochs = first // self.steps_per_epoch
             done += chunk
             cur_epochs = (base_step + done) // self.steps_per_epoch
@@ -357,6 +370,26 @@ class Trainer:
         logger.close()
         self.history = logger.history
         return logger.history
+
+    def _check_finite(self, first: int, chunk: int, stacked) -> None:
+        """Raise FloatingPointError naming the first step of the chunk
+        (global steps first..first+chunk-1) whose metrics are not
+        finite, or the chunk's last step if only the state is not."""
+        bad = {k: int(torch.nonzero(~torch.isfinite(v.reshape(chunk, -1))
+                                    .all(dim=1))[0])
+               for k, v in stacked.items()
+               if not bool(torch.isfinite(v).all())}
+        if bad:
+            k = min(bad, key=bad.get)
+            raise FloatingPointError(
+                f"--debug-nans: metric {k!r} is not finite at step "
+                f"{first + bad[k]}")
+        for path, t in tree_leaves_with_path(self.state):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and not bool(torch.isfinite(t).all())):
+                raise FloatingPointError(
+                    f"--debug-nans: state {path} is not finite after step "
+                    f"{first + chunk - 1}")
 
     # --------------------------------------------------------------
     @torch.no_grad()

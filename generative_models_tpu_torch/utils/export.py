@@ -1,0 +1,109 @@
+"""Serving export — the port of ``generative_models_tpu/utils/export.py``:
+a trained sampler as one self-contained ``torch.export`` program (the
+counterpart of the reference's StableHLO artifact).
+
+The artifact maps an int64 seed (a 0-dim tensor) to images [n,
+image_dim] in [0, 1], with the generator's (or its EMA's) parameters
+baked in as buffers. Its noise is drawn inside it from the seed by the
+port's Philox4x32-10 in torch integer ops
+(``ops/cuda_reparam.py::philox_normal_plain``, key = the seed's low and
+high 32-bit words, offset 0: :func:`sampler_noise`), so its output is
+bit-stable for each seed on a device. cgan's and infogan's samplers keep
+their class-cycled grid. The program is traced through the plain path on
+the CPU (a ctypes kernel cannot be traced, as the reference forces XLA
+for its export), so it holds only aten ops and loads in a process that
+imports torch alone:
+
+    save_sampler("sampler.pt2", spec, cfg, params, n=64)
+    # elsewhere, torch only:
+    ep = torch.export.load("sampler.pt2")
+    images = ep.module()(torch.tensor(seed))        # on the CPU
+    from torch.export.passes import move_to_device_pass
+    ep = move_to_device_pass(ep, "cuda")
+    images = ep.module()(torch.tensor(seed, device="cuda"))
+
+The devices the program names (its buffers, each ``arange``) are the
+CPU's; ``move_to_device_pass`` rewrites them, as :func:`load_sampler`
+does for ``device=``.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+
+import torch
+
+from generative_models_tpu_torch.ops.cuda_reparam import philox_normal_plain
+from generative_models_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+_MASK = 0xFFFFFFFF
+
+
+def noise_width(spec, cfg) -> int:
+    """The width of the noise a variant's ``sample`` takes: ``z_dim`` for
+    an adversarial variant, ``latent_dim`` for the VAE family."""
+    return cfg.z_dim if spec.adversarial else cfg.latent_dim
+
+
+def sampler_noise(seed: torch.Tensor, n: int, width: int) -> torch.Tensor:
+    """The artifact's noise [n, width] for an int64 0-dim `seed` (on the
+    device the noise is wanted on)."""
+    words = torch.stack([seed & _MASK, (seed >> 32) & _MASK])
+    return philox_normal_plain(words, 0, (n, width), device=seed.device)
+
+
+class _Sampler(torch.nn.Module):
+    """seed -> spec.sample(params, z=sampler_noise(seed)), the parameters
+    held as buffers."""
+
+    def __init__(self, spec, cfg, params, n: int):
+        super().__init__()
+        self.spec, self.cfg, self.n = spec, cfg, n
+        self.like = tree_map(lambda t: None, params)   # the structure
+        self.count = 0
+        for t in tree_leaves(params):
+            self.register_buffer(f"p{self.count}",
+                                 t.detach().to("cpu", copy=True))
+            self.count += 1
+
+    def forward(self, seed: torch.Tensor) -> torch.Tensor:
+        params = tree_unflatten(self.like, [getattr(self, f"p{i}")
+                                            for i in range(self.count)])
+        z = sampler_noise(seed, self.n, noise_width(self.spec, self.cfg))
+        return self.spec.sample(params, None, self.n, self.cfg, z=z)
+
+
+def export_sampler(spec, cfg, params, n: int) -> bytes:
+    """Serialize ``seed -> [n, image_dim] images in [0, 1]`` with `params`
+    (the sampling-side tree) baked in, traced on the CPU through the
+    plain path."""
+    ep = torch.export.export(_Sampler(spec, cfg, params, n),
+                             (torch.tensor(0, dtype=torch.int64),))
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    return buf.getvalue()
+
+
+def save_sampler(path: str, spec, cfg, params, n: int) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(export_sampler(spec, cfg, params, n))
+    return path
+
+
+def load_sampler(path: str, device="cpu"):
+    """``fn(seed: int) -> images`` (a tensor on `device`), with torch
+    alone."""
+    from torch.export.passes import move_to_device_pass
+    ep = torch.export.load(path)
+    dev = torch.device(device)
+    if dev.type != "cpu":
+        ep = move_to_device_pass(ep, dev)
+    module = ep.module()
+    return lambda seed: module(torch.tensor(seed, dtype=torch.int64,
+                                            device=dev))

@@ -161,9 +161,14 @@ SERVED_STACKS = {
     "infogan_d": [784, 400, 15], "began_d": [784, 400, 784],
     "vae_trunk": [784, 400], "vae_head": [400, 20],
     "vae_dec": [20, 400, 784],
+    # the quality scorer's classifier and its feature layer
+    "clf": [784, 128, 10], "clf_feat": [784, 128],
 }
 PLAN_BATCHES = (1, 37, 64, 100, 1024, 8192)
-PLAN_CASES = [(name, b) for name in SERVED_STACKS for b in PLAN_BATCHES]
+PLAN_CASES = [(name, b) for name in SERVED_STACKS for b in PLAN_BATCHES] + [
+    ("clf", 256), ("clf_feat", 256)]   # the classifier's training batch
+# the scorer's forward at the 10,000 test images
+FWD_PLAN_CASES = PLAN_CASES + [("clf", 10000), ("clf_feat", 10000)]
 
 
 def chain_items(widths, plan, bwd):
@@ -218,8 +223,8 @@ def check_chain_plan(widths, batch, plan, bwd):
     assert sorted(got) == sorted(want)
 
 
-@pytest.mark.parametrize("name,batch", PLAN_CASES,
-                         ids=[f"{n}-B{b}" for n, b in PLAN_CASES])
+@pytest.mark.parametrize("name,batch", FWD_PLAN_CASES,
+                         ids=[f"{n}-B{b}" for n, b in FWD_PLAN_CASES])
 def test_fwd_plan_fits_and_covers(name, batch):
     """fwd_plan for every served stack and batch: shared bytes within the
     limit, a cluster size the card takes, tiles covering every row and

@@ -193,3 +193,56 @@ def test_wrapper_checks_its_inputs():
     meta = torch.empty(4, 6, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_reparam.reparam_fwd(meta, meta, (1, 2))
+
+
+@pytest.mark.parametrize("b,l,expanded", [(16, 8, False), (37, 5, True),
+                                          (100, 20, True), (3, 1, False)])
+def test_plain_backward_matches_the_reference_vjp(b, l, expanded):
+    """``reparam_bwd_plain`` (the backward kernel's plain version, which
+    ``ReparamFunction.backward`` runs on CPU tensors) against
+    ``_vjp_bwd`` on the same residuals and cotangents, dkl also as a
+    mean's expanded cotangent (stride 0): rtol 1e-5 / atol 1e-6."""
+    mu, lv = _inputs(6, b, l)
+    rng = np.random.default_rng(7)
+    z = (mu + np.exp(0.5 * lv) * rng.normal(size=(b, l))).astype(np.float32)
+    dz = rng.normal(size=(b, l)).astype(np.float32)
+    dkl = (np.full((b,), 0.37, np.float32) if expanded
+           else rng.normal(size=(b,)).astype(np.float32))
+    t_dkl = (torch.tensor([0.37]).expand(b) if expanded
+             else torch.from_numpy(dkl))
+    jm, jl, _ = _vjp_bwd(tuple(map(jnp.asarray, (mu, lv, z))),
+                         (jnp.asarray(dz), jnp.asarray(dkl)))
+    args = [torch.from_numpy(a) for a in (mu, lv, z, dz)] + [t_dkl]
+    for dmu, dlv in (cuda_reparam.reparam_bwd_plain(*args),
+                     cuda_reparam.reparam_bwd(*args)):
+        np.testing.assert_allclose(dmu.numpy(), np.asarray(jm), **TOL)
+        np.testing.assert_allclose(dlv.numpy(), np.asarray(jl), **TOL)
+    assert cuda_reparam.bwd_launches == 0
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_reparam.reparam_bwd(*args[:3], args[3][:1], args[4])
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+def test_launch_plan_covers_each_pair_once(sms):
+    """Both kernels' index arithmetic (csrc/reparam.cu) under
+    ``launch_plan``: every row in one block, every pair of a block once,
+    whole warps of at most MAX_THREADS threads, a block of several rows
+    holding all their pairs in one pass (its KL slots), and at least
+    min(B, SMs) blocks."""
+    for b in (1, 2, 37, 100, 131, 133, 1000, 8192):
+        for l in (1, 2, 7, 19, 20, 200, 511, 512, 513, 1200):
+            rows, threads, blocks = cuda_reparam.launch_plan(b, l, sms)
+            g = (l + 1) // 2
+            assert 32 <= threads <= cuda_reparam.MAX_THREADS
+            assert threads % 32 == 0
+            assert rows == 1 or rows * g <= threads
+            assert blocks == -(-b // rows) >= min(b, sms)
+            seen = np.zeros((b, g), np.int64)
+            for blk in {0, blocks - 1}:
+                row0 = blk * rows
+                here = min(rows, b - row0)
+                for tid in range(threads):
+                    for p in range(tid, here * g, threads):
+                        seen[row0 + p // g, p % g] += 1
+            assert seen[:rows].max() == 1 and seen[:rows].min() == 1
+            assert seen[row0:].min() == 1 and seen[row0:].max() == 1

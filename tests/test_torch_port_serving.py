@@ -192,8 +192,7 @@ def test_cli_sample_only_writes_png(tiny_data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--export-sampler", "s.bin"], "--export-sampler"),
-    (["--score-samples"], "--score-samples"),
+    (["--profile"], "--profile"),
     (["--reflow-from", "t.npz"], "--reflow-from"),
     (["--vq-from", "v.npz"], "--vq-from"),
     (["--multihost"], "--multihost"),
