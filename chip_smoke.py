@@ -139,6 +139,20 @@ imports nothing of JAX. Phases:
      the float32 fused run by the reference's bf16 bound (BF16_RUN_TOL);
      then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
      same pair on nsgan, the two ranks' states equal;
+   - the conv stacks (4i, ``models/conv.py``) at full width, conv_channels
+     64, with ``torch.backends.cudnn.allow_tf32`` at torch's default
+     (True): one conv and its gradients against float64 (the module keeps
+     float32 convs off TF32 itself; cuDNN called directly beside it);
+     every stack's forward and backward on the card (dense layers through
+     the MLP kernels, the 6272-wide inputs' backward at the wide chunk
+     depth) against the CPU's plain path, data by the tie rule (CONV_TOL);
+     the nsgan and vae conv steps twice from one state, bitwise equal; the
+     CLI's ``--arch conv`` runs of nsgan, wgangp, lsgan and vae (CONV_STEPS
+     steps each, the general step, launch counts worked out beforehand,
+     CONV_LAUNCHES, no chunk launch); ``--sample-only --export-sampler``
+     from a JAX-layout conv checkpoint (one G launch; the artifact on the
+     card bitwise per seed and against ``Trainer.sample``); 20 bf16 steps
+     of the conv nsgan and vae;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
@@ -164,7 +178,11 @@ imports nothing of JAX. Phases:
    its kernel's device time to 0.9-1.5x of it (their library yardsticks with an EMA step or
    under autocast, bf16 bounds at the tensor cores' dense peak; each
    bf16 phase's yardstick held to its function by LIBRARY_BF16_TOL, which
-   the same yardstick with a wrong loss term must exceed);
+   the same yardstick with a wrong loss term must exceed); (5a) also the
+  conv stacks' dense layers (G's 128->6272, the critic's 6272->1, the
+  encoder's 6272->400, infogan's 6272->400->15) and (5g) the conv nsgan
+  and vae general steps: steps/s, and a step's device time split into
+  cuDNN's convolutions, the hand-written kernels and the rest;
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -353,6 +371,16 @@ VAE_CASES = (("vae", "bce"), ("birvae", "mse"), ("birvae", "bce"))
 CLF_STACKS = (("clf", [784, 128, 10], ("relu", "none")),
               ("clf_feat", [784, 128], ("relu",)))
 CLF_BATCHES = (256, 1024, 10000)
+# The conv stacks' dense layers at conv_channels 64 (models/conv.py), 7 x
+# 7 x 2C = 6272 wide: G's and the decoder's fc out to it, the critic's,
+# the encoder's and infogan's in from it (the backward's transposed W
+# chunk of such an input is planned at cuda_mlp.WIDE_CHUNK_DEPTHS).
+CONV_W = 7 * 7 * 2 * 64
+CONV_DENSE = (("conv_g_fc", [128, CONV_W], ("none",)),
+              ("conv_dec_fc", [20, CONV_W], ("none",)),
+              ("conv_d_fc", [CONV_W, 1], ("none",)),
+              ("conv_enc_fc", [CONV_W, 400], ("relu",)),
+              ("conv_info", [CONV_W, 400, 15], ("leaky_relu", "none")))
 
 
 def nvidia_smi_line() -> str:
@@ -426,6 +454,9 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
     cases += [("lin", [784, 400], ("leaky_relu",), b) for b in (TRAIN_B, 8192)]
     cases += [(name, dims, acts, b) for name, dims, acts in CLF_STACKS
               for b in CLF_BATCHES]
+    cases += [(name, dims, acts, b) for name, dims, acts in CONV_DENSE
+              for b in (TRAIN_B, 1000)]
+    cases += [("conv_g_fc",) + CONV_DENSE[0][1:] + (8192,)]
     cases += [(f"{name}:{p.tr}x{p.row_groups}/c{p.cluster}", dims, acts, b, p)
               for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
                                           ("D", D_DIMS, D_ACTS, 37))
@@ -473,6 +504,12 @@ def check_bwd(cuda_mlp, torch):
     cases += [("D", D_DIMS, D_ACTS, TRAIN_B, None),
               ("tanh3", [784, 96, 48, 24], ("tanh",) * 3, 37, None),
               ("clf",) + CLF_STACKS[0][1:] + (CLF_BATCHES[0], None)]
+    # the conv stacks' dense layers; a 6272-wide input's pass 1 at the
+    # wide chunk depth
+    cases += [(name, dims, acts, TRAIN_B, None)
+              for name, dims, acts in CONV_DENSE]
+    cases += [("conv_enc_fc",) + CONV_DENSE[3][1:] + (8192, None),
+              ("conv_d_fc",) + CONV_DENSE[2][1:] + (1000, None)]
     base = cuda_mlp.bwd_plan(TRAIN_B, G_DIMS, sm)
     cases += [(f"G:{p.tr}x{p.row_groups}/c{p.cluster}", G_DIMS, G_ACTS,
                TRAIN_B, dataclasses.replace(base, rows=p))
@@ -504,6 +541,8 @@ def check_bwd(cuda_mlp, torch):
             ok = rel <= BWD_TOL[key] and all(
                 bool(torch.isfinite(a).all()) for a in flat(got))
             slices = "" if plan is None else f" S={plan.slices}"
+            if plan is None and dims[0] == CONV_W:
+                slices = (f" kc={cuda_mlp.bwd_plan(b, dims, sm).rows.kc}")
             print(f"  bwd {name:14s} {dims} B={b:5d}{slices} {key:8s} "
                   f"max_err/max|ref|={rel:.3e} tol={BWD_TOL[key]:.0e} "
                   f"{'ok' if ok else 'FAIL'}")
@@ -1289,8 +1328,9 @@ def write_jax_layout_checkpoint(path: str, seed: int, n_cls: int = 0) -> None:
 
 
 def reset(*mods):
-    from generative_models_tpu_torch.ops import penalty
+    from generative_models_tpu_torch.ops import cuda_linear, penalty
     penalty.plain_passes = 0
+    cuda_linear.launches = 0
     for m in mods:
         for name in ("launches", "bwd_launches", "birvae_launches",
                      "ema_launches", "bf16_launches"):
@@ -1473,8 +1513,10 @@ def launch_counts(mods):
     """Each wrapper's launches; the EMA and bf16 keys count the launches
     of those kernels among the chunk kernels' (the GAN chunk's; the VAE
     family's, vae and birvae together)."""
+    from generative_models_tpu_torch.ops import cuda_linear
     cuda_mlp, cuda_train, cuda_reparam, ctv = mods
     return {"gan_chunk": cuda_train.launches, "mlp_fwd": cuda_mlp.launches,
+            "linear_cuda": cuda_linear.launches,
             "mlp_bwd": cuda_mlp.bwd_launches, "reparam": cuda_reparam.launches,
             "reparam_bwd": cuda_reparam.bwd_launches,
             "vae_chunk": ctv.launches, "birvae_chunk": ctv.birvae_launches,
@@ -1754,6 +1796,7 @@ def drive_training_general(variant, steps, mods, torch):
     finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
     fwd, bwd, rep, rep_bwd = GENERAL_LAUNCHES[variant]
     want = {"gan_chunk": 0, "mlp_fwd": fwd * steps, "mlp_bwd": bwd * steps,
+            "linear_cuda": 0,
             "reparam": rep * steps, "reparam_bwd": rep_bwd * steps,
             "vae_chunk": 0, "birvae_chunk": 0,
             "gan_chunk_ema": 0, "gan_chunk_bf16": 0, "vae_family_ema": 0,
@@ -1885,6 +1928,424 @@ def drive_vae_serving(mods, torch):
     if not ok:
         raise AssertionError("the vae Trainer.sample failed its checks")
     return cli_launches + sample_launches, err
+
+
+# Phase 4i: the conv stacks (models/conv.py) at full width, conv_channels
+# 64, B 100, with torch.backends.cudnn.allow_tf32 at torch's default
+# (True) for the whole phase: the conv module keeps its float32
+# convolutions off TF32 itself.
+# Card against CPU, the same weights and inputs: each output, and each
+# gradient of sum(out * r) (every parameter leaf and the input), by max
+# abs error over max |CPU|. Both sides are float32 with sums in other
+# orders (a conv output sums up to 2048 products, a dense one 6272, a
+# kernel's gradient up to 100 x 28 x 28 = 78,400): a few 1e-6. TF32
+# rounds each operand to 11 significant bits (2^-11 = 4.9e-4 relative).
+CONV_TOL = 5e-5
+# One conv (the trunk's c2: 64 -> 128 channels, 14 x 14 -> 7 x 7, B 100,
+# sums of 1024 products), its input and kernel gradients too, against
+# float64 on the CPU, by max abs error over max |reference|.
+CONV_LAYER_TOL = 1e-5
+CONV_CLI = ("nsgan", "wgangp", "lsgan", "vae")
+CONV_STEPS = 200
+# The CLI's conv runs (the general step: fused_step "auto" refuses conv)
+# launch, a training step: (mlp_fwd, mlp_bwd, reparam, reparam_bwd); a
+# batch of evaluate's 10 (mlp_fwd, reparam); and one G forward a sample
+# grid (the final one, and one when the run crosses an epoch of the
+# 60,000-row split). Every dense layer of the conv stacks is one
+# linear_cuda call, so linear_cuda counts what mlp_fwd counts. wgangp
+# adds the penalty's plain critic pass: 5 a step, 1 an eval batch.
+CONV_LAUNCHES = {"nsgan": ((5, 4, 0, 0), (5, 0)),
+                 "lsgan": ((5, 4, 0, 0), (5, 0)),
+                 "wgangp": ((17, 12, 0, 0), (5, 0)),
+                 "vae": ((4, 4, 1, 1), (4, 1))}
+EVAL_BATCHES = 10
+
+
+def conv_stack_cases(cfg_of, torch):
+    """(name, params on the CPU, fn(params, inputs) -> outputs,
+    inputs(seed) on the CPU) of every conv stack at full width, B
+    TRAIN_B."""
+    from generative_models_tpu_torch.models import conv
+    gen = torch.Generator().manual_seed(13)
+    nc, wg, bi, vae = (cfg_of("nsgan"), cfg_of("wgangp"), cfg_of("began"),
+                       cfg_of("vae"))
+    info, cg = cfg_of("infogan"), cfg_of("cgan")
+
+    def draw(kind):
+        def inputs(seed):
+            rng = np.random.default_rng(seed)
+            shape = {"x": (TRAIN_B, 784), "z": (TRAIN_B, nc.z_dim),
+                     "zl": (TRAIN_B, vae.latent_dim)}[kind[0]]
+            a = (rng.random(shape) if kind[0] == "x"
+                 else rng.standard_normal(shape))
+            out = [torch.from_numpy(a.astype(np.float32))]
+            if len(kind) > 1:  # cgan's labels
+                out.append(torch.from_numpy(rng.integers(0, 10, TRAIN_B)))
+            return out
+        return inputs
+    return [
+        ("generator", conv.generator_init(gen, nc),
+         lambda p, a: conv.generator_apply(p, a[0], nc), draw(["z"])),
+        ("discriminator", conv.discriminator_init(gen, nc),
+         lambda p, a: conv.discriminator_apply(p, a[0], nc), draw(["x"])),
+        ("discriminator_plain", conv.discriminator_init(gen, wg),
+         lambda p, a: conv.discriminator_apply_plain(p, a[0], wg),
+         draw(["x"])),
+        ("cond_discriminator", conv.cond_discriminator_init(gen, cg),
+         lambda p, a: conv.cond_discriminator_apply(p, a[0], a[1], cg),
+         draw(["x", "y"])),
+        ("encoder", conv.encoder_init(gen, vae),
+         lambda p, a: conv.encoder_apply(p, a[0], vae), draw(["x"])),
+        ("decoder_logits", conv.decoder_init(gen, vae),
+         lambda p, a: conv.decoder_apply(p, a[0], vae, logits=True),
+         draw(["zl"])),
+        ("began_d", conv.began_d_init(gen, bi),
+         lambda p, a: conv.began_d_apply(p, a[0], bi), draw(["x"])),
+        ("infogan_d", conv.infogan_d_init(gen, info),
+         lambda p, a: conv.infogan_d_apply(p, a[0], info), draw(["x"])),
+    ]
+
+
+def conv_margin(fn, params, inputs, torch):
+    """The tie rule's measure for a conv stack: the smallest |pre-
+    activation| / rms of any ReLU or LeakyReLU (the conv layers', the
+    GroupNorms' and the dense layers') in a float64 forward on the CPU.
+    A pre-activation within float32 rounding of 0 takes the other side of
+    the kink on the card than on the CPU, a jump of the function (one
+    such ReLU after the VAE decoder's second GroupNorm moved up1's kernel
+    gradient by 1e-2 of its max), not an error of either."""
+    from generative_models_tpu_torch.models import conv
+    from generative_models_tpu_torch.ops import linear
+    from generative_models_tpu_torch.utils.tree import tree_map
+    seen = [math.inf]
+    real = conv.apply_act
+
+    def probe(x, act, slope=0.2):
+        if act in ("relu", "leaky_relu"):
+            rms = float(x.pow(2).mean().sqrt())
+            seen.append(float(x.abs().min()) / max(rms, 1e-300))
+        return real(x, act, slope)
+    conv.apply_act = linear.apply_act = probe
+    try:
+        with torch.no_grad():
+            fn(tree_map(lambda t: t.double(), params),
+               [u.double() if u.is_floating_point() else u for u in inputs])
+    finally:
+        conv.apply_act = linear.apply_act = real
+    return min(seen)
+
+
+def check_conv_stacks(mods, torch):
+    """Phase 4i: every conv stack's forward and backward on the card (its
+    dense layers through the MLP kernels) against the CPU's plain path,
+    the same weights and inputs; the inputs drawn from the first seed from
+    TIE_FIRST_SEED that clears the tie rule (conv_margin > TIE_MARGIN).
+    Returns the worst relative error."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.utils.tree import tree_leaves, tree_map
+    worst = 0.0
+    for name, params, fn, draw in conv_stack_cases(
+            lambda v: variant_config(v, arch="conv"), torch):
+        passed = []
+        for seed in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
+            margin = conv_margin(fn, params, draw(seed), torch)
+            if margin > TIE_MARGIN:
+                break
+            passed.append(seed)
+        else:
+            raise AssertionError(f"conv {name}: no seed clears the tie rule")
+        inputs = draw(seed)
+        outs, grads, n = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            rng = np.random.default_rng(32)  # the same cotangents
+            p = tree_map(lambda a: a.to(dev).requires_grad_(True), params)
+            a = [u.to(dev) for u in inputs]
+            a = [u.requires_grad_(True) if u.is_floating_point() else u
+                 for u in a]
+            reset(*mods)
+            out = fn(p, a)
+            out = out if isinstance(out, tuple) else (out,)
+            r = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                                  .astype(np.float32)).to(dev) for o in out]
+            leaves = tree_leaves(p) + [u for u in a if u.requires_grad]
+            g = torch.autograd.grad(sum((o * ri).sum()
+                                        for o, ri in zip(out, r)), leaves)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            n[dev] = (mods[0].launches, mods[0].bwd_launches)
+            outs[dev] = [o.detach().cpu() for o in out]
+            grads[dev] = [u.cpu() for u in g]
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+        f_err = max(rel(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        b_err = max(rel(a, b) for a, b in zip(grads["cuda"], grads["cpu"]))
+        finite = all(bool(torch.isfinite(u).all())
+                     for u in outs["cuda"] + grads["cuda"])
+        # the plain critic (the penalty's pass) launches no kernel
+        launched = min(n["cuda"]) >= 1 if name != "discriminator_plain" \
+            else n["cuda"] == (0, 0)
+        ok = (finite and f_err <= CONV_TOL and b_err <= CONV_TOL
+              and launched and n["cpu"] == (0, 0))
+        print(f"  conv {name:20s} C=64 B={TRAIN_B} (data seed {seed}, "
+              f"margin {margin:.1e}, passed over {len(passed)}): "
+              f"forward max_err/max|cpu| "
+              f"{f_err:.3e}, backward ({len(grads['cuda'])} gradients) "
+              f"{b_err:.3e} tol {CONV_TOL:.0e}; (mlp_fwd, mlp_bwd) launches "
+              f"card {n['cuda']} cpu {n['cpu']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the conv stack {name} on the card "
+                                 f"disagrees with the CPU")
+        worst = max(worst, f_err, b_err)
+    return worst
+
+
+def check_conv_tf32(torch):
+    """Phase 4i: with allow_tf32 True, the conv module's float32 conv and
+    its input and kernel gradients against float64; cuDNN called directly
+    under the same flag, beside it (printed, not held: cuDNN chooses
+    whether to use TF32)."""
+    from generative_models_tpu_torch.models import conv
+    F = torch.nn.functional
+    assert torch.backends.cudnn.allow_tf32
+    rng = np.random.default_rng(33)
+    x64 = torch.from_numpy(rng.standard_normal((TRAIN_B, 64, 14, 14)))
+    w64 = torch.from_numpy(rng.standard_normal((128, 64, 4, 4)) / 32.0)
+    r64 = torch.from_numpy(rng.standard_normal((TRAIN_B, 128, 7, 7)))
+
+    def run(f, dev, dt):
+        x = x64.to(dev, dt).requires_grad_(True)
+        w = w64.to(dev, dt).requires_grad_(True)
+        y = f(x, w)
+        gx, gw = torch.autograd.grad((y * r64.to(dev, dt)).sum(), (x, w))
+        return [t.detach().double().cpu() for t in (y, gx, gw)]
+
+    ref = run(lambda x, w: F.conv2d(x, w, stride=2, padding=1), "cpu",
+              torch.float64)
+    mine = run(conv._Conv.apply, "cuda", torch.float32)
+    raw = run(lambda x, w: F.conv2d(x, w, stride=2, padding=1), "cuda",
+              torch.float32)
+
+    def errs(got):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+    e_mine, e_raw = errs(mine), errs(raw)
+    ok = max(e_mine) <= CONV_LAYER_TOL
+    print(f"  conv c2 64->128 B={TRAIN_B}, allow_tf32=True: the module's "
+          f"(y, dx, dW) max_err/max|float64| "
+          + ", ".join(f"{e:.2e}" for e in e_mine)
+          + f" (tol {CONV_LAYER_TOL:.0e}); cuDNN called directly "
+          + ", ".join(f"{e:.2e}" for e in e_raw)
+          + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the conv module's float32 conv is not IEEE "
+                             "float32 under allow_tf32=True")
+    return max(e_mine), max(e_raw)
+
+
+def write_conv_checkpoint(path: str, seed: int) -> None:
+    """A full-width conv nsgan checkpoint (conv_channels 64, z 128) in the
+    JAX package's npz layout: HWIO kernels, GroupNorm scale and bias,
+    the dense layers [in, out]; keys sorted as jax.tree_util lists them."""
+    c = 64
+
+    def kern(prefix, cin, cout):
+        return [(f"{prefix}['b']", (cout,), 16 * cin),
+                (f"{prefix}['w']", (4, 4, cin, cout), 16 * cin)]
+    write_layout_checkpoint(path, seed, [
+        *layer_leaves("['d_params']['fc']", CONV_W, 1),
+        *kern("['d_params']['trunk']['c1']", 1, c),
+        *kern("['d_params']['trunk']['c2']", c, 2 * c),
+        *layer_leaves("['g_params']['fc']", 128, CONV_W),
+        ("['g_params']['gn0']['bias']", (2 * c,), 1e4),
+        ("['g_params']['gn0']['scale']", (2 * c,), 1.0),
+        ("['g_params']['gn1']['bias']", (c,), 1e4),
+        ("['g_params']['gn1']['scale']", (c,), 1.0),
+        *kern("['g_params']['up1']", 2 * c, c),
+        *kern("['g_params']['up2']", c, 1)], 4321)
+
+
+def drive_conv_cli(variant, mods, torch):
+    """Phase 4i: the CLI's conv run of `variant`, CONV_STEPS steps in one
+    chunk. Returns (launch counts, the run's JSON line)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.ops import penalty
+    run_dir = os.path.join(OUT_DIR, "conv")
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", variant, "--arch", "conv",
+                       "--dataset", "synthetic", "--steps", str(CONV_STEPS),
+                       "--echo-every", "100", "--out-dir", run_dir])
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    passes = penalty.plain_passes
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "))
+    line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    with open(os.path.join(run_dir, variant, "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    finite = all(math.isfinite(r[k]) for r in recs for k in LOSS_KEYS[variant])
+    (fwd, bwd, rep, rep_bwd), (e_fwd, e_rep) = CONV_LAUNCHES[variant]
+    from generative_models_tpu_torch.config import variant_config
+    rows = max(variant_config(variant, arch="conv").d_steps, 1) * TRAIN_B
+    grids = 1 + int(CONV_STEPS * rows >= 60000)
+    n_fwd = fwd * CONV_STEPS + e_fwd * EVAL_BATCHES + grids
+    want = {"mlp_fwd": n_fwd, "linear_cuda": n_fwd,
+            "mlp_bwd": bwd * CONV_STEPS,
+            "reparam": rep * CONV_STEPS + e_rep * EVAL_BATCHES,
+            "reparam_bwd": rep_bwd * CONV_STEPS, "gan_chunk": 0,
+            "vae_chunk": 0, "birvae_chunk": 0}
+    pen = (5 * CONV_STEPS + EVAL_BATCHES) if variant == "wgangp" else 0
+    got = {k: counts[k] for k in want}
+    ok = (rc == 0 and got == want and passes == pen and finite
+          and len(recs) == CONV_STEPS and line["steps"] == CONV_STEPS
+          and all(math.isfinite(v) for v in line["eval"].values()))
+    print(f"  cli --arch conv {variant}: rc={rc} {line['steps_per_sec']} "
+          f"steps/s records={len(recs)} finite={finite} launches={got} "
+          f"(expect {want}) penalty passes {passes} (expect {pen}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the conv CLI run of {variant} failed its "
+                             "checks")
+    return counts, line
+
+
+def drive_conv_serving(mods, torch):
+    """Phase 4i: ``--arch conv --sample-only --export-sampler`` from a
+    JAX-layout conv nsgan checkpoint: one G launch; the artifact on the
+    card repeats bit for bit and matches Trainer.sample given the same
+    Philox z within TOL["float32"]. Returns (launch counts, error)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import export
+    run_dir = os.path.join(OUT_DIR, "conv_serving")
+    os.makedirs(run_dir, exist_ok=True)
+    ck = os.path.join(run_dir, "jax_layout_conv_nsgan.npz")
+    art = os.path.join(run_dir, "conv_sampler.pt2")
+    write_conv_checkpoint(ck, 41)
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", "nsgan", "--arch", "conv", "--ckpt", ck,
+                       "--sample-only", "--export-sampler", art,
+                       "--out-dir", run_dir])
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    fn = export.load_sampler(art, "cuda")
+    a, b2 = fn(EXPORT_SEED), fn(EXPORT_SEED)
+    t = Trainer("nsgan", arch="conv")
+    t.load_model(ck)
+    z = export.sampler_noise(torch.tensor(EXPORT_SEED, device="cuda"),
+                             t.cfg.sample_n, t.cfg.z_dim)
+    want = torch.from_numpy(t.sample(z=z)).cuda()
+    err = float((a - want).abs().max())
+    ok = (rc == 0 and line["step"] == 4321 and line["sampler"] == art
+          and counts["mlp_fwd"] == counts["linear_cuda"] == 1
+          and torch.equal(a, b2) and tuple(a.shape) == (64, 784)
+          and err <= TOL["float32"] and bool(torch.isfinite(a).all()))
+    print(f"  cli --arch conv --sample-only --export-sampler from a JAX-layout "
+          f"conv checkpoint: rc={rc} {line} launches mlp_fwd="
+          f"{counts['mlp_fwd']} linear_cuda={counts['linear_cuda']}; the "
+          f"artifact on the card bitwise repeat {torch.equal(a, b2)}, vs "
+          f"Trainer.sample max_abs_err={err:.3e} tol {TOL['float32']:.0e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("conv serving failed its checks")
+    return counts, err
+
+
+def check_conv_repeat(torch):
+    """Phase 4i: a conv general step (nsgan; vae with its noise from a
+    generator) twice from one state gives the same bits: the conv
+    module's cuDNN calls are deterministic (models/conv.py::strict_convs),
+    the MLP kernels' sums run in a fixed order."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.losses.registry import get_variant
+    from generative_models_tpu_torch.train import step as step_lib
+    from generative_models_tpu_torch.utils.tree import tree_leaves
+    rng = np.random.default_rng(34)
+    for variant in ("nsgan", "vae"):
+        cfg, spec = variant_config(variant, arch="conv"), get_variant(variant)
+        st = step_lib.init_state(spec, cfg, torch.Generator().manual_seed(5),
+                                 "cuda")
+        train_step = step_lib.build_step(spec, cfg)
+        x = torch.from_numpy(rng.random((1, TRAIN_B, 784)).astype(
+            np.float32)).cuda()
+        batches = {"image": x, "label": torch.zeros(1, TRAIN_B).cuda()}
+        z = [torch.from_numpy(rng.standard_normal(s_).astype(np.float32))
+             .cuda() for s_ in ((1, TRAIN_B, cfg.z_dim), (TRAIN_B, cfg.z_dim))]
+
+        def once():
+            args = z if spec.adversarial else [
+                torch.Generator(device="cuda").manual_seed(9)]
+            new, m = train_step(st, batches, *args)
+            return [t for t in tree_leaves(new) if torch.is_tensor(t)] + [
+                v for v in m.values()]
+        a, b = once(), once()
+        torch.cuda.synchronize()
+        same = len(a) == len(b) and all(torch.equal(u, v)
+                                        for u, v in zip(a, b))
+        print(f"  conv general step {variant} twice from one state: "
+              f"{len(a)} tensors bitwise equal {same} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"the conv {variant} step did not repeat "
+                                 "bit for bit")
+
+
+def drive_conv_bf16(mods, torch):
+    """Phase 4i: 20 steps of the conv nsgan and vae general steps with
+    dtype bfloat16 (bf16 convs on cuDNN, the MLP kernels' bf16 operands):
+    finite, 5 / 4 and 4 / 4 MLP launches a step."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    steps, paths = 20, {}
+    for variant, (fwd, bwd) in (("nsgan", (5, 4)), ("vae", (4, 4))):
+        t = Trainer(variant, arch="conv", dtype="bfloat16", fused_step=False,
+                    dataset="synthetic",
+                    out_dir=os.path.join(OUT_DIR, "conv_bf16"))
+        t._load_data()
+        reset(*mods)
+        hist = t.train(steps=steps)
+        counts = launch_counts(mods)
+        finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
+        ok = (finite and counts["mlp_fwd"] == fwd * steps
+              and counts["mlp_bwd"] == bwd * steps and counts["gan_chunk"] == 0)
+        print(f"  conv {variant} dtype bfloat16, {steps} general steps: "
+              f"finite={finite} mlp_fwd={counts['mlp_fwd']} mlp_bwd="
+              f"{counts['mlp_bwd']} (expect {fwd} and {bwd} a step) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 conv {variant} run failed")
+        paths[f"general_conv_{variant}_bf16"] = counts
+    return paths
+
+
+def drive_conv(mods, torch):
+    """Phase 4i, under torch's default allow_tf32 (restored after)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        print(f"[4i] the conv stacks at full width (cudnn.allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32})")
+        layer_err = check_conv_tf32(torch)
+        stack_err = check_conv_stacks(mods, torch)
+        check_conv_repeat(torch)
+        paths, lines = {}, {}
+        for variant in CONV_CLI:
+            paths[f"cli_conv_{variant}"], lines[variant] = drive_conv_cli(
+                variant, mods, torch)
+        paths["serving_conv_nsgan"], serve_err = drive_conv_serving(
+            mods, torch)
+        paths.update(drive_conv_bf16(mods, torch))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return paths, lines, {"stacks_vs_cpu": stack_err,
+                          "c2_vs_float64": layer_err[0],
+                          "c2_cudnn_direct_vs_float64": layer_err[1],
+                          "serving": serve_err}
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -2067,6 +2528,8 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
                  for b in SERVING_BATCHES[:1] + (TRAIN_B,) + SERVING_BATCHES[1:]]
     fwd_cases += [("D", D_DIMS, D_ACTS, TRAIN_B, None)]
     fwd_cases += [("G", G_DIMS, G_ACTS, b, bf16) for b in (TRAIN_B, 8192)]
+    fwd_cases += [(name, dims, acts, TRAIN_B, None)
+                  for name, dims, acts in CONV_DENSE]
     for name, dims, acts, b, cdt in fwd_cases:
         ws, bs = make_stack(rng, dims, "cuda")
         z = torch.randn(b, dims[0], device="cuda")
@@ -2089,28 +2552,35 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
             "library_ms": l_ms, "library_device_ms": ld_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "images_per_s": b / k_ms * 1e3})
-    lw, lb = make_stack(rng, [784, 400], "cuda")
-    for b in (TRAIN_B, 8192):
-        x = torch.randn(b, 784, device="cuda")
-        kern = lambda: linear_cuda(x, lw[0], lb[0], "leaky_relu")
+    # the one-layer wrapper: 784 -> 400 (leaky), and the conv critic's
+    # and encoder's fc
+    for dims, act, b in (([784, 400], "leaky_relu", TRAIN_B),
+                         ([784, 400], "leaky_relu", 8192),
+                         ([CONV_W, 1], "none", TRAIN_B),
+                         ([CONV_W, 400], "relu", TRAIN_B)):
+        lw, lb = make_stack(rng, dims, "cuda")
+        x = torch.randn(b, dims[0], device="cuda")
+        kern = lambda: linear_cuda(x, lw[0], lb[0], act)
         k_ms = time_ms(torch, kern, 200)
         p_ms = time_ms(torch, lambda: cuda_mlp.mlp_fwd_plain(
-            x, lw, lb, ("leaky_relu",)), 200)
-        lib = lambda: torch.nn.functional.leaky_relu(
-            torch.addmm(lb[0], x, lw[0]), 0.2)
+            x, lw, lb, (act,)), 200)
+        lib = lambda: library_mlp(torch, lw, lb, (act,), x)
         l_ms = time_ms(torch, lib, 200)
         _, d_ms = device_ms_by_name(torch, kern)
         _, ld_ms = device_ms_by_name(torch, lib)
-        b_ms, b_by = fwd_bound([784, 400], b)
+        b_ms, b_by = fwd_bound(dims, b)
         rows["linear"].append({
-            "shape": f"784->400 leaky B={b}", "ms": k_ms, "device_ms": d_ms,
+            "shape": f"{dims[0]}->{dims[1]} {act} B={b}", "ms": k_ms,
+            "device_ms": d_ms,
             "plain_ms": p_ms, "library_ms": l_ms, "library_device_ms": ld_ms,
             "bound_ms": b_ms, "bound_by": b_by})
     for name, dims, acts, b, cdt in (("G", G_DIMS, G_ACTS, TRAIN_B, None),
                                      ("D", D_DIMS, D_ACTS, TRAIN_B, None),
                                      ("G", G_DIMS, G_ACTS, 8192, None),
                                      ("G", G_DIMS, G_ACTS, TRAIN_B, bf16),
-                                     ("G", G_DIMS, G_ACTS, 8192, bf16)):
+                                     ("G", G_DIMS, G_ACTS, 8192, bf16)) + tuple(
+            (name, dims, acts, TRAIN_B, None)
+            for name, dims, acts in CONV_DENSE):
         w, bias = make_stack(rng, dims, "cuda")
         x = torch.randn(b, dims[0], device="cuda")
         out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts, 0.2, cdt)
@@ -2150,6 +2620,83 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
                   f"{r['library_ms']:.4f}"
                   + (f" (device {ldev:.4f})" if ldev else "")
                   + f"  bound {r['bound_ms']:.4f} ({r['bound_by']})  [{card}]")
+    return rows
+
+
+# Phase 5g: the conv general steps at full width (nsgan, vae): steps/s
+# on the host's clock over CONV_TIME_STEPS steps of Trainer.train after
+# a warm-up; and one step's kernels' device time from torch.profiler,
+# split by kernel name into cuDNN's convolutions (with their layout
+# transforms), the hand-written kernels (MLP rows 1-3, the sampling
+# kernel row 4) and the rest (GroupNorm, activations, the optimizer, the
+# losses), beside the step's time on the host's clock (the idle share).
+# The profiler loses events over longer runs (device_ms_by_name's
+# whole-multiple rule), so it profiles CONV_PROFILE_STEPS steps at a
+# time. (Steps cannot be queued behind a spin kernel, as queued_ms does:
+# the optimizer's scalar tensors made on the card synchronise the host
+# with it several times a step.)
+CONV_TIME_STEPS = 200
+CONV_PROFILE_STEPS = 2
+CONV_CLASSES = (("hand-written", ("mlp_", "reparam")),
+                ("cudnn_convs", ("conv", "cudnn", "xmma", "implicit_gemm",
+                                 "fprop", "dgrad", "wgrad", "nchw", "nhwc")))
+
+
+def conv_kernel_class(name: str) -> str:
+    n = name.lower()
+    for cls, keys in CONV_CLASSES:
+        if any(k in n for k in keys):
+            return cls
+    return "rest"
+
+
+def time_conv_training(mods, torch, card):
+    """Phase 5g. Returns {variant: row}."""
+    from generative_models_tpu_torch.train import step as step_lib
+    from generative_models_tpu_torch.train.trainer import Trainer
+    rows = {}
+    for variant in ("nsgan", "vae"):
+        t = Trainer(variant, arch="conv", fused_step=False,
+                    dataset="synthetic",
+                    out_dir=os.path.join(OUT_DIR, "conv_timing"))
+        t._load_data()
+        t.train(steps=20)  # warm-up
+        t.train(steps=CONV_TIME_STEPS)
+        sps = CONV_TIME_STEPS / t.wall_time
+        cfg, spec = t.cfg, t.spec
+        train_step = step_lib.build_step(spec, cfg)
+        x = t.x_train[:TRAIN_B].reshape(1, TRAIN_B, -1)
+        batches = {"image": x, "label": t.y_train[:TRAIN_B].reshape(1, -1)}
+        st = t.state
+        if spec.adversarial:
+            noise = t._noise(0, 1)
+            args = [n[0] for n in noise]
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            args = [gen]
+        by_name, total = device_ms_by_name(
+            torch, lambda: train_step(st, batches, *args),
+            iters=CONV_PROFILE_STEPS, tries=6)
+        split = None
+        if by_name is not None:
+            split = {}
+            for name, ms in by_name.items():
+                cls = conv_kernel_class(name)
+                split[cls] = split.get(cls, 0.0) + ms
+        step_ms = 1e3 / sps
+        rows[variant] = {"steps_per_s": sps, "step_ms": step_ms,
+                         "device_ms_per_step": total,
+                         "device_split_ms": split,
+                         "device_kernels_ms": by_name,
+                         "idle_share": (None if total is None
+                                        else max(0.0, 1 - total / step_ms))}
+        print(f"  conv general step {variant} B={TRAIN_B} C=64: {sps:.2f} "
+              f"steps/s ({step_ms:.3f} ms a step); device "
+              + ("not measured" if total is None else
+                 f"{total:.4f} ms a step (idle share "
+                 f"{rows[variant]['idle_share']:.3f}): " + ", ".join(
+                     f"{k} {v:.4f}" for k, v in sorted(split.items())))
+              + f"  [{card}]")
     return rows
 
 
@@ -3842,13 +4389,15 @@ def main() -> int:
     dp_paths, shared_sps = drive_dp_shared_card(card)
     paths.update(dp_paths)
     dp_sps.update(shared_sps)
+    conv_paths, conv_lines, conv_err = drive_conv(mods, torch)
+    paths.update(conv_paths)
 
     def by_path(kernel):
         return {name: c[kernel] for name, c in paths.items()
                 if c.get(kernel, 0)}
 
-    for kernel in ("mlp_fwd", "mlp_bwd", "gan_chunk", "reparam",
-                   "reparam_bwd", "clf_mlp_fwd", "clf_mlp_bwd", "vae_chunk",
+    for kernel in ("mlp_fwd", "mlp_bwd", "linear_cuda", "gan_chunk",
+                   "reparam", "reparam_bwd", "clf_mlp_fwd", "clf_mlp_bwd", "vae_chunk",
                    "birvae_chunk", "d_phase", "g_phase", "gan_chunk_ema",
                    "gan_chunk_bf16", "vae_family_ema", "vae_family_bf16",
                    "d_phase_bf16", "g_phase_bf16"):
@@ -3880,6 +4429,8 @@ def main() -> int:
     phase_bf16_main = {m: next(r for r in phase_bf16_rows if r["kernel"] ==
                                f"gan_phase_{m}_bf16"
                                and r["variant"] == "nsgan") for m in "dg"}
+    print("[5g] the conv general steps")
+    conv_rows = time_conv_training(mods, torch, card)
 
     fwd_main = next(r for r in rows["mlp_fwd"]  # the largest serving batch
                     if r["shape"] == "G B=8192")
@@ -3903,7 +4454,10 @@ def main() -> int:
               max(fwd_err, serve_err, vae_serve_err, cgan_err, info_err),
               fwd_main,
               fwd_main["shape"], per_shape=rows["mlp_fwd"],
-              linear_cuda=rows["linear"], quality_runs=score_lines),
+              linear_cuda=rows["linear"], quality_runs=score_lines,
+              linear_cuda_launches=by_path("linear_cuda"),
+              conv_checks=conv_err, conv_cli_runs=conv_lines,
+              conv_training=conv_rows),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",

@@ -1,7 +1,10 @@
 """CLI — ``python -m generative_models_tpu_torch --variant nsgan --steps
 2000`` (or ``mmgan``, ``lsgan``, ``wgan``, ``fgan``, ``ragan``,
-``fishergan``, ``wgangp``, ``dragan``, ``cgan``, ``vae``, ``birvae``): the
-port of ``generative_models_tpu/cli.py``.
+``fishergan``, ``wgangp``, ``dragan``, ``cgan``, ``began``, ``infogan``,
+``vae``, ``birvae``; any of them on the MLP stacks, the default, or with
+``--arch conv`` on the DCGAN-style conv stacks of ``models/conv.py``,
+which train through the general step): the port of
+``generative_models_tpu/cli.py``.
 
 Every Config field is a flag, as in the reference. A training run trains
 (``--ckpt`` with ``--resume`` restores first), appends per-step records to

@@ -50,7 +50,9 @@
 //                              most, rounded up to even)
 //   backward W   [4 Gc][KC+4]  W^T read as rows of W: lanes of a warp read
 //                              consecutive rows, KC+4 floats apart (no bank
-//                              conflicts)
+//                              conflicts); a layer thousands of inputs wide
+//                              (the conv stacks' 6272) fits four slots only
+//                              at KC 8 (ops/cuda_mlp.py WIDE_CHUNK_DEPTHS)
 //   A chunk      [TM][KC+4]    streamed mode, after the W chunk in a slot
 // With bf16 != 0 every operand is rounded to bfloat16 where it enters
 // shared memory (the input tile when written, each ring slot in place

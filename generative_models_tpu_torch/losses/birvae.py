@@ -23,6 +23,7 @@ from generative_models_tpu_torch.losses.common import (
 )
 from generative_models_tpu_torch.models import nets
 from generative_models_tpu_torch.models.mlp import linear_init, mlp_apply, mlp_init
+from generative_models_tpu_torch.utils.tree import tree_device
 
 BN_EPS = 1e-5
 
@@ -70,7 +71,7 @@ def loss(params, batch, gen, cfg, eps=None, group=None):
 def sample(params, gen, n, cfg, z=None):
     if z is None:
         z = compute_noise(gen, n, cfg.latent_dim,
-                          device=params["decoder"][0]["w"].device)
+                          device=tree_device(params["decoder"]))
     return nets.decoder_apply(params["decoder"], z, cfg)
 
 

@@ -29,6 +29,7 @@ from generative_models_tpu_torch.losses.common import (
     compute_noise,
 )
 from generative_models_tpu_torch.models import nets
+from generative_models_tpu_torch.utils.tree import tree_device
 
 
 def code_lanes(cfg) -> int:
@@ -62,7 +63,7 @@ def split_codes(rows, cfg):
 def _rows(gen, n, cfg, g_params, z):
     if z is not None:
         return z
-    return draw_codes(gen, (n,), cfg, g_params[0]["w"].device)
+    return draw_codes(gen, (n,), cfg, tree_device(g_params))
 
 
 def _mi_lower_bound(q_cat, q_mu, q_logvar, rows, cfg):
@@ -103,7 +104,7 @@ def _g_loss(g_params, d_params, batch, gen, vstate, cfg, z=None):
 def _sample(g_params, gen, n, cfg, z=None):
     """The class-cycled grid: row i has class i % info_cat_dim and cont 0;
     `z` [n, z_dim] (drawn from `gen` when None)."""
-    dev = g_params[0]["w"].device
+    dev = tree_device(g_params)
     if z is None:
         z = compute_noise(gen, n, cfg.z_dim, device=dev)
     cat = torch.arange(n, device=z.device) % cfg.info_cat_dim

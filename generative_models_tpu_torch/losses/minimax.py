@@ -15,12 +15,13 @@ import torch
 from generative_models_tpu_torch.losses.base import AdversarialSpec
 from generative_models_tpu_torch.losses.common import bce_logits_mean, compute_noise
 from generative_models_tpu_torch.models import nets
+from generative_models_tpu_torch.utils.tree import tree_device
 
 
 def _noise(gen, n, cfg, params, z):
     if z is not None:
         return z
-    return compute_noise(gen, n, cfg.z_dim, device=params[0]["w"].device)
+    return compute_noise(gen, n, cfg.z_dim, device=tree_device(params))
 
 
 def _d_loss(d_params, g_params, batch, gen, vstate, cfg, z=None):

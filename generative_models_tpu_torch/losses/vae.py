@@ -19,6 +19,7 @@ from generative_models_tpu_torch.losses.base import SingleModelSpec
 from generative_models_tpu_torch.losses.common import bce_logits, compute_noise
 from generative_models_tpu_torch.models import nets
 from generative_models_tpu_torch.ops.reparam import reparam_and_kl
+from generative_models_tpu_torch.utils.tree import tree_device
 
 
 def init_params(gen, cfg, device="cpu"):
@@ -52,7 +53,7 @@ def loss(params, batch, gen, cfg, eps=None):
 def sample(params, gen, n, cfg, z=None):
     if z is None:
         z = compute_noise(gen, n, cfg.latent_dim,
-                          device=params["decoder"][0]["w"].device)
+                          device=tree_device(params["decoder"]))
     return nets.decoder_apply(params["decoder"], z, cfg)
 
 

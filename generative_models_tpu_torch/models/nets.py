@@ -1,7 +1,7 @@
 """The shared network stacks — the port of
-``generative_models_tpu/models/nets.py``, MLP stacks only: generator
-and discriminator, their conditional forms (cgan: a one-hot label
-concatenated to the input), began's autoencoder critic, infogan's
+``generative_models_tpu/models/nets.py``: generator and discriminator,
+their conditional forms (cgan: a one-hot label concatenated to the
+input), began's autoencoder critic, infogan's
 critic with its Q head and its code-taking generator, and the VAE
 family's encoder and decoder. The generator returns images in [0, 1]
 (sigmoid head); the discriminator returns logits [B]; began's critic
@@ -9,6 +9,11 @@ returns reconstructions in [0, 1]; infogan's returns (d logit, Q's
 categorical logits, means, log-variances); the encoder returns (mu,
 logvar); the decoder returns images, or pre-sigmoid logits with
 ``logits=True``.
+
+Every init and apply dispatches on ``Config.arch``, as the reference's
+do: ``"mlp"`` takes the MLP stacks below, ``"conv"`` the DCGAN-style
+stacks of ``models/conv.py`` behind the same flat signatures, so every
+loss head runs on either.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from generative_models_tpu_torch.config import Config
+from generative_models_tpu_torch.models import conv
 from generative_models_tpu_torch.models.mlp import (
     linear_init,
     mlp_apply,
@@ -28,11 +34,8 @@ def _cdt(cfg: Config):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else None
 
 
-def _mlp_only(cfg: Config) -> None:
-    if cfg.arch != "mlp":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} is not ported to generative_models_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 8: the conv stacks)")
+def _conv(cfg: Config) -> bool:
+    return cfg.arch == "conv"
 
 
 # --------------------------------------------------------------------
@@ -41,13 +44,15 @@ def _mlp_only(cfg: Config) -> None:
 
 def generator_init(gen: torch.Generator, cfg: Config, in_dim=None,
                    device="cpu"):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.generator_init(gen, cfg, in_dim, device=device)
     in_dim = cfg.z_dim if in_dim is None else in_dim
     return mlp_init(gen, [in_dim, cfg.hidden_dim, cfg.image_dim], device)
 
 
 def generator_apply(params, z, cfg: Config):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.generator_apply(params, z, cfg)
     x = mlp_apply(params, z, hidden_act=cfg.g_hidden_act, out_act="sigmoid",
                   slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
     return x.float()
@@ -59,13 +64,15 @@ def generator_apply(params, z, cfg: Config):
 
 def discriminator_init(gen: torch.Generator, cfg: Config, in_dim=None,
                        device="cpu"):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.discriminator_init(gen, cfg, device=device)
     in_dim = cfg.image_dim if in_dim is None else in_dim
     return mlp_init(gen, [in_dim, cfg.hidden_dim, 1], device)
 
 
 def discriminator_apply(params, x, cfg: Config):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.discriminator_apply(params, x, cfg)
     out = mlp_apply(params, x, hidden_act=cfg.d_hidden_act, out_act="none",
                     slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
     return out.float()[..., 0]
@@ -75,7 +82,8 @@ def discriminator_apply_plain(params, x, cfg: Config):
     """The critic through per-layer torch ops on any device: twice
     differentiable, for the gradient penalty's pass (``ops/penalty.py``);
     every other critic pass runs the kernels."""
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.discriminator_apply_plain(params, x, cfg)
     out = mlp_apply_plain(params, x, hidden_act=cfg.d_hidden_act,
                           out_act="none", slope=cfg.leaky_slope,
                           compute_dtype=_cdt(cfg))
@@ -102,12 +110,16 @@ def cond_generator_apply(params, z, labels, cfg: Config):
 
 
 def cond_discriminator_init(gen: torch.Generator, cfg: Config, device="cpu"):
+    if _conv(cfg):
+        return conv.cond_discriminator_init(gen, cfg, device=device)
     return discriminator_init(gen, cfg,
                               in_dim=cfg.image_dim + cfg.num_classes,
                               device=device)
 
 
 def cond_discriminator_apply(params, x, labels, cfg: Config):
+    if _conv(cfg):
+        return conv.cond_discriminator_apply(params, x, labels, cfg)
     xy = torch.cat([x, onehot(labels, cfg.num_classes)], dim=-1)
     return discriminator_apply(params, xy, cfg)
 
@@ -117,14 +129,16 @@ def cond_discriminator_apply(params, x, labels, cfg: Config):
 # --------------------------------------------------------------------
 
 def began_d_init(gen: torch.Generator, cfg: Config, device="cpu"):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.began_d_init(gen, cfg, device=device)
     return mlp_init(gen, [cfg.image_dim, cfg.began_ae_hidden, cfg.image_dim],
                     device)
 
 
 def began_d_apply(params, x, cfg: Config):
     """The autoencoder's reconstruction of x, in [0, 1]."""
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.began_d_apply(params, x, cfg)
     out = mlp_apply(params, x, hidden_act=cfg.d_hidden_act, out_act="sigmoid",
                     slope=cfg.leaky_slope, compute_dtype=_cdt(cfg))
     return out.float()
@@ -137,8 +151,10 @@ def began_d_apply(params, x, cfg: Config):
 
 def infogan_d_init(gen: torch.Generator, cfg: Config, device="cpu"):
     """``{"trunk": [layer], "d_head": layer, "q_head": layer}``, the
-    reference's layout, drawn in that order from `gen`."""
-    _mlp_only(cfg)
+    reference's layout, drawn in that order from `gen` (conv: ``{"trunk",
+    "fc", "d_head", "q_head"}``)."""
+    if _conv(cfg):
+        return conv.infogan_d_init(gen, cfg, device=device)
     q_out = cfg.info_cat_dim + 2 * cfg.info_cont_dim
     return {
         "trunk": mlp_init(gen, [cfg.image_dim, cfg.hidden_dim], device),
@@ -159,7 +175,8 @@ def infogan_d_apply(params, x, cfg: Config):
     cont]). The trunk and both heads run as one two-layer stack (one
     launch of each MLP kernel on the card), the heads' weights side by
     side (:func:`infogan_head`)."""
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.infogan_d_apply(params, x, cfg)
     out = mlp_apply([params["trunk"][0], infogan_head(params)], x,
                     hidden_act=cfg.d_hidden_act, out_act="none",
                     slope=cfg.leaky_slope, compute_dtype=_cdt(cfg)).float()
@@ -185,7 +202,8 @@ def infogan_g_apply(params, z, c_cat_onehot, c_cont, cfg: Config):
 
 def encoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
     """Trunk, mu head and logvar head, drawn in that order from `gen`."""
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.encoder_init(gen, cfg, device=device)
     return {
         "trunk": mlp_init(gen, [cfg.image_dim, cfg.vae_hidden_dim], device),
         "mu": linear_init(gen, cfg.vae_hidden_dim, cfg.latent_dim, device),
@@ -195,7 +213,8 @@ def encoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
 
 
 def encoder_apply(params, x, cfg: Config):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.encoder_apply(params, x, cfg)
     h = mlp_apply(params["trunk"], x, hidden_act="relu", out_act="relu",
                   compute_dtype=_cdt(cfg))
     mu = mlp_apply([params["mu"]], h, out_act="none", compute_dtype=_cdt(cfg))
@@ -205,7 +224,8 @@ def encoder_apply(params, x, cfg: Config):
 
 
 def decoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.decoder_init(gen, cfg, device=device)
     return mlp_init(gen, [cfg.latent_dim, cfg.vae_hidden_dim, cfg.image_dim],
                     device)
 
@@ -213,7 +233,8 @@ def decoder_init(gen: torch.Generator, cfg: Config, device="cpu"):
 def decoder_apply(params, z, cfg: Config, logits: bool = False):
     """Bernoulli decoder. ``logits=True`` returns pre-sigmoid logits for
     the numerically stable BCE."""
-    _mlp_only(cfg)
+    if _conv(cfg):
+        return conv.decoder_apply(params, z, cfg, logits=logits)
     x = mlp_apply(params, z, hidden_act="relu",
                   out_act="none" if logits else "sigmoid",
                   compute_dtype=_cdt(cfg))

@@ -145,6 +145,12 @@ CHAIN_STAGES = 4               # CH_STAGES: W chunks in the ring
 ITEM_ROWS = (1, 4, 8)          # TR: the kernels' instantiations
 CLUSTER_SIZES = (1, 2, 4, 8)   # portable cluster sizes
 CHUNK_DEPTHS = (16, 32, 64)
+# Tried only when no depth of CHUNK_DEPTHS fits: the backward's
+# transposed W chunk (4 Gc x (KC + 4) floats a ring slot) of a layer
+# thousands of columns wide, such as the conv stacks' 6272-wide inputs,
+# fits four slots only 8 deep. Every stack that plans at CHUNK_DEPTHS
+# keeps that plan.
+WIDE_CHUNK_DEPTHS = (8,)
 TILE_ROWS = (4, 8, 16, 24, 32, 48, 64, 80, 96, 128)
 DW_TILE = (64, 128)            # DW_TK x DW_TN in csrc/mlp_bwd.cu
 DW_CHUNK_ROWS = 32             # DW_RC
@@ -230,10 +236,11 @@ class FwdPlan:
                 self.smem_bytes, int(self.stream)]
 
 
-def chain_candidates(batch: int, widths: Sequence[int], bwd: bool):
+def chain_candidates(batch: int, widths: Sequence[int], bwd: bool,
+                     depths: Sequence[int] = CHUNK_DEPTHS):
     """Every chain plan that fits: each item height, tile (no larger than
     the smallest listed tile that holds the batch), cluster size and
-    chunk depth whose CTA fits in shared memory."""
+    chunk depth of `depths` whose CTA fits in shared memory."""
     for tr in ITEM_ROWS:
         for prev, tm in zip((0,) + TILE_ROWS, TILE_ROWS):
             if prev >= batch:  # a smaller tile already holds the batch
@@ -242,7 +249,7 @@ def chain_candidates(batch: int, widths: Sequence[int], bwd: bool):
                 continue
             rg = tm // tr
             for c in CLUSTER_SIZES:
-                for kc in CHUNK_DEPTHS:
+                for kc in depths:
                     for stream in (False, True):
                         smem = chain_smem_bytes(widths, tr, rg, c, kc, bwd,
                                                 stream)
@@ -275,18 +282,21 @@ def _chain_plan(batch: int, widths: Tuple[int, ...], sm_count: int,
             return FwdPlan(tr, tm // tr, c, kc, smem, _cdiv(batch, tm) * c,
                            stream)
     # a stack too wide for the preferred shape: the fitting plan of the
-    # preferred item height nearest one CTA an SM
+    # preferred item height nearest one CTA an SM, at the listed chunk
+    # depths, else at the wide ones
     tr0 = preferred_plans(batch, sm_count)[0][0]
-    best = min(chain_candidates(batch, widths, bwd), default=None,
-               key=lambda p: (p.tr != tr0, abs(math.log(p.grid / sm_count)),
-                              p.cluster, p.smem_bytes))
-    if best is None:
-        raise ValueError(
-            f"mlp_{'bwd' if bwd else 'fwd'}: layer widths {list(widths)} "
-            f"fit no plan: the smallest tile needs "
-            f"{chain_smem_bytes(widths, 1, 1, CLUSTER_SIZES[-1], CHUNK_DEPTHS[0], bwd, True)}"
-            f" bytes of shared memory; a block has {MAX_SMEM_BYTES}")
-    return best
+    for depths in (CHUNK_DEPTHS, WIDE_CHUNK_DEPTHS):
+        best = min(chain_candidates(batch, widths, bwd, depths), default=None,
+                   key=lambda p: (p.tr != tr0,
+                                  abs(math.log(p.grid / sm_count)),
+                                  p.cluster, p.smem_bytes))
+        if best is not None:
+            return best
+    raise ValueError(
+        f"mlp_{'bwd' if bwd else 'fwd'}: layer widths {list(widths)} "
+        f"fit no plan: the smallest tile needs "
+        f"{chain_smem_bytes(widths, 1, 1, CLUSTER_SIZES[-1], WIDE_CHUNK_DEPTHS[0], bwd, True)}"
+        f" bytes of shared memory; a block has {MAX_SMEM_BYTES}")
 
 
 def fwd_plan(batch: int, dims: Sequence[int], sm_count: int) -> FwdPlan:

@@ -135,7 +135,7 @@ def init_adversarial_state(spec, cfg, gen: torch.Generator,
         "rng": _rng_words(cfg),
     }
     if cfg.ema_decay > 0:
-        st["g_ema"] = [dict(l) for l in g_params]
+        st["g_ema"] = tree_map(lambda t: t, g_params)
     if amortized_sn(cfg):
         # the carried power-iteration vectors (ops/spectral.py), burned in
         # at the init weights

@@ -2,8 +2,9 @@
 for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
 fishergan, wgangp, dragan, cgan, began, infogan, vae, birvae): build the
 model
-from ``cfg.seed`` (G and D, or a single model's parameter tree), train,
-evaluate, sample, save and load checkpoints in the JAX package's layout.
+from ``cfg.seed`` (G and D, or a single model's parameter tree; the MLP
+stacks, or with ``arch="conv"`` the conv stacks), train, evaluate,
+sample, save and load checkpoints in the JAX package's layout.
 
 The Trainer runs on the device it is given, ``"cuda"`` by default, and
 raises when that device is missing; the CPU runs only when asked for

@@ -24,7 +24,11 @@ imports torch alone:
 
 The devices the program names (its buffers, each ``arange``) are the
 CPU's; ``move_to_device_pass`` rewrites them, as :func:`load_sampler`
-does for ``device=``.
+does for ``device=``. A conv sampler's program holds plain convolution
+ops, which on the card follow cuDNN's global flags (TF32 and
+nondeterministic algorithms allowed by default): :func:`load_sampler`
+runs it under ``models/conv.py::strict_convs``, as the port's conv
+stacks run.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import os
 
 import torch
 
+from generative_models_tpu_torch.models.conv import strict_convs
 from generative_models_tpu_torch.ops.cuda_reparam import philox_normal_plain
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
@@ -96,14 +101,22 @@ def save_sampler(path: str, spec, cfg, params, n: int) -> str:
     return path
 
 
-def load_sampler(path: str, device="cpu"):
+def load_sampler(path: str, device="cuda"):
     """``fn(seed: int) -> images`` (a tensor on `device`), with torch
-    alone."""
+    alone. The card by default, raising when there is none; the CPU only
+    when asked for (``device="cpu"``)."""
     from torch.export.passes import move_to_device_pass
-    ep = torch.export.load(path)
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is present; "
+            "pass device='cpu' to load the sampler on the CPU")
+    ep = torch.export.load(path)
     if dev.type != "cpu":
         ep = move_to_device_pass(ep, dev)
     module = ep.module()
-    return lambda seed: module(torch.tensor(seed, dtype=torch.int64,
-                                            device=dev))
+
+    def fn(seed: int) -> torch.Tensor:
+        with strict_convs():  # a conv sampler's convs: IEEE, repeatable
+            return module(torch.tensor(seed, dtype=torch.int64, device=dev))
+    return fn

@@ -41,6 +41,12 @@ def tree_leaves(tree: Any) -> list:
     return [v for _, v in tree_leaves_with_path(tree)]
 
 
+def tree_device(tree: Any):
+    """The device of a tree's first leaf (every leaf of a parameter tree
+    lies on one device): a list of layers or a conv stack's dict alike."""
+    return tree_leaves(tree)[0].device
+
+
 def tree_unflatten(like: Any, leaves) -> Any:
     """A tree of `like`'s structure holding `leaves` (in
     :func:`tree_leaves` order)."""

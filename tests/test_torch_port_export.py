@@ -48,7 +48,7 @@ def artifacts(tmp_path_factory):
 def test_artifact_is_deterministic_and_matches_the_sampler(artifacts,
                                                            variant):
     t, path = artifacts[variant]
-    fn = export.load_sampler(path)
+    fn = export.load_sampler(path, device="cpu")
     a, b, c = fn(3), fn(3), fn(4)
     assert a.shape == (N, 784) and a.dtype == torch.float32
     assert torch.equal(a, b) and not torch.equal(a, c)
@@ -72,7 +72,7 @@ def test_cgan_artifact_cycles_the_classes(artifacts):
     t, path = artifacts["cgan"]
     z = export.sampler_noise(torch.tensor(3), N, t.cfg.z_dim)
     from generative_models_tpu_torch.losses.cgan import sample_class
-    out = export.load_sampler(path)(3)
+    out = export.load_sampler(path, device="cpu")(3)
     for i in (0, 1, 11):
         one = sample_class(t.generator_params, None, 1, i % t.cfg.num_classes,
                            t.cfg, z=z[i:i + 1])
@@ -81,7 +81,7 @@ def test_cgan_artifact_cycles_the_classes(artifacts):
 
 
 def test_a_torch_only_process_loads_the_artifacts(artifacts, tmp_path):
-    want = {v: export.load_sampler(p)(11).numpy()
+    want = {v: export.load_sampler(p, device="cpu")(11).numpy()
             for v, (_, p) in artifacts.items()}
     code = (
         "import sys, numpy as np, torch\n"
@@ -124,13 +124,14 @@ def test_cli_scores_and_exports_after_the_checkpoint(tmp_path):
     t = Trainer("nsgan", device="cpu", **dict(TINY, z_dim=8, sample_n=16))
     t.load_model(ck)
     z = export.sampler_noise(torch.tensor(1), 16, 8)
-    np.testing.assert_allclose(export.load_sampler(art)(1).numpy(),
-                               t.sample(z=z), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        export.load_sampler(art, device="cpu")(1).numpy(), t.sample(z=z),
+        rtol=0, atol=1e-6)
     # --sample-only exports from the loaded checkpoint
     art2 = str(tmp_path / "g2.pt2")
     rc, out = _cli(tmp_path, "--variant", "nsgan", "--ckpt", ck,
                    "--sample-only", "--export-sampler", art2)
     line = json.loads(out[-1])
     assert rc == 0 and line["sampler"] == art2 and line["step"] == 3
-    assert torch.equal(export.load_sampler(art2)(1),
-                       export.load_sampler(art)(1))
+    assert torch.equal(export.load_sampler(art2, device="cpu")(1),
+                       export.load_sampler(art, device="cpu")(1))

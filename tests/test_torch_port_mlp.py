@@ -204,7 +204,7 @@ def check_chain_plan(widths, batch, plan, bwd):
     assert plan.tr in cuda_mlp.ITEM_ROWS
     assert plan.cluster in cuda_mlp.CLUSTER_SIZES
     assert plan.cluster <= 8  # the portable cluster size
-    assert plan.kc in cuda_mlp.CHUNK_DEPTHS
+    assert plan.kc in cuda_mlp.CHUNK_DEPTHS + cuda_mlp.WIDE_CHUNK_DEPTHS
     assert plan.smem_bytes == cuda_mlp.chain_smem_bytes(
         widths, plan.tr, plan.row_groups, plan.cluster, plan.kc, bwd,
         plan.stream)

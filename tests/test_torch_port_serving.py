@@ -228,5 +228,11 @@ def test_unported_variants_name_their_roadmap_item(variant):
 
 
 def test_conv_arch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="conv"):
-        Trainer("nsgan", device="cpu", arch="conv")
+    """The conv stacks are ported now (models/conv.py), so the Trainer
+    builds them; what stays unported on them is tensor parallelism, which
+    the config refuses, as the reference's does."""
+    t = Trainer("nsgan", device="cpu", arch="conv")
+    assert sorted(t.state["g_params"]) == ["fc", "gn0", "gn1", "up1", "up2"]
+    assert sorted(t.state["d_params"]) == ["fc", "trunk"]
+    with pytest.raises(ValueError, match="conv"):
+        Trainer("nsgan", device="cpu", arch="conv", tp=2)
