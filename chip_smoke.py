@@ -153,6 +153,25 @@ imports nothing of JAX. Phases:
      from a JAX-layout conv checkpoint (one G launch; the artifact on the
      card bitwise per seed and against ``Trainer.sample``); 20 bf16 steps
      of the conv nsgan and vae;
+   - the diffusion family (4j, ``models/ddpm_net.py``, ``losses/ddpm.py``,
+     ``losses/flow.py``, ``train/reflow.py``) at config.py's defaults:
+     the ddpm MLP net and UNet (conditional) at B 100, forward and every
+     gradient on the card against the CPU (DIFF_TOL), 8 and 7 launches a
+     forward and a backward (DIFF_LAUNCHES), and one SiLU layer against
+     its plain version; nsgan with a SiLU G (the route for activations
+     the kernels do not hold: gradients against the CPU, 7 and 5
+     launches a step); the CLI's ddpm and flow runs on both nets and a
+     guided conditional ddpm run (DIFF_STEPS general steps, launch
+     counts worked out beforehand, no chunk launch, losses falling, the
+     checkpoint's EMA apart from its params) and 20 bf16 ddpm steps;
+     every sampler of DIFF_SAMPLERS (DDPM's full chain, S 50 at eta 0,
+     flow's Euler 50 and Heun 16, guided: one 2n-row call a step) on the
+     card against the CPU from the same initial x and chain noise
+     (SAMPLER_TOL); ``--sample-only --export-sampler`` from JAX-layout
+     ddpm (S 50) and flow checkpoints (the artifact bitwise per seed and
+     against ``Trainer.sample`` with the same Philox draws); and
+     ``--reflow-from`` the flow run's checkpoint (REFLOW_PAIRS pairs by
+     Heun 50, a student run, 1-step sampling);
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
@@ -180,9 +199,12 @@ imports nothing of JAX. Phases:
    bf16 phase's yardstick held to its function by LIBRARY_BF16_TOL, which
    the same yardstick with a wrong loss term must exceed); (5a) also the
   conv stacks' dense layers (G's 128->6272, the critic's 6272->1, the
-  encoder's 6272->400, infogan's 6272->400->15) and (5g) the conv nsgan
-  and vae general steps: steps/s, and a step's device time split into
-  cuDNN's convolutions, the hand-written kernels and the rest;
+  encoder's 6272->400, infogan's 6272->400->15) and the diffusion nets'
+  (DIFF_DENSE, also held in 3a/3b at B 100, 200 and 2048), (5g) the conv
+  nsgan and vae general steps: steps/s, and a step's device time split
+  into cuDNN's convolutions, the hand-written kernels and the rest; (5h)
+  the same for ddpm and flow on both nets, and their served images/s at
+  n 64 and 1024 (DDPM at S 1000 and 50, flow at S 1, 16 and 50);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -381,6 +403,18 @@ CONV_DENSE = (("conv_g_fc", [128, CONV_W], ("none",)),
               ("conv_d_fc", [CONV_W, 1], ("none",)),
               ("conv_enc_fc", [CONV_W, 400], ("relu",)),
               ("conv_info", [CONV_W, 400, 15], ("leaky_relu", "none")))
+# The diffusion nets' dense layers at config.py's defaults
+# (models/ddpm_net.py), each one linear_cuda call with act "none" (the
+# time MLP's SiLU follows its product): the MLP net's skip 784 -> 784,
+# in 784 -> 400, the time MLP 128 -> 128, its projections 128 -> 400,
+# mid 400 -> 400 and out 400 -> 784; the UNet's time biases 128 -> 64
+# and 128 -> 128. B 100 in training; 2n rows in guided sampling (n 100:
+# 200); B 2048 in reflow's generate_pairs.
+DIFF_DENSE = (("diff_skip", [784, 784]), ("diff_in", [784, 400]),
+              ("diff_time", [128, 128]), ("diff_tproj", [128, 400]),
+              ("diff_mid", [400, 400]), ("diff_out", [400, 784]),
+              ("diff_unet_t", [128, 64]))
+DIFF_BATCHES = (TRAIN_B, 2 * TRAIN_B, 2048)
 
 
 def nvidia_smi_line() -> str:
@@ -457,6 +491,8 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
     cases += [(name, dims, acts, b) for name, dims, acts in CONV_DENSE
               for b in (TRAIN_B, 1000)]
     cases += [("conv_g_fc",) + CONV_DENSE[0][1:] + (8192,)]
+    cases += [(name, dims, ("none",), b) for name, dims in DIFF_DENSE
+              for b in DIFF_BATCHES]
     cases += [(f"{name}:{p.tr}x{p.row_groups}/c{p.cluster}", dims, acts, b, p)
               for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
                                           ("D", D_DIMS, D_ACTS, 37))
@@ -468,7 +504,7 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
             rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
         for cdt in (None, torch.bfloat16):
             key = "bfloat16" if cdt is not None else "float32"
-            if name == "lin":  # the one-layer wrapper (row 2)
+            if name == "lin" or name.startswith("diff_"):  # row 2
                 out, hid = linear_cuda(x, ws[0], bs[0], acts[0], 0.2, cdt), []
             elif plan:
                 out, hid = cuda_mlp.launch_fwd(x, ws, bs, acts, 0.2, cdt,
@@ -510,6 +546,8 @@ def check_bwd(cuda_mlp, torch):
               for name, dims, acts in CONV_DENSE]
     cases += [("conv_enc_fc",) + CONV_DENSE[3][1:] + (8192, None),
               ("conv_d_fc",) + CONV_DENSE[2][1:] + (1000, None)]
+    cases += [(name, dims, ("none",), TRAIN_B, None)
+              for name, dims in DIFF_DENSE]
     base = cuda_mlp.bwd_plan(TRAIN_B, G_DIMS, sm)
     cases += [(f"G:{p.tr}x{p.row_groups}/c{p.cluster}", G_DIMS, G_ACTS,
                TRAIN_B, dataclasses.replace(base, rows=p))
@@ -2348,6 +2386,596 @@ def drive_conv(mods, torch):
                           "serving": serve_err}
 
 
+# Phase 4j: the diffusion family (models/ddpm_net.py, losses/ddpm.py,
+# losses/flow.py, train/reflow.py) at full width, config.py's defaults:
+# the MLP net (hidden 400, time dim 128, the 784 -> 784 skip) and the
+# UNet (conv_channels 64), B 100, T 1000, EMA 0.999, flow's 50 Euler
+# steps. Every dense layer is one fused_linear call, so one launch of
+# the forward kernel (and one linear_cuda count) a net forward, and one
+# of the backward kernel a net backward: DIFF_LAUNCHES[arch] a forward.
+# A training step is one forward and one backward (the general step:
+# fused_step "auto" refuses ddpm and flow, as the reference's chunk
+# does); an evaluate batch is one forward; a sample of S steps is S
+# forwards (Heun: 2S), guided or not (one 2n-row call a step).
+DIFF_LAUNCHES = {"mlp": 8, "conv": 7}
+DIFF_STEPS = 200       # < 600, the steps of one epoch of the 60,000 rows
+DIFF_SAMPLE_N = 64     # config.py's sample_n: the final grid
+# Card against CPU, the same weights and inputs, by max abs error over
+# max |CPU| (outputs and every gradient): both float32, sums in other
+# orders (CONV_TOL's few 1e-6), and the timestep embedding: its
+# frequencies come from expf on the card and exp on the CPU, an ulp
+# (6e-8) apart at most, which moves sin(t f) by up to t ulp(f) = 6e-5
+# at t 999 before the time MLP (two 128-wide layers) and the per-layer
+# time projections spread it. 1e-3 holds that with room and stays far
+# below a wrong product (order 1).
+DIFF_TOL = 1e-3
+# A sampler's images in [0, 1], card against CPU from the same initial x
+# and chain noise: each step adds the net's difference (DIFF_TOL of its
+# output) times the step's eps coefficient, and the x0 clip and the
+# chain's contraction keep it from growing; over S steps at most
+# S * DIFF_TOL * max coef in the worst case, in practice a few of them.
+SAMPLER_TOL = 5e-3
+SAMPLER_N = 16
+# (variant, arch, flags, S) of the samplers held card against CPU: DDPM's
+# full chain (T 1000, eta 1) on the MLP net, S 50 at eta 0 on both nets,
+# flow's Euler 50 on both, Heun 16, and guided conditional sampling
+# (one 2n-row call a step).
+DIFF_SAMPLERS = (
+    ("ddpm", "mlp", {}, 1000),
+    ("ddpm", "mlp", {"ddpm_sample_steps": 50, "ddpm_eta": 0.0}, 50),
+    ("ddpm", "conv", {"ddpm_sample_steps": 50, "ddpm_eta": 0.0}, 50),
+    ("flow", "mlp", {}, 50),
+    ("flow", "conv", {}, 50),
+    ("flow", "mlp", {"flow_solver": "heun", "flow_sample_steps": 16}, 32),
+    ("ddpm", "mlp", {"ddpm_sample_steps": 50, "ddpm_cond": True,
+                     "ddpm_guidance": 1.0}, 50),
+    ("flow", "mlp", {"ddpm_cond": True, "ddpm_guidance": 1.0}, 50))
+DIFF_CLI = (("ddpm", "mlp", ()), ("ddpm", "conv", ()), ("flow", "mlp", ()),
+            ("flow", "conv", ()),
+            ("ddpm", "mlp", ("--ddpm-cond", "--ddpm-guidance", "1.0")))
+REFLOW_PAIRS = 4096    # two chunks of 2048, and one of test pairs
+REFLOW_STEPS = 100
+DIFF_BF16_STEPS = 20
+
+
+def diffusion_cfg(variant, arch, **kw):
+    from generative_models_tpu_torch.config import variant_config
+    return variant_config(variant, arch=arch, **kw)
+
+
+def grid_evals(cfg) -> int:
+    """Net forwards of one sample call."""
+    if cfg.variant == "ddpm":
+        return cfg.ddpm_sample_steps or cfg.ddpm_timesteps
+    return cfg.flow_sample_steps * (2 if cfg.flow_solver == "heun" else 1)
+
+
+def write_diffusion_checkpoint(path: str, seed: int, cfg) -> None:
+    """A full-width ddpm or flow checkpoint in the JAX package's npz
+    layout (params and EMA, every leaf of the net the port's
+    param_template lists, keys sorted): dense and conv weights U(+-1/sqrt
+    fan-in) with their biases, the label table and GroupNorm scales
+    U(-1, 1), GroupNorm biases U(+-0.01); the zero-initialised out, skip
+    and head drawn too, so the net's output is not zero."""
+    from generative_models_tpu_torch.utils.checkpoint import param_template
+    from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
+    tmpl = param_template(cfg)
+    leaves = []
+    for key in sorted(tmpl):
+        for p, t in tree_leaves_with_path(tmpl[key], f"['{key}']"):
+            shape = tuple(t.shape)
+            if p.endswith("['w']"):
+                fan = int(np.prod(shape[:-1]))
+            elif p.endswith("['b']"):
+                w = dict(tree_leaves_with_path(tmpl[key], f"['{key}']"))[
+                    p[:-5] + "['w']"]
+                fan = int(np.prod(tuple(w.shape)[:-1]))
+            elif p.endswith("['bias']"):
+                fan = 1e4
+            else:  # the label table, GroupNorm scales
+                fan = 1.0
+            leaves.append((p, shape, fan))
+    write_layout_checkpoint(path, seed, leaves, 777)
+
+
+def check_diffusion_nets(mods, torch):
+    """Phase 4j: the ddpm MLP net and the UNet (conditional, so the label
+    table is in the graph) at B 100, forward and every gradient of sum(out
+    * r) on the card against the CPU's plain path, the same weights (a
+    JAX-layout checkpoint's) and inputs, data by the tie rule; the
+    launches, DIFF_LAUNCHES a forward and a backward; and one SiLU layer
+    (fused_linear 128 -> 128, the time MLP's first) against its plain
+    version on the card. Returns the worst relative error."""
+    from generative_models_tpu_torch.models import ddpm_net
+    from generative_models_tpu_torch.ops.linear import fused_linear, linear_plain
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils.tree import tree_leaves, tree_map
+    worst = 0.0
+    run_dir = os.path.join(OUT_DIR, "diffusion_nets")
+    os.makedirs(run_dir, exist_ok=True)
+    for arch in ("mlp", "conv"):
+        cfg = diffusion_cfg("ddpm", arch, ddpm_cond=True)
+        ck = os.path.join(run_dir, f"ddpm_{arch}.npz")
+        write_diffusion_checkpoint(ck, 51, cfg)
+        t = Trainer(config=cfg, device="cpu")
+        t.load_model(ck)
+        os.remove(ck)
+        params = t.state["params"]
+
+        def draw(seed):
+            rng = np.random.default_rng(seed)
+            return [torch.from_numpy((2 * rng.random((TRAIN_B, 784)) - 1)
+                                     .astype(np.float32)),
+                    torch.from_numpy(rng.integers(0, 1000, TRAIN_B)),
+                    torch.from_numpy(rng.integers(0, 11, TRAIN_B))]
+
+        def fn(p, a):
+            return ddpm_net.net_apply(p, a[0], a[1], cfg, a[2])
+        # the tie rule (conv_margin): the nets' activations are SiLU, which
+        # has no kink, so the first seed clears it (margin inf)
+        for seed in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
+            margin = conv_margin(fn, params, draw(seed), torch)
+            if margin > TIE_MARGIN:
+                break
+        inputs = draw(seed)
+        outs, grads, n = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            rng = np.random.default_rng(52)
+            p = tree_map(lambda a: a.to(dev).requires_grad_(True), params)
+            a = [u.to(dev) for u in inputs]
+            a[0].requires_grad_(True)
+            reset(*mods)
+            out = fn(p, a)
+            r = torch.from_numpy(rng.standard_normal(tuple(out.shape))
+                                 .astype(np.float32)).to(dev)
+            g = torch.autograd.grad((out * r).sum(), tree_leaves(p) + [a[0]])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            n[dev] = (mods[0].launches, mods[0].bwd_launches)
+            outs[dev] = out.detach().cpu()
+            grads[dev] = [u.cpu() for u in g]
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+        f_err = rel(outs["cuda"], outs["cpu"])
+        b_err = max(rel(a, b) for a, b in zip(grads["cuda"], grads["cpu"]))
+        want = (DIFF_LAUNCHES[arch],) * 2
+        finite = all(bool(torch.isfinite(u).all())
+                     for u in [outs["cuda"]] + grads["cuda"])
+        ok = (finite and f_err <= DIFF_TOL and b_err <= DIFF_TOL
+              and n["cuda"] == want and n["cpu"] == (0, 0))
+        print(f"  ddpm net {arch:4s} B={TRAIN_B} (data seed {seed}, margin "
+              f"{margin:.1e}): forward max_err/max|cpu| {f_err:.3e}, "
+              f"backward ({len(grads['cuda'])} gradients) {b_err:.3e} tol "
+              f"{DIFF_TOL:.0e}; (mlp_fwd, mlp_bwd) launches card {n['cuda']}"
+              f" (expect {want}) cpu {n['cpu']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the ddpm {arch} net on the card disagrees "
+                                 "with the CPU")
+        worst = max(worst, f_err, b_err)
+    # the SiLU layer: the product on the kernel (act "none"), then SiLU
+    rng = np.random.default_rng(53)
+    ws, bs = make_stack(rng, [128, 128], "cuda")
+    x = torch.from_numpy(rng.standard_normal((TRAIN_B, 128)).astype(
+        np.float32)).cuda()
+    reset(*mods)
+    got = fused_linear(x, ws[0], bs[0], act="silu")
+    want = linear_plain(x, ws[0], bs[0], act="silu")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = err <= TOL["float32"] and mods[0].launches == 1
+    print(f"  fused_linear 128->128 silu B={TRAIN_B}: max_abs_err vs plain "
+          f"{err:.3e} tol {TOL['float32']:.0e}, mlp_fwd launches "
+          f"{mods[0].launches} (expect 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the silu layer disagrees with its plain version")
+    return max(worst, err)
+
+
+def drive_diffusion_cli(variant, arch, flags, mods, torch):
+    """Phase 4j: the CLI's run of `variant` on `arch`, DIFF_STEPS steps
+    (the general step), with --ckpt. Returns (launch counts, the JSON
+    line, the checkpoint's path)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.utils.checkpoint import read_leaves
+    tag = f"{variant}_{arch}" + ("_cond" if flags else "")
+    run_dir = os.path.join(OUT_DIR, "diffusion", tag)
+    ck = os.path.join(run_dir, "ck.npz")
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", variant, "--arch", arch, "--dataset",
+                       "synthetic", "--steps", str(DIFF_STEPS),
+                       "--echo-every", "100", "--out-dir", run_dir,
+                       "--ckpt", ck, *flags])
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "))
+    line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    with open(os.path.join(run_dir, variant, "metrics.jsonl")) as f:
+        losses = [json.loads(l)["loss"] for l in f]
+    finite = all(math.isfinite(v) for v in losses)
+    falling = np.mean(losses[-50:]) < np.mean(losses[:50])
+    cfg = diffusion_cfg(variant, arch)
+    f = DIFF_LAUNCHES[arch]
+    n_fwd = f * (DIFF_STEPS + EVAL_BATCHES + grid_evals(cfg))
+    want = {"mlp_fwd": n_fwd, "linear_cuda": n_fwd,
+            "mlp_bwd": f * DIFF_STEPS, "reparam": 0, "reparam_bwd": 0,
+            "gan_chunk": 0, "vae_chunk": 0, "birvae_chunk": 0}
+    got = {k: counts[k] for k in want}
+    leaves = read_leaves(ck)
+    ema_apart = any(not np.array_equal(a, leaves[p.replace("['ema']",
+                                                            "['params']")])
+                    for p, a in leaves.items() if p.startswith("['ema']"))
+    if (variant, arch, flags) != ("flow", "mlp", ()):  # reflow's teacher
+        os.remove(ck)  # OUT_DIR stays small: checked files go
+    ok = (rc == 0 and got == want and finite and falling
+          and len(losses) == DIFF_STEPS and ema_apart
+          and math.isfinite(line["eval"]["loss"]))
+    print(f"  cli {variant} --arch {arch} {' '.join(flags)}: rc={rc} "
+          f"{line['steps_per_sec']} steps/s, loss first 50 "
+          f"{np.mean(losses[:50]):.4f} last 50 {np.mean(losses[-50:]):.4f}, "
+          f"launches={got} (expect {want}), the checkpoint's EMA apart from "
+          f"its params {ema_apart} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the CLI run of {variant} --arch {arch} failed "
+                             "its checks")
+    return counts, line, ck
+
+
+def drive_diffusion_bf16(mods, torch):
+    """Phase 4j: DIFF_BF16_STEPS general steps of the MLP ddpm with dtype
+    bfloat16: finite, 8 and 8 launches a step."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    t = Trainer("ddpm", dtype="bfloat16", dataset="synthetic",
+                out_dir=os.path.join(OUT_DIR, "diffusion_bf16"))
+    t._load_data()
+    reset(*mods)
+    hist = t.train(steps=DIFF_BF16_STEPS)
+    counts = launch_counts(mods)
+    f = DIFF_LAUNCHES["mlp"] * DIFF_BF16_STEPS
+    finite = all(math.isfinite(v) for v in hist["loss"])
+    ok = finite and counts["mlp_fwd"] == f and counts["mlp_bwd"] == f
+    print(f"  ddpm dtype bfloat16, {DIFF_BF16_STEPS} general steps: finite="
+          f"{finite} mlp_fwd={counts['mlp_fwd']} mlp_bwd={counts['mlp_bwd']} "
+          f"(expect {f} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 ddpm run failed")
+    return counts
+
+
+def sampler_pair(variant, arch, kw, ck_dir, torch):
+    """(card Trainer, CPU Trainer) loaded from one JAX-layout checkpoint."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cfg = diffusion_cfg(variant, arch, **kw)
+    tag = f"{variant}_{arch}" + ("_cond" if cfg.ddpm_cond else "")
+    ck = os.path.join(ck_dir, f"{tag}.npz")
+    if not os.path.exists(ck):
+        write_diffusion_checkpoint(ck, 61 + len(tag), cfg)
+    pair = []
+    for dev in ("cuda", "cpu"):
+        t = Trainer(config=cfg, device=dev)
+        t.load_model(ck)
+        pair.append(t)
+    return pair
+
+
+def check_diffusion_samplers(mods, torch):
+    """Phase 4j: each sampler of DIFF_SAMPLERS on the card against the
+    CPU's from the same initial x and chain noise (numpy draws), by max
+    abs error (SAMPLER_TOL), with its launches: DIFF_LAUNCHES a net call,
+    S calls. Returns {name: (error, launches)}."""
+    ck_dir = os.path.join(OUT_DIR, "diffusion_serving")
+    os.makedirs(ck_dir, exist_ok=True)
+    out = {}
+    n = SAMPLER_N
+    for variant, arch, kw, evals in DIFF_SAMPLERS:
+        t_gpu, t_cpu = sampler_pair(variant, arch, kw, ck_dir, torch)
+        z = np.random.default_rng(71).standard_normal((n, 784)).astype(
+            np.float32)
+
+        def chain_on(dev):
+            return lambda i: torch.from_numpy(np.random.default_rng(
+                (72, i)).standard_normal((n, 784)).astype(np.float32)).to(dev)
+        extra = {"chain": chain_on} if variant == "ddpm" else {}
+        imgs = {}
+        for t, dev in ((t_gpu, "cuda"), (t_cpu, "cpu")):
+            reset(*mods)
+            e = {"chain": chain_on(dev)} if extra else {}
+            imgs[dev] = t.sample(z=z, **e)
+            if dev == "cuda":
+                launched = mods[0].launches
+        err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
+        want = DIFF_LAUNCHES[arch] * evals
+        ok = (err <= SAMPLER_TOL and launched == want
+              and np.isfinite(imgs["cuda"]).all())
+        name = f"{variant}_{arch}_" + "_".join(
+            f"{k}{v}" for k, v in sorted(kw.items())) + f"_evals{evals}"
+        print(f"  sampler {name}: n={n} card vs cpu max_abs_err {err:.3e} "
+              f"tol {SAMPLER_TOL:.0e}; mlp_fwd launches {launched} (expect "
+              f"{want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the sampler {name} on the card disagrees "
+                                 "with the CPU's")
+        out[name] = (err, launched)
+    for name in os.listdir(ck_dir):  # OUT_DIR stays small
+        if name.endswith(".npz"):
+            os.remove(os.path.join(ck_dir, name))
+    return out
+
+
+def drive_diffusion_serving(variant, arch, kw, flags, mods, torch):
+    """Phase 4j: ``--sample-only --export-sampler`` from a JAX-layout
+    checkpoint: the grid's launches (DIFF_LAUNCHES x S); the artifact on
+    the card bitwise per seed, and against Trainer.sample given the same
+    Philox draws (the initial x, and DDPM's chain at offsets 1..S) by
+    SAMPLER_TOL. Returns (launch counts, error, export seconds)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import export
+    run_dir = os.path.join(OUT_DIR, "diffusion_serving")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = diffusion_cfg(variant, arch, **kw)
+    ck = os.path.join(run_dir, f"jax_layout_{variant}_{arch}.npz")
+    art = os.path.join(run_dir, f"{variant}_{arch}.pt2")
+    write_diffusion_checkpoint(ck, 81, cfg)
+    buf = io.StringIO()
+    reset(*mods)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", variant, "--arch", arch, "--ckpt", ck,
+                       "--sample-only", "--export-sampler", art,
+                       "--out-dir", run_dir, *flags])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    fn = export.load_sampler(art, "cuda")
+    a, b2 = fn(EXPORT_SEED), fn(EXPORT_SEED)
+    t = Trainer(config=cfg)
+    t.load_model(ck)
+    seed = torch.tensor(EXPORT_SEED, device="cuda")
+    n = cfg.sample_n
+    extra = ({"chain": export.sampler_chain(seed, n, 784)}
+             if variant == "ddpm" else {})
+    want_img = torch.from_numpy(t.sample(
+        z=export.sampler_noise(seed, n, 784), **extra)).cuda()
+    err = float((a - want_img).abs().max())
+    f = DIFF_LAUNCHES[arch] * grid_evals(cfg)
+    ok = (rc == 0 and line["step"] == 777 and line["sampler"] == art
+          and counts["mlp_fwd"] == counts["linear_cuda"] == f
+          and torch.equal(a, b2) and tuple(a.shape) == (n, 784)
+          and err <= SAMPLER_TOL and bool(torch.isfinite(a).all()))
+    print(f"  cli {variant} --arch {arch} --sample-only --export-sampler "
+          f"{' '.join(flags)} from a JAX-layout checkpoint: rc={rc} "
+          f"{wall:.1f} s (grid and export) launches mlp_fwd="
+          f"{counts['mlp_fwd']} (expect {f}); the artifact on the card "
+          f"bitwise repeat {torch.equal(a, b2)}, vs Trainer.sample "
+          f"max_abs_err={err:.3e} tol {SAMPLER_TOL:.0e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{variant} serving failed its checks")
+    for path in (ck, art):  # OUT_DIR stays small: checked files go
+        os.remove(path)
+    return counts, err, wall
+
+
+def drive_reflow(teacher_ck, mods, torch):
+    """Phase 4j: --reflow-from the flow MLP run's checkpoint with
+    REFLOW_PAIRS pairs (Heun 50), REFLOW_STEPS student steps and 1-step
+    sampling; the teacher's ODE at B 2048 (three chunks: two of train
+    pairs, one of test pairs, 100 net calls each), the student's steps,
+    evaluate and the 1-step grid, all counted. Returns (counts, line)."""
+    from generative_models_tpu_torch import cli
+    run_dir = os.path.join(OUT_DIR, "diffusion", "reflow")
+    buf = io.StringIO()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", "flow", "--dataset", "synthetic",
+                       "--steps", str(REFLOW_STEPS), "--echo-every", "50",
+                       "--out-dir", run_dir, "--reflow-from", teacher_ck,
+                       "--reflow-pairs", str(REFLOW_PAIRS),
+                       "--flow-sample-steps", "1"])
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "))
+    line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    f = DIFF_LAUNCHES["mlp"]
+    chunks = REFLOW_PAIRS // 2048 + 1
+    # the final 1-step grid, and one when the run crosses an epoch of the
+    # REFLOW_PAIRS rows (sample_every 0)
+    grids = 1 + int(REFLOW_STEPS * TRAIN_B >= REFLOW_PAIRS)
+    want_fwd = f * (chunks * 2 * 50 + REFLOW_STEPS + EVAL_BATCHES + grids)
+    os.remove(teacher_ck)  # OUT_DIR stays small: checked files go
+    ok = (rc == 0 and out.splitlines()[0].startswith(
+        f"reflow: {REFLOW_PAIRS} teacher couplings")
+          and counts["mlp_fwd"] == want_fwd
+          and counts["mlp_bwd"] == f * REFLOW_STEPS
+          and math.isfinite(line["eval"]["loss"]))
+    print(f"  cli flow --reflow-from: rc={rc} mlp_fwd={counts['mlp_fwd']} "
+          f"(expect {want_fwd}) mlp_bwd={counts['mlp_bwd']} (expect "
+          f"{f * REFLOW_STEPS}) eval {line['eval']} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the reflow run failed its checks")
+    return counts, line
+
+
+# The repair of the MLP kernels' route (ops/linear.py, models/mlp.py):
+# nsgan with --g-hidden-act silu. fused_step "auto" keeps the general
+# step (the chunk kernel hand-derives G's ReLU), and G's stack, which
+# holds a SiLU, runs a launch a layer: a G forward 2 launches (the SiLU
+# layer's product with act "none", then the sigmoid layer), a G backward
+# 2. nsgan's general step at d_steps 1 is 5 forward and 4 backward
+# launches with G in one; two G forwards (the critic's update and G's)
+# and one G backward a step make it 7 and 5.
+SILU_LAUNCHES = (7, 5)
+SILU_STEPS = 100
+
+
+def check_silu_nsgan(mods, torch):
+    """Phase 4j: one critic update's and one G update's gradients of
+    nsgan with a SiLU G on the card against the CPU's (same params,
+    batch and z; max abs error over max |CPU| of each gradient, by
+    DIFF_TOL); then SILU_STEPS steps of Trainer.train on the card:
+    SILU_LAUNCHES a step, no chunk launch, finite. Returns (counts,
+    error)."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.losses.registry import get_variant
+    from generative_models_tpu_torch.ops import cuda_train
+    from generative_models_tpu_torch.train import step as step_lib
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils.tree import tree_leaves, tree_map
+    cfg = variant_config("nsgan", g_hidden_act="silu")
+    spec = get_variant("nsgan")
+    assert not cuda_train.resolve_fused_step(spec, cfg, "cuda")
+    st = step_lib.init_state(spec, cfg, torch.Generator().manual_seed(91))
+    rng = np.random.default_rng(92)
+    x = torch.from_numpy(rng.random((TRAIN_B, 784)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((TRAIN_B, 128)).astype(
+        np.float32))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        d_grads, g_grads = step_lib.autograd_grads(spec, cfg)
+        g = tree_map(lambda t: t.to(dev), st["g_params"])
+        d = tree_map(lambda t: t.to(dev), st["d_params"])
+        batch = {"image": x.to(dev), "label": torch.zeros(TRAIN_B).to(dev)}
+        gd, _ = d_grads(d, g, batch, z.to(dev), None, {})
+        gg, _ = g_grads(g, d, batch, z.to(dev), {})
+        grads[dev] = [t.cpu() for t in tree_leaves(gd) + tree_leaves(gg)]
+    err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(grads["cuda"], grads["cpu"]))
+    t = Trainer("nsgan", g_hidden_act="silu", dataset="synthetic",
+                out_dir=os.path.join(OUT_DIR, "silu"))
+    t._load_data()
+    reset(*mods)
+    hist = t.train(steps=SILU_STEPS)
+    counts = launch_counts(mods)
+    finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
+    want = (SILU_LAUNCHES[0] * SILU_STEPS, SILU_LAUNCHES[1] * SILU_STEPS)
+    got = (counts["mlp_fwd"], counts["mlp_bwd"])
+    ok = (err <= DIFF_TOL and finite and got == want
+          and counts["gan_chunk"] == 0)
+    print(f"  nsgan --g-hidden-act silu: gradients card vs cpu max_err/"
+          f"max|cpu| {err:.3e} tol {DIFF_TOL:.0e}; {SILU_STEPS} general steps "
+          f"(mlp_fwd, mlp_bwd) {got} (expect {want}), gan_chunk "
+          f"{counts['gan_chunk']}, finite={finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("nsgan with a SiLU G failed its checks")
+    return counts, err
+
+
+def drive_diffusion(mods, torch):
+    """Phase 4j. Returns (paths, CLI lines, errors)."""
+    print("[4j] the diffusion family at full width")
+    t0 = time.perf_counter()
+    errs = {"nets_vs_cpu": check_diffusion_nets(mods, torch)}
+    print(f"  (nets checked at {time.perf_counter() - t0:.1f} s)")
+    paths, lines, cks = {}, {}, {}
+    paths["general_nsgan_silu"], errs["nsgan_silu_vs_cpu"] = \
+        check_silu_nsgan(mods, torch)
+    for variant, arch, flags in DIFF_CLI:
+        key = f"cli_{variant}_{arch}" + ("_cond" if flags else "")
+        paths[key], lines[key], cks[key] = drive_diffusion_cli(
+            variant, arch, flags, mods, torch)
+    paths["general_ddpm_bf16"] = drive_diffusion_bf16(mods, torch)
+    print(f"  (CLI and bf16 runs done at {time.perf_counter() - t0:.1f} s)")
+    errs["samplers_vs_cpu"] = check_diffusion_samplers(mods, torch)
+    print(f"  (samplers checked at {time.perf_counter() - t0:.1f} s)")
+    paths["serving_ddpm"], errs["serving_ddpm"], lines["export_ddpm_s"] = \
+        drive_diffusion_serving("ddpm", "mlp", {"ddpm_sample_steps": 50},
+                                ("--ddpm-sample-steps", "50"), mods, torch)
+    paths["serving_flow"], errs["serving_flow"], lines["export_flow_s"] = \
+        drive_diffusion_serving("flow", "mlp", {}, (), mods, torch)
+    paths["cli_flow_reflow"], lines["reflow"] = drive_reflow(
+        cks["cli_flow_mlp"], mods, torch)
+    print(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
+    return paths, lines, errs
+
+
+# Phase 5h: the diffusion general steps and samplers' times. Steps/s of
+# the four general steps (ddpm and flow on each net) on the host's clock
+# over DIFF_TIME_STEPS steps after a warm-up, with one step's device time
+# split as 5g splits the conv steps (the hand-written kernels, cuDNN's
+# convolutions, the rest) and the idle share; served images/s of
+# Trainer.sample at n 64 and 1024 (CUDA events around one call after a
+# warm-up call), DDPM at S 1000 and 50, flow at S 1, 16 and 50 (Euler).
+DIFF_TIME_STEPS = 100
+DIFF_SERVE_N = (64, 1024)
+DIFF_SERVE = (("ddpm", {}), ("ddpm", {"ddpm_sample_steps": 50}),
+              ("flow", {"flow_sample_steps": 1}),
+              ("flow", {"flow_sample_steps": 16}), ("flow", {}))
+
+
+def time_diffusion(mods, torch, card):
+    """Phase 5h. Returns {"training": {name: row}, "serving": [rows]}."""
+    from generative_models_tpu_torch.train import step as step_lib
+    from generative_models_tpu_torch.train.trainer import Trainer
+    print("[5h] the diffusion family's times")
+    training = {}
+    for variant in ("ddpm", "flow"):
+        for arch in ("mlp", "conv"):
+            t = Trainer(variant, arch=arch, dataset="synthetic",
+                        out_dir=os.path.join(OUT_DIR, "diffusion_timing"))
+            t._load_data()
+            t.train(steps=20)  # warm-up
+            t.train(steps=DIFF_TIME_STEPS)
+            sps = DIFF_TIME_STEPS / t.wall_time
+            train_step = step_lib.build_step(t.spec, t.cfg)
+            x = t.x_train[:TRAIN_B].reshape(1, TRAIN_B, -1)
+            batches = {"image": x, "label": t.y_train[:TRAIN_B].reshape(1, -1)}
+            st = t.state
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            by_name, total = device_ms_by_name(
+                torch, lambda: train_step(st, batches, gen),
+                iters=CONV_PROFILE_STEPS, tries=6)
+            split = None
+            if by_name is not None:
+                split = {}
+                for name, ms in by_name.items():
+                    cls = conv_kernel_class(name)
+                    split[cls] = split.get(cls, 0.0) + ms
+            step_ms = 1e3 / sps
+            row = {"steps_per_s": sps, "step_ms": step_ms,
+                   "device_ms_per_step": total, "device_split_ms": split,
+                   "idle_share": (None if total is None
+                                  else max(0.0, 1 - total / step_ms))}
+            training[f"{variant}_{arch}"] = row
+            print(f"  general step {variant} --arch {arch} B={TRAIN_B}: "
+                  f"{sps:.2f} steps/s ({step_ms:.3f} ms a step); device "
+                  + ("not measured" if total is None else
+                     f"{total:.4f} ms a step (idle share "
+                     f"{row['idle_share']:.3f}): " + ", ".join(
+                         f"{k} {v:.4f}" for k, v in sorted(split.items())))
+                  + f"  [{card}]")
+    serving = []
+    for arch in ("mlp", "conv"):
+        for variant, kw in DIFF_SERVE:
+            t = Trainer(variant, arch=arch, **kw)
+            for n in DIFF_SERVE_N:
+                evals = grid_evals(t.cfg)
+                if evals < 1000:
+                    t.sample(n)  # warm-up
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t.sample(n)
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1)
+                row = {"variant": variant, "arch": arch, "steps": evals,
+                       "n": n, "ms": ms, "images_per_s": n / ms * 1e3}
+                serving.append(row)
+                print(f"  serve {variant} --arch {arch} S={evals:4d} n={n:4d}: "
+                      f"{ms:.1f} ms, {row['images_per_s']:.1f} images/s  "
+                      f"[{card}]")
+    return {"training": training, "serving": serving}
+
+
 def time_ms(torch, fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -2530,6 +3158,8 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
     fwd_cases += [("G", G_DIMS, G_ACTS, b, bf16) for b in (TRAIN_B, 8192)]
     fwd_cases += [(name, dims, acts, TRAIN_B, None)
                   for name, dims, acts in CONV_DENSE]
+    fwd_cases += [(name, dims, ("none",), TRAIN_B, None)
+                  for name, dims in DIFF_DENSE]
     for name, dims, acts, b, cdt in fwd_cases:
         ws, bs = make_stack(rng, dims, "cuda")
         z = torch.randn(b, dims[0], device="cuda")
@@ -2580,7 +3210,9 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
                                      ("G", G_DIMS, G_ACTS, TRAIN_B, bf16),
                                      ("G", G_DIMS, G_ACTS, 8192, bf16)) + tuple(
             (name, dims, acts, TRAIN_B, None)
-            for name, dims, acts in CONV_DENSE):
+            for name, dims, acts in CONV_DENSE) + tuple(
+            (name, dims, ("none",), TRAIN_B, None)
+            for name, dims in DIFF_DENSE):
         w, bias = make_stack(rng, dims, "cuda")
         x = torch.randn(b, dims[0], device="cuda")
         out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts, 0.2, cdt)
@@ -4391,6 +5023,8 @@ def main() -> int:
     dp_sps.update(shared_sps)
     conv_paths, conv_lines, conv_err = drive_conv(mods, torch)
     paths.update(conv_paths)
+    diff_paths, diff_lines, diff_err = drive_diffusion(mods, torch)
+    paths.update(diff_paths)
 
     def by_path(kernel):
         return {name: c[kernel] for name, c in paths.items()
@@ -4431,6 +5065,7 @@ def main() -> int:
                                and r["variant"] == "nsgan") for m in "dg"}
     print("[5g] the conv general steps")
     conv_rows = time_conv_training(mods, torch, card)
+    diff_rows = time_diffusion(mods, torch, card)
 
     fwd_main = next(r for r in rows["mlp_fwd"]  # the largest serving batch
                     if r["shape"] == "G B=8192")
@@ -4457,7 +5092,8 @@ def main() -> int:
               linear_cuda=rows["linear"], quality_runs=score_lines,
               linear_cuda_launches=by_path("linear_cuda"),
               conv_checks=conv_err, conv_cli_runs=conv_lines,
-              conv_training=conv_rows),
+              conv_training=conv_rows, diffusion_checks=diff_err,
+              diffusion_runs=diff_lines, diffusion_times=diff_rows),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",

@@ -1,10 +1,14 @@
 """CLI — ``python -m generative_models_tpu_torch --variant nsgan --steps
 2000`` (or ``mmgan``, ``lsgan``, ``wgan``, ``fgan``, ``ragan``,
 ``fishergan``, ``wgangp``, ``dragan``, ``cgan``, ``began``, ``infogan``,
-``vae``, ``birvae``; any of them on the MLP stacks, the default, or with
-``--arch conv`` on the DCGAN-style conv stacks of ``models/conv.py``,
+``vae``, ``birvae``, ``ddpm``, ``flow``; any of them on the MLP stacks,
+the default, or with ``--arch conv`` on the conv stacks of
+``models/conv.py`` (ddpm and flow: the UNet of ``models/ddpm_net.py``),
 which train through the general step): the port of
-``generative_models_tpu/cli.py``.
+``generative_models_tpu/cli.py``. ``--reflow-from CKPT`` (flow only)
+trains a 2-rectified flow on couplings of the teacher's ODE
+(``train/reflow.py``; ``--reflow-pairs``, ``--reflow-gen-steps``,
+``--reflow-gen-solver``, ``--reflow-fresh-init``), as the reference's.
 
 Every Config field is a flag, as in the reference. A training run trains
 (``--ckpt`` with ``--resume`` restores first), appends per-step records to
@@ -48,7 +52,6 @@ from generative_models_tpu_torch.config import Config, VARIANTS, variant_config
 
 # flag -> the ROADMAP.md item that ports its path
 _NOT_PORTED = {
-    "reflow_from": "Queue 1 item 9, the diffusion family",
     "vq_from": "Queue 1 item 10, the VQ family",
     "multihost": "Queue 1 item 12, parallelism",
     "profile": "Queue 1 item 5, the GPU bench",
@@ -94,7 +97,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "--sample-only), save the sampler as a torch.export "
                         "program: seed -> [sample_n, 784] images, the "
                         "parameters baked in, loadable with torch alone")
-    p.add_argument("--reflow-from", default=None, metavar="CKPT")
+    p.add_argument("--reflow-from", default=None, metavar="CKPT",
+                   help="flow only: reflow / 2-rectified flow. Load a "
+                        "trained flow checkpoint as the teacher, generate "
+                        "(noise, sample) couplings from its ODE and train "
+                        "this run on them (sets --flow-reflow; the student "
+                        "starts at the teacher's weights unless "
+                        "--reflow-fresh-init)")
+    p.add_argument("--reflow-pairs", type=int, default=60000,
+                   help="teacher couplings for the train split (plus 2048 "
+                        "held-out test pairs)")
+    p.add_argument("--reflow-fresh-init", action="store_true",
+                   help="random-init the student instead of starting from "
+                        "the teacher's weights")
+    p.add_argument("--reflow-gen-steps", type=int, default=50,
+                   help="teacher ODE steps when generating couplings")
+    p.add_argument("--reflow-gen-solver", default="heun",
+                   choices=("euler", "heun"),
+                   help="teacher ODE solver when generating couplings")
     p.add_argument("--vq-from", default=None, metavar="CKPT")
     p.add_argument("--multihost", action="store_true")
     return p
@@ -116,6 +136,9 @@ def main(argv=None) -> int:
         if getattr(args, name):
             parser.error(f"--{name.replace('_', '-')} is not ported to "
                          f"generative_models_tpu_torch yet (ROADMAP.md {item})")
+    if args.reflow_from and args.sample_only:
+        parser.error("--sample-only samples a trained model: pass the "
+                     "student's --ckpt, not --reflow-from")
     cfg = _config(args)
 
     if not args.sample_only and cfg.tp > 1:
@@ -162,8 +185,23 @@ def _run(args, cfg, say, group=None) -> int:
 def _run_body(args, cfg, say, group) -> int:
     from generative_models_tpu_torch.train.trainer import Trainer
     from generative_models_tpu_torch.utils.checkpoint import exists
+    data = teacher = None
+    if args.reflow_from:
+        from generative_models_tpu_torch.train import reflow
+        cfg = cfg.replace(flow_reflow=True)  # validates variant == flow
+        device = args.device if group is None else group.device
+        teacher = reflow.load_teacher_params(args.reflow_from, cfg, device)
+        data = reflow.build_reflow_data(
+            teacher, cfg, n_train=args.reflow_pairs,
+            gen_steps=args.reflow_gen_steps,
+            gen_solver=args.reflow_gen_solver)
+        say(f"reflow: {args.reflow_pairs} teacher couplings from "
+            f"{args.reflow_from} ({args.reflow_gen_solver} "
+            f"S={args.reflow_gen_steps})")
     t = Trainer(config=cfg, device=args.device, group=group,
-                debug_nans=args.debug_nans)
+                debug_nans=args.debug_nans, data=data)
+    if teacher is not None and not args.reflow_fresh_init:
+        reflow.init_student(t, teacher)
     if args.sample_only:
         if not args.ckpt or not exists(args.ckpt):
             print("--sample-only needs an existing --ckpt", file=sys.stderr)

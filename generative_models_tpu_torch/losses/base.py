@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict
 
+import torch
+
 Params = Any
 Batch = Dict[str, Any]
 Metrics = Dict[str, Any]
@@ -32,6 +34,15 @@ def _identity_step_state(vstate, d_metrics, g_metrics, cfg):
 
 def _empty_vstate(cfg) -> VState:
     return {}
+
+
+def _latent_lanes(cfg) -> int:
+    return cfg.latent_dim
+
+
+def _draw_latent(gen, lead, cfg, device):
+    return torch.randn(tuple(lead) + (cfg.latent_dim,), generator=gen,
+                       device=gen.device).to(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +76,13 @@ class SingleModelSpec:
     sample: Callable       # (params, gen, n, cfg, z=None) -> [n, image_dim]
     adversarial: bool = False
     batch_coupled: bool = False
+    # a step's noise: draw_noise(gen, lead, cfg, device) -> [*lead,
+    # step_lanes(cfg)], the `eps` the loss takes (VAE family: N(0, I) of
+    # latent_dim; diffusion: the noise, t and the label-drop uniform)
+    step_lanes: Callable = _latent_lanes
+    draw_noise: Callable = _draw_latent
+    # the width of sample's z
+    sample_lanes: Callable = _latent_lanes
+    # sample also takes `chain`: step i -> that step's noise [n,
+    # sample_lanes(cfg)] (DDPM's reverse chain)
+    chain_noise: bool = False

@@ -26,11 +26,11 @@ _SPECS: Dict[str, Tuple[str, str]] = {
     "infogan": ("generative_models_tpu_torch.losses.infogan", "INFOGAN"),
     "vae": ("generative_models_tpu_torch.losses.vae", "VAE"),
     "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
+    "ddpm": ("generative_models_tpu_torch.losses.ddpm", "DDPM"),
+    "flow": ("generative_models_tpu_torch.losses.flow", "FLOW"),
 }
 
 _NOT_PORTED: Dict[str, str] = {
-    "ddpm": "Queue 1 item 9, the diffusion family",
-    "flow": "Queue 1 item 9, the diffusion family",
     "vqvae": "Queue 1 item 10, the VQ family",
     "vqprior": "Queue 1 item 10, the VQ family",
 }

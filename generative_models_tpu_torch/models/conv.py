@@ -17,8 +17,10 @@ sampling, checkpoints and the DP step therefore run on either stack.
   convs run NCHW: :func:`conv_apply` takes ``w.permute(3, 2, 0, 1)``;
   :func:`convt_apply` takes the kernel flipped in both spatial axes,
   ``w.flip(0, 1).permute(2, 3, 0, 1)`` (``lax.conv_transpose`` with
-  ``transpose_kernel=False``); both at stride 2 and padding 1 (SAME at k
-  4). Flattening is NHWC ``(h, w, c)`` order on both sides
+  ``transpose_kernel=False``); both take the reference's ``stride`` and
+  SAME padding (:func:`same_pad`, :func:`same_pad_transpose`): the DCGAN
+  stacks' 4x4 kernels at stride 2 pad 1, as do the diffusion UNet's 3x3
+  kernels at stride 1 (``models/ddpm_net.py``). Flattening is NHWC ``(h, w, c)`` order on both sides
   (:func:`_img`, :func:`_flat`, the generator's ``[B, 7, 7, 2C]``).
 - Init: every kernel, transposed ones too, ``U(+-1/sqrt(kh*kw*cin))``,
   drawn from an explicit ``torch.Generator`` as ``models/mlp.py`` draws.
@@ -51,7 +53,7 @@ from generative_models_tpu_torch.ops.linear import fused_linear, linear_plain
 
 GN_EPS = 1e-5
 GN_GROUPS = 8
-STRIDE, PAD = 2, 1     # SAME at a 4x4 kernel and stride 2
+STRIDE, PAD = 2, 1     # the DCGAN stacks': SAME at a 4x4 kernel, stride 2
 
 
 def _cdt(cfg):
@@ -88,65 +90,98 @@ def _strict(t: torch.Tensor):
     return strict_convs() if t.is_cuda else contextlib.nullcontext()
 
 
-# The three functions below are the stride-2 conv C(u, w) (weights OIHW),
-# its adjoint in u, C^T(v, w), and its adjoint in w, W(u, v), each the
-# others' derivative: every backward runs one of them again, under
+# The three functions below are the conv C(u, w) at a stride and a
+# symmetric padding (weights OIHW), its adjoint in u, C^T(v, w), and its
+# adjoint in w, W(u, v), each the others' derivative: every backward runs
+# one of them again at the same stride, padding and kernel size, under
 # _strict, so no backward of any order leaves cuDNN's settings to the
-# global flags at the time autograd runs it.
+# global flags at the time autograd runs it. The stride and padding
+# default to the DCGAN stacks' (2 and 1).
 
 class _Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, w):
+    def forward(ctx, u, w, stride=STRIDE, pad=PAD):
         ctx.save_for_backward(u, w)
+        ctx.sp = (stride, pad)
         with _strict(u):
-            return F.conv2d(u, w, stride=STRIDE, padding=PAD)
+            return F.conv2d(u, w, stride=stride, padding=pad)
 
     @staticmethod
     def backward(ctx, g):
         u, w = ctx.saved_tensors
-        du = (_ConvT.apply(g, w, tuple(u.shape[-2:]))
+        s, p = ctx.sp
+        du = (_ConvT.apply(g, w, tuple(u.shape[-2:]), s, p)
               if ctx.needs_input_grad[0] else None)
-        dw = (_ConvW.apply(u, g, w.shape[-1])
+        dw = (_ConvW.apply(u, g, w.shape[-1], s, p)
               if ctx.needs_input_grad[1] else None)
-        return du, dw
+        return du, dw, None, None
 
 
 class _ConvT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, w, hw):
+    def forward(ctx, v, w, hw, stride=STRIDE, pad=PAD):
         ctx.save_for_backward(v, w)
+        ctx.sp = (stride, pad)
         k = w.shape[-1]
-        pad = tuple(n - ((m - 1) * STRIDE - 2 * PAD + k)
-                    for n, m in zip(hw, v.shape[-2:]))
+        extra = tuple(n - ((m - 1) * stride - 2 * pad + k)
+                      for n, m in zip(hw, v.shape[-2:]))
         with _strict(v):
-            return F.conv_transpose2d(v, w, stride=STRIDE, padding=PAD,
-                                      output_padding=pad)
+            return F.conv_transpose2d(v, w, stride=stride, padding=pad,
+                                      output_padding=extra)
 
     @staticmethod
     def backward(ctx, g):
         v, w = ctx.saved_tensors
-        dv = _Conv.apply(g, w) if ctx.needs_input_grad[0] else None
-        dw = (_ConvW.apply(g, v, w.shape[-1])
+        s, p = ctx.sp
+        dv = _Conv.apply(g, w, s, p) if ctx.needs_input_grad[0] else None
+        dw = (_ConvW.apply(g, v, w.shape[-1], s, p)
               if ctx.needs_input_grad[1] else None)
-        return dv, dw, None
+        return dv, dw, None, None, None
 
 
 class _ConvW(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, v, k):
+    def forward(ctx, u, v, k, stride=STRIDE, pad=PAD):
         ctx.save_for_backward(u, v)
+        ctx.sp = (stride, pad)
         with _strict(u):
             return torch.nn.grad.conv2d_weight(
-                u, (v.shape[1], u.shape[1], k, k), v, stride=STRIDE,
-                padding=PAD)
+                u, (v.shape[1], u.shape[1], k, k), v, stride=stride,
+                padding=pad)
 
     @staticmethod
     def backward(ctx, gw):
         u, v = ctx.saved_tensors
-        du = (_ConvT.apply(v, gw, tuple(u.shape[-2:]))
+        s, p = ctx.sp
+        du = (_ConvT.apply(v, gw, tuple(u.shape[-2:]), s, p)
               if ctx.needs_input_grad[0] else None)
-        dv = _Conv.apply(u, gw) if ctx.needs_input_grad[1] else None
-        return du, dv, None
+        dv = _Conv.apply(u, gw, s, p) if ctx.needs_input_grad[1] else None
+        return du, dv, None, None, None
+
+
+def same_pad(n: int, k: int, stride: int) -> int:
+    """The padding each side of an input `n` wide that SAME padding gives a
+    k-wide kernel at `stride` (the output ceil(n / stride) wide); raises
+    when SAME would pad one side more than the other."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    if total % 2:
+        raise ValueError(f"SAME padding of a {k}-wide kernel at stride "
+                         f"{stride} on {n} pixels is asymmetric")
+    return total // 2
+
+
+def same_pad_transpose(k: int, stride: int) -> int:
+    """The padding of ``conv_transpose2d`` that computes
+    ``lax.conv_transpose(padding="SAME")``: lax pads the dilated input by
+    (a, b), a = k - 1 when stride > k - 1, else ceil((k + stride - 2) / 2),
+    b = k + stride - 2 - a; torch pads k - 1 - pad on each side and
+    b - a more on the far side through the output padding."""
+    total = k + stride - 2
+    a = k - 1 if stride > k - 1 else -(-total // 2)
+    if not 0 <= total - 2 * a < stride:
+        raise ValueError(f"SAME transposed conv of a {k}-wide kernel at "
+                         f"stride {stride} has no torch padding")
+    return k - 1 - a
 
 
 # --------------------------------------------------------------------
@@ -178,21 +213,24 @@ def _bias_act(y, b, act, slope):
     return apply_act(y + b.to(y.dtype)[:, None, None], act, slope)
 
 
-def conv_apply(layer, x, act: str = "none", slope: float = 0.2,
-               compute_dtype=None):
-    """act(conv(x, W) + b) of NCHW `x`, halving H and W."""
+def conv_apply(layer, x, stride: int = STRIDE, act: str = "none",
+               slope: float = 0.2, compute_dtype=None):
+    """act(conv(x, W, stride, SAME) + b) of NCHW `x` (stride 2 halves H
+    and W, the DCGAN stacks'; stride 1 keeps them, the UNet's 3x3 convs)."""
     x, w = _cast(x, layer["w"], compute_dtype)
-    return _bias_act(_Conv.apply(x, w.permute(3, 2, 0, 1)), layer["b"], act,
-                     slope)
+    pad = same_pad(x.shape[-2], w.shape[0], stride)
+    return _bias_act(_Conv.apply(x, w.permute(3, 2, 0, 1), stride, pad),
+                     layer["b"], act, slope)
 
 
-def convt_apply(layer, x, act: str = "none", slope: float = 0.2,
-                compute_dtype=None):
-    """act(conv_transpose(x, W) + b) of NCHW `x`, doubling H and W (the
-    DCGAN upsample block)."""
+def convt_apply(layer, x, stride: int = STRIDE, act: str = "none",
+                slope: float = 0.2, compute_dtype=None):
+    """act(conv_transpose(x, W, stride, SAME) + b) of NCHW `x`, H and W
+    times `stride` (stride 2: the DCGAN upsample block)."""
     x, w = _cast(x, layer["w"], compute_dtype)
-    hw = (STRIDE * x.shape[-2], STRIDE * x.shape[-1])
-    y = _ConvT.apply(x, w.flip(0, 1).permute(2, 3, 0, 1), hw)
+    hw = (stride * x.shape[-2], stride * x.shape[-1])
+    y = _ConvT.apply(x, w.flip(0, 1).permute(2, 3, 0, 1), hw, stride,
+                     same_pad_transpose(w.shape[0], stride))
     return _bias_act(y, layer["b"], act, slope)
 
 

@@ -14,7 +14,12 @@ from typing import List, Sequence
 
 import torch
 
-from generative_models_tpu_torch.ops.cuda_mlp import MLPFunction, acts_tuple
+from generative_models_tpu_torch.ops.activations import ACTIVATIONS, apply_act
+from generative_models_tpu_torch.ops.cuda_mlp import (
+    SUPPORTED_ACTS,
+    MLPFunction,
+    acts_tuple,
+)
 from generative_models_tpu_torch.ops.linear import linear_plain
 
 
@@ -61,10 +66,34 @@ def mlp_apply(layers: List[dict], x, hidden_act: str = "relu",
     path (torch autograd differentiates it); any other runs the whole
     stack through :class:`MLPFunction`: one launch of the forward kernel,
     and one of the backward kernel when a gradient is taken
-    (ops/cuda_mlp.py), or raises."""
+    (ops/cuda_mlp.py), or raises. A stack holding an activation the
+    kernels do not (:func:`mlp_apply_split`) takes one launch a layer."""
     if x.device.type == "cpu":
         return mlp_apply_plain(layers, x, hidden_act, out_act, slope,
                                compute_dtype)
+    acts = acts_tuple(len(layers), hidden_act, out_act)
+    if not all(a in SUPPORTED_ACTS for a in acts):
+        return mlp_apply_split(layers, x, acts, slope, compute_dtype)
     flat = [t for l in layers for t in (l["w"], l["b"])]
-    return MLPFunction.apply(x, acts_tuple(len(layers), hidden_act, out_act),
-                             slope, compute_dtype, *flat)
+    return MLPFunction.apply(x, acts, slope, compute_dtype, *flat)
+
+
+def mlp_apply_split(layers: List[dict], x, acts, slope: float = 0.2,
+                    compute_dtype=None):
+    """The stack one layer a launch through :class:`MLPFunction`: a layer
+    whose activation the kernels hold fuses it; any other activation of
+    ``ACTIVATIONS`` follows the layer's product (act ``"none"``) as torch
+    ops (:func:`apply_act`), which autograd differentiates. The reference
+    gives such a stack to XLA whole (``mlp_apply_pallas``); here every
+    product stays on the kernels. A name outside ``ACTIVATIONS`` raises
+    before any launch."""
+    for a in acts:
+        if a not in ACTIVATIONS:
+            apply_act(x, a)  # raises, naming the known activations
+    for layer, act in zip(layers, acts):
+        fused = act if act in SUPPORTED_ACTS else "none"
+        x = MLPFunction.apply(x, (fused,), slope, compute_dtype, layer["w"],
+                              layer["b"])
+        if fused != act:
+            x = apply_act(x, act, slope)
+    return x

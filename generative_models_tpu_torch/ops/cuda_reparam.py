@@ -95,21 +95,33 @@ def philox_normal_plain(seed, offset: int, shape, device="cpu") -> torch.Tensor:
     """The eps [B, L] the kernel draws for (`seed`, `offset`): `seed` two
     32-bit words (ints or an int64 tensor [2]), `offset` the call's
     64-bit counter offset."""
+    return philox_normal_steps(seed, offset, 1, shape, device)[0]
+
+
+def philox_normal_steps(seed, offset: int, steps: int, shape,
+                        device="cpu") -> torch.Tensor:
+    """[steps, B, L]: step k's rows are the eps :func:`philox_normal_plain`
+    draws at counter offset `offset` + k (the counter of an element:
+    its row, its column pair and the offset's two words), all steps in
+    one call."""
     b, l = shape
     s = _seed_words(seed, device)
     groups = (l + 1) // 2
-    row = torch.arange(b, dtype=torch.int64, device=device)[:, None].expand(
-        b, groups)
-    grp = torch.arange(groups, dtype=torch.int64, device=device)[None, :].expand(
-        b, groups)
-    off = int(offset) % 2 ** 64
-    c2 = torch.full_like(row, off & _MASK)
-    c3 = torch.full_like(row, off >> 32)
-    w0, w1, w2, w3 = _philox4x32(row, grp, c2, c3, s[0].expand(b, groups),
-                                 s[1].expand(b, groups))
+    full = (steps, b, groups)
+    row = torch.arange(b, dtype=torch.int64, device=device)[None, :, None]
+    grp = torch.arange(groups, dtype=torch.int64, device=device)[None, None]
+    offs = [(int(offset) + k) % 2 ** 64 for k in range(steps)]
+    c2 = torch.tensor([o & _MASK for o in offs], dtype=torch.int64,
+                      device=device)[:, None, None]
+    c3 = torch.tensor([o >> 32 for o in offs], dtype=torch.int64,
+                      device=device)[:, None, None]
+    w0, w1, w2, w3 = _philox4x32(row.expand(full), grp.expand(full),
+                                 c2.expand(full), c3.expand(full),
+                                 s[0].expand(full), s[1].expand(full))
     even = _box_muller(_uniform(w0), _uniform(w1))
     odd = _box_muller(_uniform(w2), _uniform(w3))
-    return torch.stack([even, odd], dim=-1).reshape(b, 2 * groups)[:, :l]
+    return torch.stack([even, odd], dim=-1).reshape(
+        steps, b, 2 * groups)[:, :, :l]
 
 
 def reparam_and_kl_plain(mu, logvar, seed, offset: int = 0):

@@ -23,14 +23,18 @@ must be twice differentiable and runs as plain torch ops
 (``ops/penalty.py``), once per critic update.
 
 A single-model step (:func:`build_single_step`) takes one batch and one
-noise tensor ``eps [B, latent]``, differentiates ``spec.loss`` over the
+noise tensor ``eps [B, lanes]`` (``spec.draw_noise``'s: the VAE family's
+``[B, latent]``; DDPM's and flow's ``[B, image_dim + 2]``, the noise, t
+and the label-drop uniform), differentiates ``spec.loss`` over the
 whole parameter tree, applies the optimizer at ``g_lr`` and updates the
 EMA. Given a ``torch.Generator`` in place of the noise tensor (one a
 step, seeded from the run's ``rng`` words and the global step), the loss
 draws its own noise from it: on the card that is how the VAE's sampling
 kernel (``ops/cuda_reparam.py``) runs in training, and a VAE step then
 launches the forward kernel 4 times, the backward kernel 4 times and
-the sampling kernel once.
+the sampling kernel once; a DDPM or flow step launches each MLP kernel
+8 times on the MLP net and 7 on the UNet (its dense layers; its
+convolutions are cuDNN's).
 
 :func:`build_many_steps` is the chunk: a Python loop over the chunk's
 steps that gathers each step's batches from the epoch-permutation stack
@@ -68,8 +72,10 @@ State = Dict[str, object]
 # d_steps, B, z], z_g [n, B, z]), and for a gradient-penalty head a third
 # tensor, the penalty's draw aux_d [n, d_steps, B, lanes] (ops/penalty.py
 # aux_lanes).
-# Single model: eps [n, B, latent], or a list of n torch.Generators, one
-# a step, from which that step's loss draws its own noise.
+# Single model: eps [n, B, lanes] (``spec.draw_noise``: the VAE family's
+# latent noise; diffusion's noise, t and label-drop uniform), or a list of
+# n torch.Generators, one a step, from which that step's loss draws its
+# own noise.
 Noise = Callable[[int, int], Union[Tuple[torch.Tensor, ...], torch.Tensor,
                                    List[torch.Generator]]]
 
@@ -98,11 +104,12 @@ def stream_bytes_per_step(cfg, spec=None) -> int:
     Adversarial: d_steps batches of images and of critic noise, one batch
     of G noise (cgan: each row with its one-hot label; infogan: with its
     codes), and a penalty head's draw per critic batch. Single model
-    (`spec` not adversarial):
-    one batch of images and of latent noise."""
+    (`spec` not adversarial): one batch of images (reflow's pair rows
+    twice as wide) and of the step's noise (``spec.step_lanes``)."""
     b = cfg.batch_size
     if spec is not None and not spec.adversarial:
-        return 4 * b * (cfg.image_dim + cfg.latent_dim)
+        x = cfg.image_dim * (2 if cfg.flow_reflow else 1)
+        return 4 * b * (x + spec.step_lanes(cfg))
     ds = max(cfg.d_steps, 1)
     n_cls = cfg.num_classes if cfg.variant == "cgan" else 0
     zin = noise_lanes(cfg) + n_cls

@@ -1,7 +1,7 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
 for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
-fishergan, wgangp, dragan, cgan, began, infogan, vae, birvae): build the
-model
+fishergan, wgangp, dragan, cgan, began, infogan, vae, birvae, ddpm,
+flow): build the model
 from ``cfg.seed`` (G and D, or a single model's parameter tree; the MLP
 stacks, or with ``arch="conv"`` the conv stacks), train, evaluate,
 sample, save and load checkpoints in the JAX package's layout.
@@ -177,6 +177,13 @@ class Trainer:
             self.device)
         self.y_train = torch.from_numpy(np.ascontiguousarray(
             y_tr[keep])).to(self.device)
+        if cfg.flow_reflow and self.x_train.shape[1] != 2 * cfg.image_dim:
+            # fail here, not mis-slice in the loss: reflow rows are
+            # teacher couplings [x1_hat | x0] (train/reflow.py)
+            raise ValueError(
+                "flow_reflow needs pair rows of width 2*image_dim="
+                f"{2 * cfg.image_dim}, got {self.x_train.shape[1]} (build "
+                "the dataset with train/reflow.py or --reflow-from)")
         self._build_fns()
 
     def _build_fns(self) -> None:
@@ -233,10 +240,11 @@ class Trainer:
         the cat indices then cont); for a gradient-penalty head the
         penalty's uniform draw aux_d [S, d_steps, B, lanes] (wgangp's eps,
         1 lane; dragan's u, image_dim); then z_g [S, B, z] (infogan: code
-        rows). A single model's: eps [S, B, latent]; for its general step
-        on the card, one generator a step instead, seeded from the
-        ``rng`` words and the step, from which that step's loss draws
-        (the VAE's in its sampling kernel)."""
+        rows). A single model's: ``spec.draw_noise``'s rows [S, B, lanes]
+        (the VAE family's eps; DDPM's and flow's noise, t and label-drop
+        uniform); for its general step on the card, one generator a step
+        instead, seeded from the ``rng`` words and the step, from which
+        that step's loss draws (the VAE's in its sampling kernel)."""
         cfg, dev, rng = self.cfg, self.device, self.state["rng"]
         g = self.group
         shard = (0, 1) if g is None else (g.rank, g.world)
@@ -249,10 +257,8 @@ class Trainer:
                     for k in range(n)]
             return step_lib.grid_noise(
                 rng, first_step, n, dev,
-                lambda gen, s: torch.randn((s, cfg.batch_size,
-                                            cfg.latent_dim),
-                                           generator=gen, device=dev),
-                shard)
+                lambda gen, s: self.spec.draw_noise(
+                    gen, (s, cfg.batch_size), cfg, dev), shard)
         ds, b = max(cfg.d_steps, 1), cfg.batch_size
         lanes = aux_lanes(cfg.variant, cfg.image_dim)
 
@@ -479,17 +485,23 @@ class Trainer:
         return self.state["g_params" if self.spec.adversarial else "params"]
 
     @torch.no_grad()
-    def sample(self, n: Optional[int] = None, z=None) -> np.ndarray:
+    def sample(self, n: Optional[int] = None, z=None,
+               chain=None) -> np.ndarray:
         """n samples [n, image_dim] in [0, 1] from the generator prior, or
         from the given noise `z` [n, z_dim] (numpy or tensor; [n,
-        latent_dim] for the VAE family)."""
+        latent_dim] for the VAE family; DDPM's and flow's initial x [n,
+        image_dim]). DDPM also takes `chain`, step i -> that reverse
+        step's noise [n, image_dim]; either is drawn from the Trainer's
+        sampling generator when not given."""
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32,
                                 device=self.device).contiguous()
             n = z.shape[0]
         n = n or self.cfg.sample_n
+        extra = {"chain": chain} if getattr(self.spec, "chain_noise",
+                                            False) else {}
         out = self.spec.sample(self.generator_params, self._sample_gen, n,
-                               self.cfg, z=z)
+                               self.cfg, z=z, **extra)
         return out.cpu().numpy()
 
     @property

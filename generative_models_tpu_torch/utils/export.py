@@ -8,8 +8,11 @@ baked in as buffers. Its noise is drawn inside it from the seed by the
 port's Philox4x32-10 in torch integer ops
 (``ops/cuda_reparam.py::philox_normal_plain``, key = the seed's low and
 high 32-bit words, offset 0: :func:`sampler_noise`), so its output is
-bit-stable for each seed on a device. cgan's and infogan's samplers keep
-their class-cycled grid. The program is traced through the plain path on
+bit-stable for each seed on a device; DDPM's reverse chain draws step i's
+noise at offset i + 1 (:func:`sampler_chain`). The program traces the
+configured number of steps (``ddpm_sample_steps``, 0 the full chain, or
+``flow_sample_steps``) as a straight line of net calls. cgan's, infogan's
+and conditional diffusion's samplers keep their class-cycled grid. The program is traced through the plain path on
 the CPU (a ctypes kernel cannot be traced, as the reference forces XLA
 for its export), so it holds only aten ops and loads in a process that
 imports torch alone:
@@ -39,7 +42,10 @@ import os
 import torch
 
 from generative_models_tpu_torch.models.conv import strict_convs
-from generative_models_tpu_torch.ops.cuda_reparam import philox_normal_plain
+from generative_models_tpu_torch.ops.cuda_reparam import (
+    philox_normal_plain,
+    philox_normal_steps,
+)
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -47,19 +53,46 @@ from generative_models_tpu_torch.utils.tree import (
 )
 
 _MASK = 0xFFFFFFFF
+# steps of DDPM chain noise one Philox call draws (sampler_chain)
+CHAIN_BLOCK = 50
 
 
 def noise_width(spec, cfg) -> int:
     """The width of the noise a variant's ``sample`` takes: ``z_dim`` for
-    an adversarial variant, ``latent_dim`` for the VAE family."""
-    return cfg.z_dim if spec.adversarial else cfg.latent_dim
+    an adversarial variant, ``latent_dim`` for the VAE family,
+    ``image_dim`` for ddpm and flow (their initial x)."""
+    return cfg.z_dim if spec.adversarial else spec.sample_lanes(cfg)
+
+
+def _words(seed: torch.Tensor) -> torch.Tensor:
+    return torch.stack([seed & _MASK, (seed >> 32) & _MASK])
 
 
 def sampler_noise(seed: torch.Tensor, n: int, width: int) -> torch.Tensor:
     """The artifact's noise [n, width] for an int64 0-dim `seed` (on the
     device the noise is wanted on)."""
-    words = torch.stack([seed & _MASK, (seed >> 32) & _MASK])
-    return philox_normal_plain(words, 0, (n, width), device=seed.device)
+    return philox_normal_plain(_words(seed), 0, (n, width),
+                               device=seed.device)
+
+
+def sampler_chain(seed: torch.Tensor, n: int, width: int):
+    """DDPM's per-step noise in the artifact: step i -> [n, width], the
+    seed's Philox words at counter offset i + 1 (offset 0 is
+    :func:`sampler_noise`'s), drawn CHAIN_BLOCK steps to a Philox call
+    (a call a step would make a long chain's program many times larger
+    and slower to trace). Steps are asked for in order."""
+    words = _words(seed)
+    block = {}
+
+    def chain(i: int) -> torch.Tensor:
+        j = i // CHAIN_BLOCK
+        if j not in block:
+            block.clear()
+            block[j] = philox_normal_steps(words, 1 + j * CHAIN_BLOCK,
+                                           CHAIN_BLOCK, (n, width),
+                                           device=seed.device)
+        return block[j][i % CHAIN_BLOCK]
+    return chain
 
 
 class _Sampler(torch.nn.Module):
@@ -79,7 +112,11 @@ class _Sampler(torch.nn.Module):
     def forward(self, seed: torch.Tensor) -> torch.Tensor:
         params = tree_unflatten(self.like, [getattr(self, f"p{i}")
                                             for i in range(self.count)])
-        z = sampler_noise(seed, self.n, noise_width(self.spec, self.cfg))
+        width = noise_width(self.spec, self.cfg)
+        z = sampler_noise(seed, self.n, width)
+        if getattr(self.spec, "chain_noise", False):
+            return self.spec.sample(params, None, self.n, self.cfg, z=z,
+                                    chain=sampler_chain(seed, self.n, width))
         return self.spec.sample(params, None, self.n, self.cfg, z=z)
 
 

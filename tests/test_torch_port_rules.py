@@ -349,11 +349,11 @@ def test_registry_refuses_only_the_heads_and_families_still_queued():
         available_variants,
         get_variant,
     )
-    queued = {"ddpm": "Queue 1 item 9", "flow": "Queue 1 item 9",
-              "vqvae": "Queue 1 item 10", "vqprior": "Queue 1 item 10"}
+    queued = {"vqvae": "Queue 1 item 10", "vqprior": "Queue 1 item 10"}
     assert set(available_variants()) == set(VARIANTS) - set(queued)
-    assert len(available_variants()) == 14
-    for v in ("wgangp", "dragan", "cgan", "began", "infogan"):
+    assert len(available_variants()) == 16
+    for v in ("wgangp", "dragan", "cgan", "began", "infogan", "ddpm",
+              "flow"):
         assert get_variant(v).name == v
     for v, item in queued.items():
         with pytest.raises(NotImplementedError, match=item):
