@@ -13,8 +13,13 @@ imports nothing of JAX. Phases:
    gan_chunk once per critic hook, eleven libraries, and once per
    data-parallel hook with -DGM_PHASE=1, nine ``gan_phase`` libraries,
    each of these and vae_chunk also with -DGM_BF16=1 (bf16 operands):
-   45 libraries, one nvcc each, all started together, in this process
-   before any rank starts; sm_90a) and prints the build time and the
+   45 libraries, one nvcc each, in this process before any rank starts;
+   sm_90a): mlp_fwd, mlp_bwd and reparam first; then the other 42 and
+   5e's instrumented phase libraries, all started together at niceness
+   BUILD_NICE, while 3a, 3b, 4i, 4j and 4k, which need only the first
+   three, run (the timing phases, 5, run after every build has ended;
+   4i-4k's CLI steps/s are read beside the builds); prints the build
+   time and the
    ptxas reports; it fails if any kernel spills registers; then a line a
    chunk or phase library: its largest register count, spill bytes, the
    dynamic shared bytes a block and the blocks an SM the occupancy query
@@ -92,10 +97,10 @@ imports nothing of JAX. Phases:
    - training through the CLI (``fused_step="auto"``, the chunk kernel):
      nsgan, lsgan, wgan (RMSprop, d_steps 5, clip 0.01), fgan, ragan,
      fishergan, wgangp (d_steps 5), dragan, cgan, began, infogan, vae and
-     birvae, 1000 steps each in chunks of 500 at full width on the
-     60,000-row synthetic split, 2 launches of the chunk kernel each,
+     birvae, CLI_STEPS (200) steps each in chunks of 100 at full width on
+     the 60,000-row synthetic split, 2 launches of the chunk kernel each,
      losses finite (and for the VAE family falling: the mean of the last
-     100 below the mean of the first 100), wgan's critic inside the clip
+     50 below the mean of the first 50), wgan's critic inside the clip
      at the end, fishergan's ``vstate_lam``, began's ``vstate_k`` (in [0,
      1]) and ``vstate_m``, infogan's ``g_mi_loss`` and the penalty's
      ``gp`` and ``grad_norm`` in ``metrics.jsonl``, ``final.png`` and
@@ -103,14 +108,14 @@ imports nothing of JAX. Phases:
      ``--ema-decay 0.999 --dtype bfloat16`` (2 launches of the EMA and
      bf16 kernel each, the checkpoint's EMA plane apart from the
      parameters);
-   - training through the general step (``fused_step=False``): nsgan 200
-     steps, 5 forward and 4 backward launches a step; wgan 60 steps, 17
-     and 12; wgangp 60 steps, 17 and 12 and 5 plain critic passes of the
+   - training through the general step (``fused_step=False``): nsgan 100
+     steps, 5 forward and 4 backward launches a step; wgan 30 steps, 17
+     and 12; wgangp 30 steps, 17 and 12 and 5 plain critic passes of the
      penalty (``ops/penalty.py``: no kernel is twice differentiable);
-     ragan 100 steps, 6 and 4; began and infogan 100 steps, 5 and 4; vae
-     100 steps, 4 forward, 4 backward, 1 ``reparam`` and 1
+     ragan 50 steps, 6 and 4; began and infogan 50 steps, 5 and 4; vae
+     50 steps, 4 forward, 4 backward, 1 ``reparam`` and 1
      ``reparam_bwd`` launch a step;
-     birvae 100 steps, 3 forward and 3 backward; then the CLI's nsgan with
+     birvae 50 steps, 3 forward and 3 backward; then the CLI's nsgan with
      ``--spectral-projection`` in both ``--sn-mode``s (SN_STEPS steps):
      ``fused_step="auto"`` takes the general step (no chunk launch), D's
      largest singular value ends at most sn_target (SN_SIGMA_TOL), the
@@ -168,10 +173,30 @@ imports nothing of JAX. Phases:
      flow's Euler 50 and Heun 16, guided: one 2n-row call a step) on the
      card against the CPU from the same initial x and chain noise
      (SAMPLER_TOL); ``--sample-only --export-sampler`` from JAX-layout
-     ddpm (S 50) and flow checkpoints (the artifact bitwise per seed and
+     ddpm and flow checkpoints at EXPORT_S steps (the artifact bitwise per seed and
      against ``Trainer.sample`` with the same Philox draws); and
      ``--reflow-from`` the flow run's checkpoint (REFLOW_PAIRS pairs by
      Heun 50, a student run, 1-step sampling);
+   - the VQ family (4k, ``models/vq_net.py``, ``models/ar_prior.py``,
+     ``losses/vqvae.py``, ``losses/vqprior.py``, ``train/vq.py``) at
+     config.py's defaults (K 64, D 16, L 16, the prior 128 wide, 2
+     layers, 4 heads, conv_channels 64): each loss (vqvae and vqprior on
+     both archs, conditional, the frozen tokenizer) at B 100, its metrics,
+     tokens and every gradient on the card against the CPU (VQ_NET_TOL),
+     data by the tie rule (the code margin VQ_TIE_MARGIN, the ReLUs'
+     TIE_MARGIN), the launches worked out beforehand (VQ_LOSS_LAUNCHES:
+     vqprior's joint mlp step 11 / 11); with the global TF32 flag on, the
+     distances and attention products against float64 (VQ_F32_TOL) and a
+     vqprior loss bitwise as with it off; the prior's samplers ("cache"
+     and "full", mlp and conv) at n 64 against the CPU from one Gumbel
+     chain (tokens equal, the chain by the tie rule); the CLI's vqvae,
+     vqprior (joint, ``--vq-from`` the vqvae run's checkpoint with the
+     tokenizer bit for bit in the final checkpoint, conv, conditional)
+     runs of VQ_STEPS general steps (launches, no chunk launch, losses
+     falling, the prior's CE below log K, perplexity above 1), 20 bf16
+     vqvae steps, and ``--sample-only --export-sampler`` from JAX-layout
+     vqvae and vqprior checkpoints (the artifact bitwise per seed and
+     against ``Trainer.sample`` with its Philox draws);
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
@@ -204,7 +229,11 @@ imports nothing of JAX. Phases:
   nsgan and vae general steps: steps/s, and a step's device time split
   into cuDNN's convolutions, the hand-written kernels and the rest; (5h)
   the same for ddpm and flow on both nets, and their served images/s at
-  n 64 and 1024 (DDPM at S 1000 and 50, flow at S 1, 16 and 50);
+  n 64 and 1024 (DDPM at S 1000 and 50, flow at S 1, 16 and 50); (5i)
+  the same for vqvae and vqprior on both archs, the prior's served
+  images/s at n 64 and 1024 in both decodes, and (5a) the prior's five
+  linears at 1600 rows (VQ_DENSE, also held in 3a at 64-50,176 rows and
+  3b at 1600 and 4900, with the MLP tokenizer's stacks);
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -415,6 +444,20 @@ DIFF_DENSE = (("diff_skip", [784, 784]), ("diff_in", [784, 400]),
               ("diff_mid", [400, 400]), ("diff_out", [400, 784]),
               ("diff_unet_t", [128, 64]))
 DIFF_BATCHES = (TRAIN_B, 2 * TRAIN_B, 2048)
+# The VQ family's dense layers at config.py's defaults
+# (models/ar_prior.py, models/vq_net.py): the prior's five linears, 128
+# wide (act "none": fc1's GELU follows its product), each one linear_cuda
+# call, at B * L = 1600 rows in training (4900 on conv), n a decode step
+# (64, 1024, 8192) and n * L in "full" decoding (up to 1024 * 49 =
+# 50,176); the MLP tokenizer's encoder and decoder, one launch a stack,
+# at B 100 and n 8192.
+VQ_DENSE = (("vqp_qkv", [128, 384]), ("vqp_proj", [128, 128]),
+            ("vqp_fc1", [128, 512]), ("vqp_fc2", [512, 128]),
+            ("vqp_head", [128, 64]))
+VQ_ROWS = (64, 1600, 4900, 8192, 50176)
+VQ_TRAIN_ROWS = 1600
+VQ_STACKS = (("vq_enc", [784, 400, 256], ("relu", "none")),
+             ("vq_dec", [256, 400, 784], ("relu", "none")))
 
 
 def nvidia_smi_line() -> str:
@@ -437,18 +480,46 @@ def make_stack(rng, dims, device):
     return ws, bs
 
 
-def build_all(mods, build_dir):
-    """Phase 2: one nvcc per source, all started together."""
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
-        for f in [ex.submit(fn) for fn in mods]:
+# the niceness of the builds that run beside the paths (start_builds):
+# their nvcc processes inherit it, so the paths' one Python thread keeps
+# its core among them
+BUILD_NICE = 10
+
+
+def start_builds(mods, nice: int = 0):
+    """Phase 2: one nvcc per library, all started together in threads of
+    their own (each thread, and so its nvcc, at `nice`); build_all waits
+    for them."""
+    def at_nice(fn):
+        def run():
+            if nice > os.getpriority(os.PRIO_PROCESS, 0):  # only lowered
+                os.setpriority(os.PRIO_PROCESS, 0, nice)  # this thread's
+            return fn()
+        return run
+    ex = concurrent.futures.ThreadPoolExecutor(len(mods))
+    return ex, [ex.submit(at_nice(fn)) for fn in mods], time.perf_counter()
+
+
+_SHOWN_LOGS = set()  # the build reports build_all has printed
+
+
+def build_all(mods, build_dir, started=None):
+    """Phase 2: the libraries of `mods` (`started`: as start_builds
+    returned them, else started here), waited for; then each new build
+    report, failing if any kernel spills registers."""
+    ex, futures, t0 = started or start_builds(mods)
+    with ex:
+        for f in futures:
             f.result()
-    print(f"[2] built mlp_fwd, mlp_bwd, gan_chunk and gan_phase (two "
-          f"libraries a hook each, float32 and bf16), reparam, vae_chunk "
-          f"(float32 and bf16): {len(mods)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[2] built {len(futures)} libraries (of mlp_fwd, mlp_bwd, "
+          f"reparam; gan_chunk and gan_phase, two a hook each, float32 and "
+          f"bf16; vae_chunk, float32 and bf16; 5e's instrumented phase "
+          f"libraries) in {time.perf_counter() - t0:.2f} s from their start")
     spills, chunk_kernels = [], 0
     for log in sorted(glob.glob(os.path.join(build_dir, "*.log"))):
+        if log in _SHOWN_LOGS:
+            continue
+        _SHOWN_LOGS.add(log)
         with open(log) as f:
             text = f.read().strip()
         print("    " + text.replace("\n", "\n    "))
@@ -493,6 +564,10 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
     cases += [("conv_g_fc",) + CONV_DENSE[0][1:] + (8192,)]
     cases += [(name, dims, ("none",), b) for name, dims in DIFF_DENSE
               for b in DIFF_BATCHES]
+    cases += [(name, dims, ("none",), b) for name, dims in VQ_DENSE
+              for b in VQ_ROWS]
+    cases += [(name, dims, acts, b) for name, dims, acts in VQ_STACKS
+              for b in (TRAIN_B, 8192)]
     cases += [(f"{name}:{p.tr}x{p.row_groups}/c{p.cluster}", dims, acts, b, p)
               for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
                                           ("D", D_DIMS, D_ACTS, 37))
@@ -504,7 +579,7 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
             rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
         for cdt in (None, torch.bfloat16):
             key = "bfloat16" if cdt is not None else "float32"
-            if name == "lin" or name.startswith("diff_"):  # row 2
+            if name == "lin" or name.startswith(("diff_", "vqp_")):  # row 2
                 out, hid = linear_cuda(x, ws[0], bs[0], acts[0], 0.2, cdt), []
             elif plan:
                 out, hid = cuda_mlp.launch_fwd(x, ws, bs, acts, 0.2, cdt,
@@ -548,6 +623,10 @@ def check_bwd(cuda_mlp, torch):
               ("conv_d_fc",) + CONV_DENSE[2][1:] + (1000, None)]
     cases += [(name, dims, ("none",), TRAIN_B, None)
               for name, dims in DIFF_DENSE]
+    cases += [(name, dims, ("none",), b, None) for name, dims in VQ_DENSE
+              for b in (VQ_TRAIN_ROWS, 4900)]
+    cases += [(name, dims, acts, TRAIN_B, None)
+              for name, dims, acts in VQ_STACKS]
     base = cuda_mlp.bwd_plan(TRAIN_B, G_DIMS, sm)
     cases += [(f"G:{p.tr}x{p.row_groups}/c{p.cluster}", G_DIMS, G_ACTS,
                TRAIN_B, dataclasses.replace(base, rows=p))
@@ -1593,9 +1672,17 @@ EMA_BF16_FLAGS = ("--ema-decay", str(EMA_DECAY), "--dtype", "bfloat16")
 CLI_EMA_BF16 = ("nsgan", "vae")
 
 
+# Phase 4b's depth: CLI_STEPS steps in chunks of CLI_CHUNK, so two
+# launches of the chunk kernel a run; the VAE family's loss falls over it
+# (the last CLI_WINDOW steps' mean below the first CLI_WINDOW's). It was
+# 1000 steps in chunks of 500 until the smoke neared its time limit; the
+# chunk kernels' long runs are timed in 5b and 5f.
+CLI_STEPS, CLI_CHUNK, CLI_WINDOW = 200, 100, 50
+
+
 def drive_training_cli(variant, mods, torch, flags=()):
     """Phase 4b: the CLI's training run of `variant`, fused_step auto ->
-    its chunk kernel, 1000 steps in chunks of 500; with EMA_BF16_FLAGS
+    its chunk kernel, CLI_STEPS steps in chunks of CLI_CHUNK; with EMA_BF16_FLAGS
     the EMA and bf16 kernel's (its launches counted as such, the
     checkpoint's EMA plane finite and apart from the parameters).
     Returns (launch counts, the run's JSON line)."""
@@ -1605,8 +1692,9 @@ def drive_training_cli(variant, mods, torch, flags=()):
     reset(*mods)
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", variant, "--dataset", "synthetic",
-                       "--steps", "1000", "--scan-steps", "500",
-                       "--echo-every", "500", "--out-dir", run_dir,
+                       "--steps", str(CLI_STEPS), "--scan-steps",
+                       str(CLI_CHUNK), "--echo-every", str(CLI_CHUNK),
+                       "--out-dir", run_dir,
                        "--ckpt", os.path.join(run_dir, f"{variant}_trained"),
                        *flags])
     counts = launch_counts(mods)
@@ -1625,7 +1713,7 @@ def drive_training_cli(variant, mods, torch, flags=()):
               if k != chunk]
     new = 2 if flags else 0  # the EMA and bf16 kernels' launches
     fam = "gan_chunk" if gan else "vae_family"
-    ok = (rc == 0 and line["steps"] == 1000 and len(recs) == 1000
+    ok = (rc == 0 and line["steps"] == CLI_STEPS and len(recs) == CLI_STEPS
           and finite and counts[chunk] == 2
           and all(counts[k] == 0 for k in others)
           and counts[f"{fam}_ema"] == counts[f"{fam}_bf16"] == new
@@ -1676,10 +1764,11 @@ def drive_training_cli(variant, mods, torch, flags=()):
                     f"{max(float(np.abs(ema[k] - live[k]).max()) for k in ema):.3e}"
                     if set(ema) == set(live) and ema else " no EMA plane")
     if not gan:  # a GAN's losses do not fall; a VAE's must
-        first = float(np.mean([r["loss"] for r in recs[:100]]))
-        last = float(np.mean([r["loss"] for r in recs[-100:]]))
+        first = float(np.mean([r["loss"] for r in recs[:CLI_WINDOW]]))
+        last = float(np.mean([r["loss"] for r in recs[-CLI_WINDOW:]]))
         ok = ok and last < first
-        falling += f" loss first100={first:.3f} last100={last:.3f}"
+        falling += (f" loss first{CLI_WINDOW}={first:.3f} "
+                    f"last{CLI_WINDOW}={last:.3f}")
     print(f"  cli training {variant} {' '.join(flags)}: rc={rc} "
           f"steps={line['steps']} records="
           f"{len(recs)} finite={finite}{falling} launches={counts} "
@@ -1814,9 +1903,11 @@ GENERAL_LAUNCHES = {"nsgan": (5, 4, 0, 0), "wgan": (17, 12, 0, 0),
                     "began": (5, 4, 0, 0), "infogan": (5, 4, 0, 0),
                     "vae": (4, 4, 1, 1), "birvae": (3, 3, 0, 0)}
 PENALTY_PASSES = {"wgangp": 5}
-GENERAL_STEPS = (("nsgan", 200), ("wgan", 60), ("wgangp", 60), ("ragan", 100),
-                 ("began", 100), ("infogan", 100), ("vae", 100),
-                 ("birvae", 100))
+# (halved from nsgan 200, wgan and wgangp 60, the rest 100 when the smoke
+# neared its time limit)
+GENERAL_STEPS = (("nsgan", 100), ("wgan", 30), ("wgangp", 30), ("ragan", 50),
+                 ("began", 50), ("infogan", 50), ("vae", 50),
+                 ("birvae", 50))
 
 
 def drive_training_general(variant, steps, mods, torch):
@@ -1984,7 +2075,7 @@ CONV_TOL = 5e-5
 # float64 on the CPU, by max abs error over max |reference|.
 CONV_LAYER_TOL = 1e-5
 CONV_CLI = ("nsgan", "wgangp", "lsgan", "vae")
-CONV_STEPS = 200
+CONV_STEPS = 100   # (200 until the smoke neared its time limit)
 # The CLI's conv runs (the general step: fused_step "auto" refuses conv)
 # launch, a training step: (mlp_fwd, mlp_bwd, reparam, reparam_bwd); a
 # batch of evaluate's 10 (mlp_fwd, reparam); and one G forward a sample
@@ -2398,7 +2489,9 @@ def drive_conv(mods, torch):
 # does); an evaluate batch is one forward; a sample of S steps is S
 # forwards (Heun: 2S), guided or not (one 2n-row call a step).
 DIFF_LAUNCHES = {"mlp": 8, "conv": 7}
-DIFF_STEPS = 200       # < 600, the steps of one epoch of the 60,000 rows
+# < 600, the steps of one epoch of the 60,000 rows (200 until the smoke
+# neared its time limit; the loss's first and last 50 steps still apart)
+DIFF_STEPS = 100
 DIFF_SAMPLE_N = 64     # config.py's sample_n: the final grid
 # Card against CPU, the same weights and inputs, by max abs error over
 # max |CPU| (outputs and every gradient): both float32, sums in other
@@ -2434,6 +2527,9 @@ DIFF_CLI = (("ddpm", "mlp", ()), ("ddpm", "conv", ()), ("flow", "mlp", ()),
             ("flow", "conv", ()),
             ("ddpm", "mlp", ("--ddpm-cond", "--ddpm-guidance", "1.0")))
 REFLOW_PAIRS = 4096    # two chunks of 2048, and one of test pairs
+# the exported diffusion samplers' steps (the export traces each as a
+# straight line of net calls; 50 until the smoke neared its time limit)
+EXPORT_S = 20
 REFLOW_STEPS = 100
 DIFF_BF16_STEPS = 20
 
@@ -2450,13 +2546,14 @@ def grid_evals(cfg) -> int:
     return cfg.flow_sample_steps * (2 if cfg.flow_solver == "heun" else 1)
 
 
-def write_diffusion_checkpoint(path: str, seed: int, cfg) -> None:
-    """A full-width ddpm or flow checkpoint in the JAX package's npz
-    layout (params and EMA, every leaf of the net the port's
-    param_template lists, keys sorted): dense and conv weights U(+-1/sqrt
-    fan-in) with their biases, the label table and GroupNorm scales
-    U(-1, 1), GroupNorm biases U(+-0.01); the zero-initialised out, skip
-    and head drawn too, so the net's output is not zero."""
+def write_model_checkpoint(path: str, seed: int, cfg) -> None:
+    """A full-width single-model checkpoint (ddpm, flow, vqvae, vqprior)
+    in the JAX package's npz layout (params and EMA when the config
+    keeps one, every leaf the port's param_template lists, keys sorted):
+    dense and conv weights U(+-1/sqrt fan-in) with their biases, the
+    label table, embeddings, the codebook and GroupNorm and LayerNorm
+    scales U(-1, 1), their biases U(+-0.01); the zero-initialised out,
+    skip and head drawn too, so the net's output is not zero."""
     from generative_models_tpu_torch.utils.checkpoint import param_template
     from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
     tmpl = param_template(cfg)
@@ -2496,7 +2593,7 @@ def check_diffusion_nets(mods, torch):
     for arch in ("mlp", "conv"):
         cfg = diffusion_cfg("ddpm", arch, ddpm_cond=True)
         ck = os.path.join(run_dir, f"ddpm_{arch}.npz")
-        write_diffusion_checkpoint(ck, 51, cfg)
+        write_model_checkpoint(ck, 51, cfg)
         t = Trainer(config=cfg, device="cpu")
         t.load_model(ck)
         os.remove(ck)
@@ -2653,7 +2750,7 @@ def sampler_pair(variant, arch, kw, ck_dir, torch):
     tag = f"{variant}_{arch}" + ("_cond" if cfg.ddpm_cond else "")
     ck = os.path.join(ck_dir, f"{tag}.npz")
     if not os.path.exists(ck):
-        write_diffusion_checkpoint(ck, 61 + len(tag), cfg)
+        write_model_checkpoint(ck, 61 + len(tag), cfg)
     pair = []
     for dev in ("cuda", "cpu"):
         t = Trainer(config=cfg, device=dev)
@@ -2720,7 +2817,7 @@ def drive_diffusion_serving(variant, arch, kw, flags, mods, torch):
     cfg = diffusion_cfg(variant, arch, **kw)
     ck = os.path.join(run_dir, f"jax_layout_{variant}_{arch}.npz")
     art = os.path.join(run_dir, f"{variant}_{arch}.pt2")
-    write_diffusion_checkpoint(ck, 81, cfg)
+    write_model_checkpoint(ck, 81, cfg)
     buf = io.StringIO()
     reset(*mods)
     t0 = time.perf_counter()
@@ -2886,10 +2983,13 @@ def drive_diffusion(mods, torch):
     errs["samplers_vs_cpu"] = check_diffusion_samplers(mods, torch)
     print(f"  (samplers checked at {time.perf_counter() - t0:.1f} s)")
     paths["serving_ddpm"], errs["serving_ddpm"], lines["export_ddpm_s"] = \
-        drive_diffusion_serving("ddpm", "mlp", {"ddpm_sample_steps": 50},
-                                ("--ddpm-sample-steps", "50"), mods, torch)
+        drive_diffusion_serving("ddpm", "mlp", {"ddpm_sample_steps": EXPORT_S},
+                                ("--ddpm-sample-steps", str(EXPORT_S)), mods,
+                                torch)
     paths["serving_flow"], errs["serving_flow"], lines["export_flow_s"] = \
-        drive_diffusion_serving("flow", "mlp", {}, (), mods, torch)
+        drive_diffusion_serving("flow", "mlp", {"flow_sample_steps": EXPORT_S},
+                                ("--flow-sample-steps", str(EXPORT_S)), mods,
+                                torch)
     paths["cli_flow_reflow"], lines["reflow"] = drive_reflow(
         cks["cli_flow_mlp"], mods, torch)
     print(f"  phase 4j took {time.perf_counter() - t0:.1f} s")
@@ -2971,6 +3071,607 @@ def time_diffusion(mods, torch, card):
                        "n": n, "ms": ms, "images_per_s": n / ms * 1e3}
                 serving.append(row)
                 print(f"  serve {variant} --arch {arch} S={evals:4d} n={n:4d}: "
+                      f"{ms:.1f} ms, {row['images_per_s']:.1f} images/s  "
+                      f"[{card}]")
+    return {"training": training, "serving": serving}
+
+
+# Phase 4k: the VQ family (models/vq_net.py, models/ar_prior.py,
+# losses/vqvae.py, losses/vqprior.py, train/vq.py) at config.py's
+# defaults: K 64, D 16, L 16 (49 on conv), hidden 400, the prior 128
+# wide, 2 layers, 4 heads, conv_channels 64, B 100. The launches of the
+# MLP kernels, worked out from the code before any run: the MLP
+# tokenizer's encoder and decoder are one whole-stack launch each
+# (forward, and backward under a gradient); the prior's linears one
+# linear_cuda launch each, 4 a block and the head: 9 a pass, each also
+# counted by mlp_fwd; the conv tokenizer's convs are cuDNN's. So a loss
+# (the general step: the chunk kernels refuse the VQ family, as the
+# reference's do) launches (mlp_fwd, mlp_bwd):
+VQ_LOSS_LAUNCHES = {("vqvae", "mlp", False): (2, 2),
+                    ("vqvae", "conv", False): (0, 0),
+                    ("vqprior", "mlp", False): (11, 11),
+                    ("vqprior", "mlp", True): (11, 9),   # frozen tokenizer
+                    ("vqprior", "conv", False): (9, 9)}
+PRIOR_PASS = 9
+VQ_STEPS = 100         # < 600, the steps of one epoch of the 60,000 rows
+VQ_BF16_STEPS = 20
+VQ_K = 64
+VQ_SAMPLE_N = 64       # config.py's sample_n: the final grid
+# The tie rule of the nearest-code search and of the sampler's Gumbel
+# argmax: a best and a second-best score within rounding of each other
+# pick another code or token on the card than on the CPU, a jump of the
+# function, not an error of either. A case's data (or chain) is the
+# first numpy seed from TIE_FIRST_SEED whose smallest relative gap
+# (ops/vq.py::code_margin; losses/vqprior.py::sample_margin), read from
+# the plain version, clears VQ_TIE_MARGIN; its ReLUs clear TIE_MARGIN as
+# 4i's do (conv_margin). The card's logits and distances sit a few 1e-7
+# of their scale from the CPU's; the margin is 10-100 times that.
+VQ_TIE_MARGIN = 1e-5
+# Card against CPU, the same weights and data: the loss, its metrics and
+# every gradient, by max abs error over max |CPU| (floats summed in other
+# orders: the kernels' rows 1-3 and cuDNN's convs, a few 1e-6, as 4i's
+# CONV_TOL; the prior's 1600-row attention and LayerNorms). A wrong
+# product is off by order 1.
+VQ_NET_TOL = 1e-4
+# IEEE float32 products against float64 with the global TF32 flag on:
+# distances of 16-wide rows, attention products of 32-wide heads, by max
+# abs error over max |float64| (a few float32 ulps); TF32 rounds each
+# operand to 11 significant bits (4.9e-4).
+VQ_F32_TOL = 1e-5
+VQ_SAMPLERS = (("mlp", "cache"), ("mlp", "full"), ("conv", "cache"))
+
+
+def vq_cfg(variant, arch="mlp", **kw):
+    from generative_models_tpu_torch.config import variant_config
+    return variant_config(variant, arch=arch, **kw)
+
+
+def vq_margins(loss_fn, params, inputs, torch):
+    """(the smallest |pre-activation| / rms of any ReLU or LeakyReLU, as
+    conv_margin reads it, and the smallest code margin) of a float64 run
+    of loss_fn on the CPU."""
+    from generative_models_tpu_torch.models import conv, vq_net
+    from generative_models_tpu_torch.ops import linear, vq
+    from generative_models_tpu_torch.utils.tree import tree_map
+    relu, codes = [math.inf], [math.inf]
+    real_act, real_quantize = conv.apply_act, vq.quantize
+
+    def act(x, a, slope=0.2):
+        if a in ("relu", "leaky_relu"):
+            rms = float(x.pow(2).mean().sqrt())
+            relu.append(float(x.abs().min()) / max(rms, 1e-300))
+        return real_act(x, a, slope)
+
+    def quantize(z, book):
+        codes.append(vq.code_margin(z, book))
+        return real_quantize(z, book)
+    conv.apply_act = linear.apply_act = vq_net.apply_act = act
+    vq.quantize = quantize
+    try:
+        with torch.no_grad():
+            loss_fn(tree_map(lambda t: t.double(), params),
+                    [u.double() if u.is_floating_point() else u
+                     for u in inputs])
+    finally:
+        conv.apply_act = linear.apply_act = vq_net.apply_act = real_act
+        vq.quantize = real_quantize
+    return min(relu), min(codes)
+
+
+def vq_loss_case(variant, arch, kw, torch, seed):
+    """(Trainer on the CPU holding a JAX-layout checkpoint's weights, the
+    data seed by the tie rule, (relu, code) margins)."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cfg = vq_cfg(variant, arch, **kw)
+    run_dir = os.path.join(OUT_DIR, "vq_nets")
+    os.makedirs(run_dir, exist_ok=True)
+    ck = os.path.join(run_dir, f"{variant}_{arch}.npz")
+    write_model_checkpoint(ck, seed, cfg)
+    t = Trainer(config=cfg, device="cpu")
+    t.load_model(ck)
+    os.remove(ck)
+    params = t.state["params"]
+
+    def draw(s):
+        rng = np.random.default_rng(s)
+        return [torch.from_numpy(rng.random((TRAIN_B, 784),
+                                            dtype=np.float32)),
+                torch.from_numpy(rng.integers(0, 10, TRAIN_B))]
+
+    def loss_fn(p, a):
+        return t.spec.loss(p, {"image": a[0], "label": a[1]}, None, cfg)[0]
+    passed = []
+    for s in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
+        relu, code = vq_margins(loss_fn, params, draw(s), torch)
+        if relu > TIE_MARGIN and code > VQ_TIE_MARGIN:
+            return t, draw(s), s, (relu, code), len(passed)
+        passed.append(s)
+    raise AssertionError(f"{variant} {arch}: no seed clears the tie rule")
+
+
+def check_vq_nets(mods, torch):
+    """Phase 4k: each VQ loss (vqvae and vqprior, both archs, the prior
+    conditional on conv, the frozen tokenizer) at B 100 on the card
+    against the CPU: the loss, its metrics, the token indices (equal) and
+    every gradient (VQ_NET_TOL), data by the tie rule; the launches,
+    VQ_LOSS_LAUNCHES. Returns the worst relative error."""
+    from generative_models_tpu_torch.losses import vqvae
+    from generative_models_tpu_torch.utils.tree import tree_leaves, tree_map
+    cases = (("vqvae", "mlp", {}), ("vqvae", "conv", {}),
+             ("vqprior", "mlp", {}),
+             ("vqprior", "conv", {"ddpm_cond": True}),
+             ("vqprior", "mlp", {"vq_freeze_tokenizer": True}))
+    worst = 0.0
+    for i, (variant, arch, kw) in enumerate(cases):
+        t, inputs, seed, margins, skipped = vq_loss_case(
+            variant, arch, kw, torch, 101 + i)
+        cfg, spec = t.cfg, t.spec
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda a: a.to(dev).requires_grad_(True),
+                         t.state["params"])
+            a = [u.to(dev) for u in inputs]
+            reset(*mods)
+            val, m = spec.loss(p, {"image": a[0], "label": a[1]}, None, cfg)
+            g = torch.autograd.grad(val, tree_leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            n = (mods[0].launches, mods[0].bwd_launches)
+            vq_params = p if variant == "vqvae" else p["vqvae"]
+            with torch.no_grad():
+                idx = vqvae.encode_tokens(vq_params, a[0], cfg)
+            out[dev] = (n, {k: float(v) for k, v in m.items()},
+                        [u.detach().cpu() for u in g], idx.cpu())
+        (n_gpu, m_gpu, g_gpu, i_gpu), (n_cpu, m_cpu, g_cpu, i_cpu) = (
+            out["cuda"], out["cpu"])
+        m_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1.0)
+                    for k in m_cpu)
+        g_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                    for a, b in zip(g_gpu, g_cpu))
+        frozen = bool(kw.get("vq_freeze_tokenizer"))
+        want = VQ_LOSS_LAUNCHES[(variant, arch, frozen)]
+        finite = all(bool(torch.isfinite(u).all()) for u in g_gpu)
+        ok = (finite and m_err <= VQ_NET_TOL and g_err <= VQ_NET_TOL
+              and torch.equal(i_gpu, i_cpu) and n_gpu == want
+              and n_cpu == (0, 0))
+        tag = f"{variant} {arch}" + "".join(f" {k}" for k in kw)
+        print(f"  {tag:34s} B={TRAIN_B} (data seed {seed}, passed over "
+              f"{skipped}; margins relu {margins[0]:.1e} code "
+              f"{margins[1]:.1e}): metrics max_err/max(|cpu|, 1) "
+              f"{m_err:.3e}, {len(g_gpu)} gradients max_err/max|cpu| "
+              f"{g_err:.3e} tol {VQ_NET_TOL:.0e}; tokens equal "
+              f"{torch.equal(i_gpu, i_cpu)}; (mlp_fwd, mlp_bwd) card {n_gpu} "
+              f"(expect {want}) cpu {n_cpu}; perplexity "
+              f"{m_gpu['perplexity']:.3f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {tag} loss on the card disagrees with "
+                                 "the CPU")
+        worst = max(worst, m_err, g_err)
+    return worst
+
+
+def check_vq_tf32(mods, torch):
+    """Phase 4k: with torch.backends.cuda.matmul.allow_tf32 forced on,
+    the nearest-code distances ([1600, 16] against 64 codes) and the
+    attention's two products with their gradients ([100, 4, 16, 32]
+    heads) against float64 (VQ_F32_TOL; cuBLAS called directly beside
+    them), and one vqprior loss with its gradients bitwise equal to the
+    same with the flag off. Returns the worst relative error."""
+    from generative_models_tpu_torch.losses import vqprior
+    from generative_models_tpu_torch.ops import vq
+    from generative_models_tpu_torch.ops.matmul import matmul
+    from generative_models_tpu_torch.utils.tree import tree_leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    z = torch.randn(1600, 16, device="cuda", generator=gen)
+    book = torch.randn(64, 16, device="cuda", generator=gen)
+    q, k = (torch.randn(100, 4, 16, 32, device="cuda", generator=gen)
+            for _ in range(2))
+    r = torch.randn(100, 4, 16, 16, device="cuda", generator=gen)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max()) / float(b.abs().max())
+    cfg = vq_cfg("vqprior")
+    params = vqprior.init_params(torch.Generator().manual_seed(6), cfg,
+                                 "cuda")
+    params["prior"]["head"]["w"].normal_(0.0, 0.1, generator=gen)
+    x = torch.rand(TRAIN_B, 784, device="cuda", generator=gen)
+    batch = {"image": x, "label": torch.zeros(TRAIN_B, device="cuda")}
+
+    def loss_and_grads():
+        p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        val, _ = vqprior.loss(p, batch, None, cfg)
+        return [val] + list(torch.autograd.grad(val, tree_leaves(p)))
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    try:
+        flags.allow_tf32 = False
+        off = loss_and_grads()
+        flags.allow_tf32 = True
+        d = vq.code_distances(z, book)
+        d_ref = vq.code_distances(z.double(), book.double())
+        d_raw = (book * book).sum(-1) - 2.0 * (z @ book.t())
+        qq, kk = (t.clone().requires_grad_(True) for t in (q, k))
+        s = matmul(qq, kk.transpose(-1, -2))
+        gq, gk = torch.autograd.grad((s * r).sum(), (qq, kk))
+        q64, k64 = (t.double().requires_grad_(True) for t in (q, k))
+        s64 = q64 @ k64.transpose(-1, -2)
+        gq64, gk64 = torch.autograd.grad((s64 * r.double()).sum(), (q64, k64))
+        s_raw = q @ k.transpose(-1, -2)
+        on = loss_and_grads()
+        torch.cuda.synchronize()
+        on_flag = flags.allow_tf32
+    finally:
+        flags.allow_tf32 = prev
+    errs = {"distances": rel(d, d_ref), "scores": rel(s, s64),
+            "d_q": rel(gq, gq64), "d_k": rel(gk, gk64)}
+    raw = {"distances": rel(d_raw, d_ref), "scores": rel(s_raw, s64)}
+    same = all(torch.equal(a, b) for a, b in zip(on, off))
+    ok = on_flag and max(errs.values()) <= VQ_F32_TOL and same
+    print(f"  allow_tf32=True: IEEE products vs float64 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" tol {VQ_F32_TOL:.0e} (cuBLAS called directly: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in raw.items())
+          + f"); a vqprior loss and its {len(on) - 1} gradients bitwise equal "
+          f"with the flag on and off: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a VQ product ran off IEEE float32 under the "
+                             "global TF32 flag")
+    return max(errs.values())
+
+
+def vq_chain(seed, n, torch, device):
+    """Step i -> Gumbel draws [n, VQ_K] from numpy seed (seed, i)."""
+    from generative_models_tpu_torch.losses.vqprior import gumbel_of_uniform
+    return lambda i: gumbel_of_uniform(torch.from_numpy(
+        np.random.default_rng((seed, i)).random((n, VQ_K), dtype=np.float32))
+        ).to(device)
+
+
+def check_vq_samplers(mods, torch):
+    """Phase 4k: the prior's samplers (VQ_SAMPLERS) at n VQ_SAMPLE_N on
+    the card against the CPU from the same Gumbel chain, the chain's seed
+    by the tie rule (sample_margin on the CPU's tokens): the tokens equal
+    (and "cache" equal to "full"), the decoded images within
+    TOL["float32"], PRIOR_PASS launches a position and the decoder's one.
+    Returns {name: (error, launches)}."""
+    from generative_models_tpu_torch.losses import vqprior
+    from generative_models_tpu_torch.models.vq_net import num_tokens
+    from generative_models_tpu_torch.train.trainer import Trainer
+    ck_dir = os.path.join(OUT_DIR, "vq_serving")
+    os.makedirs(ck_dir, exist_ok=True)
+    n, out, tokens = VQ_SAMPLE_N, {}, {}
+    for arch, decode in VQ_SAMPLERS:
+        cfg = vq_cfg("vqprior", arch, vq_decode=decode)
+        ck = os.path.join(ck_dir, f"vqprior_{arch}.npz")
+        if not os.path.exists(ck):
+            write_model_checkpoint(ck, 111 + len(arch), cfg)
+        pair = {}
+        for dev in ("cuda", "cpu"):
+            pair[dev] = Trainer(config=cfg, device=dev)
+            pair[dev].load_model(ck)
+        prior_cpu = pair["cpu"].generator_params["prior"]
+        for seed in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
+            chain = vq_chain(seed, n, torch, "cpu")
+            toks = vqprior.sample_tokens(prior_cpu, None, n, cfg, None, chain)
+            margin = vqprior.sample_margin(prior_cpu, toks, cfg, chain)
+            if margin > VQ_TIE_MARGIN:
+                break
+        imgs, toks = {}, {}
+        for dev, t in pair.items():
+            reset(*mods)
+            imgs[dev] = t.sample(n=n, chain=vq_chain(seed, n, torch, dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = (mods[0].launches, mods[0].bwd_launches)
+            toks[dev] = vqprior.sample_tokens(
+                t.generator_params["prior"], None, n, cfg, None,
+                vq_chain(seed, n, torch, dev)).cpu()
+        l = num_tokens(cfg)
+        want = (PRIOR_PASS * l + (1 if arch == "mlp" else 0), 0)
+        err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
+        tokens[(arch, decode)] = toks["cuda"]
+        same = torch.equal(toks["cuda"], toks["cpu"]) and (
+            decode == "cache" or torch.equal(toks["cuda"],
+                                             tokens[(arch, "cache")]))
+        ok = (same and err <= TOL["float32"] and launched == want
+              and np.isfinite(imgs["cuda"]).all())
+        name = f"vqprior_{arch}_{decode}"
+        print(f"  sampler {name}: n={n} L={l} (chain seed {seed}, margin "
+              f"{margin:.1e}) tokens card = cpu" + (" = cache" if decode ==
+                                                    "full" else "")
+              + f" {same}; images max_abs_err {err:.3e} tol "
+              f"{TOL['float32']:.0e}; (mlp_fwd, mlp_bwd) {launched} (expect "
+              f"{want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the sampler {name} on the card disagrees "
+                                 "with the CPU's")
+        out[name] = (err, launched[0])
+    for name in os.listdir(ck_dir):  # OUT_DIR stays small
+        if name.endswith(".npz"):
+            os.remove(os.path.join(ck_dir, name))
+    return out
+
+
+def vq_run_launches(variant, arch, frozen, steps):
+    """(mlp_fwd, mlp_bwd, linear_cuda) of a CLI run: `steps` training
+    steps, evaluate's EVAL_BATCHES losses, and the final grid of
+    VQ_SAMPLE_N (the prior's PRIOR_PASS a position, then the decoder)."""
+    from generative_models_tpu_torch.models.vq_net import num_tokens
+    f, b = VQ_LOSS_LAUNCHES[(variant, arch, frozen)]
+    tok = 1 if arch == "mlp" else 0
+    prior = PRIOR_PASS if variant == "vqprior" else 0
+    grid = prior * num_tokens(vq_cfg(variant, arch)) + tok
+    lin = prior * (steps + EVAL_BATCHES) + grid - tok
+    return {"mlp_fwd": f * (steps + EVAL_BATCHES) + grid,
+            "mlp_bwd": b * steps, "linear_cuda": lin}
+
+
+def drive_vq_cli(variant, arch, flags, mods, torch, keep=False):
+    """Phase 4k: the CLI's run of `variant` on `arch` (VQ_STEPS general
+    steps) with --ckpt: launches (vq_run_launches), no chunk launch, the
+    loss falling (the last 50 steps' mean below the first 50's), the
+    prior's CE below log K at the end, perplexity above 1, every record
+    finite; with --vq-from the tokenizer bit for bit the source's params
+    in the run's checkpoint, its Adam moments zero. Returns (counts,
+    line, checkpoint path, kept when `keep`)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.utils.checkpoint import read_leaves
+    tag = f"{variant}_{arch}" + "".join(
+        f.strip("-").replace("-", "_") for f in flags if f.startswith("--"))
+    run_dir = os.path.join(OUT_DIR, "vq", tag)
+    ck = os.path.join(run_dir, "ck.npz")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    reset(*mods)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", variant, "--arch", arch, "--dataset",
+                       "synthetic", "--steps", str(VQ_STEPS),
+                       "--echo-every", "100", "--out-dir", run_dir,
+                       "--ckpt", ck, *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(mods)
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "))
+    line = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    with open(os.path.join(run_dir, variant, "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    finite = all(math.isfinite(v) for r in recs for k, v in r.items()
+                 if k != "step")
+    losses = [r["loss"] for r in recs]
+    first, last = np.mean(losses[:50]), np.mean(losses[-50:])
+    frozen = "--vq-from" in flags
+    want = vq_run_launches(variant, arch, frozen, VQ_STEPS)
+    want.update(reparam=0, reparam_bwd=0, gan_chunk=0, vae_chunk=0,
+                birvae_chunk=0)
+    got = {k: counts[k] for k in want}
+    ok = (rc == 0 and got == want and finite and last < first
+          and len(recs) == VQ_STEPS and recs[-1]["perplexity"] > 1.0
+          and all(math.isfinite(v) for v in line["eval"].values()))
+    more = ""
+    if variant == "vqprior":
+        ce = float(np.mean([r["prior_loss"] for r in recs[-50:]]))
+        ok = ok and ce < math.log(VQ_K)
+        more = f", prior CE last 50 {ce:.4f} (log K {math.log(VQ_K):.4f})"
+    if frozen:
+        src = read_leaves(flags[flags.index("--vq-from") + 1])
+        leaves = read_leaves(ck)
+        vq_keys = [p for p in leaves if p.startswith("['params']['vqvae']")]
+        exact = bool(vq_keys) and all(
+            np.array_equal(leaves[p], src[p.replace("['vqvae']", "")])
+            for p in vq_keys)
+        moments = all(not leaves[p.replace("['params']", f"['opt'][0].{s}")]
+                      .any() for p in vq_keys for s in ("mu", "nu"))
+        ok = ok and exact and moments and out.startswith(
+            "vqprior: frozen tokenizer from")
+        more += (f", the tokenizer's {len(vq_keys)} leaves bit for bit the "
+                 f"source's {exact}, their Adam moments zero {moments}")
+    if not keep:
+        os.remove(ck)  # OUT_DIR stays small: checked files go
+    print(f"  cli {variant} --arch {arch} {' '.join(flags)}: rc={rc} "
+          f"{wall:.1f} s, {line['steps_per_sec']} steps/s, loss first 50 "
+          f"{first:.4f} last 50 {last:.4f}, perplexity "
+          f"{recs[-1]['perplexity']:.3f}{more}, launches={got} (expect "
+          f"{want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the CLI run of {variant} --arch {arch} "
+                             f"{' '.join(flags)} failed its checks")
+    return counts, line, ck
+
+
+def drive_vq_bf16(mods, torch):
+    """Phase 4k: VQ_BF16_STEPS general steps of the MLP vqvae at dtype
+    bfloat16: finite, 2 and 2 launches a step."""
+    from generative_models_tpu_torch.train.trainer import Trainer
+    t = Trainer("vqvae", dtype="bfloat16", dataset="synthetic",
+                out_dir=os.path.join(OUT_DIR, "vq_bf16"))
+    t._load_data()
+    reset(*mods)
+    hist = t.train(steps=VQ_BF16_STEPS)
+    counts = launch_counts(mods)
+    f = 2 * VQ_BF16_STEPS
+    finite = all(math.isfinite(v) for vs in hist.values() for v in vs)
+    ok = finite and counts["mlp_fwd"] == f and counts["mlp_bwd"] == f
+    print(f"  vqvae dtype bfloat16, {VQ_BF16_STEPS} general steps: finite="
+          f"{finite} loss {hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f} "
+          f"mlp_fwd={counts['mlp_fwd']} mlp_bwd={counts['mlp_bwd']} (expect "
+          f"{f} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 vqvae run failed")
+    return counts
+
+
+def drive_vq_serving(variant, mods, torch):
+    """Phase 4k: ``--sample-only --export-sampler`` from a JAX-layout
+    checkpoint (the MLP arch): the grid's launches (vqvae: the decoder's
+    one; vqprior: PRIOR_PASS a position, then the decoder); the artifact
+    on the card bitwise per seed and against Trainer.sample given the
+    same Philox draws (``utils/export.py::sampler_draws``) within
+    TOL["float32"], vqprior's seed by the tie rule. Returns (launch
+    counts, error, seconds)."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.losses import vqprior
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import export
+    run_dir = os.path.join(OUT_DIR, "vq_serving")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = vq_cfg(variant)
+    ck = os.path.join(run_dir, f"jax_layout_{variant}.npz")
+    art = os.path.join(run_dir, f"{variant}.pt2")
+    write_model_checkpoint(ck, 121, cfg)
+    buf = io.StringIO()
+    reset(*mods)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--variant", variant, "--ckpt", ck, "--sample-only",
+                       "--export-sampler", art, "--out-dir", run_dir])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    t = Trainer(config=cfg)
+    t.load_model(ck)
+    n = cfg.sample_n
+    seed = EXPORT_SEED
+    if variant == "vqprior":
+        prior = t.generator_params["prior"]
+        for seed in range(TIE_FIRST_SEED, TIE_FIRST_SEED + TIE_MAX_SEEDS):
+            draws = export.sampler_draws(
+                t.spec, cfg, torch.tensor(seed, device="cuda"), n)
+            toks = vqprior.sample_tokens(prior, None, n, cfg, None,
+                                         draws["chain"])
+            again = export.sampler_draws(
+                t.spec, cfg, torch.tensor(seed, device="cuda"), n)["chain"]
+            if vqprior.sample_margin(prior, toks, cfg, again) > VQ_TIE_MARGIN:
+                break
+    fn = export.load_sampler(art, "cuda")
+    a, b2 = fn(seed), fn(seed)
+    want_img = torch.from_numpy(t.sample(n=n, **export.sampler_draws(
+        t.spec, cfg, torch.tensor(seed, device="cuda"), n))).cuda()
+    err = float((a - want_img).abs().max())
+    f = 1 + (PRIOR_PASS * cfg.vq_tokens if variant == "vqprior" else 0)
+    ok = (rc == 0 and line["step"] == 777 and line["sampler"] == art
+          and counts["mlp_fwd"] == f and counts["linear_cuda"] == f - 1
+          and torch.equal(a, b2) and tuple(a.shape) == (n, 784)
+          and err <= TOL["float32"] and bool(torch.isfinite(a).all()))
+    print(f"  cli {variant} --sample-only --export-sampler from a JAX-layout "
+          f"checkpoint: rc={rc} {wall:.1f} s (grid and export) launches "
+          f"mlp_fwd={counts['mlp_fwd']} linear_cuda={counts['linear_cuda']} "
+          f"(expect {f}, {f - 1}); the artifact on the card (seed {seed}) "
+          f"bitwise repeat {torch.equal(a, b2)}, vs Trainer.sample "
+          f"max_abs_err={err:.3e} tol {TOL['float32']:.0e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{variant} serving failed its checks")
+    for path in (ck, art):  # OUT_DIR stays small: checked files go
+        os.remove(path)
+    return counts, err, wall
+
+
+def drive_vq(mods, torch):
+    """Phase 4k. Returns (paths, CLI lines, errors)."""
+    print("[4k] the VQ family at full width")
+    t0 = time.perf_counter()
+    errs = {"nets_vs_cpu": check_vq_nets(mods, torch),
+            "tf32_vs_float64": check_vq_tf32(mods, torch)}
+    print(f"  (nets checked at {time.perf_counter() - t0:.1f} s)")
+    errs["samplers_vs_cpu"] = check_vq_samplers(mods, torch)
+    print(f"  (samplers checked at {time.perf_counter() - t0:.1f} s)")
+    paths, lines = {}, {}
+    paths["cli_vqvae_mlp"], lines["cli_vqvae_mlp"], vq_ck = drive_vq_cli(
+        "vqvae", "mlp", (), mods, torch, keep=True)
+    for variant, arch, flags in (
+            ("vqprior", "mlp", ()), ("vqprior", "mlp", ("--vq-from", vq_ck)),
+            ("vqprior", "conv", ()), ("vqprior", "mlp", ("--ddpm-cond",))):
+        key = f"cli_{variant}_{arch}" + ("_vq_from" if "--vq-from" in flags
+                                         else "_cond" if flags else "")
+        paths[key], lines[key], _ = drive_vq_cli(variant, arch, flags, mods,
+                                                 torch)
+    os.remove(vq_ck)
+    paths["general_vqvae_bf16"] = drive_vq_bf16(mods, torch)
+    print(f"  (CLI and bf16 runs done at {time.perf_counter() - t0:.1f} s)")
+    for variant in ("vqvae", "vqprior"):
+        paths[f"serving_{variant}"], errs[f"serving_{variant}"], \
+            lines[f"export_{variant}_s"] = drive_vq_serving(variant, mods,
+                                                            torch)
+    print(f"  phase 4k took {time.perf_counter() - t0:.1f} s")
+    return paths, lines, errs
+
+
+# Phase 5i: the VQ family's times. Steps/s of the vqvae and vqprior
+# general steps on both archs (the host's clock, VQ_TIME_STEPS steps after
+# a warm-up), a step's device time split as 5g splits the conv steps
+# (rows 1-3, cuDNN's convolutions, the rest) and the idle share; the
+# prior's served images/s at n 64 and 1024 in both decodes, on both
+# archs (CUDA events around one Trainer.sample call after a warm-up).
+VQ_TIME_STEPS = 100
+VQ_SERVE_N = (64, 1024)
+
+
+def time_vq(mods, torch, card):
+    """Phase 5i. Returns {"training": {name: row}, "serving": [rows]}."""
+    from generative_models_tpu_torch.train import step as step_lib
+    from generative_models_tpu_torch.train.trainer import Trainer
+    print("[5i] the VQ family's times")
+    training = {}
+    for variant in ("vqvae", "vqprior"):
+        for arch in ("mlp", "conv"):
+            t = Trainer(variant, arch=arch, dataset="synthetic",
+                        out_dir=os.path.join(OUT_DIR, "vq_timing"))
+            t._load_data()
+            t.train(steps=20)  # warm-up
+            t.train(steps=VQ_TIME_STEPS)
+            sps = VQ_TIME_STEPS / t.wall_time
+            train_step = step_lib.build_step(t.spec, t.cfg)
+            x = t.x_train[:TRAIN_B].reshape(1, TRAIN_B, -1)
+            batches = {"image": x, "label": t.y_train[:TRAIN_B].reshape(1, -1)}
+            st = t.state
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            # each class's count held (a vqprior step runs ~650 kernels;
+            # cuBLAS switched a product's algorithm between two steps)
+            by_name, total = device_ms_by_name(
+                torch, lambda: train_step(st, batches, gen),
+                iters=CONV_PROFILE_STEPS, tries=10,
+                classes=conv_kernel_class)
+            split = None
+            if by_name is not None:
+                split = {}
+                for name, ms in by_name.items():
+                    cls = conv_kernel_class(name)
+                    split[cls] = split.get(cls, 0.0) + ms
+            step_ms = 1e3 / sps
+            row = {"steps_per_s": sps, "step_ms": step_ms,
+                   "device_ms_per_step": total, "device_split_ms": split,
+                   "idle_share": (None if total is None
+                                  else max(0.0, 1 - total / step_ms))}
+            training[f"{variant}_{arch}"] = row
+            print(f"  general step {variant} --arch {arch} B={TRAIN_B}: "
+                  f"{sps:.2f} steps/s ({step_ms:.3f} ms a step); device "
+                  + ("not measured" if total is None else
+                     f"{total:.4f} ms a step (idle share "
+                     f"{row['idle_share']:.3f}): " + ", ".join(
+                         f"{k} {v:.4f}" for k, v in sorted(split.items())))
+                  + f"  [{card}]")
+    serving = []
+    for arch in ("mlp", "conv"):
+        for decode in ("cache", "full"):
+            t = Trainer("vqprior", arch=arch, vq_decode=decode)
+            for n in VQ_SERVE_N:
+                t.sample(n)  # warm-up
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t.sample(n)
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1)
+                row = {"arch": arch, "decode": decode, "n": n, "ms": ms,
+                       "images_per_s": n / ms * 1e3}
+                serving.append(row)
+                print(f"  serve vqprior --arch {arch} {decode:5s} n={n:4d}: "
                       f"{ms:.1f} ms, {row['images_per_s']:.1f} images/s  "
                       f"[{card}]")
     return {"training": training, "serving": serving}
@@ -3086,14 +3787,18 @@ def chunk_shape_kw(variant):
     return {}
 
 
-def device_ms_by_name(torch, fn, iters: int = 20, tries: int = 3):
+def device_ms_by_name(torch, fn, iters: int = 20, tries: int = 3,
+                      classes=None):
     """{kernel name: device ms a call} of every kernel `fn` launches, and
     their sum, from torch.profiler: the events that ran on the card
     (an operator's entry, which holds its kernels' time too, is left
     out). Every name must show a whole multiple of `iters` events (the
     profiler has been seen to lose a kernel's events and so under-read
     it): else it profiles again, and after `tries` returns (None, None)
-    and says so, so that no lost events become a device time."""
+    and says so, so that no lost events become a device time.
+    `classes` (name -> class) holds each class's count to the rule
+    instead: cuBLAS and cuDNN may run a product under one algorithm's
+    kernel in one call and another's in the next."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3112,7 +3817,12 @@ def device_ms_by_name(torch, fn, iters: int = 20, tries: int = 3):
             out[name] = (out.get(name, 0.0)
                          + e.time_range.elapsed_us() / iters / 1e3)
             count[name] = count.get(name, 0) + 1
-        if out and all(c % iters == 0 for c in count.values()):
+        held = count
+        if classes is not None:
+            held = {}
+            for name, n in count.items():
+                held[classes(name)] = held.get(classes(name), 0) + n
+        if out and all(c % iters == 0 for c in held.values()):
             return out, sum(out.values())
     print(f"    (torch.profiler: events a kernel over {iters} calls "
           f"{count}; no device time kept)")
@@ -3160,6 +3870,8 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
                   for name, dims, acts in CONV_DENSE]
     fwd_cases += [(name, dims, ("none",), TRAIN_B, None)
                   for name, dims in DIFF_DENSE]
+    fwd_cases += [(name, dims, ("none",), VQ_TRAIN_ROWS, None)
+                  for name, dims in VQ_DENSE]
     for name, dims, acts, b, cdt in fwd_cases:
         ws, bs = make_stack(rng, dims, "cuda")
         z = torch.randn(b, dims[0], device="cuda")
@@ -3212,7 +3924,9 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
             (name, dims, acts, TRAIN_B, None)
             for name, dims, acts in CONV_DENSE) + tuple(
             (name, dims, ("none",), TRAIN_B, None)
-            for name, dims in DIFF_DENSE):
+            for name, dims in DIFF_DENSE) + tuple(
+            (name, dims, ("none",), VQ_TRAIN_ROWS, None)
+            for name, dims in VQ_DENSE):
         w, bias = make_stack(rng, dims, "cuda")
         x = torch.randn(b, dims[0], device="cuda")
         out, hid = cuda_mlp.mlp_fwd(x, w, bias, acts, 0.2, cdt)
@@ -3269,7 +3983,11 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
 # with it several times a step.)
 CONV_TIME_STEPS = 200
 CONV_PROFILE_STEPS = 2
+# (cuBLAS's gemms, named sm80_xmma_gemm_..._cublas, are "rest": the VQ
+# family's distances, lookups and attention products run there; the
+# cuDNN class took them until PR 15)
 CONV_CLASSES = (("hand-written", ("mlp_", "reparam")),
+                ("rest", ("cublas", "splitkreduce")),
                 ("cudnn_convs", ("conv", "cudnn", "xmma", "implicit_gemm",
                                  "fprop", "dgrad", "wgrad", "nchw", "nhwc")))
 
@@ -4945,6 +5663,14 @@ def main() -> int:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def mark(phase):
+        """Print a phase's seconds and the run's so far."""
+        now = time.perf_counter()
+        print(f"  (phase {phase}: {now - t_mark[0]:.1f} s; "
+              f"{now - t_start:.1f} s so far)")
+        t_mark[0] = now
     card = nvidia_smi_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
@@ -4954,19 +5680,46 @@ def main() -> int:
     print(f"    allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_reparam.build]
-              + [functools.partial(ctv.build, bf16) for bf16 in (False, True)]
-              + [functools.partial(cuda_train.build, hook, bf16)
-                 for hook in cuda_train.HOOK_IDS for bf16 in (False, True)]
-              + [functools.partial(cuda_dp.build, hook, bf16)
-                 for hook in cuda_dp.DP_HOOKS for bf16 in (False, True)],
+    # The MLP and sampling kernels first; then the 42 chunk and phase
+    # libraries and 5e's instrumented phase libraries build in the
+    # background while the paths that need only the first three run (3a,
+    # 3b, 4i, 4j, 4k): the builds keep the host's cores busy, those paths
+    # one core and the card. No rank starts and no timing phase runs
+    # until every build has ended.
+    from generative_models_tpu_torch.tools import phase_trace
+    build_all([cuda_mlp.build, cuda_mlp.build_bwd, cuda_reparam.build],
               build_mod.BUILD_DIR)
-    granted = chunk_libraries(cuda_train, cuda_dp, ctv, build_mod.BUILD_DIR)
+    rest = ([functools.partial(ctv.build, bf16) for bf16 in (False, True)]
+            + [functools.partial(cuda_train.build, hook, bf16)
+               for hook in cuda_train.HOOK_IDS for bf16 in (False, True)]
+            + [functools.partial(cuda_dp.build, hook, bf16)
+               for hook in cuda_dp.DP_HOOKS for bf16 in (False, True)])
+    traced = sorted({(cuda_train.HOOKS[v], bf16) for v in TRACE_VARIANTS
+                     for bf16 in (False, True)})
+    started = start_builds(rest + [functools.partial(phase_trace._probe_lib,
+                                                     *k) for k in traced],
+                           BUILD_NICE)
+    mark("2 (mlp_fwd, mlp_bwd, reparam)")
     mods = (cuda_mlp, cuda_train, cuda_reparam, ctv)
 
-    print("[3] kernels vs their plain versions on the card")
+    print(f"[3] kernels vs their plain versions on the card ({len(rest)} "
+          f"libraries and {len(traced)} instrumented ones building)")
     fwd_err = check_fwd(cuda_mlp, linear_cuda, torch)
     bwd_err = check_bwd(cuda_mlp, torch)
+    mark("3a-3b")
+    paths = {}  # path name -> launch counts of that path's run
+    conv_paths, conv_lines, conv_err = drive_conv(mods, torch)
+    paths.update(conv_paths)
+    mark("4i")
+    diff_paths, diff_lines, diff_err = drive_diffusion(mods, torch)
+    paths.update(diff_paths)
+    mark("4j")
+    vq_paths, vq_lines, vq_err = drive_vq(mods, torch)
+    paths.update(vq_paths)
+    mark("4k")
+    build_all(rest, build_mod.BUILD_DIR, started)
+    granted = chunk_libraries(cuda_train, cuda_dp, ctv, build_mod.BUILD_DIR)
+    mark("2 (the rest, waited for)")
     chunk_err = check_chunk(cuda_train, torch)
     cross_check(cuda_train, step_lib, torch)
     reparam_err, reparam_bwd_err = check_reparam(cuda_reparam, torch)
@@ -4984,11 +5737,12 @@ def main() -> int:
     print("[3j] the product engine at ragged widths; [3k] bitwise repeats")
     ragged_err = check_chunk_ragged(cuda_train, ctv, torch)
     check_chunk_repeat(cuda_train, ctv, torch)
+    mark("3")
 
     print("[4] main paths (launch counts set to 0 before each, read after)")
-    paths = {}  # path name -> launch counts of that path's run
     serve_fwd, serve_err = drive_serving(cuda_mlp, cuda_train, torch)
     paths["serving_nsgan"] = {"mlp_fwd": serve_fwd}
+    mark("4a")
     cli_lines, general_sps = {}, {}
     for variant in CLI_VARIANTS:
         paths[f"cli_{variant}"], cli_lines[variant] = drive_training_cli(
@@ -4996,10 +5750,12 @@ def main() -> int:
     for variant in CLI_EMA_BF16:  # the EMA plane and bf16 operands
         paths[f"cli_{variant}_ema_bf16"], cli_lines[f"{variant}_ema_bf16"] = \
             drive_training_cli(variant, mods, torch, EMA_BF16_FLAGS)
+    mark("4b")
     for variant, steps in GENERAL_STEPS:
         paths[f"general_{variant}"], general_sps[variant] = \
             drive_training_general(variant, steps, mods, torch)
     paths["cli_nsgan_spectral"] = drive_spectral_cli(mods, torch)
+    mark("4c")
     score_lines = {}
     for variant in SCORE_VARIANTS:
         paths[f"score_{variant}"], score_lines[variant] = drive_score_export(
@@ -5019,12 +5775,9 @@ def main() -> int:
     dp_paths, dp_sps = drive_dp_world1(cuda_dp, cuda_train, mods, torch, card)
     paths.update(dp_paths)
     dp_paths, shared_sps = drive_dp_shared_card(card)
+    mark("4d-4h: scoring, serving, DP")
     paths.update(dp_paths)
     dp_sps.update(shared_sps)
-    conv_paths, conv_lines, conv_err = drive_conv(mods, torch)
-    paths.update(conv_paths)
-    diff_paths, diff_lines, diff_err = drive_diffusion(mods, torch)
-    paths.update(diff_paths)
 
     def by_path(kernel):
         return {name: c[kernel] for name, c in paths.items()
@@ -5040,6 +5793,7 @@ def main() -> int:
 
     print("[5] times (CUDA events, warm L2)")
     rows = time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card)
+    mark("5a")
     train_rows = time_training(cuda_train, torch, card, general_sps)
     train_row = train_rows["nsgan"]
     reparam_rows, reparam_bwd_rows = time_reparam(cuda_reparam, torch, card)
@@ -5050,6 +5804,7 @@ def main() -> int:
                           and r["b"] == TRAIN_B) for m in "dg"}
     phase_trace_rows, phase_bf16_trace = trace_phases(card)
     check_phase_device(phase_rows, phase_trace_rows, card)
+    mark("5b-5e")
     print("[5f] the EMA and bf16 kernels' times")
     ema_rows = time_training(cuda_train, torch, card, {}, ema_decay=EMA_DECAY)
     bf16_rows = time_training(cuda_train, torch, card, {}, dtype="bfloat16")
@@ -5065,7 +5820,11 @@ def main() -> int:
                                and r["variant"] == "nsgan") for m in "dg"}
     print("[5g] the conv general steps")
     conv_rows = time_conv_training(mods, torch, card)
+    mark("5f-5g")
     diff_rows = time_diffusion(mods, torch, card)
+    mark("5h")
+    vq_rows = time_vq(mods, torch, card)
+    mark("5i")
 
     fwd_main = next(r for r in rows["mlp_fwd"]  # the largest serving batch
                     if r["shape"] == "G B=8192")
@@ -5093,7 +5852,8 @@ def main() -> int:
               linear_cuda_launches=by_path("linear_cuda"),
               conv_checks=conv_err, conv_cli_runs=conv_lines,
               conv_training=conv_rows, diffusion_checks=diff_err,
-              diffusion_runs=diff_lines, diffusion_times=diff_rows),
+              diffusion_runs=diff_lines, diffusion_times=diff_rows,
+              vq_checks=vq_err, vq_runs=vq_lines, vq_times=vq_rows),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",

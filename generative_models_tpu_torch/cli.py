@@ -1,14 +1,17 @@
 """CLI — ``python -m generative_models_tpu_torch --variant nsgan --steps
 2000`` (or ``mmgan``, ``lsgan``, ``wgan``, ``fgan``, ``ragan``,
 ``fishergan``, ``wgangp``, ``dragan``, ``cgan``, ``began``, ``infogan``,
-``vae``, ``birvae``, ``ddpm``, ``flow``; any of them on the MLP stacks,
-the default, or with ``--arch conv`` on the conv stacks of
-``models/conv.py`` (ddpm and flow: the UNet of ``models/ddpm_net.py``),
-which train through the general step): the port of
+``vae``, ``birvae``, ``ddpm``, ``flow``, ``vqvae``, ``vqprior``; any of
+them on the MLP stacks, the default, or with ``--arch conv`` on the conv
+stacks of ``models/conv.py`` (ddpm and flow: the UNet of
+``models/ddpm_net.py``; the VQ family: ``models/vq_net.py``), which
+train through the general step): the port of
 ``generative_models_tpu/cli.py``. ``--reflow-from CKPT`` (flow only)
 trains a 2-rectified flow on couplings of the teacher's ODE
 (``train/reflow.py``; ``--reflow-pairs``, ``--reflow-gen-steps``,
-``--reflow-gen-solver``, ``--reflow-fresh-init``), as the reference's.
+``--reflow-gen-solver``, ``--reflow-fresh-init``), and ``--vq-from
+CKPT`` (vqprior only) trains the prior on a frozen vqvae tokenizer
+(``train/vq.py``), as the reference's.
 
 Every Config field is a flag, as in the reference. A training run trains
 (``--ckpt`` with ``--resume`` restores first), appends per-step records to
@@ -52,7 +55,6 @@ from generative_models_tpu_torch.config import Config, VARIANTS, variant_config
 
 # flag -> the ROADMAP.md item that ports its path
 _NOT_PORTED = {
-    "vq_from": "Queue 1 item 10, the VQ family",
     "multihost": "Queue 1 item 12, parallelism",
     "profile": "Queue 1 item 5, the GPU bench",
 }
@@ -115,7 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reflow-gen-solver", default="heun",
                    choices=("euler", "heun"),
                    help="teacher ODE solver when generating couplings")
-    p.add_argument("--vq-from", default=None, metavar="CKPT")
+    p.add_argument("--vq-from", default=None, metavar="CKPT",
+                   help="vqprior only: two-stage training. Load a trained "
+                        "vqvae checkpoint into the prior run's tokenizer and "
+                        "freeze it (sets --vq-freeze-tokenizer); only the "
+                        "prior trains")
     p.add_argument("--multihost", action="store_true")
     return p
 
@@ -139,6 +145,9 @@ def main(argv=None) -> int:
     if args.reflow_from and args.sample_only:
         parser.error("--sample-only samples a trained model: pass the "
                      "student's --ckpt, not --reflow-from")
+    if args.vq_from and args.sample_only:
+        parser.error("--sample-only samples a trained model: pass the "
+                     "prior run's --ckpt, not --vq-from")
     cfg = _config(args)
 
     if not args.sample_only and cfg.tp > 1:
@@ -198,10 +207,19 @@ def _run_body(args, cfg, say, group) -> int:
         say(f"reflow: {args.reflow_pairs} teacher couplings from "
             f"{args.reflow_from} ({args.reflow_gen_solver} "
             f"S={args.reflow_gen_steps})")
+    vq_params = None
+    if args.vq_from:
+        from generative_models_tpu_torch.train import vq
+        cfg = cfg.replace(vq_freeze_tokenizer=True)  # vqprior only
+        vq_params = vq.load_vqvae_params(
+            args.vq_from, cfg, args.device if group is None else group.device)
+        say(f"vqprior: frozen tokenizer from {args.vq_from}")
     t = Trainer(config=cfg, device=args.device, group=group,
                 debug_nans=args.debug_nans, data=data)
     if teacher is not None and not args.reflow_fresh_init:
         reflow.init_student(t, teacher)
+    if vq_params is not None:
+        vq.init_prior_with_vqvae(t, vq_params)
     if args.sample_only:
         if not args.ckpt or not exists(args.ckpt):
             print("--sample-only needs an existing --ckpt", file=sys.stderr)

@@ -10,7 +10,7 @@ since the two generators draw different numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -84,5 +84,10 @@ class SingleModelSpec:
     # the width of sample's z
     sample_lanes: Callable = _latent_lanes
     # sample also takes `chain`: step i -> that step's noise [n,
-    # sample_lanes(cfg)] (DDPM's reverse chain)
+    # sample_lanes(cfg)] (DDPM's reverse chain; vqprior's Gumbel draws)
     chain_noise: bool = False
+    # noise_of_normal(draws, cfg): standard-normal draws [n,
+    # sample_lanes(cfg)] -> the noise sample takes as z and from chain
+    # (vqvae's tokens, vqprior's Gumbel draws); None: they are that noise.
+    # The exported sampler draws normals (utils/export.py)
+    noise_of_normal: Optional[Callable] = None

@@ -1,7 +1,7 @@
 """Variant registry: name -> loss-head spec — the port of
-``generative_models_tpu/losses/registry.py``. Only the variants whose
-heads are ported register; every other reference variant raises and
-names the ROADMAP.md item that ports it.
+``generative_models_tpu/losses/registry.py``: all 18 of the reference's
+variants. A variant listed in ``_NOT_PORTED`` would raise and name the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -28,12 +28,12 @@ _SPECS: Dict[str, Tuple[str, str]] = {
     "birvae": ("generative_models_tpu_torch.losses.birvae", "BIRVAE"),
     "ddpm": ("generative_models_tpu_torch.losses.ddpm", "DDPM"),
     "flow": ("generative_models_tpu_torch.losses.flow", "FLOW"),
+    "vqvae": ("generative_models_tpu_torch.losses.vqvae", "VQVAE"),
+    "vqprior": ("generative_models_tpu_torch.losses.vqprior", "VQPRIOR"),
 }
 
-_NOT_PORTED: Dict[str, str] = {
-    "vqvae": "Queue 1 item 10, the VQ family",
-    "vqprior": "Queue 1 item 10, the VQ family",
-}
+# name -> the ROADMAP.md item that ports it (every variant is ported)
+_NOT_PORTED: Dict[str, str] = {}
 
 
 def available_variants():

@@ -418,8 +418,12 @@ def build_single_step(spec, cfg, group=None):
             loss, metrics = loss_fn(p, batch, noise, cfg)
         else:
             loss, metrics = loss_fn(p, batch, None, cfg, eps=noise)
+        # a leaf the loss leaves out (vqprior's frozen tokenizer) gets a
+        # zero gradient, as the reference's stop_gradient gives it
         grads, metrics = reduce_mean(group, tree_unflatten(
-            params, list(torch.autograd.grad(loss, leaves))), metrics)
+            params, list(torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))),
+            metrics)
         new_p, opt = apply_opt(cfg, params, grads, state["opt"], cfg.g_lr)
         new_state = dict(state, params=new_p, opt=opt, step=state["step"] + 1)
         if cfg.ema_decay > 0:

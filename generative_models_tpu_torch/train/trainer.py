@@ -1,7 +1,7 @@
 """The Trainer — the port of ``generative_models_tpu/train/trainer.py``
-for the ported variants (nsgan, mmgan, lsgan, wgan, fgan, ragan,
+for every variant (nsgan, mmgan, lsgan, wgan, fgan, ragan,
 fishergan, wgangp, dragan, cgan, began, infogan, vae, birvae, ddpm,
-flow): build the model
+flow, vqvae, vqprior): build the model
 from ``cfg.seed`` (G and D, or a single model's parameter tree; the MLP
 stacks, or with ``arch="conv"`` the conv stacks), train, evaluate,
 sample, save and load checkpoints in the JAX package's layout.
@@ -490,12 +490,14 @@ class Trainer:
         """n samples [n, image_dim] in [0, 1] from the generator prior, or
         from the given noise `z` [n, z_dim] (numpy or tensor; [n,
         latent_dim] for the VAE family; DDPM's and flow's initial x [n,
-        image_dim]). DDPM also takes `chain`, step i -> that reverse
-        step's noise [n, image_dim]; either is drawn from the Trainer's
-        sampling generator when not given."""
+        image_dim]; vqvae's integer tokens [n, L]). DDPM also takes
+        `chain`, step i -> that reverse step's noise [n, image_dim], and
+        vqprior step i's Gumbel draws [n, K] (n then from `n`); either is
+        drawn from the Trainer's sampling generator when not given."""
         if z is not None:
-            z = torch.as_tensor(z, dtype=torch.float32,
-                                device=self.device).contiguous()
+            z = torch.as_tensor(z, device=self.device)
+            z = (z.to(torch.float32) if z.is_floating_point()
+                 else z.long()).contiguous()
             n = z.shape[0]
         n = n or self.cfg.sample_n
         extra = {"chain": chain} if getattr(self.spec, "chain_noise",

@@ -29,9 +29,12 @@ The devices the program names (its buffers, each ``arange``) are the
 CPU's; ``move_to_device_pass`` rewrites them, as :func:`load_sampler`
 does for ``device=``. A conv sampler's program holds plain convolution
 ops, which on the card follow cuDNN's global flags (TF32 and
-nondeterministic algorithms allowed by default): :func:`load_sampler`
-runs it under ``models/conv.py::strict_convs``, as the port's conv
-stacks run.
+nondeterministic algorithms allowed by default), and its float32 matmuls
+follow the TF32 flag: :func:`load_sampler` runs it under
+``models/conv.py::strict_convs`` and ``ops/matmul.py::strict_matmuls``,
+as the port's modules run. vqvae's artifact maps its normal draws to
+uniform tokens, vqprior's to the Gumbel draws of its L decode steps
+(offsets i + 1, traced as a straight line; ``spec.noise_of_normal``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from generative_models_tpu_torch.ops.cuda_reparam import (
     philox_normal_plain,
     philox_normal_steps,
 )
+from generative_models_tpu_torch.ops.matmul import strict_matmuls
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -60,7 +64,8 @@ CHAIN_BLOCK = 50
 def noise_width(spec, cfg) -> int:
     """The width of the noise a variant's ``sample`` takes: ``z_dim`` for
     an adversarial variant, ``latent_dim`` for the VAE family,
-    ``image_dim`` for ddpm and flow (their initial x)."""
+    ``image_dim`` for ddpm and flow (their initial x), L for vqvae (its
+    tokens), K for vqprior (its chain's Gumbel draws; its z is unused)."""
     return cfg.z_dim if spec.adversarial else spec.sample_lanes(cfg)
 
 
@@ -76,7 +81,8 @@ def sampler_noise(seed: torch.Tensor, n: int, width: int) -> torch.Tensor:
 
 
 def sampler_chain(seed: torch.Tensor, n: int, width: int):
-    """DDPM's per-step noise in the artifact: step i -> [n, width], the
+    """A chain sampler's per-step noise in the artifact (DDPM's; vqprior's
+    before its Gumbel map): step i -> [n, width], the
     seed's Philox words at counter offset i + 1 (offset 0 is
     :func:`sampler_noise`'s), drawn CHAIN_BLOCK steps to a Philox call
     (a call a step would make a long chain's program many times larger
@@ -93,6 +99,29 @@ def sampler_chain(seed: torch.Tensor, n: int, width: int):
                                            device=seed.device)
         return block[j][i % CHAIN_BLOCK]
     return chain
+
+
+def sampler_draws(spec, cfg, seed: torch.Tensor, n: int) -> dict:
+    """The noise the artifact hands ``spec.sample`` for `seed`, as its
+    keyword arguments: ``z`` (:func:`sampler_noise`) and, for a chain
+    sampler, ``chain`` (:func:`sampler_chain`), each mapped by
+    ``spec.noise_of_normal`` where the variant has one (vqvae's tokens,
+    vqprior's Gumbel draws). ``Trainer.sample(**sampler_draws(...))``
+    gives the artifact's images."""
+    width = noise_width(spec, cfg)
+    of_normal = getattr(spec, "noise_of_normal", None)
+    z = sampler_noise(seed, n, width)
+    if of_normal is not None:
+        z = of_normal(z, cfg)
+    if not getattr(spec, "chain_noise", False):
+        return {"z": z}
+    normal = sampler_chain(seed, n, width)
+    if of_normal is None:
+        return {"z": z, "chain": normal}
+
+    def chain(i: int) -> torch.Tensor:
+        return of_normal(normal(i), cfg)
+    return {"z": z, "chain": chain}
 
 
 class _Sampler(torch.nn.Module):
@@ -112,12 +141,9 @@ class _Sampler(torch.nn.Module):
     def forward(self, seed: torch.Tensor) -> torch.Tensor:
         params = tree_unflatten(self.like, [getattr(self, f"p{i}")
                                             for i in range(self.count)])
-        width = noise_width(self.spec, self.cfg)
-        z = sampler_noise(seed, self.n, width)
-        if getattr(self.spec, "chain_noise", False):
-            return self.spec.sample(params, None, self.n, self.cfg, z=z,
-                                    chain=sampler_chain(seed, self.n, width))
-        return self.spec.sample(params, None, self.n, self.cfg, z=z)
+        return self.spec.sample(params, None, self.n, self.cfg,
+                                **sampler_draws(self.spec, self.cfg, seed,
+                                                self.n))
 
 
 def export_sampler(spec, cfg, params, n: int) -> bytes:
@@ -154,6 +180,7 @@ def load_sampler(path: str, device="cuda"):
     module = ep.module()
 
     def fn(seed: int) -> torch.Tensor:
-        with strict_convs():  # a conv sampler's convs: IEEE, repeatable
+        # its convs and float32 products IEEE, its convs repeatable
+        with strict_convs(), strict_matmuls():
             return module(torch.tensor(seed, dtype=torch.int64, device=dev))
     return fn

@@ -308,7 +308,7 @@ def test_chunk_hooks_cover_the_ported_variants_and_refuse_the_rest():
         src = f.read()
     assert "GM_HOOK" in src and "--use_fast_math" not in " ".join(
         build.NVCC_FLAGS)
-    for bad in ("ddpm", "vqvae"):
+    for bad in ("ddpm", "vqvae", "vqprior"):
         with pytest.raises(ValueError, match="gan_chunk covers"):
             cuda_train.ChunkHyper(1e-3, 1e-3, 0.5, 0.999, 1e-8, 0.2, bad)
     with pytest.raises(ValueError, match="unknown optimizer"):
@@ -344,20 +344,21 @@ def test_building_a_hook_library_without_nvcc_raises(monkeypatch):
 
 
 def test_registry_refuses_only_the_heads_and_families_still_queued():
-    from generative_models_tpu_torch.config import VARIANTS
-    from generative_models_tpu_torch.losses.registry import (
-        available_variants,
-        get_variant,
+    """None is still queued: all 18 reference variants register, and the
+    CLI's list of unported flags no longer names --vq-from."""
+    from generative_models_tpu.losses.registry import (
+        available_variants as jax_variants,
     )
-    queued = {"vqvae": "Queue 1 item 10", "vqprior": "Queue 1 item 10"}
-    assert set(available_variants()) == set(VARIANTS) - set(queued)
-    assert len(available_variants()) == 16
-    for v in ("wgangp", "dragan", "cgan", "began", "infogan", "ddpm",
-              "flow"):
-        assert get_variant(v).name == v
-    for v, item in queued.items():
-        with pytest.raises(NotImplementedError, match=item):
-            get_variant(v)
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.config import VARIANTS
+    from generative_models_tpu_torch.losses import registry
+    assert set(registry.available_variants()) == set(VARIANTS) \
+        == set(jax_variants())
+    assert len(registry.available_variants()) == 18
+    assert registry._NOT_PORTED == {}
+    for v in VARIANTS:
+        assert registry.get_variant(v).name == v
+    assert "vq_from" not in cli._NOT_PORTED
 
 
 def test_fused_step_takes_the_penalty_and_label_variants_only():

@@ -199,9 +199,9 @@ def test_cli_sample_only_writes_png(tiny_data, tmp_path, capsys):
     (["--tp", "2"], "training"),
 ])
 def test_cli_unported_paths_are_usage_errors(flags, named, capsys):
-    """Each unported flag is a usage error naming it. --reflow-from is
-    ported: with --sample-only (appended below) it is the reference's
-    usage error, which names it too."""
+    """Each unported flag is a usage error naming it. --reflow-from and
+    --vq-from are ported: with --sample-only (appended below) each is the
+    reference's usage error, which names it too."""
     argv = ["--variant", "nsgan", "--device", "cpu", *flags]
     if named != "training":
         argv.append("--sample-only")
@@ -226,17 +226,24 @@ def test_sample_grid_png_is_byte_identical_to_jax(tmp_path):
 
 @pytest.mark.parametrize("variant", ["vqvae", "flow", "ddpm", "vqprior"])
 def test_unported_variants_name_their_roadmap_item(variant):
-    """The VQ family still names its item; ddpm and flow are ported now
-    and build their time-conditioned net (the reference's tree) with the
-    variant's EMA."""
+    """Every variant is ported now: ddpm and flow build their
+    time-conditioned net (the reference's tree) with the variant's EMA,
+    vqvae its encoder, decoder and codebook, vqprior the prior beside a
+    whole vqvae."""
+    t = Trainer(variant, device="cpu")
     if variant in ("ddpm", "flow"):
-        t = Trainer(variant, device="cpu")
         assert sorted(t.state["params"]) == ["in", "mid", "out", "skip", "t1",
                                              "t2", "time"]
         assert sorted(t.state["ema"]) == sorted(t.state["params"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        Trainer(variant, device="cpu")
+    vq = t.state["params"] if variant == "vqvae" else t.state["params"][
+        "vqvae"]
+    assert sorted(vq) == ["codebook", "decoder", "encoder"]
+    assert tuple(vq["codebook"].shape) == (64, 16)
+    if variant == "vqprior":
+        assert sorted(t.state["params"]) == ["prior", "vqvae"]
+        assert sorted(t.state["params"]["prior"]) == [
+            "blocks", "head", "ln_f", "pos", "tok"]
 
 
 def test_conv_arch_is_not_ported():
