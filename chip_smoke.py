@@ -142,6 +142,8 @@ imports nothing of JAX. Phases:
      step (each one runs, at world 1 too);
      and nsgan at dtype bfloat16 through the bf16 phase kernels, held to
      the float32 fused run by the reference's bf16 bound (BF16_RUN_TOL);
+     and the general DP step of ddpm, flow, vqvae and vqprior
+     (DP_FAMILY_STEPS each) against the single device's general step;
      then (4g) two ranks sharing the card over gloo, b = 50 a rank, the
      same pair on nsgan, the two ranks' states equal;
    - the conv stacks (4i, ``models/conv.py``) at full width, conv_channels
@@ -197,6 +199,23 @@ imports nothing of JAX. Phases:
      vqvae steps, and ``--sample-only --export-sampler`` from JAX-layout
      vqvae and vqprior checkpoints (the artifact bitwise per seed and
      against ``Trainer.sample`` with its Philox draws);
+   - parallelism (4l, ``parallel/``; beside the builds, on the first
+     three libraries alone): tensor parallelism on two ranks sharing the
+     card over gloo (a 1 x 2 grid on the "model" axis): nsgan, vae,
+     wgangp and vqprior at config.py's widths, B 100, TP_STEPS general
+     steps each (wgangp 4, as tests/test_tp.py), held against a single-device run on the card from the
+     same seed and draws by tests/test_tp.py's tolerances (TP_TOL), the
+     MLP kernels' launches, the penalty's plain passes and the model and
+     data groups' all-reduces a step worked out beforehand (TP_PER_STEP;
+     no chunk launch), and ``Trainer.sample(64)`` from the tp state
+     against the single device's; pipeline parallelism on
+     two ranks sharing the card (1 x 2 on "pipe"): the prior at full
+     width, n_micro PP_MICRO, PP_STEPS steps of ``build_pp_prior_step``
+     against as many single-device prior steps on the card (the CE and
+     every leaf, PP_TOL), the stages' launches counted; and ``--multihost``
+     at WORLD_SIZE 1 over NCCL (nsgan, MULTIHOST_STEPS steps, its final
+     line and metrics.jsonl); host-clock steps/s of each beside the single
+     device's, and the model group's all-reduce time;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
@@ -212,8 +231,8 @@ imports nothing of JAX. Phases:
    plain versions, their bounds and one ``autograd.grad`` call of the
    hook's loss (held first against the float64 plain version), and steps/s of both DP routes at world 1 and on two ranks sharing the
    card, with the all-reduce's time; (5f) the EMA and bf16 chunk
-   kernels of every hook and of the VAE family and the bf16 phase
-   kernels the same way; every phase kernel's row has the host µs a call
+   kernels of 5e's traced hooks (TRACE_VARIANTS) and of the VAE family
+   and the bf16 phase kernels of those hooks the same way; every phase kernel's row has the host µs a call
    beside its CUDA-event and device times (the device time: calls
    queued behind a spin kernel, ``tools/phase_trace.py::queued_ms``),
    and in 5e the phase kernels of nsgan, wgangp, infogan and began are
@@ -229,7 +248,8 @@ imports nothing of JAX. Phases:
   nsgan and vae general steps: steps/s, and a step's device time split
   into cuDNN's convolutions, the hand-written kernels and the rest; (5h)
   the same for ddpm and flow on both nets, and their served images/s at
-  n 64 and 1024 (DDPM at S 1000 and 50, flow at S 1, 16 and 50); (5i)
+  n 64 and 1024 (DDPM at S 1000 and 50, flow at S 1, 16 and 50; the
+  UNet's DDPM S 1000 at n 64 alone); (5i)
   the same for vqvae and vqprior on both archs, the prior's served
   images/s at n 64 and 1024 in both decodes, and (5a) the prior's five
   linears at 1600 rows (VQ_DENSE, also held in 3a at 64-50,176 rows and
@@ -3002,8 +3022,10 @@ def drive_diffusion(mods, torch):
 # split as 5g splits the conv steps (the hand-written kernels, cuDNN's
 # convolutions, the rest) and the idle share; served images/s of
 # Trainer.sample at n 64 and 1024 (CUDA events around one call after a
-# warm-up call), DDPM at S 1000 and 50, flow at S 1, 16 and 50 (Euler).
-DIFF_TIME_STEPS = 100
+# warm-up call), DDPM at S 1000 and 50, flow at S 1, 16 and 50 (Euler);
+# the UNet's DDPM S 1000 at n 64 alone (its n 1024 took 21 s; cut with
+# DIFF_TIME_STEPS 100 -> 50 when 4l came).
+DIFF_TIME_STEPS = 50
 DIFF_SERVE_N = (64, 1024)
 DIFF_SERVE = (("ddpm", {}), ("ddpm", {"ddpm_sample_steps": 50}),
               ("flow", {"flow_sample_steps": 1}),
@@ -3057,6 +3079,8 @@ def time_diffusion(mods, torch, card):
             t = Trainer(variant, arch=arch, **kw)
             for n in DIFF_SERVE_N:
                 evals = grid_evals(t.cfg)
+                if arch == "conv" and evals >= 1000 and n > DIFF_SERVE_N[0]:
+                    continue
                 if evals < 1000:
                     t.sample(n)  # warm-up
                 torch.cuda.synchronize()
@@ -3606,7 +3630,7 @@ def drive_vq(mods, torch):
 # (rows 1-3, cuDNN's convolutions, the rest) and the idle share; the
 # prior's served images/s at n 64 and 1024 in both decodes, on both
 # archs (CUDA events around one Trainer.sample call after a warm-up).
-VQ_TIME_STEPS = 100
+VQ_TIME_STEPS = 50   # (100 until 4l came)
 VQ_SERVE_N = (64, 1024)
 
 
@@ -3981,7 +4005,7 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
 # time. (Steps cannot be queued behind a spin kernel, as queued_ms does:
 # the optimizer's scalar tensors made on the card synchronise the host
 # with it several times a step.)
-CONV_TIME_STEPS = 200
+CONV_TIME_STEPS = 100   # (200 until 4l came)
 CONV_PROFILE_STEPS = 2
 # (cuBLAS's gemms, named sm80_xmma_gemm_..._cublas, are "rest": the VQ
 # family's distances, lookups and attention products run there; the
@@ -4242,17 +4266,18 @@ TIMED_CASES = (
 
 
 def time_training(cuda_train, torch, card, general_sps, ema_decay=0.0,
-                  dtype="float32"):
+                  dtype="float32", cases=None):
     """Phase 5b: steps/s of the chunk kernel on a 1000-step chunk per
     variant, beside the plain version, the bound, and (nsgan, wgan,
     ragan) the general step (phase 4c) and the library step loop; with
     `ema_decay` or `dtype` the EMA or bf16 kernels (phase 5f; the library
     loop likewise with its EMA or under autocast, the bf16 bound at the
-    tensor cores' peak). Returns {variant: row}."""
+    tensor cores' peak). `cases`: the TIMED_CASES to time (all by
+    default). Returns {variant: row}."""
     rng = np.random.default_rng(6)
     steps = 1000
     out = {}
-    for variant, ds, kw, with_lib in TIMED_CASES:
+    for variant, ds, kw, with_lib in cases or TIMED_CASES:
         hp = chunk_hyper(cuda_train, variant, ema_decay=ema_decay,
                          dtype=dtype, **kw)
         p, mu, nu = chunk_state(rng, torch, **chunk_dims(hp))
@@ -4286,13 +4311,15 @@ def time_training(cuda_train, torch, card, general_sps, ema_decay=0.0,
         k_ms = time_ms(torch, lambda: cuda_train.gan_chunk(
             *a_all, *planes, **k_all), 3)
         # (5f, the EMA and bf16 kernels: shorter plain and library runs,
-        # to keep the whole script near half its time limit)
+        # to keep the whole script within its time limit; halved again
+        # when 4l came: 20 -> 10 plain steps, 100 -> 50 and 30 -> 15
+        # library steps, and 5b's library loops 200 -> 100 and 60 -> 30)
         new = ema is not None or hp.bf16
-        p_steps = (20 if new else 50) if ds == 1 else 20
+        p_steps = (10 if new else 50) if ds == 1 else (10 if new else 20)
         a_p, k_p = rows_of(p_steps)
         p_ms = time_ms(torch, lambda: cuda_train.gan_chunk_plain(
             *a_p, *planes, **k_p), 2) * steps / p_steps
-        lib_steps = (100 if new else 200) if ds == 1 else (30 if new else 60)
+        lib_steps = (50 if new else 100) if ds == 1 else (15 if new else 30)
         lib_sps = (library_step_loop(torch, lib_steps, variant, bf16=hp.bf16,
                                      ema=ema is not None, rmsprop=not hp.adam)
                    if with_lib else None)
@@ -4555,10 +4582,83 @@ PHASE_NAMES = {"d": ("d_w1", "d_b1", "d_w2", "d_b2"),
                "g": ("g_w1", "g_b1", "g_w2", "g_b2")}
 # the DP training runs: steps held against the general DP step, and the
 # steps of the timed runs
-DP_CHECK_STEPS, DP_TIMED_STEPS = 20, 200
+DP_CHECK_STEPS, DP_TIMED_STEPS = 20, 100   # (timed 200 until 4l came)
 DP_CASES = (("nsgan", {}), ("wgangp", {"adam_eps": COUPLED_ADAM_EPS}))
 # nsgan's D phase buffer: dW1d, db1d, dW2d, db2d and the metrics row
 DP_REDUCE_FLOATS = 784 * 400 + 400 + 400 + 1 + 8
+# the diffusion and VQ families' world-1 DP runs (4f)
+DP_FAMILIES = ("ddpm", "flow", "vqvae", "vqprior")
+DP_FAMILY_STEPS = 10
+
+# Phase 4l. Tensor parallelism at tp 2 against the single device, by
+# tests/test_tp.py's tolerances and, for wgangp, its length too: 4 steps
+# at rtol 5e-4 (its test_tp_second_order_and_sampling). Over 20 steps (100
+# critic updates of Adam at beta2 0.9) the two paths' rounding grows to
+# 4.5e-4 in the state even in a CPU rehearsal of this phase, where they
+# differ only in the order of the row layers' sums. Every case runs at
+# COUPLED_ADAM_EPS: at the default eps Adam's first step moves each
+# element by about lr whatever the size of its gradient, so an element
+# whose gradient nearly cancels (a sum of the other order on each path)
+# steps +lr on one path and -lr on the other: nsgan's tp-2 state read
+# 3.2e-4 (1.6 lr) from the single device's after 20 steps on an H100 at
+# the default eps, its losses within 2.8e-4. TP_TIMED_STEPS more steps of
+# each, warm, give the steps/s.
+TP_STEPS, TP_TIMED_STEPS = 20, 20
+TP_TOL = dict(rtol=2e-4, atol=1e-5)
+TP_EPS = {"adam_eps": COUPLED_ADAM_EPS}
+TP_CASES = (("nsgan", TP_EPS, TP_TOL, TP_STEPS),
+            ("vae", TP_EPS, TP_TOL, TP_STEPS),
+            ("wgangp", TP_EPS, dict(rtol=5e-4, atol=1e-5), 4),
+            ("vqprior", TP_EPS, TP_TOL, TP_STEPS))
+# A step's launches and collectives under tp 2, worked out beforehand:
+# every sharded stack runs one launch of each MLP kernel a layer
+# (``parallel/tp.py``), every layer's forward is a linear_cuda call. nsgan:
+# the critic update's D(real), G(z) and D(fake), the G update's G and D,
+# two layers each (10 forwards), the backward of the four D and G passes
+# with a gradient (8); a row layer's g in each of the five passes, and f's
+# backward into G's output (6 model all-reduces); the data group's mean a
+# update (2). vae: the encoder's trunk, mu and logvar, the decoder's two
+# layers (5 / 5), the sampling kernel once each way; g of mu, logvar and
+# the decoder's row, f's backward into the decoder's input (4). wgangp
+# (d_steps 5): 6 forwards a critic update and 4 for G (34), 4 backwards a
+# critic update and 4 for G (24); the penalty's critic pass is the plain
+# one (5 a step), with its g forward and f backward, and its double
+# backward's f and g (28 model all-reduces in all). vqprior (joint, two
+# blocks): the tokenizer's encoder and decoder, two layers each, four
+# linears a block and the head (13 / 13); g of the two tokenizer rows and
+# of proj and fc2 a block (6), f's backward into the decoder's input and
+# into qkv and fc1 a block (5).
+TP_PER_STEP = {
+    "nsgan": dict(mlp_fwd=10, linear_cuda=10, mlp_bwd=8, reparam=0,
+                  reparam_bwd=0, plain_passes=0, model_all_reduce=6,
+                  data_all_reduce=2),
+    "vae": dict(mlp_fwd=5, linear_cuda=5, mlp_bwd=5, reparam=1,
+                reparam_bwd=1, plain_passes=0, model_all_reduce=4,
+                data_all_reduce=1),
+    "wgangp": dict(mlp_fwd=34, linear_cuda=34, mlp_bwd=24, reparam=0,
+                   reparam_bwd=0, plain_passes=5, model_all_reduce=28,
+                   data_all_reduce=6),
+    "vqprior": dict(mlp_fwd=13, linear_cuda=13, mlp_bwd=13, reparam=0,
+                    reparam_bwd=0, plain_passes=0, model_all_reduce=11,
+                    data_all_reduce=1)}
+# nsgan G's row output: the model group's all-reduce timed in 4l
+TP_REDUCE_FLOATS = TRAIN_B * 784
+# pipeline parallelism: the prior at full width, B 100 in 4 microbatches;
+# the CE and every leaf after PP_STEPS Adam steps against the single
+# device's, at TP_EPS for tp's reason (at the default eps a leaf read
+# 1.37e-5 apart after 5 steps on an H100). k's bias in qkv is held
+# apart: its gradient is zero in exact
+# arithmetic (the softmax ignores a shift shared by every key of a query),
+# so Adam turns either path's rounding residue into steps of up to lr
+# each, and it is held to PP_STEPS * 2 * lr in absolute value.
+PP_MICRO, PP_STEPS, PP_TIMED_STEPS = 4, 5, 10
+PP_TOL = dict(rtol=1e-4, atol=1e-5)
+PP_CE_TOL = dict(rtol=1e-5, atol=1e-6)
+# a stage's launches a step: its block's four linears for each of the 4
+# microbatches, each way; the last stage adds the head's
+PP_PER_STEP = ({"linear_cuda": 16, "mlp_bwd": 16},
+               {"linear_cuda": 20, "mlp_bwd": 20})
+MULTIHOST_STEPS = 100
 
 
 def phase_split(flat, like):
@@ -5047,6 +5147,9 @@ def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
                 paths["dp1_fused_nsgan_bf16"], sps["world1_fused_bf16"] = \
                     drive_dp_bf16(cuda_dp, cuda_train, mods, torch, group,
                                   data, runs[True][2])
+        for variant in DP_FAMILIES:
+            paths[f"dp1_general_{variant}"] = drive_dp_family(
+                variant, mods, torch, group, data)
         flat = torch.zeros(DP_REDUCE_FLOATS, device="cuda")
         sps["world1_all_reduce_ms"] = time_ms(
             torch, lambda: group.all_reduce_mean_(flat), 50)
@@ -5057,6 +5160,344 @@ def drive_dp_world1(cuda_dp, cuda_train, mods, torch, card):
           f"{sps['world1_general']:.1f}; all-reduce of the D phase's buffer "
           f"{sps['world1_all_reduce_ms']:.4f} ms  [{card}]")
     return paths, sps
+
+
+def tp_cfg(variant, kw, tp_size):
+    """A 4l run's configuration: config.py's widths, B 100, the general
+    step, no sample images during the run."""
+    from generative_models_tpu_torch.config import variant_config
+    return variant_config(variant, **{
+        "batch_size": TRAIN_B, "dtype": "float32", "fused_step": False,
+        "sample_every": 10 ** 9, "tp": tp_size, **kw})
+
+
+def hold_states(got, want, tol, skip=()):
+    """(max abs diff, every leaf within `tol`) of two states as numpy by
+    key path; `skip`: keys left out (the rng words)."""
+    keys = [k for k in want if k not in skip]
+    err = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+              for k in keys)
+    return err, set(got) == set(want) and all(
+        np.allclose(got[k], want[k], **tol) for k in keys)
+
+
+def drive_tp(mods, torch, card):
+    """Phase 4l, tensor parallelism: TP_CASES on two ranks sharing the
+    card over gloo (a 1 x 2 grid on "model"), TP_STEPS steps each, against
+    single-device runs on the card from the same seed and draws. Returns
+    ({path: counts}, {name: steps/s and ms})."""
+    from generative_models_tpu_torch.parallel.mesh import run_ranks
+    from generative_models_tpu_torch.parallel.runs import (
+        state_numpy,
+        tp_trainer_rank,
+    )
+    from generative_models_tpu_torch.train.trainer import Trainer
+    runs = [(tp_cfg(v, kw, 2), n) for v, kw, _, n in TP_CASES]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_trainer_rank, 2, "cuda",
+                      args=(runs, 2000, 0, VQ_SAMPLE_N, TP_REDUCE_FLOATS,
+                            TP_TIMED_STEPS),
+                      ranks_share_card=True, timeout=600,
+                      grid=(1, 2, "model"))
+    print(f"  tp: two ranks on the card (gloo), 1 x 2 grid: "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    data = synthetic_split(2000, seed=0)
+    paths, sps = {}, {"tp_all_reduce_ms": max(r["all_reduce_ms"]
+                                              for r in ranks)}
+    for i, (variant, kw, tol, steps) in enumerate(TP_CASES):
+        r0, r1 = ranks[0]["runs"][i], ranks[1]["runs"][i]
+        if not all(np.array_equal(r0["state"][k], r1["state"][k])
+                   for k in r0["state"]):
+            raise AssertionError(f"tp {variant}: the two ranks' states differ")
+        t = Trainer(config=tp_cfg(variant, kw, 1), device="cuda", data=data)
+        t._load_data()
+        reset(*mods)
+        t.train(steps=steps)
+        torch.cuda.synchronize()
+        single = state_numpy(t.state)
+        hist = t.history
+        sample = t.sample(VQ_SAMPLE_N)
+        t.train(steps=TP_TIMED_STEPS)
+        sps[f"single_{variant}"] = TP_TIMED_STEPS / t.wall_time
+        sps[f"tp2_{variant}"] = min(r0["steps_per_s"], r1["steps_per_s"])
+        err, close = hold_states(r0["state"], single, tol, ("['rng']",))
+        h_err = {k: float(np.abs(np.asarray(r0["history"][k])
+                                 - np.asarray(hist[k])).max())
+                 for k in hist}
+        h_ok = all(np.allclose(np.asarray(r0["history"][k]),
+                               np.asarray(hist[k]), **tol) for k in hist)
+        s_err = float(np.abs(r0["sample"] - sample).max())
+        s_ok = np.allclose(r0["sample"], sample, **tol)
+        want = {k: v * steps for k, v in TP_PER_STEP[variant].items()}
+        for rank, r in enumerate((r0, r1)):
+            got = {k: r["launches"][k] for k in want}
+            ok = (got == want and r["launches"]["gan_chunk"] == 0
+                  and r["launches"]["model_all_gather"] == 0)
+            print(f"  tp2_{variant} rank {rank}: Trainer(group=1 x 2 grid)"
+                  f".train({steps}): {r['launches']} (expect {want}, no "
+                  f"chunk launch); {TP_TIMED_STEPS} more: "
+                  f"{r['steps_per_s']:.2f} steps/s {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"tp2_{variant}: wrong counts")
+        paths[f"tp2_{variant}"] = {k: r0["launches"][k] for k in
+                                   ("mlp_fwd", "mlp_bwd", "linear_cuda",
+                                    "reparam", "reparam_bwd", "gan_chunk")}
+        ok = close and h_ok and s_ok
+        print(f"  tp2_{variant} vs the single device on the card: state max "
+              f"abs diff {err:.3e} {'ok' if close else 'FAIL'}, history max "
+              f"abs diff {h_err} {'ok' if h_ok else 'FAIL'}, "
+              f"sample({VQ_SAMPLE_N}) max abs diff {s_err:.3e} (tol rtol "
+              f"{tol['rtol']:.0e} atol {tol['atol']:.0e}); steps/s tp 2 "
+              f"{sps[f'tp2_{variant}']:.2f}, single device "
+              f"{sps[f'single_{variant}']:.2f}  [{card}] "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"tp2_{variant} disagrees with the single "
+                                 f"device")
+    print(f"  tp: the model group's all-reduce of {TP_REDUCE_FLOATS} floats "
+          f"(gloo, CUDA tensors, two ranks on one card) "
+          f"{sps['tp_all_reduce_ms']:.4f} ms  [{card}]")
+    return paths, sps
+
+
+def pp_single(torch, params, tokens, steps, timed):
+    """The prior's single-device Adam steps on the card: (losses, params)
+    after `steps` as numpy, and the steps/s of `timed` more (host clock,
+    warm)."""
+    from generative_models_tpu_torch.losses.vqprior import _shift, prior_ce
+    from generative_models_tpu_torch.models import ar_prior
+    from generative_models_tpu_torch.parallel.runs import _numpy_tree
+    from generative_models_tpu_torch.train.optim import apply_opt, init_opt
+    from generative_models_tpu_torch.utils.tree import (
+        tree_leaves,
+        tree_unflatten,
+    )
+    cfg = tp_cfg("vqprior", TP_EPS, 1)
+
+    def step(params, opt):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        q = tree_unflatten(params, leaves)
+        loss = prior_ce(ar_prior.prior_apply(q, _shift(tokens, cfg), cfg),
+                        tokens)
+        grads = tree_unflatten(params, list(torch.autograd.grad(loss,
+                                                                leaves)))
+        params, opt = apply_opt(cfg, params, grads, opt, cfg.g_lr)
+        return params, opt, loss.detach()
+    opt, losses = init_opt(cfg, params), []
+    for _ in range(steps):
+        params, opt, loss = step(params, opt)
+        losses.append(loss)
+    out = _numpy_tree({"losses": torch.stack(losses), "params": params})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        params, opt, _ = step(params, opt)
+    torch.cuda.synchronize()
+    return out, timed / (time.perf_counter() - t0)
+
+
+def drive_pp(mods, torch, card):
+    """Phase 4l, pipeline parallelism: the prior at full width on two
+    ranks sharing the card (1 x 2 on "pipe"), PP_STEPS steps of
+    ``build_pp_prior_step`` with n_micro PP_MICRO, against PP_STEPS
+    single-device steps on the card. Returns ({path: counts}, {what:
+    numbers})."""
+    from generative_models_tpu_torch.models import ar_prior
+    from generative_models_tpu_torch.parallel import runs
+    from generative_models_tpu_torch.parallel.mesh import run_ranks
+    from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
+    cfg = tp_cfg("vqprior", TP_EPS, 1)
+    params = ar_prior.prior_init(torch.Generator().manual_seed(0), cfg)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vq_codebook_size, (TRAIN_B, cfg.vq_tokens)).astype(np.int64)
+    case = dict(cfg=cfg, grid=(1, 2), n_micro=PP_MICRO, tokens=tokens,
+                params=runs._numpy_tree(params), y=None, steps=PP_STEPS,
+                timed=PP_TIMED_STEPS)
+    t0 = time.perf_counter()
+    got = [r[0] for r in run_ranks(runs.pp_rank, 2, "cuda", args=([case],),
+                                   ranks_share_card=True, timeout=600)]
+    print(f"  pp: two ranks on the card (gloo), 1 x 2 grid: "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    single, single_sps = pp_single(
+        torch, {k: v for k, v in ar_prior.prior_init(
+            torch.Generator().manual_seed(0), cfg, "cuda").items()},
+        torch.from_numpy(tokens).cuda(), PP_STEPS, PP_TIMED_STEPS)
+    r0 = got[0]
+    ce_err = float(np.abs(r0["losses"] - single["losses"]).max())
+    ok = np.allclose(r0["losses"], single["losses"], **PP_CE_TOL)
+    want = dict(tree_leaves_with_path(single["params"]))
+    have = dict(tree_leaves_with_path(r0["params"]))
+    err = k_err = 0.0
+    for k, w in want.items():
+        a, b = have[k], w
+        if k.endswith("['qkv']['b']"):
+            width = a.shape[-1] // 3
+            k_err = max(k_err, float(np.abs(a[width:2 * width]
+                                            - b[width:2 * width]).max()))
+            keep = np.r_[0:width, 2 * width:3 * width]
+            a, b = a[keep], b[keep]
+        err = max(err, float(np.abs(a - b).max()))
+        ok = ok and np.allclose(a, b, **PP_TOL)
+    k_bound = PP_STEPS * 2 * cfg.g_lr
+    ok = ok and set(have) == set(want) and k_err <= k_bound
+    for rank, r in enumerate(got):
+        w = {k: v * PP_STEPS for k, v in PP_PER_STEP[rank].items()}
+        c = {k: r["counts"][k] for k in w}
+        c_ok = c == w and r["counts"]["mlp_fwd"] == w["linear_cuda"]
+        print(f"  pp2 stage {rank}: {PP_STEPS} steps of build_pp_prior_step: "
+              f"{r['counts']} (expect {w}); {PP_TIMED_STEPS} more: "
+              f"{r['steps_per_s']:.2f} steps/s "
+              f"{'ok' if c_ok else 'FAIL'}")
+        if not c_ok:
+            raise AssertionError(f"pp2 stage {rank}: wrong counts")
+    sps = min(r["steps_per_s"] for r in got)
+    print(f"  pp2 vs the single device on the card, {PP_STEPS} steps: CE max "
+          f"abs diff {ce_err:.3e} (tol rtol {PP_CE_TOL['rtol']:.0e} atol "
+          f"{PP_CE_TOL['atol']:.0e}), leaves {err:.3e} (rtol "
+          f"{PP_TOL['rtol']:.0e} atol {PP_TOL['atol']:.0e}), k's bias "
+          f"{k_err:.3e} (<= {k_bound:.1e}); steps/s pp 2 {sps:.2f}, single "
+          f"device {single_sps:.2f}  [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pp2 disagrees with the single device")
+    paths = {f"pp2_stage{rank}": {k: r["counts"][k] for k in
+                                  ("mlp_fwd", "mlp_bwd", "linear_cuda")}
+             for rank, r in enumerate(got)}
+    return paths, {"pp2_steps_per_s": sps, "single_steps_per_s": single_sps,
+                   "ce_err": ce_err, "leaf_err": err}
+
+
+def probe_gloo_hop(card) -> str:
+    """Whether gloo itself sends a CUDA tensor point to point between two
+    ranks sharing the card (``parallel/pp.py``'s hops go through host
+    memory either way; a rank's crash is an answer). Run by
+    ``tools/parallel_smoke.py``: on an H100 the sender's process ends
+    in every run so far, so the smoke spends no spawn on it."""
+    from generative_models_tpu_torch.parallel import runs
+    from generative_models_tpu_torch.parallel.mesh import run_ranks
+    try:
+        probes = run_ranks(runs.hop_probe, 2, "cuda", ranks_share_card=True,
+                           timeout=60)
+        probe = "works" if probes == [None, None] else f"fails: {probes}"
+    except RuntimeError as e:  # the rank's own last line
+        probe = f"fails: {str(e).strip().splitlines()[-1]}"
+    print(f"  gloo send/recv of a CUDA tensor, two ranks on the card: "
+          f"{probe}  [{card}]")
+    return probe
+
+
+def drive_multihost(mods, torch):
+    """Phase 4l, ``--multihost``: ``cli.main`` at WORLD_SIZE 1 over NCCL
+    (RANK 0, LOCAL_RANK 0, a rendezvous on localhost), nsgan
+    MULTIHOST_STEPS steps: rc 0, its final line, and metrics.jsonl with a
+    record a step. Returns (launch counts, the final line)."""
+    import contextlib
+    import io
+    import shutil
+    import socket
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.parallel import mesh
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out_dir = os.path.join(OUT_DIR, "multihost")
+    reset(*mods)
+    mesh.all_reduces = 0
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--variant", "nsgan", "--multihost", "--device",
+                           "cuda", "--dataset",
+                           "synthetic", "--steps", str(MULTIHOST_STEPS),
+                           "--batch-size", str(TRAIN_B), "--echo-every", "0",
+                           "--sample-every", "-1", "--out-dir", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = dict(launch_counts(mods), all_reduce=mesh.all_reduces)
+    lines = buf.getvalue().strip().splitlines()
+    final = json.loads(next(l for l in reversed(lines)
+                            if l.startswith("{") and "steps_per_sec" in l))
+    with open(os.path.join(out_dir, "nsgan", "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ok = (rc == 0 and final["steps"] == MULTIHOST_STEPS
+          and [r["step"] for r in recs] == list(range(MULTIHOST_STEPS))
+          and all(np.isfinite(v) for v in final["eval"].values())
+          and counts["gan_chunk"] == 0
+          and counts["mlp_fwd"] >= 5 * MULTIHOST_STEPS
+          and counts["all_reduce"] >= 2 * MULTIHOST_STEPS)
+    print(f"  multihost_nsgan: cli.main([... --multihost]) at WORLD_SIZE 1 "
+          f"(nccl): rc {rc}, {final}, {len(recs)} metrics.jsonl records, "
+          f"launches {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("--multihost at world 1 failed its checks")
+    return counts, final
+
+
+def drive_parallel(mods, torch, card):
+    """Phase 4l: tensor and pipeline parallelism on two ranks sharing the
+    card, and ``--multihost`` at WORLD_SIZE 1. Returns ({path: counts},
+    {what: numbers})."""
+    print("[4l] parallelism: tp and pp on two ranks sharing the card "
+          "(gloo), --multihost at world 1 (nccl)")
+    t0 = time.perf_counter()
+    paths, tp_sps = drive_tp(mods, torch, card)
+    pp_paths, pp_line = drive_pp(mods, torch, card)
+    paths.update(pp_paths)
+    paths["multihost_nsgan"], mh_line = drive_multihost(mods, torch)
+    print(f"  phase 4l took {time.perf_counter() - t0:.1f} s")
+    return paths, {"tp": tp_sps, "pp": pp_line, "multihost": mh_line}
+
+
+def drive_dp_family(variant, mods, torch, group, data):
+    """Phase 4f, the diffusion and VQ families: the general DP step in the
+    group of one rank, DP_FAMILY_STEPS steps, against the single device's
+    general step from the same seed (the same draws: a rank's generator a
+    step, from the data rank), by TP_TOL; the MLP kernels launched, one
+    all-reduce a step. Returns the DP run's launch counts."""
+    from generative_models_tpu_torch.parallel import mesh
+    from generative_models_tpu_torch.parallel.runs import state_numpy
+    from generative_models_tpu_torch.train.trainer import Trainer
+    cfg = dp_cfg(variant, {}, False)
+    runs = {}
+    for name, grp in (("dp", group), ("single", None)):
+        t = Trainer(config=cfg, device="cuda", group=grp, data=data)
+        t._load_data()
+        reset(*mods)
+        mesh.all_reduces = 0
+        t.train(steps=DP_FAMILY_STEPS)
+        torch.cuda.synchronize()
+        runs[name] = (state_numpy(t.state), t.history,
+                      dict(launch_counts(mods), all_reduce=mesh.all_reduces))
+    (s_dp, h_dp, counts), (s_1, h_1, c_1) = runs["dp"], runs["single"]
+    err = max(float(np.abs(s_dp[k] - s_1[k]).max()) for k in s_1
+              if k != "['rng']")
+    close = all(np.allclose(s_dp[k], s_1[k], **TP_TOL) for k in s_1
+                if k != "['rng']") and all(
+        np.allclose(np.asarray(h_dp[k]), np.asarray(h_1[k]), **TP_TOL)
+        for k in h_1)
+    n = DP_FAMILY_STEPS
+    ok = (close and counts["all_reduce"] == n and counts["gan_chunk"] == 0
+          and counts["mlp_fwd"] == c_1["mlp_fwd"] > 0
+          and counts["mlp_bwd"] == c_1["mlp_bwd"] > 0)
+    print(f"  dp1_general_{variant}: Trainer(group of 1, nccl).train({n}) vs "
+          f"the single device: state max abs diff {err:.3e} (tol rtol "
+          f"{TP_TOL['rtol']:.0e} atol {TP_TOL['atol']:.0e}); launches "
+          f"{counts} (single device {c_1['mlp_fwd']} / {c_1['mlp_bwd']}, "
+          f"{n} all-reduces) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dp1_general_{variant} failed its checks")
+    return counts
 
 
 def drive_dp_bf16(cuda_dp, cuda_train, mods, torch, group, data, hist32):
@@ -5171,17 +5612,21 @@ def phase_bound(mode, b, variant, hp):
     return bound_of(g_f, 4 * (g_n + d_n + b * zi + g_n + 8), peak)
 
 
-def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32"):
+def time_phases(cuda_dp, cuda_train, torch, card, dtype="float32",
+                variants=None):
     """Phase 5e: each hook's phase kernels at b = 100 and 50 beside their
     float32 plain versions on the card, their bounds, and the library's
     same gradients (library_phases), which are first held against the
     float64 plain version (LIBRARY_TOL); with `dtype` "bfloat16" (phase
     5f) the bf16 kernels at b = 100, the library under autocast
-    (LIBRARY_BF16_TOL), the bound at the tensor cores' peak."""
+    (LIBRARY_BF16_TOL), the bound at the tensor cores' peak. `variants`:
+    the hooks' variants to time (every one by default)."""
     from generative_models_tpu_torch.tools import phase_trace
     rows = []
     bf16 = dtype == "bfloat16"
     for variant, kw in PHASE_CASES:
+        if variants and variant not in variants:
+            continue
         hp = chunk_hyper(cuda_train, variant, dtype=dtype, **kw)
         lam = BEGAN_K0 if variant == "began" else 0.0
         for b in (TRAIN_B,) if bf16 else PHASE_BATCHES:
@@ -5717,6 +6162,9 @@ def main() -> int:
     vq_paths, vq_lines, vq_err = drive_vq(mods, torch)
     paths.update(vq_paths)
     mark("4k")
+    par_paths, par_lines = drive_parallel(mods, torch, card)
+    paths.update(par_paths)
+    mark("4l")
     build_all(rest, build_mod.BUILD_DIR, started)
     granted = chunk_libraries(cuda_train, cuda_dp, ctv, build_mod.BUILD_DIR)
     mark("2 (the rest, waited for)")
@@ -5806,14 +6254,19 @@ def main() -> int:
     check_phase_device(phase_rows, phase_trace_rows, card)
     mark("5b-5e")
     print("[5f] the EMA and bf16 kernels' times")
-    ema_rows = time_training(cuda_train, torch, card, {}, ema_decay=EMA_DECAY)
-    bf16_rows = time_training(cuda_train, torch, card, {}, dtype="bfloat16")
+    # (the hooks 5e traces; every hook's EMA and bf16 times until 4l came:
+    # PERF.md §5)
+    traced = [c for c in TIMED_CASES if c[0] in TRACE_VARIANTS]
+    ema_rows = time_training(cuda_train, torch, card, {}, ema_decay=EMA_DECAY,
+                             cases=traced)
+    bf16_rows = time_training(cuda_train, torch, card, {}, dtype="bfloat16",
+                              cases=traced)
     vae_ema_rows = time_vae_training(ctv, torch, card, general_sps,
                                      ema_decay=EMA_DECAY)
     vae_bf16_rows = time_vae_training(ctv, torch, card, general_sps,
                                       dtype="bfloat16")
     phase_bf16_rows = time_phases(cuda_dp, cuda_train, torch, card,
-                                  dtype="bfloat16")
+                                  dtype="bfloat16", variants=TRACE_VARIANTS)
     check_phase_device(phase_bf16_rows, phase_bf16_trace, card)
     phase_bf16_main = {m: next(r for r in phase_bf16_rows if r["kernel"] ==
                                f"gan_phase_{m}_bf16"
@@ -5853,7 +6306,8 @@ def main() -> int:
               conv_checks=conv_err, conv_cli_runs=conv_lines,
               conv_training=conv_rows, diffusion_checks=diff_err,
               diffusion_runs=diff_lines, diffusion_times=diff_rows,
-              vq_checks=vq_err, vq_runs=vq_lines, vq_times=vq_rows),
+              vq_checks=vq_err, vq_runs=vq_lines, vq_times=vq_rows,
+              parallel_runs=par_lines),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",

@@ -27,7 +27,16 @@ GAN, ``loss``,
 ``--device cpu`` N gloo ranks on the CPU; ``--batch-size`` stays the
 global batch, ``--fused-step`` takes the phase kernels
 (``ops/cuda_dp.py``) and ``--dp-impl`` either value the general DP step
-(``parallel/dp.py``); rank 0 alone writes and prints. ``--sample-only`` loads a checkpoint written by either
+(``parallel/dp.py``); rank 0 alone writes and prints. ``--tp N`` (with
+``--dp M``, default 1) trains tensor-parallel: M x N ranks on a grid
+(``parallel/mesh.py::make_grid``, ``parallel/tp.py``), one a card, each
+holding its shard of every sharded layer; ``--fused-step`` is refused
+with it. ``--multihost`` joins a group whose ranks the caller started,
+one process each, from ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT`` and ``LOCAL_RANK`` (``parallel/multihost.py``); the
+grid dp x tp must have ``WORLD_SIZE`` ranks, every process prints its
+lines and writes its metrics and images under its ``--out-dir``, and
+rank 0 saves. ``--sample-only`` loads a checkpoint written by either
 package and writes a sample grid (cgan's cycles the classes: row i has
 label i % num_classes), printing ``{"variant", "step", "samples"}``.
 ``--score-samples`` trains the quality scorer's classifier on the train
@@ -55,7 +64,6 @@ from generative_models_tpu_torch.config import Config, VARIANTS, variant_config
 
 # flag -> the ROADMAP.md item that ports its path
 _NOT_PORTED = {
-    "multihost": "Queue 1 item 12, parallelism",
     "profile": "Queue 1 item 5, the GPU bench",
 }
 
@@ -122,7 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "vqvae checkpoint into the prior run's tokenizer and "
                         "freeze it (sets --vq-freeze-tokenizer); only the "
                         "prior trains")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a group of processes the caller started, one "
+                        "a rank, from RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT and LOCAL_RANK; --dp x --tp must be "
+                        "WORLD_SIZE")
     return p
 
 
@@ -149,49 +161,71 @@ def main(argv=None) -> int:
         parser.error("--sample-only samples a trained model: pass the "
                      "prior run's --ckpt, not --vq-from")
     cfg = _config(args)
-
-    if not args.sample_only and cfg.tp > 1:
-        parser.error("tensor-parallel training (--tp > 1) is not ported to "
-                     "generative_models_tpu_torch yet (ROADMAP.md Queue 1 "
-                     "item 12, parallelism)")
-    if not args.sample_only and cfg.dp > 1:
+    if args.sample_only:  # serving runs on one device
+        cfg = cfg.replace(dp=1, tp=1)
+    if cfg.tp > 1 and cfg.fused_step is True:
+        parser.error("--fused-step with --tp > 1: the chunk and phase kernels "
+                     "assume whole parameters (the general step shards them)")
+    if args.multihost:
+        return _run_multihost(args, cfg, parser)
+    world = cfg.dp * cfg.tp
+    if world > 1:
         import torch
 
         from generative_models_tpu_torch.parallel.mesh import run_ranks
         if torch.device(args.device).type == "cuda":
             have = (torch.cuda.device_count() if torch.cuda.is_available()
                     else 0)
-            if have < cfg.dp:
-                parser.error(f"--dp {cfg.dp} needs {cfg.dp} CUDA devices, one "
+            if have < world:
+                what = (f"--dp {cfg.dp}" if cfg.tp == 1
+                        else f"--dp {cfg.dp} --tp {cfg.tp}")
+                parser.error(f"{what} needs {world} CUDA devices, one "
                              f"a rank, but only {have} are present "
                              "(--device cpu runs the ranks on the CPU)")
         argv = sys.argv[1:] if argv is None else list(argv)
-        lines = run_ranks(_train_rank, cfg.dp, args.device, args=(argv,))
+        lines = run_ranks(_train_rank, world, args.device, args=(argv,),
+                          grid=(cfg.dp, cfg.tp, "model"))
         for line in lines[0]:  # rank 0's
             print(line)
         return 0
     return _run(args, cfg, print)
 
 
-def _train_rank(group, argv) -> list:
-    """One rank of ``--dp N``: trains in `group` and returns the lines
-    rank 0 prints (the other ranks print nothing)."""
+def _run_multihost(args, cfg, parser) -> int:
+    """``--multihost``: this process is one rank of a dp x tp grid whose
+    other ranks the caller started; it prints its own lines."""
+    from generative_models_tpu_torch.parallel import mesh, multihost
+    try:
+        grid = multihost.init_multihost(cfg.dp, cfg.tp, args.device)
+    except ValueError as e:
+        parser.error(str(e))
+    try:
+        rc = _run(args, cfg, print, grid, log_every_rank=True)
+        grid.barrier()
+        return rc
+    finally:
+        mesh.close_data_group()
+
+
+def _train_rank(grid, argv) -> list:
+    """One rank of ``--dp M --tp N``: trains in `grid` and returns the
+    lines rank 0 prints (the other ranks print nothing)."""
     args = build_parser().parse_args(argv)
     out: list = []
-    _run(args, _config(args), out.append if group.rank == 0
-         else (lambda line: None), group)
+    _run(args, _config(args), out.append if grid.rank == 0
+         else (lambda line: None), grid)
     return out
 
 
-def _run(args, cfg, say, group=None) -> int:
+def _run(args, cfg, say, group=None, log_every_rank=False) -> int:
     if not args.debug_nans:
-        return _run_body(args, cfg, say, group)
+        return _run_body(args, cfg, say, group, log_every_rank)
     import torch
     with torch.autograd.detect_anomaly():
-        return _run_body(args, cfg, say, group)
+        return _run_body(args, cfg, say, group, log_every_rank)
 
 
-def _run_body(args, cfg, say, group) -> int:
+def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
     from generative_models_tpu_torch.train.trainer import Trainer
     from generative_models_tpu_torch.utils.checkpoint import exists
     data = teacher = None
@@ -215,7 +249,8 @@ def _run_body(args, cfg, say, group) -> int:
             args.vq_from, cfg, args.device if group is None else group.device)
         say(f"vqprior: frozen tokenizer from {args.vq_from}")
     t = Trainer(config=cfg, device=args.device, group=group,
-                debug_nans=args.debug_nans, data=data)
+                debug_nans=args.debug_nans, data=data,
+                log_every_rank=log_every_rank)
     if teacher is not None and not args.reflow_fresh_init:
         reflow.init_student(t, teacher)
     if vq_params is not None:
@@ -237,7 +272,7 @@ def _run_body(args, cfg, say, group) -> int:
         say(f"resumed from {args.ckpt} at step {t.state['step']}")
 
     run_dir = os.path.join(cfg.out_dir, cfg.variant)
-    if t.writes:
+    if t.logs:
         os.makedirs(run_dir, exist_ok=True)
     t.train(num_epochs=cfg.epochs,
             steps=None if cfg.epochs else cfg.steps,
@@ -255,6 +290,9 @@ def _run_body(args, cfg, say, group) -> int:
     }))
     t.generate_images(tag="final")
     t.viz_loss()
+    # scoring and export on one rank need no collective: a tp state is
+    # gathered whole on every rank first
+    t.unshard()
     if args.score_samples and t.writes:
         say(json.dumps(_score(t)))
     # the checkpoint first: a failed export must not cost the run

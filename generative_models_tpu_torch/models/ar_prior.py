@@ -44,6 +44,7 @@ from generative_models_tpu_torch.models.vq_net import num_tokens
 from generative_models_tpu_torch.ops.linear import fused_linear
 from generative_models_tpu_torch.ops.matmul import matmul
 from generative_models_tpu_torch.ops.vq import lookup
+from generative_models_tpu_torch.parallel import tp
 
 LN_EPS = 1e-5
 MASKED = -1e30   # the reference's fill for positions past the causal row
@@ -62,6 +63,8 @@ def _ln_apply(params, x):
 
 
 def _lin1(layer, x, act: str = "none"):
+    if tp.is_marked(layer):  # a shard under tensor parallelism
+        return tp.layer_apply(layer, x, act=act)
     return fused_linear(x, layer["w"], layer["b"], act=act)
 
 
@@ -93,15 +96,20 @@ def _heads(t, nh: int):
 
 
 def _attn(params, x, cfg):
-    """Causal multi-head self-attention over [B, L, W]."""
+    """Causal multi-head self-attention over [B, L, W]. Under tensor
+    parallelism qkv's output may hold this rank's heads alone (q, k and v
+    of each, ``parallel/tp.py``'s "col_heads"): the heads follow qkv's
+    width, and proj takes the rows of those heads."""
     b, l, w = x.shape
-    nh = cfg.vq_prior_heads
-    q, k, v = (_heads(t, nh) for t in _lin(params["qkv"], x).split(w, -1))
-    scores = matmul(q, k.transpose(-1, -2)) / _scale(w // nh)
+    qkv = _lin(params["qkv"], x)
+    wl = qkv.shape[-1] // 3
+    nh = cfg.vq_prior_heads * wl // w
+    q, k, v = (_heads(t, nh) for t in qkv.split(wl, -1))
+    scores = matmul(q, k.transpose(-1, -2)) / _scale(wl // nh)
     causal = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
     scores = scores.masked_fill(~causal, MASKED)
     o = matmul(torch.softmax(scores, dim=-1), v)
-    return _lin(params["proj"], o.transpose(1, 2).reshape(b, l, w))
+    return _lin(params["proj"], o.transpose(1, 2).reshape(b, l, wl))
 
 
 def prior_init(gen: torch.Generator, cfg, device="cpu"):

@@ -54,6 +54,7 @@ from generative_models_tpu_torch.models.conv import (
 from generative_models_tpu_torch.models.mlp import linear_init
 from generative_models_tpu_torch.ops.activations import apply_act
 from generative_models_tpu_torch.ops.linear import fused_linear
+from generative_models_tpu_torch.parallel import tp
 
 # float32 log(10000), the reference's jnp.log(10000.0)
 _LOG_1E4 = float(np.float32(math.log(10000.0)))
@@ -61,6 +62,15 @@ _LOG_1E4 = float(np.float32(math.log(10000.0)))
 
 def _cdt(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else None
+
+
+def _dense(layer, x, act, compute_dtype):
+    """One dense layer: ``fused_linear``, or a shard under tensor
+    parallelism in its Megatron form (``parallel/tp.py``)."""
+    if tp.is_marked(layer):
+        return tp.layer_apply(layer, x, act, compute_dtype=compute_dtype)
+    return fused_linear(x, layer["w"], layer["b"], act=act,
+                        compute_dtype=compute_dtype)
 
 
 def _zero_linear(in_dim: int, out_dim: int, device="cpu") -> dict:
@@ -107,10 +117,8 @@ def _time_mlp_apply(params, t, cfg, y=None):
                            device=t.device)
         emb = emb + params["label"][y.long()]
     lay = params["l"]
-    emb = fused_linear(emb, lay[0]["w"], lay[0]["b"], act="silu",
-                       compute_dtype=cd)
-    return fused_linear(emb, lay[1]["w"], lay[1]["b"], act="none",
-                        compute_dtype=cd)
+    emb = _dense(lay[0], emb, "silu", cd)
+    return _dense(lay[1], emb, "none", cd)
 
 
 # --------------------------------------------------------------------
@@ -136,8 +144,7 @@ def mlp_apply(params, x, t, cfg, y=None):
     cd = _cdt(cfg)
 
     def lin(name, a):
-        p = params[name]
-        return fused_linear(a, p["w"], p["b"], act="none", compute_dtype=cd)
+        return _dense(params[name], a, "none", cd)
     emb = _time_mlp_apply(params["time"], t, cfg, y)
     h = apply_act(lin("in", x) + lin("t1", emb), "silu")
     h = apply_act(lin("mid", h) + lin("t2", emb), "silu")

@@ -21,6 +21,7 @@ from generative_models_tpu_torch.ops.cuda_mlp import (
     acts_tuple,
 )
 from generative_models_tpu_torch.ops.linear import linear_plain
+from generative_models_tpu_torch.parallel import tp
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -50,7 +51,12 @@ def mlp_apply_plain(layers: List[dict], x, hidden_act: str = "relu",
     """Per-layer torch ops on any device (the twin of the reference's
     ``mlp_apply_xla``): twice differentiable, which the kernels are not.
     On the card only the gradient penalty's critic pass takes it
-    (``ops/penalty.py``)."""
+    (``ops/penalty.py``). A stack holding layers marked for tensor
+    parallelism takes their Megatron forms (``parallel/tp.py``)."""
+    if any(tp.is_marked(l) for l in layers):
+        return tp.stack_apply(layers, x, acts_tuple(len(layers), hidden_act,
+                                                    out_act),
+                              slope, compute_dtype, plain=True)
     n = len(layers)
     for i, layer in enumerate(layers):
         act = out_act if i == n - 1 else hidden_act
@@ -67,7 +73,13 @@ def mlp_apply(layers: List[dict], x, hidden_act: str = "relu",
     stack through :class:`MLPFunction`: one launch of the forward kernel,
     and one of the backward kernel when a gradient is taken
     (ops/cuda_mlp.py), or raises. A stack holding an activation the
-    kernels do not (:func:`mlp_apply_split`) takes one launch a layer."""
+    kernels do not (:func:`mlp_apply_split`), or a layer marked for tensor
+    parallelism (``parallel/tp.py::stack_apply``), takes one launch a
+    layer."""
+    if any(tp.is_marked(l) for l in layers):
+        return tp.stack_apply(layers, x, acts_tuple(len(layers), hidden_act,
+                                                    out_act),
+                              slope, compute_dtype)
     if x.device.type == "cpu":
         return mlp_apply_plain(layers, x, hidden_act, out_act, slope,
                                compute_dtype)

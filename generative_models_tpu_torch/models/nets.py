@@ -165,9 +165,12 @@ def infogan_d_init(gen: torch.Generator, cfg: Config, device="cpu"):
 
 def infogan_head(params) -> dict:
     """The D head and the Q head side by side as one layer [hidden, 1 +
-    q_out]: lane 0 the D logit, then Q's lanes (the chunk kernel's head)."""
-    return {"w": torch.cat([params["d_head"]["w"], params["q_head"]["w"]], 1),
+    q_out]: lane 0 the D logit, then Q's lanes (the chunk kernel's head);
+    under tensor parallelism both heads are rows, and so is the pair."""
+    head = {"w": torch.cat([params["d_head"]["w"], params["q_head"]["w"]], 1),
             "b": torch.cat([params["d_head"]["b"], params["q_head"]["b"]])}
+    d_head = params["d_head"]
+    return d_head.remake(head) if hasattr(d_head, "remake") else head
 
 
 def infogan_d_apply(params, x, cfg: Config):

@@ -37,6 +37,19 @@ whenever a mesh is present. Each rank draws its rows of the global
 batch's noise (``grid_noise``'s ``shard``). Rank 0 alone writes
 ``metrics.jsonl``, images, the loss plot and checkpoints; every rank can
 load.
+
+Given a ``dp x tp`` grid (``parallel/mesh.py::Grid`` on the "model"
+axis; the reference's 2-D mesh) with ``cfg.tp`` = tp > 1, the Trainer is
+one rank of a tensor-parallel run: its state holds its shard of each
+sharded leaf (``parallel/tp.py``), the step is the general DP step over
+the grid's data group, and the noise comes from the data rank, so the
+model ranks of a data slice draw the same numbers. A grid whose model
+axis does not match ``cfg.tp``, in either direction, is refused, and so
+are the chunk and phase kernels (``fused_step=True``). ``sample``,
+``generator_params``, ``save_model``, ``load_model`` and ``evaluate``
+work from the shards, collectively: every rank of the grid calls them
+together (the first four gather the whole parameters over the model
+group; ``evaluate`` runs the sharded layers' collectives).
 """
 
 from __future__ import annotations
@@ -59,7 +72,8 @@ from generative_models_tpu_torch.losses.registry import get_variant
 from generative_models_tpu_torch.ops import cuda_dp, cuda_train
 from generative_models_tpu_torch.ops.penalty import aux_draw, aux_lanes
 from generative_models_tpu_torch.ops.spectral import init_sn_vectors
-from generative_models_tpu_torch.parallel import dp
+from generative_models_tpu_torch.parallel import dp, tp
+from generative_models_tpu_torch.parallel.mesh import Grid
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
 from generative_models_tpu_torch.utils.checkpoint import (
@@ -95,24 +109,26 @@ class Trainer:
     def __init__(self, variant: str = "nsgan",
                  config: Optional[Config] = None, device="cuda",
                  data: Optional[Dict[str, np.ndarray]] = None,
-                 group=None, debug_nans: bool = False, **overrides):
+                 group=None, debug_nans: bool = False,
+                 log_every_rank: bool = False, **overrides):
         cfg = config if config is not None else variant_config(
             variant, **overrides)
         if cfg.dtype == "auto":
             # no bf16 crossover has been measured on the card: float32
             cfg = cfg.replace(dtype="float32")
         self.cfg = cfg
-        self.group = group
+        self.grid = group if isinstance(group, Grid) else None
+        self.group = group = group.data if self.grid else group
         # every chunk's metrics and the state checked for finite values
         # (the CLI's --debug-nans, which also turns on anomaly mode)
         self.debug_nans = debug_nans
+        # every rank writes metrics.jsonl, images and the loss plot (the
+        # CLI's --multihost: each process its own); rank 0 alone saves
+        self.log_every_rank = log_every_rank
         self.device = resolve_device(device if group is None
                                      else group.device)
         self.spec = get_variant(cfg.variant)
-        if cfg.tp > 1:
-            raise ValueError("tensor-parallel training (tp > 1) is not "
-                             "ported to generative_models_tpu_torch yet "
-                             "(ROADMAP.md Queue 1 item 12, parallelism)")
+        self.tp = self._model_group(cfg)
         if group is None and cfg.dp > 1:
             raise ValueError(f"dp={cfg.dp} needs a data group of {cfg.dp} "
                              "ranks (parallel/mesh.py::run_ranks; the CLI's "
@@ -131,6 +147,10 @@ class Trainer:
             ok, reason = cuda_train.fused_step_supported(self.spec, cfg)
             if not ok:
                 raise ValueError(f"fused_step unsupported here: {reason}")
+        if self.tp is not None:
+            reason = tp.unsupported(self.spec, cfg)
+            if reason:
+                raise ValueError(reason)
         # the split is loaded at the first call that needs it, so serving
         # (load_model + sample) reads no dataset
         self._raw = data
@@ -139,8 +159,58 @@ class Trainer:
         self.state = step_lib.init_state(
             self.spec, cfg, torch.Generator().manual_seed(cfg.seed),
             self.device)
+        self._shard()
         self._sample_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
+
+    def _model_group(self, cfg):
+        """The grid's model group under tp > 1 (None without one); raises
+        when the grid's model axis and ``cfg.tp`` differ, either way."""
+        grid = self.grid
+        axis = grid.n if grid is not None and grid.axis == tp.MODEL_AXIS else 1
+        if grid is not None and grid.axis != tp.MODEL_AXIS and grid.n > 1:
+            raise ValueError(
+                f"the Trainer takes a data group or a 'model' grid, not a "
+                f"{grid.axis!r} one (pipeline parallelism trains the prior "
+                "through parallel/pp.py::build_pp_prior_step)")
+        if (cfg.tp > 1 or axis > 1) and axis != cfg.tp:
+            raise ValueError(
+                f"Config.tp={cfg.tp} but the rank grid's '{tp.MODEL_AXIS}' "
+                f"axis size {axis}; build it with parallel/mesh.py::make_grid"
+                f"(dp, tp, '{tp.MODEL_AXIS}') and a matching cfg")
+        return grid.second if axis > 1 else None
+
+    def _shard(self) -> None:
+        """Under tp, keep this rank's shard of the (whole, equal on every
+        rank) state, and the roles to gather it back."""
+        if self.tp is not None:
+            self.state, self._roles = tp.shard_state(self.spec, self.cfg,
+                                                     self.state, self.tp)
+
+    def whole_state(self):
+        """The whole train state: the state itself, or under tp gathered
+        over the model group (a collective: every rank calls it)."""
+        if self.tp is None:
+            return self.state
+        return {k: tp.gather_tree(v, self._roles[k], self.tp)
+                for k, v in self.state.items()}
+
+    def unshard(self) -> None:
+        """Under tp, gather the whole state on every rank (a collective)
+        and go on as a data-parallel rank holding it: sampling, scoring
+        and export then run on one rank alone. A no-op otherwise."""
+        if self.tp is None:
+            return
+        self.state = self.whole_state()
+        self.tp = None
+        if self.x_train is not None:
+            self._build_fns()
+
+    def _barrier(self) -> None:
+        if self.grid is not None:
+            self.grid.barrier()
+        elif self.group is not None:
+            self.group.barrier()
 
     # --------------------------------------------------------------
     def _load_data(self) -> None:
@@ -194,6 +264,11 @@ class Trainer:
         if self.steps_per_epoch < 1:
             raise ValueError("dataset smaller than one training step")
         self.rows_per_epoch = self.steps_per_epoch * self.rows_per_step
+        if self.tp is not None:
+            self._fused = False
+            self._many_steps = tp.build_tp_many_steps(
+                self.spec, cfg, self.steps_per_epoch, self.grid)
+            return
         if self.group is not None:
             self._fused = cfg.fused_step is True
             self._many_steps = (
@@ -302,8 +377,8 @@ class Trainer:
         else:
             total = steps
 
-        logger = MetricsLogger(log_path if self.writes else None,
-                               echo_every=echo_every if self.writes else 0)
+        logger = MetricsLogger(log_path if self.logs else None,
+                               echo_every=echo_every if self.logs else 0)
         sample_every = (cfg.sample_every if sample_every is None
                         else sample_every)
         # data order continues from the restored global step on resume
@@ -476,13 +551,20 @@ class Trainer:
         whole model for the VAE family — or their EMA when
         ``cfg.ema_decay > 0`` (reference ``trainer.py:524-534``)."""
         if self.cfg.ema_decay > 0:
-            return self.state["g_ema" if self.spec.adversarial else "ema"]
+            return self._whole("g_ema" if self.spec.adversarial else "ema")
         return self.raw_generator_params
 
     @property
     def raw_generator_params(self):
         """The live (non-EMA) sampling-side params."""
-        return self.state["g_params" if self.spec.adversarial else "params"]
+        return self._whole("g_params" if self.spec.adversarial else "params")
+
+    def _whole(self, key):
+        """The state's subtree `key`, whole (under tp gathered over the
+        model group: a collective)."""
+        if self.tp is None:
+            return self.state[key]
+        return tp.gather_tree(self.state[key], self._roles[key], self.tp)
 
     @torch.no_grad()
     def sample(self, n: Optional[int] = None, z=None,
@@ -508,9 +590,17 @@ class Trainer:
 
     @property
     def writes(self) -> bool:
-        """Whether this Trainer writes files: rank 0 of a data group, or
-        a Trainer without one."""
+        """Whether this Trainer writes checkpoints: rank 0 of a data group
+        or grid, or a Trainer without one."""
+        if self.grid is not None:
+            return self.grid.rank == 0
         return self.group is None or self.group.rank == 0
+
+    @property
+    def logs(self) -> bool:
+        """Whether this Trainer writes metrics.jsonl, images and the loss
+        plot: the rank that writes, or every rank with log_every_rank."""
+        return self.writes or self.log_every_rank
 
     def generate_images(self, tag: str = "samples", n: Optional[int] = None,
                         out_dir: Optional[str] = None) -> str:
@@ -519,14 +609,14 @@ class Trainer:
         imgs = self.sample(n)
         out_dir = out_dir or os.path.join(self.cfg.out_dir, self.cfg.variant)
         path = os.path.join(out_dir, f"{tag}.png")
-        return save_image_grid(path, imgs) if self.writes else path
+        return save_image_grid(path, imgs) if self.logs else path
 
     def viz_loss(self, path: Optional[str] = None) -> str:
         """Reference's loss-curve plot (a CSV without matplotlib; rank 0
         only)."""
         path = path or os.path.join(self.cfg.out_dir, self.cfg.variant,
                                     "loss.png")
-        if not self.writes:
+        if not self.logs:
             return path
         return plot_losses(path, getattr(self, "history", {}))
 
@@ -542,9 +632,8 @@ class Trainer:
         variant's carried scalars, step, rng) in the JAX package's npz
         layout."""
         self._npz_only()
-        out = save_state(path, self.state, write=self.writes)
-        if self.group is not None:  # the file is whole before any rank
-            self.group.barrier()    # reads it
+        out = save_state(path, self.whole_state(), write=self.writes)
+        self._barrier()  # the file is whole before any rank reads it
         return out
 
     def load_model(self, path: str) -> None:
@@ -556,7 +645,7 @@ class Trainer:
         training resumes where it stopped."""
         self._npz_only()
         loaded = load_jax_checkpoint(path, self.cfg)
-        st = dict(self.state)
+        st = dict(self.whole_state())
         for key, v in loaded.items():
             if key == "rng":
                 st["rng"] = np.asarray(v, dtype=np.uint32)
@@ -569,3 +658,4 @@ class Trainer:
             # loaded critic, as init_sn_vectors does at the init weights
             st["sn_v"] = init_sn_vectors(st["d_params"], self.cfg.sn_iters)
         self.state = st
+        self._shard()  # under tp each rank takes its slice

@@ -14,11 +14,18 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
+def _like(t: dict, d: dict) -> dict:
+    """`d` as a dict of `t`'s kind: a layer marked for tensor parallelism
+    (``parallel/tp.py::TPLayer``) keeps its mark."""
+    remake = getattr(t, "remake", None)
+    return remake(d) if remake is not None else d
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """`fn` applied leafwise over trees of one structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *[r[k] for r in rest])
-                for k in tree}
+        return _like(tree, {k: tree_map(fn, tree[k], *[r[k] for r in rest])
+                            for k in tree})
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *[r[i] for r in rest])
                 for i, v in enumerate(tree)]
@@ -55,7 +62,7 @@ def tree_unflatten(like: Any, leaves) -> Any:
     def build(t):
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
+            return _like(t, {k: built[k] for k in t})
         if isinstance(t, (list, tuple)):
             return [build(v) for v in t]
         return next(it)

@@ -295,7 +295,6 @@ def _fake_group(world=WORLD):
 
 
 @pytest.mark.parametrize("variant,kw,match", [
-    ("nsgan", {"tp": 2}, "Queue 1 item 12"),
     ("ragan", {"fused_step": True}, "global-batch statistics"),
     ("fishergan", {"fused_step": True}, "global-batch statistics"),
     ("vae", {"fused_step": True}, "single-model"),
