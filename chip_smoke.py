@@ -203,7 +203,11 @@ imports nothing of JAX. Phases:
      three libraries alone): tensor parallelism on two ranks sharing the
      card over gloo (a 1 x 2 grid on the "model" axis): nsgan, vae,
      wgangp and vqprior at config.py's widths, B 100, TP_STEPS general
-     steps each (wgangp 4, as tests/test_tp.py), held against a single-device run on the card from the
+     steps each (wgangp 4, as tests/test_tp.py), and nsgan with the
+     spectral projection in both sn_modes (D's weights gathered whole
+     and projected, their largest sigma within sn_target after the run;
+     the model group's all-gathers counted), held against a
+     single-device run on the card from the
      same seed and draws by tests/test_tp.py's tolerances (TP_TOL), the
      MLP kernels' launches, the penalty's plain passes and the model and
      data groups' all-reduces a step worked out beforehand (TP_PER_STEP;
@@ -216,6 +220,19 @@ imports nothing of JAX. Phases:
      at WORLD_SIZE 1 over NCCL (nsgan, MULTIHOST_STEPS steps, its final
      line and metrics.jsonl); host-clock steps/s of each beside the single
      device's, and the model group's all-reduce time;
+   - the measured fused-step policy (4m, ``ops/fused_policy.py``; every
+     other phase runs with GMTPU_FUSED_AB=0, the static rule, so its
+     launch counts hold): the A/B of nsgan, vae and wgangp at B 100 and
+     nsgan at B 1024 (POLICY_AB_STEPS steps a rep), both arms' steps/s
+     and the verdict, the second call from the cache (no launch), the
+     CLI's "auto" run launching the verdict's arm, and a failed
+     measurement taking the kernel and cached nowhere;
+   - ``--profile`` and the directory checkpoint backend (4n): the CLI's
+     traces of nsgan on the chunk kernel and on the general step hold
+     the chunk, forward and backward kernels' events (their sizes
+     printed, the files removed), and ``--ckpt-backend orbax`` saves a
+     directory, resumes from it and ends at the uninterrupted run's
+     state bit for bit;
 5. times, with CUDA events, each kernel beside its plain version, its
    bound and one library call (5a: the MLP kernels at the serving and the
    general step's shapes, float32 and bf16 beside autocast, each with its
@@ -253,7 +270,11 @@ imports nothing of JAX. Phases:
   the same for vqvae and vqprior on both archs, the prior's served
   images/s at n 64 and 1024 in both decodes, and (5a) the prior's five
   linears at 1600 rows (VQ_DENSE, also held in 3a at 64-50,176 rows and
-  3b at 1600 and 4900, with the MLP tokenizer's stacks);
+  3b at 1600 and 4900, with the MLP tokenizer's stacks); (5j) the conv
+  nsgan and vae general steps in float32 and bf16 at
+  B 100-2048, A B B A twice (each arm's best run), the table of steps/s
+  and the bf16 crossover it gives beside config.py's
+  CONV_BF16_CROSSOVER_BATCH;
 6. prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -274,6 +295,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2095,7 +2117,7 @@ CONV_TOL = 5e-5
 # float64 on the CPU, by max abs error over max |reference|.
 CONV_LAYER_TOL = 1e-5
 CONV_CLI = ("nsgan", "wgangp", "lsgan", "vae")
-CONV_STEPS = 100   # (200 until the smoke neared its time limit)
+CONV_STEPS = 50   # (200, then 100, until the smoke neared its time limit)
 # The CLI's conv runs (the general step: fused_step "auto" refuses conv)
 # launch, a training step: (mlp_fwd, mlp_bwd, reparam, reparam_bwd); a
 # batch of evaluate's 10 (mlp_fwd, reparam); and one G forward a sample
@@ -2326,7 +2348,8 @@ def drive_conv_cli(variant, mods, torch):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", variant, "--arch", "conv",
                        "--dataset", "synthetic", "--steps", str(CONV_STEPS),
-                       "--echo-every", "100", "--out-dir", run_dir])
+                       "--echo-every", "100", "--out-dir", run_dir,
+                       "--dtype", "float32"])
     torch.cuda.synchronize()
     counts = launch_counts(mods)
     passes = penalty.plain_passes
@@ -2379,13 +2402,13 @@ def drive_conv_serving(mods, torch):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", "nsgan", "--arch", "conv", "--ckpt", ck,
                        "--sample-only", "--export-sampler", art,
-                       "--out-dir", run_dir])
+                       "--out-dir", run_dir, "--dtype", "float32"])
     torch.cuda.synchronize()
     counts = launch_counts(mods)
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     fn = export.load_sampler(art, "cuda")
     a, b2 = fn(EXPORT_SEED), fn(EXPORT_SEED)
-    t = Trainer("nsgan", arch="conv")
+    t = Trainer("nsgan", arch="conv", dtype="float32")
     t.load_model(ck)
     z = export.sampler_noise(torch.tensor(EXPORT_SEED, device="cuda"),
                              t.cfg.sample_n, t.cfg.z_dim)
@@ -2705,7 +2728,7 @@ def drive_diffusion_cli(variant, arch, flags, mods, torch):
         rc = cli.main(["--variant", variant, "--arch", arch, "--dataset",
                        "synthetic", "--steps", str(DIFF_STEPS),
                        "--echo-every", "100", "--out-dir", run_dir,
-                       "--ckpt", ck, *flags])
+                       "--ckpt", ck, "--dtype", "float32", *flags])
     torch.cuda.synchronize()
     counts = launch_counts(mods)
     out = buf.getvalue().strip()
@@ -2844,7 +2867,7 @@ def drive_diffusion_serving(variant, arch, kw, flags, mods, torch):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--variant", variant, "--arch", arch, "--ckpt", ck,
                        "--sample-only", "--export-sampler", art,
-                       "--out-dir", run_dir, *flags])
+                       "--out-dir", run_dir, "--dtype", "float32", *flags])
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = launch_counts(mods)
@@ -3041,6 +3064,7 @@ def time_diffusion(mods, torch, card):
     for variant in ("ddpm", "flow"):
         for arch in ("mlp", "conv"):
             t = Trainer(variant, arch=arch, dataset="synthetic",
+                        dtype="float32",
                         out_dir=os.path.join(OUT_DIR, "diffusion_timing"))
             t._load_data()
             t.train(steps=20)  # warm-up
@@ -3453,7 +3477,7 @@ def drive_vq_cli(variant, arch, flags, mods, torch, keep=False):
         rc = cli.main(["--variant", variant, "--arch", arch, "--dataset",
                        "synthetic", "--steps", str(VQ_STEPS),
                        "--echo-every", "100", "--out-dir", run_dir,
-                       "--ckpt", ck, *flags])
+                       "--ckpt", ck, "--dtype", "float32", *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts(mods)
@@ -3643,6 +3667,7 @@ def time_vq(mods, torch, card):
     for variant in ("vqvae", "vqprior"):
         for arch in ("mlp", "conv"):
             t = Trainer(variant, arch=arch, dataset="synthetic",
+                        dtype="float32",
                         out_dir=os.path.join(OUT_DIR, "vq_timing"))
             t._load_data()
             t.train(steps=20)  # warm-up
@@ -4031,7 +4056,7 @@ def time_conv_training(mods, torch, card):
     rows = {}
     for variant in ("nsgan", "vae"):
         t = Trainer(variant, arch="conv", fused_step=False,
-                    dataset="synthetic",
+                    dataset="synthetic", dtype="float32",
                     out_dir=os.path.join(OUT_DIR, "conv_timing"))
         t._load_data()
         t.train(steps=20)  # warm-up
@@ -4602,14 +4627,30 @@ DP_FAMILY_STEPS = 10
 # steps +lr on one path and -lr on the other: nsgan's tp-2 state read
 # 3.2e-4 (1.6 lr) from the single device's after 20 steps on an H100 at
 # the default eps, its losses within 2.8e-4. TP_TIMED_STEPS more steps of
-# each, warm, give the steps/s.
-TP_STEPS, TP_TIMED_STEPS = 20, 20
+# each, warm, give the steps/s; the projected cases read D's sigma after
+# them, SN_STEPS steps in all, as 4c does (the amortized estimate trails
+# the weights: 1.0548 after 20 steps, 1 + 2e-6 after 60 on an H100),
+# while the state is held against the single device after TP_STEPS. After
+# 60 steps the fresh case reads 2.1e-4 from the single device on an H100,
+# the amortized 9.6e-6, tp 2 without the projection 4.5e-8; on the CPU the
+# run without the projection drifts (7.0e-5) and the fresh one does not:
+# the drift sits in D's first-layer Adam moments, where gradients nearly
+# cancel, on whichever path the two sum orders tip (tools/tp_drift.py).
+TP_STEPS = 20
+TP_TIMED_STEPS = SN_STEPS - TP_STEPS
 TP_TOL = dict(rtol=2e-4, atol=1e-5)
 TP_EPS = {"adam_eps": COUPLED_ADAM_EPS}
-TP_CASES = (("nsgan", TP_EPS, TP_TOL, TP_STEPS),
-            ("vae", TP_EPS, TP_TOL, TP_STEPS),
-            ("wgangp", TP_EPS, dict(rtol=5e-4, atol=1e-5), 4),
-            ("vqprior", TP_EPS, TP_TOL, TP_STEPS))
+# The spectral projection under tp (nsgan_sn_*: both sn_modes) gathers
+# each of D's two weights whole after each critic update
+# (parallel/tp.py::on_whole_weights) and projects them on both ranks.
+TP_SN = dict(TP_EPS, spectral_projection=True)
+TP_CASES = (("nsgan", "nsgan", TP_EPS, TP_TOL, TP_STEPS),
+            ("vae", "vae", TP_EPS, TP_TOL, TP_STEPS),
+            ("wgangp", "wgangp", TP_EPS, dict(rtol=5e-4, atol=1e-5), 4),
+            ("vqprior", "vqprior", TP_EPS, TP_TOL, TP_STEPS),
+            ("nsgan_sn_amortized", "nsgan", TP_SN, TP_TOL, TP_STEPS),
+            ("nsgan_sn_fresh", "nsgan", dict(TP_SN, sn_mode="fresh"), TP_TOL,
+             TP_STEPS))
 # A step's launches and collectives under tp 2, worked out beforehand:
 # every sharded stack runs one launch of each MLP kernel a layer
 # (``parallel/tp.py``), every layer's forward is a linear_cuda call. nsgan:
@@ -4627,20 +4668,25 @@ TP_CASES = (("nsgan", TP_EPS, TP_TOL, TP_STEPS),
 # blocks): the tokenizer's encoder and decoder, two layers each, four
 # linears a block and the head (13 / 13); g of the two tokenizer rows and
 # of proj and fc2 a block (6), f's backward into the decoder's input and
-# into qkv and fc1 a block (5).
+# into qkv and fc1 a block (5). No case but the projected ones gathers;
+# those add two all-gathers a critic update (D's two weights) to nsgan's
+# counts.
 TP_PER_STEP = {
     "nsgan": dict(mlp_fwd=10, linear_cuda=10, mlp_bwd=8, reparam=0,
                   reparam_bwd=0, plain_passes=0, model_all_reduce=6,
-                  data_all_reduce=2),
+                  data_all_reduce=2, model_all_gather=0),
     "vae": dict(mlp_fwd=5, linear_cuda=5, mlp_bwd=5, reparam=1,
                 reparam_bwd=1, plain_passes=0, model_all_reduce=4,
-                data_all_reduce=1),
+                data_all_reduce=1, model_all_gather=0),
     "wgangp": dict(mlp_fwd=34, linear_cuda=34, mlp_bwd=24, reparam=0,
                    reparam_bwd=0, plain_passes=5, model_all_reduce=28,
-                   data_all_reduce=6),
+                   data_all_reduce=6, model_all_gather=0),
     "vqprior": dict(mlp_fwd=13, linear_cuda=13, mlp_bwd=13, reparam=0,
                     reparam_bwd=0, plain_passes=0, model_all_reduce=11,
-                    data_all_reduce=1)}
+                    data_all_reduce=1, model_all_gather=0)}
+for _mode in ("amortized", "fresh"):
+    TP_PER_STEP[f"nsgan_sn_{_mode}"] = dict(TP_PER_STEP["nsgan"],
+                                            model_all_gather=2)
 # nsgan G's row output: the model group's all-reduce timed in 4l
 TP_REDUCE_FLOATS = TRAIN_B * 784
 # pipeline parallelism: the prior at full width, B 100 in 4 microbatches;
@@ -5175,8 +5221,8 @@ def hold_states(got, want, tol, skip=()):
     """(max abs diff, every leaf within `tol`) of two states as numpy by
     key path; `skip`: keys left out (the rng words)."""
     keys = [k for k in want if k not in skip]
-    err = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
-              for k in keys)
+    err = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max(
+        initial=0.0)) for k in keys)  # (sn_v's bias leaves are empty)
     return err, set(got) == set(want) and all(
         np.allclose(got[k], want[k], **tol) for k in keys)
 
@@ -5192,7 +5238,7 @@ def drive_tp(mods, torch, card):
         tp_trainer_rank,
     )
     from generative_models_tpu_torch.train.trainer import Trainer
-    runs = [(tp_cfg(v, kw, 2), n) for v, kw, _, n in TP_CASES]
+    runs = [(tp_cfg(v, kw, 2), n) for _, v, kw, _, n in TP_CASES]
     t0 = time.perf_counter()
     ranks = run_ranks(tp_trainer_rank, 2, "cuda",
                       args=(runs, 2000, 0, VQ_SAMPLE_N, TP_REDUCE_FLOATS,
@@ -5204,11 +5250,11 @@ def drive_tp(mods, torch, card):
     data = synthetic_split(2000, seed=0)
     paths, sps = {}, {"tp_all_reduce_ms": max(r["all_reduce_ms"]
                                               for r in ranks)}
-    for i, (variant, kw, tol, steps) in enumerate(TP_CASES):
+    for i, (name, variant, kw, tol, steps) in enumerate(TP_CASES):
         r0, r1 = ranks[0]["runs"][i], ranks[1]["runs"][i]
         if not all(np.array_equal(r0["state"][k], r1["state"][k])
                    for k in r0["state"]):
-            raise AssertionError(f"tp {variant}: the two ranks' states differ")
+            raise AssertionError(f"tp {name}: the two ranks' states differ")
         t = Trainer(config=tp_cfg(variant, kw, 1), device="cuda", data=data)
         t._load_data()
         reset(*mods)
@@ -5218,9 +5264,17 @@ def drive_tp(mods, torch, card):
         hist = t.history
         sample = t.sample(VQ_SAMPLE_N)
         t.train(steps=TP_TIMED_STEPS)
-        sps[f"single_{variant}"] = TP_TIMED_STEPS / t.wall_time
-        sps[f"tp2_{variant}"] = min(r0["steps_per_s"], r1["steps_per_s"])
+        sps[f"single_{name}"] = TP_TIMED_STEPS / t.wall_time
+        sps[f"tp2_{name}"] = min(r0["steps_per_s"], r1["steps_per_s"])
         err, close = hold_states(r0["state"], single, tol, ("['rng']",))
+        # read, not held: how far the two paths drift apart over the timed
+        # steps too, each case beside tp 2 without the projection
+        late = steps + TP_TIMED_STEPS
+        sps[f"state_diff_{name}_{late}"] = hold_states(
+            r0["final_state"], state_numpy(t.state), tol, ("['rng']",))[0]
+        print(f"  tp2_{name} vs the single device after {late} steps (read, "
+              f"not held): state max abs diff "
+              f"{sps[f'state_diff_{name}_{late}']:.3e}  [{card}]")
         h_err = {k: float(np.abs(np.asarray(r0["history"][k])
                                  - np.asarray(hist[k])).max())
                  for k in hist}
@@ -5228,31 +5282,43 @@ def drive_tp(mods, torch, card):
                                np.asarray(hist[k]), **tol) for k in hist)
         s_err = float(np.abs(r0["sample"] - sample).max())
         s_ok = np.allclose(r0["sample"], sample, **tol)
-        want = {k: v * steps for k, v in TP_PER_STEP[variant].items()}
+        want = {k: v * steps for k, v in TP_PER_STEP[name].items()}
         for rank, r in enumerate((r0, r1)):
             got = {k: r["launches"][k] for k in want}
-            ok = (got == want and r["launches"]["gan_chunk"] == 0
-                  and r["launches"]["model_all_gather"] == 0)
-            print(f"  tp2_{variant} rank {rank}: Trainer(group=1 x 2 grid)"
+            ok = got == want and r["launches"]["gan_chunk"] == 0
+            print(f"  tp2_{name} rank {rank}: Trainer(group=1 x 2 grid)"
                   f".train({steps}): {r['launches']} (expect {want}, no "
                   f"chunk launch); {TP_TIMED_STEPS} more: "
                   f"{r['steps_per_s']:.2f} steps/s {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"tp2_{variant}: wrong counts")
-        paths[f"tp2_{variant}"] = {k: r0["launches"][k] for k in
-                                   ("mlp_fwd", "mlp_bwd", "linear_cuda",
-                                    "reparam", "reparam_bwd", "gan_chunk")}
+                raise AssertionError(f"tp2_{name}: wrong counts")
+        paths[f"tp2_{name}"] = {k: r0["launches"][k] for k in
+                                ("mlp_fwd", "mlp_bwd", "linear_cuda",
+                                 "reparam", "reparam_bwd", "gan_chunk")}
         ok = close and h_ok and s_ok
-        print(f"  tp2_{variant} vs the single device on the card: state max "
+        if kw.get("spectral_projection"):
+            target = t.cfg.sn_target * (1 + SN_SIGMA_TOL)
+            sig = [float(torch.linalg.svdvals(
+                torch.from_numpy(r0["final_state"][k]).double())[0])
+                for k in ("['d_params'][0]['w']", "['d_params'][1]['w']")]
+            sig_ok = max(sig) <= target
+            ok = ok and sig_ok
+            print(f"  tp2_{name}: D's largest sigma (SVD) after "
+                  f"{TP_STEPS + TP_TIMED_STEPS} steps "
+                  f"{[f'{x:.6f}' for x in sig]} (<= {target:.6f}) "
+                  f"{'ok' if sig_ok else 'FAIL'}; steps/s against tp 2 "
+                  f"without the projection: {sps[f'tp2_{name}']:.2f} vs "
+                  f"{sps['tp2_nsgan']:.2f}  [{card}]")
+        print(f"  tp2_{name} vs the single device on the card: state max "
               f"abs diff {err:.3e} {'ok' if close else 'FAIL'}, history max "
               f"abs diff {h_err} {'ok' if h_ok else 'FAIL'}, "
               f"sample({VQ_SAMPLE_N}) max abs diff {s_err:.3e} (tol rtol "
               f"{tol['rtol']:.0e} atol {tol['atol']:.0e}); steps/s tp 2 "
-              f"{sps[f'tp2_{variant}']:.2f}, single device "
-              f"{sps[f'single_{variant}']:.2f}  [{card}] "
+              f"{sps[f'tp2_{name}']:.2f}, single device "
+              f"{sps[f'single_{name}']:.2f}  [{card}] "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"tp2_{variant} disagrees with the single "
+            raise AssertionError(f"tp2_{name} disagrees with the single "
                                  f"device")
     print(f"  tp: the model group's all-reduce of {TP_REDUCE_FLOATS} floats "
           f"(gloo, CUDA tensors, two ranks on one card) "
@@ -6084,6 +6150,331 @@ def chunk_libraries(cuda_train, cuda_dp, ctv, build_dir):
     return granted
 
 
+# Phase 4m: the measured fused-step policy (ops/fused_policy.py). Each
+# case's A/B runs POLICY_AB_STEPS steps a rep (3 reps an arm, the best
+# taken, after a warm-up chunk) at the training shapes; the CLI then
+# trains POLICY_CLI_STEPS steps of nsgan at B 100 with "auto" and the
+# cached verdict. A second resolve must read the cache: no launch, under
+# POLICY_CACHED_S seconds.
+POLICY_AB_STEPS = 64
+POLICY_CASES = (("nsgan", TRAIN_B), ("vae", TRAIN_B), ("wgangp", TRAIN_B),
+                ("nsgan", 1024))
+POLICY_CLI_STEPS = 100
+POLICY_CACHED_S = 1.0
+
+
+def policy_cfg(variant, b):
+    """A 4m case's configuration as the Trainer resolves it (dtype
+    float32), so its policy key is the CLI run's."""
+    from generative_models_tpu_torch.config import variant_config
+    return variant_config(variant, batch_size=b, dtype="float32")
+
+
+def drive_policy(mods, torch, card):
+    """Phase 4m: ``resolve_fused_step`` with measurement on for
+    POLICY_CASES (both arms' steps/s and the verdict), the second call
+    from the cache, the CLI's run following the cached verdict (its
+    launches show the arm), and a failed measurement cached nowhere.
+    Returns ({path: counts}, {case: numbers})."""
+    from generative_models_tpu_torch import cli
+    from generative_models_tpu_torch.losses.registry import get_variant
+    from generative_models_tpu_torch.ops import cuda_train
+    from generative_models_tpu_torch.ops import fused_policy as fp
+    print(f"[4m] the measured fused-step policy ({POLICY_AB_STEPS} A/B steps "
+          f"a rep)")
+    cache = os.path.join(OUT_DIR, "policy_4m.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    saved = {k: os.environ.get(k) for k in ("GMTPU_FUSED_AB",
+                                            "GMTPU_FUSED_AB_STEPS",
+                                            "GMTPU_POLICY_CACHE")}
+    os.environ.update(GMTPU_FUSED_AB="1", GMTPU_POLICY_CACHE=cache,
+                      GMTPU_FUSED_AB_STEPS=str(POLICY_AB_STEPS))
+    lines, paths = {}, {}
+    try:
+        for variant, b in POLICY_CASES:
+            cfg, spec = policy_cfg(variant, b), get_variant(variant)
+            key = f"{fp.host_tag('cuda')}::{fp.policy_key(cfg)}"
+            t0 = time.perf_counter()
+            verdict = cuda_train.resolve_fused_step(spec, cfg, "cuda")
+            first_s = time.perf_counter() - t0
+            entry = fp._load_cache().get(key)
+            reset(*mods)
+            t0 = time.perf_counter()
+            again = cuda_train.resolve_fused_step(spec, cfg, "cuda")
+            cached_s = time.perf_counter() - t0
+            quiet = not any(launch_counts(mods).values())
+            ok = (entry is not None and entry["use_fused"] == verdict
+                  and again == verdict and quiet
+                  and cached_s < POLICY_CACHED_S)
+            name = f"{variant}_b{b}"
+            lines[name] = {"verdict": "fused" if verdict else "general",
+                           **(entry or {}), "first_s": first_s,
+                           "cached_s": cached_s}
+            print(f"  {name}: fused {entry and entry['fused_steps_per_sec']} "
+                  f"steps/s, general {entry and entry['general_steps_per_sec']}"
+                  f" steps/s -> {lines[name]['verdict']} (A/B {first_s:.2f} s; "
+                  f"second call {cached_s * 1e3:.2f} ms from the cache, no "
+                  f"launch: {quiet})  [{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"4m {name}: the policy did not measure "
+                                     "and cache its verdict")
+        # the CLI follows the cached verdict for nsgan at B 100
+        verdict = lines[f"nsgan_b{TRAIN_B}"]["verdict"]
+        run_dir = os.path.join(OUT_DIR, "policy_cli")
+        buf = io.StringIO()
+        reset(*mods)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--variant", "nsgan", "--dataset", "synthetic",
+                           "--steps", str(POLICY_CLI_STEPS), "--echo-every",
+                           "0", "--out-dir", run_dir])
+        torch.cuda.synchronize()
+        counts = launch_counts(mods)
+        paths["cli_nsgan_auto_measured"] = counts
+        if verdict == "fused":
+            ok = counts["gan_chunk"] == 1 and counts["mlp_bwd"] == 0
+        else:
+            ok = (counts["gan_chunk"] == 0
+                  and counts["mlp_bwd"] == 4 * POLICY_CLI_STEPS)
+        print(f"  cli nsgan, fused_step auto, the cached verdict {verdict}: "
+              f"rc={rc} launches {counts} {'ok' if ok and rc == 0 else 'FAIL'}")
+        if not (ok and rc == 0):
+            raise AssertionError("4m: the CLI did not take the verdict's arm")
+        # a failed measurement: the static rule (the kernel), not cached
+        real = fp._measure_pair
+
+        def boom(spec, cfg, device):
+            raise RuntimeError("a measurement that fails")
+        fp._measure_pair = boom
+        try:
+            cfg = policy_cfg("nsgan", 2 * TRAIN_B)
+            got = cuda_train.resolve_fused_step(get_variant("nsgan"), cfg,
+                                                "cuda")
+        finally:
+            fp._measure_pair = real
+        key = f"{fp.host_tag('cuda')}::{fp.policy_key(cfg)}"
+        ok = got is True and key not in fp._load_cache()
+        print(f"  a failed measurement (nsgan B {2 * TRAIN_B}): the kernel "
+              f"({got}), no cache entry {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("4m: a failed measurement was cached or "
+                                 "left the kernel")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return paths, lines
+
+
+# Phase 4n: --profile and the directory checkpoint backend through the
+# CLI. PROFILE_STEPS steps on the chunk kernel, PROFILE_GENERAL_STEPS on
+# the general step (its MLP kernels); the trace files are read, sized and
+# removed. The directory run: CKPT_DIR_STEPS steps saved, as many again
+# resumed, against 2 * CKPT_DIR_STEPS uninterrupted, every leaf bit for
+# bit; chunks of CKPT_DIR_STEPS on both, so only the checkpoint differs.
+PROFILE_STEPS, PROFILE_GENERAL_STEPS = 100, 20
+PROFILE_KERNELS = {"gan_chunk": ("gan_chunk_kernel",),
+                   "mlp_fwd": ("mlp_fwd_kernel",),
+                   "mlp_bwd": ("mlp_bwd_rows", "mlp_bwd_dw")}
+CKPT_DIR_STEPS = 100
+
+
+def run_cli(argv):
+    """``cli.main(argv)``'s return code and printed lines."""
+    from generative_models_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def drive_profile(mods, torch, card):
+    """Phase 4n, ``--profile``: the chunk kernel's run and a general-step
+    run each write a Chrome trace that json reads; the chunk kernel's
+    events and the MLP kernels' are in them (present, not counted:
+    torch.profiler loses events). Returns ({path: counts}, line)."""
+    paths, line = {}, {}
+    found = {}
+    for tag, steps, flags in (("fused", PROFILE_STEPS, ()),
+                              ("general", PROFILE_GENERAL_STEPS,
+                               ("--no-fused-step",))):
+        run_dir = os.path.join(OUT_DIR, f"profile_{tag}")
+        reset(*mods)
+        t0 = time.perf_counter()
+        rc, out = run_cli(["--variant", "nsgan", "--dataset", "synthetic",
+                             "--steps", str(steps), "--echo-every", "0",
+                             "--out-dir", run_dir, "--profile", *flags])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        paths[f"cli_nsgan_profile_{tag}"] = launch_counts(mods)
+        trace = next(l[len("trace: "):] for l in out
+                     if l.startswith("trace: "))
+        size = os.path.getsize(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"}
+        for kernel, marks in PROFILE_KERNELS.items():
+            if any(m in n for n in names for m in marks):
+                found.setdefault(kernel, tag)
+        os.remove(trace)
+        sps = json.loads(out[-1])["steps_per_sec"]
+        line[tag] = {"steps": steps, "trace_bytes": size,
+                     "events": len(events), "kernel_names": len(names),
+                     "steps_per_sec": sps, "wall_s": wall}
+        print(f"  --profile nsgan {tag} ({steps} steps): rc={rc}, trace "
+              f"{size} bytes, {len(events)} events, {len(names)} kernel "
+              f"names; {sps} steps/s under the profiler  [{card}]")
+        if rc != 0:
+            raise AssertionError(f"4n: --profile {tag} failed")
+    ok = sorted(found) == sorted(PROFILE_KERNELS)
+    print(f"  --profile: kernels seen in the traces {found} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("4n: a kernel is missing from the traces")
+    return paths, line
+
+
+def drive_ckpt_dir(mods, torch, card):
+    """Phase 4n, ``--ckpt-backend orbax``: save a directory, resume from
+    it, and end at the uninterrupted run's state bit for bit. Returns
+    ({path: counts}, line)."""
+    from generative_models_tpu_torch.config import variant_config
+    from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import checkpoint as ckpt
+    run_dir = os.path.join(OUT_DIR, "ckpt_dir")
+    split, whole = (os.path.join(run_dir, n) for n in ("split", "whole"))
+    base = ["--variant", "nsgan", "--dataset", "synthetic", "--echo-every",
+            "0", "--out-dir", run_dir, "--ckpt-backend", "orbax",
+            "--scan-steps", str(CKPT_DIR_STEPS)]
+    reset(*mods)
+    rc1, _ = run_cli(base + ["--steps", str(CKPT_DIR_STEPS), "--ckpt",
+                               split])
+    rc2, out = run_cli(base + ["--steps", str(CKPT_DIR_STEPS), "--ckpt",
+                                 split, "--resume"])
+    counts = launch_counts(mods)
+    rc3, _ = run_cli(base + ["--steps", str(2 * CKPT_DIR_STEPS), "--ckpt",
+                               whole])
+    resumed = f"resumed from {split} at step {CKPT_DIR_STEPS}" in out
+    cfg = variant_config("nsgan", ckpt_backend="orbax", dtype="float32")
+    tmpl = Trainer(config=cfg, device="cuda").state
+    a = dict(ckpt.state_leaves(ckpt.restore(split, tmpl, cfg)))
+    b = dict(ckpt.state_leaves(ckpt.restore(whole, tmpl, cfg)))
+    same = set(a) == set(b) and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+    size = sum(os.path.getsize(os.path.join(split, f))
+               for f in os.listdir(split))
+    ok = (rc1 == rc2 == rc3 == 0 and resumed and same
+          and a["['step']"] == 2 * CKPT_DIR_STEPS
+          and counts["gan_chunk"] == 2)
+    print(f"  --ckpt-backend orbax: {CKPT_DIR_STEPS} steps saved to a "
+          f"directory ({size} bytes), resumed ({resumed}) for "
+          f"{CKPT_DIR_STEPS} more; {len(a)} leaves equal to the "
+          f"{2 * CKPT_DIR_STEPS}-step run's bit for bit: {same}; chunk "
+          f"launches {counts['gan_chunk']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("4n: the directory checkpoint did not resume "
+                             "bit for bit")
+    for d in (split, whole):
+        shutil.rmtree(d)
+    return {"cli_nsgan_ckpt_dir": counts}, {"dir_bytes": size,
+                                            "leaves": len(a)}
+
+
+def drive_profile_ckpt(mods, torch, card):
+    """Phase 4n: ``--profile`` and the directory checkpoint backend."""
+    print("[4n] --profile and --ckpt-backend orbax through the CLI")
+    paths, prof = drive_profile(mods, torch, card)
+    more, ck = drive_ckpt_dir(mods, torch, card)
+    paths.update(more)
+    return paths, {"profile": prof, "ckpt_dir": ck}
+
+
+# Phase 5j: the conv stacks' bf16 crossover. The conv nsgan and vae
+# general steps at each of CROSSOVER_BATCHES, float32 and bf16 operands,
+# CROSSOVER_WARM steps each, then A B B A A B B A runs (host clock to a
+# synchronize); an arm's steps/s is the median of its four runs'. Here
+# each run is CROSSOVER_STEPS steps, a smoke of the table; config.py's
+# constant comes from the same table with windows of several seconds
+# (tools/policy_smoke.py --crossover-window), where a run is as many
+# steps as fill the window at the arm's rate over an untimed first run.
+# The crossover is the least batch from which bf16 runs at least
+# CROSSOVER_MARGIN times float32's steps/s for both variants at it and
+# every larger batch (None: at no batch), config.py's
+# CONV_BF16_CROSSOVER_BATCH.
+CROSSOVER_BATCHES = (100, 256, 512, 1024, 2048)
+CROSSOVER_WARM, CROSSOVER_STEPS = 5, 10
+CROSSOVER_ORDER = ("float32", "bfloat16", "bfloat16", "float32") * 2
+CROSSOVER_MARGIN = 1.01
+
+
+def crossover_of(table):
+    """The crossover batch of 5j's {variant: {b: ratio}} table."""
+    best = None
+    for b in sorted(CROSSOVER_BATCHES, reverse=True):
+        if all(r[b] >= CROSSOVER_MARGIN for r in table.values()):
+            best = b
+        else:
+            break
+    return best
+
+
+def time_conv_crossover(torch, card, window_s=0.0):
+    """Phase 5j: steps/s of the conv general steps in float32 and bf16 at
+    CROSSOVER_BATCHES, runs of CROSSOVER_STEPS steps or, with `window_s`
+    > 0, of that many seconds; prints the table and the crossover it gives
+    beside config.py's. Returns the rows."""
+    from generative_models_tpu_torch import config
+    from generative_models_tpu_torch.train.trainer import Trainer
+    print(f"[5j] the conv stacks' bf16 crossover (general steps, A B B A "
+          f"twice, median; runs of "
+          f"{f'{window_s:g} s' if window_s else f'{CROSSOVER_STEPS} steps'})")
+    data = synthetic_split(4 * max(CROSSOVER_BATCHES), seed=7)
+    rows, ratios = [], {}
+    for variant in ("nsgan", "vae"):
+        for b in CROSSOVER_BATCHES:
+            ts = {dt: Trainer(variant, arch="conv", fused_step=False,
+                              batch_size=b, dtype=dt, data=data,
+                              sample_every=10 ** 9,
+                              out_dir=os.path.join(OUT_DIR, "crossover"))
+                  for dt in ("float32", "bfloat16")}
+            for t in ts.values():
+                t.train(steps=CROSSOVER_WARM)
+            n = dict.fromkeys(ts, CROSSOVER_STEPS)
+            if window_s:
+                for dt, t in ts.items():
+                    t.train(steps=CROSSOVER_STEPS)
+                    n[dt] = max(CROSSOVER_STEPS, math.ceil(
+                        window_s * CROSSOVER_STEPS / t.wall_time))
+            runs = {dt: [] for dt in ts}
+            for dt in CROSSOVER_ORDER:
+                ts[dt].train(steps=n[dt])
+                runs[dt].append(n[dt] / ts[dt].wall_time)
+            sps = {dt: float(np.median(r)) for dt, r in runs.items()}
+            ratio = sps["bfloat16"] / sps["float32"]
+            ratios.setdefault(variant, {})[b] = ratio
+            rows.append({"variant": variant, "b": b, "run_steps": n,
+                         "float32_steps_per_s": sps["float32"],
+                         "bf16_steps_per_s": sps["bfloat16"],
+                         "ratio": ratio, "runs": runs})
+            print(f"  conv {variant} B={b:5d}: float32 {sps['float32']:9.3f} "
+                  f"steps/s, bf16 {sps['bfloat16']:9.3f} steps/s, bf16/f32 "
+                  f"{ratio:.4f} (runs of {n['float32']} / {n['bfloat16']} "
+                  f"steps; float32 runs "
+                  f"{[round(x, 3) for x in runs['float32']]}, bf16 "
+                  f"{[round(x, 3) for x in runs['bfloat16']]})  [{card}]")
+            del ts
+            torch.cuda.empty_cache()
+    found = crossover_of(ratios)
+    print(f"  the crossover this table gives: {found}; config.py's "
+          f"CONV_BF16_CROSSOVER_BATCH: {config.CONV_BF16_CROSSOVER_BATCH} "
+          f"({'agree' if found == config.CONV_BF16_CROSSOVER_BATCH else 'differ'})")
+    return {"rows": rows, "crossover": found, "window_s": window_s,
+            "config": config.CONV_BF16_CROSSOVER_BATCH}
+
+
 def torch_sms():
     import torch
     return torch.cuda.get_device_properties(0).multi_processor_count
@@ -6107,6 +6498,13 @@ def main() -> int:
     from generative_models_tpu_torch.train import step as step_lib
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    # fused_step "auto" takes the chunk kernel wherever it covers a config
+    # (the static rule) in every phase but 4m, whose measured verdicts
+    # would otherwise change the launch counts worked out beforehand; no
+    # earlier run's verdict is read
+    os.environ["GMTPU_FUSED_AB"] = "0"
+    os.environ["GMTPU_POLICY_CACHE"] = os.path.join(OUT_DIR,
+                                                    "fused_auto.json")
     t_start = time.perf_counter()
     t_mark = [t_start]
 
@@ -6226,6 +6624,12 @@ def main() -> int:
     mark("4d-4h: scoring, serving, DP")
     paths.update(dp_paths)
     dp_sps.update(shared_sps)
+    policy_paths, policy_lines = drive_policy(mods, torch, card)
+    paths.update(policy_paths)
+    mark("4m")
+    pc_paths, pc_lines = drive_profile_ckpt(mods, torch, card)
+    paths.update(pc_paths)
+    mark("4n")
 
     def by_path(kernel):
         return {name: c[kernel] for name, c in paths.items()
@@ -6274,6 +6678,10 @@ def main() -> int:
     print("[5g] the conv general steps")
     conv_rows = time_conv_training(mods, torch, card)
     mark("5f-5g")
+    # (after the builds: beside them the host's cores are the builds', and
+    # a conv general step there ran 2.9-8.5 steps/s against 55-85 alone)
+    crossover = time_conv_crossover(torch, card)
+    mark("5j")
     diff_rows = time_diffusion(mods, torch, card)
     mark("5h")
     vq_rows = time_vq(mods, torch, card)
@@ -6307,7 +6715,8 @@ def main() -> int:
               conv_training=conv_rows, diffusion_checks=diff_err,
               diffusion_runs=diff_lines, diffusion_times=diff_rows,
               vq_checks=vq_err, vq_runs=vq_lines, vq_times=vq_rows,
-              parallel_runs=par_lines),
+              parallel_runs=par_lines, conv_bf16_crossover=crossover,
+              profile_and_ckpt_dir=pc_lines),
         entry("mlp_bwd", cuda_mlp.BWD_SOURCE,
               "generative_models_tpu/ops/pallas_mlp.py:239", bwd_err, bwd_main,
               bwd_main["shape"], max_abs_err_is="relative to max|ref|",
@@ -6316,6 +6725,7 @@ def main() -> int:
               "generative_models_tpu/ops/pallas_train.py:487", chunk_err,
               train_row, chunk_shape + ", nsgan (the other variants: "
               "per_variant)", per_variant=train_rows,
+              fused_policy=policy_lines,
               cli_runs={v: cli_lines[v] for v in CLI_GAN}),
         entry("reparam", cuda_reparam.SOURCE,
               "generative_models_tpu/ops/pallas_reparam.py:41", reparam_err,

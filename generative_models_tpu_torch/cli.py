@@ -48,13 +48,18 @@ line ``{"classifier_test_acc", "confidence", "class_entropy",
 autograd's anomaly mode and checks every chunk's metrics and the state
 for finite values, raising ``FloatingPointError`` at the first step that
 is not. The flags whose paths are not ported yet exit with a usage
-error that names them. ``--device`` defaults to ``cuda``; ``cpu`` runs the
-kernels' plain versions.
+error that names them (none is left). ``--profile`` traces training with
+``torch.profiler`` (the host, and the card's kernels on CUDA) and writes
+a Chrome trace, ``<out_dir>/<variant>/trace/rank<r>.pt.trace.json``, one
+a rank, printing ``trace: <path>``; ``--ckpt-backend orbax`` saves and
+resumes a directory checkpoint (``utils/dcp_ckpt.py``). ``--device``
+defaults to ``cuda``; ``cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,10 +67,8 @@ import sys
 
 from generative_models_tpu_torch.config import Config, VARIANTS, variant_config
 
-# flag -> the ROADMAP.md item that ports its path
-_NOT_PORTED = {
-    "profile": "Queue 1 item 5, the GPU bench",
-}
+# flag -> the ROADMAP.md item that ports its path (every flag is ported)
+_NOT_PORTED: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,8 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
             typ = int if "int" in ann else float if "float" in ann else str
             p.add_argument(arg, dest=f.name, default=None, type=typ)
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint path in the JAX package's npz layout "
-                        "(save at end; with --resume, restore first)")
+                   help="checkpoint path: the JAX package's npz layout, or "
+                        "with --ckpt-backend orbax a directory (save at end; "
+                        "with --resume, restore first)")
     p.add_argument("--sample-only", action="store_true",
                    help="no training: load --ckpt and write a sample grid")
     p.add_argument("--device", default="cuda",
@@ -256,7 +260,7 @@ def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
     if vq_params is not None:
         vq.init_prior_with_vqvae(t, vq_params)
     if args.sample_only:
-        if not args.ckpt or not exists(args.ckpt):
+        if not args.ckpt or not exists(args.ckpt, cfg.ckpt_backend):
             print("--sample-only needs an existing --ckpt", file=sys.stderr)
             return 2
         t.load_model(args.ckpt)
@@ -267,18 +271,30 @@ def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
             out["sampler"] = _export_sampler(t, args.export_sampler)
         say(json.dumps(out))
         return 0
-    if args.ckpt and cfg.resume and exists(args.ckpt):
+    if args.ckpt and cfg.resume and exists(args.ckpt, cfg.ckpt_backend):
         t.load_model(args.ckpt)
         say(f"resumed from {args.ckpt} at step {t.state['step']}")
 
     run_dir = os.path.join(cfg.out_dir, cfg.variant)
     if t.logs:
         os.makedirs(run_dir, exist_ok=True)
-    t.train(num_epochs=cfg.epochs,
-            steps=None if cfg.epochs else cfg.steps,
-            log_path=os.path.join(run_dir, "metrics.jsonl"),
-            echo_every=args.echo_every,
-            ckpt_path=args.ckpt)  # periodic when cfg.ckpt_every > 0
+    # the data and the step functions first: building them settles
+    # fused_step="auto", whose A/B (ops/fused_policy.py) the trace must
+    # not hold; the reference settles it when its Trainer is built
+    t._load_data()
+    prof = _profiler(t) if cfg.profile else contextlib.nullcontext()
+    with prof:  # around training only, as the reference's trace
+        t.train(num_epochs=cfg.epochs,
+                steps=None if cfg.epochs else cfg.steps,
+                log_path=os.path.join(run_dir, "metrics.jsonl"),
+                echo_every=args.echo_every,
+                ckpt_path=args.ckpt)  # periodic when cfg.ckpt_every > 0
+    if cfg.profile:
+        rank = 0 if group is None else group.rank
+        path = os.path.join(run_dir, "trace", f"rank{rank}.pt.trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        say(f"trace: {path}")
     sps = t.steps_done / t.wall_time
     eval_metrics = t.evaluate("test", max_batches=10)
     say(json.dumps({
@@ -301,6 +317,16 @@ def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
     if args.export_sampler and t.writes:
         say(f"exported: {_export_sampler(t, args.export_sampler)}")
     return 0
+
+
+def _profiler(t):
+    """``--profile``: torch.profiler over the host and, on the card, the
+    device (the reference's ``jax.profiler`` trace of training)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if t.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def _score(t) -> dict:

@@ -114,8 +114,8 @@ class Config:
     vq_freeze_tokenizer: bool = False
 
     # --- numerics / performance ----------------------------------------
-    # Activation compute dtype; params stay f32. The port resolves
-    # "auto" to float32 (train/trainer.py).
+    # Activation compute dtype; params stay f32. "auto" resolves by
+    # resolve_dtype (the Trainer, on its device's type).
     dtype: str = "auto"            # "auto" | "float32" | "bfloat16"
     prng_impl: str = "threefry"
     use_pallas: bool = False
@@ -314,6 +314,36 @@ CONV_VARIANT_OVERRIDES: Dict[str, Dict[str, Any]] = {
     "lsgan": {"spectral_projection": True, "sn_target": 1.0},
     "ddpm": {"ddpm_schedule": "cosine"},
 }
+
+# The batch from which the conv stacks' general step runs at least 1.01x
+# faster with bf16 operands than in float32 on the card, for nsgan and
+# vae at it and at every larger batch measured (None: at no batch).
+# Measured by tools/policy_smoke.py --crossover-window 3 (chip_smoke.py
+# phase 5j in runs of 3 s: general steps, A B B A twice, each arm's
+# median run, host clock; the rule fixed before the table was read) on
+# an NVIDIA H100 80GB HBM3 at 700.00 W; bf16/float32 steps/s at B 100,
+# 256, 512, 1024, 2048: nsgan 0.873, 1.017, 1.024, 1.699, 1.639; vae
+# 0.925, 0.872, 1.072, 1.544, 1.533. At 512 the gain is small (nsgan's
+# bf16 runs spread 47-57 steps/s); from 1024 on it is 1.5x and more.
+# The reference's 512 is a TPU's, measured apart from this one.
+CONV_BF16_CROSSOVER_BATCH: Optional[int] = 512
+
+
+def resolve_dtype(cfg: "Config", platform: str) -> str:
+    """The dtype ``Config.dtype="auto"`` stands for on `platform` (a
+    torch device type, "cuda" or "cpu"): float32 for the MLP stacks at
+    every batch and for everything on the CPU; bf16 operands for the
+    conv stacks on the card at batches from
+    :data:`CONV_BF16_CROSSOVER_BATCH` on, as the reference's
+    ``resolve_dtype`` does on a TPU with its own crossover."""
+    if cfg.dtype != "auto":
+        return cfg.dtype
+    if (platform == "cuda" and cfg.arch == "conv"
+            and CONV_BF16_CROSSOVER_BATCH is not None
+            and cfg.batch_size >= CONV_BF16_CROSSOVER_BATCH):
+        return "bfloat16"
+    return "float32"
+
 
 # Conditional flow's guidance default (applied only with label dropout;
 # an explicit ddpm_guidance always wins).

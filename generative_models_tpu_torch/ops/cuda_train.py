@@ -970,18 +970,20 @@ def fused_step_supported(spec, cfg) -> Tuple[bool, str]:
 def resolve_fused_step(spec, cfg, device) -> bool:
     """``Config.fused_step`` ("auto" | bool) as a choice: True forces the
     chunk (the kernel on CUDA, its plain version on the CPU); False the
-    general step; "auto" the kernel only on a CUDA device where
-    :func:`fused_step_supported` says yes — the general step otherwise
-    and always on the CPU, as the reference keeps the XLA step off the
-    TPU. The reference's list of variants measured to win on a TPU is
-    not carried over: no measured policy picks between the two paths on
-    this card yet (ROADMAP.md Queue 1 item 13)."""
+    general step; "auto" the general step on the CPU, as the reference
+    keeps the XLA step off the TPU, and on CUDA, where
+    :func:`fused_step_supported` says yes, the measured policy's verdict
+    (``ops/fused_policy.py::resolve_auto``: a cached A/B of both paths on
+    this card, or with measurement off or failed the kernel)."""
     if cfg.fused_step is True:
         return True
     if cfg.fused_step != "auto":
         return False
-    return (torch.device(device).type == "cuda"
-            and fused_step_supported(spec, cfg)[0])
+    if (torch.device(device).type != "cuda"
+            or not fused_step_supported(spec, cfg)[0]):
+        return False
+    from generative_models_tpu_torch.ops import fused_policy
+    return fused_policy.resolve_auto(spec, cfg, device)
 
 
 def _with_planes(state, p, mu, nu, ema, g_updates: int, d_updates: int):

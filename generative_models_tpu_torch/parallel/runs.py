@@ -230,7 +230,8 @@ def tp_trainer_rank(grid, runs, n_train: int = 2000, data_seed: int = 0,
     {"runs": a run each, the whole state (gathered) and history as numpy,
     the launches and collectives during ``train``, its steps per second on
     the host's clock (the data's upload excluded; with `timed_steps` > 0,
-    those of a second ``train(timed_steps)`` after the first), and with
+    those of a second ``train(timed_steps)`` after the first, and the
+    whole state after it, "final_state"), and with
     `sample_n` > 0 ``sample(sample_n)`` from the tp state;
     "all_reduce_ms": with `reduce_floats` > 0, the mean time of one
     all-reduce of that many float32 over the model group, host clock to
@@ -257,6 +258,7 @@ def tp_trainer_rank(grid, runs, n_train: int = 2000, data_seed: int = 0,
             grid.barrier()
             t.train(steps=timed_steps)
             run["steps_per_s"] = timed_steps / t.wall_time
+            run["final_state"] = state_numpy(t.whole_state())
         out.append(run)
     reduce_ms = None
     if reduce_floats:

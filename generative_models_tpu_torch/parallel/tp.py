@@ -436,11 +436,51 @@ def unsupported(spec, cfg):
     if cfg.fused_step is True:
         return ("fused_step=True with tensor parallelism is unsupported: the "
                 "chunk and phase kernels assume whole parameters")
-    if cfg.spectral_projection:
-        return ("the spectral projection takes each critic weight's whole "
-                "matrix; under tp it is not ported (ROADMAP.md Queue 1 "
-                "item 12)")
     return None
+
+
+def _gather_weights(tree):
+    """`tree` with each marked layer's weight gathered whole (one
+    all-gather a weight); every other leaf as it is."""
+    if is_marked(tree):
+        return dict(tree, w=_whole(tree["w"], tree.role, tree.group))
+    if isinstance(tree, dict):
+        return {k: _gather_weights(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_gather_weights(v) for v in tree]
+    return tree
+
+
+def _slice_weights(like, tree):
+    """`tree` (shaped as :func:`_gather_weights` left `like`) with each of
+    `like`'s marked layers' whole weight cut back to this rank's slice and
+    the mark restored."""
+    if is_marked(like):
+        return like.remake(dict(tree, w=_take(tree["w"], like.role,
+                                              like.group)))
+    if isinstance(like, dict):
+        return {k: _slice_weights(like[k], tree[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        return [_slice_weights(a, b) for a, b in zip(like, tree)]
+    return tree
+
+
+def on_whole_weights(fn):
+    """``fn(params, *rest)``, which returns new params or a tuple whose
+    first item they are, run on the whole weight matrices of a tp
+    critic: each sharded weight gathered over the model group, `fn` on
+    the whole tree on every model rank (identical inputs, so identical
+    results), then each rank keeps its slice. The spectral projection
+    (``ops/spectral.py``) reads only the weights ("w"), so it computes
+    the single device's function; what `fn` returns beside the params
+    (the carried ``sn_v``) stays whole, replicated as ``state_roles``
+    has it."""
+    def run(params, *rest):
+        out = fn(_gather_weights(params), *rest)
+        if isinstance(out, tuple):
+            return (_slice_weights(params, out[0]),) + tuple(out[1:])
+        return _slice_weights(params, out)
+    return run
 
 
 def build_tp_many_steps(spec, cfg, steps_per_epoch: int, grid):

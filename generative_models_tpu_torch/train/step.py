@@ -243,6 +243,46 @@ def grid_noise(rng_words, first_step: int, n: int, device, draw,
     return tuple(cut(parts) for parts in zip(*blocks))
 
 
+def chunk_noise(spec, cfg, rng_words, first_step: int, n: int, device,
+                fused: bool, shard: Tuple[int, int] = (0, 1)):
+    """Noise of `n` steps from global step `first_step`, on the noise
+    grid (:func:`grid_noise`: a block of NOISE_BLOCK steps drawn whole
+    from one generator seeded by the ``rng`` words and the block's
+    index). A block's adversarial streams, in this order: z_d [S,
+    d_steps, B, z] (infogan: code rows, z then the cat indices then
+    cont); for a gradient-penalty head the penalty's uniform draw aux_d
+    [S, d_steps, B, lanes] (wgangp's eps, 1 lane; dragan's u, image_dim);
+    then z_g [S, B, z] (infogan: code rows). A single model's:
+    ``spec.draw_noise``'s rows [S, B, lanes] (the VAE family's eps;
+    DDPM's and flow's noise, t and label-drop uniform); for its general
+    step (not `fused`) on the card, one generator a step instead, seeded
+    from the ``rng`` words and the step, from which that step's loss
+    draws (the VAE's in its sampling kernel). `shard` is (rank, world) of
+    a data group."""
+    dev = torch.device(device)
+    if not spec.adversarial:
+        if dev.type == "cuda" and not fused:
+            # (indices past every grid block: no seed is shared; a
+            # rank's own generator a step)
+            return [noise_generator(
+                rng_words, ~((first_step + k) * shard[1] + shard[0]), dev)
+                for k in range(n)]
+        return grid_noise(
+            rng_words, first_step, n, dev,
+            lambda gen, s: spec.draw_noise(gen, (s, cfg.batch_size), cfg,
+                                           dev), shard)
+    ds, b = max(cfg.d_steps, 1), cfg.batch_size
+    lanes = aux_lanes(cfg.variant, cfg.image_dim)
+
+    def draw(gen, s):
+        z_d = draw_z(gen, (s, ds, b), cfg, dev)
+        aux_d = (torch.rand((s, ds, b, lanes), generator=gen,
+                            device=dev) if lanes else None)
+        z_g = draw_z(gen, (s, b), cfg, dev)
+        return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
+    return grid_noise(rng_words, first_step, n, dev, draw, shard)
+
+
 def noise_lanes(cfg) -> int:
     """Lanes of a z row: z_dim, and infogan's codes after it."""
     if cfg.variant == "infogan":
@@ -347,14 +387,19 @@ def build_adversarial_step(spec, cfg, group=None, grads=None):
     ``sn_mode="fresh"`` after ``spec.d_post``, ``"amortized"`` after the
     state hook, refining the carried ``state["sn_v"]``, which the new
     state holds. Under a data group every rank computes the same vectors
-    from the same parameters."""
+    from the same parameters; under tp each from the whole weights
+    (``parallel/tp.py::on_whole_weights``)."""
     d_steps = max(cfg.d_steps, 1)
     d_grads, g_grads = grads or autograd_grads(spec, cfg, group)
     carried = amortized_sn(cfg)
+    fresh, amortized = project_spectral, project_spectral_amortized
+    if cfg.tp > 1:  # each rank holds slices: project the whole weights
+        from generative_models_tpu_torch.parallel.tp import on_whole_weights
+        fresh, amortized = map(on_whole_weights, (fresh, amortized))
     d_post = spec.d_post
     if cfg.spectral_projection and not carried:
         def d_post(p, c, _base=spec.d_post):
-            return project_spectral(_base(p, c), c.sn_target, c.sn_iters)
+            return fresh(_base(p, c), c.sn_target, c.sn_iters)
 
     def train_step(state: State, d_batches, z_d, z_g,
                    aux_d=None) -> Tuple[State, Dict]:
@@ -372,8 +417,7 @@ def build_adversarial_step(spec, cfg, group=None, grads=None):
             d_params = d_post(d_params, cfg)
             vstate = spec.d_state_update(vstate, d_metrics, cfg)
             if carried:
-                d_params, sn_v = project_spectral_amortized(
-                    d_params, sn_v, cfg.sn_target)
+                d_params, sn_v = amortized(d_params, sn_v, cfg.sn_target)
 
         g_batch = {k: v[-1] for k, v in d_batches.items()}
         grads_g, g_metrics = g_grads(g_params, d_params, g_batch, z_g,

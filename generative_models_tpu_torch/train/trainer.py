@@ -15,14 +15,14 @@ device, each epoch's row permutation is a function of ``cfg.seed`` and
 the epoch (so a resumed run replays the same order), and
 ``Config.scan_steps`` steps run per chunk. ``Config.fused_step`` picks
 how a chunk runs (``ops/cuda_train.py::resolve_fused_step``): a
-whole-chunk kernel (``"auto"`` on CUDA for every ported variant) or
-the general step (``train/step.py``), whose MLPs run through the forward
-and backward kernels on the card. Both see the same batches and the
-same noise: a step's noise is a function of the state's two ``rng``
-words and its global step alone (drawn on a fixed grid of blocks,
-``train/step.py::grid_noise``), so a run split into two ``train`` calls,
-or resumed from a checkpoint at any step, trains on the numbers of the
-uninterrupted run. One exception: a single model's general step on the
+whole-chunk kernel (``"auto"`` on CUDA: the measured policy's verdict,
+``ops/fused_policy.py``) or the general step (``train/step.py``), whose
+MLPs run through the forward and backward kernels on the card. Both see
+the same batches and the same noise: a step's noise is a function of
+the state's two ``rng`` words and its global step alone (drawn on a
+fixed grid of blocks, ``train/step.py::grid_noise``), so a run split
+into two ``train`` calls, or resumed from a checkpoint at any step,
+trains on the numbers of the uninterrupted run. One exception: a single model's general step on the
 card hands each step a generator seeded from the ``rng`` words and the
 step, from which the loss draws its own noise — for the VAE inside the
 sampling kernel (``ops/cuda_reparam.py``).
@@ -61,7 +61,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from generative_models_tpu_torch.config import Config, variant_config
+from generative_models_tpu_torch.config import (
+    Config,
+    resolve_dtype,
+    variant_config,
+)
 from generative_models_tpu_torch.data.mnist import (
     INV_255,
     load_dataset,
@@ -76,11 +80,7 @@ from generative_models_tpu_torch.parallel import dp, tp
 from generative_models_tpu_torch.parallel.mesh import Grid
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
-from generative_models_tpu_torch.utils.checkpoint import (
-    load_jax_checkpoint,
-    params_from_numpy,
-    save_state,
-)
+from generative_models_tpu_torch.utils import checkpoint as ckpt
 from generative_models_tpu_torch.utils.metrics import MetricsLogger
 from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
 from generative_models_tpu_torch.utils.viz import plot_losses, save_image_grid
@@ -113,10 +113,6 @@ class Trainer:
                  log_every_rank: bool = False, **overrides):
         cfg = config if config is not None else variant_config(
             variant, **overrides)
-        if cfg.dtype == "auto":
-            # no bf16 crossover has been measured on the card: float32
-            cfg = cfg.replace(dtype="float32")
-        self.cfg = cfg
         self.grid = group if isinstance(group, Grid) else None
         self.group = group = group.data if self.grid else group
         # every chunk's metrics and the state checked for finite values
@@ -127,6 +123,10 @@ class Trainer:
         self.log_every_rank = log_every_rank
         self.device = resolve_device(device if group is None
                                      else group.device)
+        # "auto": bf16 operands for the conv stacks at or past the card's
+        # measured batch crossover, float32 otherwise and on the CPU
+        self.cfg = cfg = cfg.replace(
+            dtype=resolve_dtype(cfg, self.device.type))
         self.spec = get_variant(cfg.variant)
         self.tp = self._model_group(cfg)
         if group is None and cfg.dp > 1:
@@ -307,43 +307,14 @@ class Trainer:
             for e in range(e0, e0 + win)])
 
     def _noise(self, first_step: int, n: int):
-        """Noise of `n` steps from global step `first_step`, on the noise
-        grid (``train/step.py::grid_noise``: a block of NOISE_BLOCK steps
-        drawn whole from one generator seeded by the state's ``rng``
-        words and the block's index). A block's adversarial streams, in
-        this order: z_d [S, d_steps, B, z] (infogan: code rows, z then
-        the cat indices then cont); for a gradient-penalty head the
-        penalty's uniform draw aux_d [S, d_steps, B, lanes] (wgangp's eps,
-        1 lane; dragan's u, image_dim); then z_g [S, B, z] (infogan: code
-        rows). A single model's: ``spec.draw_noise``'s rows [S, B, lanes]
-        (the VAE family's eps; DDPM's and flow's noise, t and label-drop
-        uniform); for its general step on the card, one generator a step
-        instead, seeded from the ``rng`` words and the step, from which
-        that step's loss draws (the VAE's in its sampling kernel)."""
-        cfg, dev, rng = self.cfg, self.device, self.state["rng"]
+        """Noise of `n` steps from global step `first_step`
+        (``train/step.py::chunk_noise``), from the state's ``rng`` words;
+        a data rank's rows of the global batch's."""
         g = self.group
-        shard = (0, 1) if g is None else (g.rank, g.world)
-        if not self.spec.adversarial:
-            if dev.type == "cuda" and not self._fused:
-                # (indices past every grid block: no seed is shared; a
-                # rank's own generator a step)
-                return [step_lib.noise_generator(
-                    rng, ~((first_step + k) * shard[1] + shard[0]), dev)
-                    for k in range(n)]
-            return step_lib.grid_noise(
-                rng, first_step, n, dev,
-                lambda gen, s: self.spec.draw_noise(
-                    gen, (s, cfg.batch_size), cfg, dev), shard)
-        ds, b = max(cfg.d_steps, 1), cfg.batch_size
-        lanes = aux_lanes(cfg.variant, cfg.image_dim)
-
-        def draw(gen, s):
-            z_d = step_lib.draw_z(gen, (s, ds, b), cfg, dev)
-            aux_d = (torch.rand((s, ds, b, lanes), generator=gen,
-                                device=dev) if lanes else None)
-            z_g = step_lib.draw_z(gen, (s, b), cfg, dev)
-            return (z_d, z_g) if aux_d is None else (z_d, z_g, aux_d)
-        return step_lib.grid_noise(rng, first_step, n, dev, draw, shard)
+        return step_lib.chunk_noise(
+            self.spec, self.cfg, self.state["rng"], first_step, n,
+            self.device, self._fused,
+            (0, 1) if g is None else (g.rank, g.world))
 
     # --------------------------------------------------------------
     def train(self, num_epochs: Optional[int] = None,
@@ -621,38 +592,35 @@ class Trainer:
         return plot_losses(path, getattr(self, "history", {}))
 
     # --------------------------------------------------------------
-    def _npz_only(self) -> None:
-        if self.cfg.ckpt_backend != "npz":
-            raise NotImplementedError(
-                f"ckpt_backend={self.cfg.ckpt_backend!r}: the port reads "
-                "and writes the npz layout only")
-
     def save_model(self, path: str) -> str:
         """Checkpoint the full train state (params, optimizer states, the
-        variant's carried scalars, step, rng) in the JAX package's npz
-        layout."""
-        self._npz_only()
-        out = save_state(path, self.whole_state(), write=self.writes)
-        self._barrier()  # the file is whole before any rank reads it
+        variant's carried scalars, step, rng) with ``cfg.ckpt_backend``'s
+        backend: the JAX package's npz layout, or a directory
+        (``utils/dcp_ckpt.py``). Under a grid the writing rank saves the
+        whole state."""
+        out = ckpt.save(path, self.whole_state(), self.cfg.ckpt_backend,
+                        write=self.writes)
+        self._barrier()  # the checkpoint is whole before any rank reads it
         return out
 
     def load_model(self, path: str) -> None:
-        """Load a checkpoint written by either package's ``save_model``
-        (npz layout); raises on any shape/dtype/config mismatch. The
+        """Load a checkpoint of ``cfg.ckpt_backend``'s backend: an npz
+        written by either package's ``save_model``, or a directory written
+        by this one's; raises on any shape/dtype/config mismatch. The
         optimizer slots, counts, carried scalars (fishergan's ``lam``, began's
         ``k`` and ``m``), the spectral projection's carried vectors
-        (``sn_v``) and rng words are restored when the file has them, so
-        training resumes where it stopped."""
-        self._npz_only()
-        loaded = load_jax_checkpoint(path, self.cfg)
+        (``sn_v``) and rng words are restored when the file has them (a
+        directory has them all), so training resumes where it
+        stopped."""
         st = dict(self.whole_state())
+        loaded = ckpt.restore(path, st, self.cfg)
         for key, v in loaded.items():
             if key == "rng":
                 st["rng"] = np.asarray(v, dtype=np.uint32)
             elif key == "step":
                 st["step"] = int(v)
             else:
-                st[key] = params_from_numpy(v, self.device)
+                st[key] = ckpt.params_from_numpy(v, self.device)
         if "sn_v" in st and "sn_v" not in loaded:
             # a file without the carried vectors: burned in afresh at the
             # loaded critic, as init_sn_vectors does at the init weights

@@ -77,8 +77,43 @@ def npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def exists(path: str) -> bool:
-    return os.path.exists(npz_path(path))
+def exists(path: str, backend: str = "npz") -> bool:
+    """Whether a checkpoint of `backend` is at `path`: the ``.npz`` file,
+    or for the directory backend ("orbax") a directory, as the
+    reference's ``exists``."""
+    if backend == "npz":
+        return os.path.exists(npz_path(path))
+    return os.path.isdir(os.path.abspath(path))
+
+
+def save(path: str, state: Dict[str, Any], backend: str = "npz",
+         write: bool = True) -> str:
+    """Save the whole train state with ``Config.ckpt_backend``'s backend:
+    the npz layout (:func:`save_state`) or the directory backend
+    (``utils/dcp_ckpt.py``). Returns the path written."""
+    if backend == "npz":
+        return save_state(path, state, write)
+    if backend == "orbax":
+        from generative_models_tpu_torch.utils import dcp_ckpt
+        return dcp_ckpt.save_state(path, state, write)
+    raise ValueError(f"unknown ckpt backend {backend!r}")
+
+
+def restore(path: str, template: Dict[str, Any],
+            cfg: Config) -> Dict[str, Any]:
+    """The checkpoint at `path`, read with ``cfg.ckpt_backend``'s backend
+    (the one place a load chooses it, as the reference's ``restore``):
+    an npz of either package through :func:`load_jax_checkpoint` (the
+    leaves the file has, held to `cfg`), or a directory of this one's
+    through ``utils/dcp_ckpt.py`` (the whole state in `template`'s
+    structure, held to its shapes and dtypes). Leaves are numpy arrays,
+    ``rng`` uint32, ``step`` an int."""
+    if cfg.ckpt_backend == "npz":
+        return load_jax_checkpoint(path, cfg)
+    if cfg.ckpt_backend == "orbax":
+        from generative_models_tpu_torch.utils import dcp_ckpt
+        return dcp_ckpt.restore_state(path, template)
+    raise ValueError(f"unknown ckpt backend {cfg.ckpt_backend!r}")
 
 
 def param_template(cfg: Config) -> Dict[str, Any]:
@@ -129,6 +164,27 @@ def state_leaves(state: Dict[str, Any]) -> List[Tuple[str, Any]]:
             out += tree_leaves_with_path(v, f"['{key}']")
         else:
             out.append((f"['{key}']", v))
+    return out
+
+
+def state_from_leaves(template: Dict[str, Any],
+                      leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`state_leaves`: `template`'s structure (plain
+    dicts and lists) holding ``leaves[path]`` at each leaf."""
+    def subtree(like, prefix):
+        return tree_unflatten(like, [leaves[p] for p, _ in
+                                     tree_leaves_with_path(like, prefix)])
+    out: Dict[str, Any] = {}
+    for key, v in template.items():
+        if key in _OPT_KEYS:
+            p0 = f"['{key}'][0]"
+            out[key] = {slot: leaves[f"{p0}.count"] if slot == "count"
+                        else subtree(sub, f"{p0}.{slot}")
+                        for slot, sub in v.items()}
+        elif key in _PARAM_KEYS or key in _TREE_KEYS:
+            out[key] = subtree(v, f"['{key}']")
+        else:
+            out[key] = leaves[f"['{key}']"]
     return out
 
 

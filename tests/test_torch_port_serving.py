@@ -192,14 +192,12 @@ def test_cli_sample_only_writes_png(tiny_data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--profile"], "--profile"),
     (["--reflow-from", "t.npz"], "--reflow-from"),
     (["--vq-from", "v.npz"], "--vq-from"),
     (["--tp", "2", "--fused-step"], "--fused-step"),
-])
+], ids=["flags1---reflow-from", "flags2---vq-from", "flags3---fused-step"])
 def test_cli_unported_paths_are_usage_errors(flags, named, capsys):
-    """Each unported flag is a usage error naming it. --reflow-from and
-    --vq-from are ported: with --sample-only (appended below) each is the
+    """Every flag is ported now. --reflow-from and --vq-from: with --sample-only (appended below) each is the
     reference's usage error, which names it too; --tp trains, but not on
     the chunk kernels (--fused-step), which assume whole parameters."""
     argv = ["--variant", "nsgan", "--device", "cpu", *flags]
@@ -209,6 +207,58 @@ def test_cli_unported_paths_are_usage_errors(flags, named, capsys):
         cli.main(argv)
     assert e.value.code == 2
     assert named in capsys.readouterr().err
+
+
+def test_cli_profile_writes_a_trace_of_training(tmp_path, capsys):
+    """--profile is ported (no flag is refused any more): the run writes
+    a Chrome trace of its training, which json reads, holding the step's
+    ops (the MLP's products), and prints its path before the run's line;
+    the reference wraps the same span in a jax.profiler trace."""
+    assert cli._NOT_PORTED == {}
+    rc = cli.main(["--variant", "nsgan", "--device", "cpu", "--steps", "3",
+                   "--batch-size", "16", "--hidden-dim", "32", "--z-dim",
+                   "8", "--dataset", "synthetic", "--echo-every", "0",
+                   "--profile", "--out-dir", str(tmp_path)])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    path = os.path.join(str(tmp_path), "nsgan", "trace", "rank0.pt.trace.json")
+    assert f"trace: {path}" in lines
+    assert json.loads(lines[-1])["steps"] == 3
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names or "aten::addmm" in names
+
+
+def test_cli_profile_settles_the_policy_before_the_trace(tmp_path,
+                                                         monkeypatch, capsys):
+    """With measurement on, --profile's trace starts after the fused-step
+    A/B: "auto" is settled (the policy measured once, the profiler off)
+    before training is traced, as the reference settles it when its
+    Trainer is built. On the CPU "auto" never asks the policy, so the
+    test routes it there as a card does."""
+    import torch
+
+    from generative_models_tpu_torch.ops import cuda_train, fused_policy
+    seen = []
+
+    def fake_measure(spec, cfg, device):
+        seen.append(torch._C._autograd._profiler_enabled())
+        return {"fused": 1.0, "general": 2.0, "ab_steps": 4}
+
+    monkeypatch.setenv("GMTPU_FUSED_AB", "1")
+    monkeypatch.setenv("GMTPU_POLICY_CACHE", str(tmp_path / "policy.json"))
+    monkeypatch.setattr(fused_policy, "_measure_pair", fake_measure)
+    monkeypatch.setattr(cuda_train, "resolve_fused_step",
+                        lambda spec, cfg, device: fused_policy.resolve_auto(
+                            spec, cfg, device))
+    rc = cli.main(["--variant", "nsgan", "--device", "cpu", "--steps", "3",
+                   "--batch-size", "16", "--hidden-dim", "32", "--z-dim",
+                   "8", "--dataset", "synthetic", "--echo-every", "0",
+                   "--profile", "--out-dir", str(tmp_path)])
+    assert rc == 0
+    assert seen == [False]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "steps"] == 3
 
 
 def test_cli_sample_only_without_checkpoint_fails(tmp_path):

@@ -10,8 +10,10 @@ step by the reference's tolerances (``tests/test_tp.py``: rtol 2e-4, atol
 1e-5; wgan atol 5e-4; wgangp rtol 5e-4); nsgan, wgangp and vqprior also
 against the JAX package's tp chunk (``build_tp_many_steps`` on a 2 x 2
 CPU mesh), its noise pinned to the same numbers through a table of its
-keys. The same spawn saves a checkpoint under tp and loads it back into
-a fresh grid.
+keys. The spectral projection runs under tp in the same spawn (nsgan
+amortized, wgan fresh), against the single device, and nsgan's against
+the JAX package's tp chunk with ``spectral_projection=True``. The same
+spawn saves a checkpoint under tp and loads it back into a fresh grid.
 
 The rule against the JAX package's, the refusals and the CLI's ``--tp``:
 ``tests/test_torch_port_tp_rules.py``.
@@ -51,6 +53,10 @@ COUPLED = ("ragan", "fishergan", "birvae")
 TP_VARIANTS = tuple(sorted(VARIANTS))
 DP_VARIANTS = ("ddpm", "flow", "vqvae", "vqprior")
 JAX_CASES = ("nsgan", "wgangp", "vqprior")
+# the spectral projection under tp: each critic weight gathered whole
+# over the model group and projected on every model rank
+SN_CASES = {"nsgan": dict(spectral_projection=True),
+            "wgan": dict(spectral_projection=True, sn_mode="fresh")}
 # a diagnostic of code usage: under DP each data rank's, averaged (the
 # reference's shard_map DP too); the reference's tp chunk takes it over
 # the global batch
@@ -97,6 +103,8 @@ def _case(variant, grid, **kw):
 
 def _cases():
     out = {("tp", v): _case(v, (2, 2), tp=2, dp=2) for v in TP_VARIANTS}
+    for v, kw in SN_CASES.items():
+        out[("tp_sn", v)] = _case(v, (2, 2), tp=2, dp=2, **kw)
     for v in DP_VARIANTS:
         out[("dp", v)] = _case(v, (2, 1), dp=2)
     return out
@@ -107,16 +115,22 @@ def grid4(tmp_path_factory):
     """{case key: (case, [each rank's result])} and the checkpoint run:
     one spawn of 4 gloo ranks."""
     cases = _cases()
-    path = str(tmp_path_factory.mktemp("tp_ckpt") / "ck.npz")
+    ck_dir = tmp_path_factory.mktemp("tp_ckpt")
+    path = str(ck_dir / "ck.npz")
     ck_cfg = variant_config("nsgan", **dict(KW, tp=2, dp=2,
                                             sample_every=10 ** 6))
+    # the directory backend, with the carried sn_v in the state
+    dir_cfg = ck_cfg.replace(ckpt_backend="orbax", spectral_projection=True)
+    dir_path = str(ck_dir / "ck_dir")
     res = mesh.run_ranks(runs.sequence, 4, "cpu", args=([
         (runs.grid_steps_rank, (list(cases.values()),)),
         (runs.tp_checkpoint_rank, (ck_cfg, (2, 2), 4, path, 16)),
+        (runs.tp_checkpoint_rank, (dir_cfg, (2, 2), 4, dir_path, 16)),
     ],), threads=1, timeout=500)
     steps = {k: (c, [r[0][i] for r in res])
              for i, (k, c) in enumerate(cases.items())}
-    return steps, (ck_cfg, path, [r[1] for r in res])
+    return (steps, (ck_cfg, path, [r[1] for r in res]),
+            (dir_cfg, dir_path, [r[2] for r in res]))
 
 
 def _single(case):
@@ -186,6 +200,27 @@ def test_tp_counts_model_group_collectives(grid4):
     assert c["model_all_gather"] == 0
 
 
+@pytest.mark.parametrize("variant", sorted(SN_CASES))
+def test_tp_spectral_projection_equals_single_device(grid4, variant):
+    """The spectral projection under dp 2 x tp 2 (nsgan amortized, wgan
+    fresh): every rank ends with the same whole state, the single
+    device's; each critic update gathers each of D's two weights once
+    (wgan: 5 updates a step); D's largest sigma (SVD) ends within the
+    target."""
+    case, res = grid4[0][("tp_sn", variant)]
+    _ranks_agree(res)
+    s1, m1 = _single(case)
+    _hold(variant, res[0], s1, m1)
+    d_updates = max(case["cfg"].d_steps, 1) * STEPS
+    assert res[0]["counts"]["model_all_gather"] == 2 * d_updates
+    if case["cfg"].sn_mode == "amortized":
+        assert "['sn_v'][0]['w']" in res[0]["state"]
+    for k in ("['d_params'][0]['w']", "['d_params'][1]['w']"):
+        sigma = torch.linalg.svdvals(
+            torch.from_numpy(res[0]["state"][k]).double())[0]
+        assert float(sigma) <= case["cfg"].sn_target * (1 + 1e-4), k
+
+
 @pytest.mark.parametrize("variant", DP_VARIANTS)
 def test_dp_diffusion_and_vq_equal_single_device(grid4, variant):
     case, res = grid4[0][("dp", variant)]
@@ -226,6 +261,8 @@ def _jax_tp(case, monkeypatch):
         st["d_params"] = _to_jax(port["d_params"])
         st["g_opt"] = make_tx(jcfg, jcfg.g_lr).init(st["g_params"])
         st["d_opt"] = make_tx(jcfg, jcfg.d_lr).init(st["d_params"])
+        if "sn_v" in port:
+            st["sn_v"] = _to_jax(port["sn_v"])
         mod = importlib.import_module("generative_models_tpu.losses."
                                       + {"nsgan": "minimax"}.get(variant,
                                                                  variant))
@@ -272,7 +309,17 @@ def _jax_tp(case, monkeypatch):
 
 @pytest.mark.parametrize("variant", JAX_CASES)
 def test_tp_equals_jax_tp_chunk(grid4, variant, monkeypatch):
-    case, res = grid4[0][("tp", variant)]
+    _hold_jax(*grid4[0][("tp", variant)], monkeypatch)
+
+
+def test_tp_spectral_projection_equals_jax_tp_chunk(grid4, monkeypatch):
+    """nsgan with the amortized projection under dp 2 x tp 2 against the
+    JAX package's tp chunk with ``spectral_projection=True``."""
+    _hold_jax(*grid4[0][("tp_sn", "nsgan")], monkeypatch)
+
+
+def _hold_jax(case, res, monkeypatch):
+    variant = case["cfg"].variant
     jst, jm = _jax_tp(case, monkeypatch)
     tol = _tol(variant)
     got = res[0]["state"]
@@ -291,7 +338,19 @@ def test_tp_checkpoint_loads_bit_for_bit_both_ways(grid4):
     layout: the single-device Trainer loads it bit for bit, and so does a
     fresh grid; sampling from the tp state equals the single device's
     sampling from the loaded file."""
-    cfg, path, res = grid4[1]
+    _hold_checkpoint(*grid4[1])
+
+
+def test_tp_dir_checkpoint_loads_bit_for_bit_both_ways(grid4):
+    """The directory backend (``ckpt_backend="orbax"``, DCP's layout)
+    under tp, the spectral projection's carried sn_v in the state: as
+    the npz checkpoint above."""
+    cfg, path, res = grid4[2]
+    assert "['sn_v'][0]['w']" in res[0]["state"]
+    _hold_checkpoint(cfg, path, res)
+
+
+def _hold_checkpoint(cfg, path, res):
     r0 = res[0]
     for r in res[1:]:
         for k in r0["state"]:

@@ -122,7 +122,6 @@ def _fake_grid(n, axis="model", dp=1):
     ({"tp": 4}, (2, "model"), "axis size 2"),
     ({"tp": 1}, (2, "pipe"), "build_pp_prior_step"),
     ({"tp": 2, "fused_step": True}, (2, "model"), "assume whole parameters"),
-    ({"tp": 2, "spectral_projection": True}, (2, "model"), "item 12"),
 ])
 def test_tp_refusals(kw, grid, match):
     cfg = variant_config("nsgan", **dict(KW, **kw))
@@ -130,6 +129,24 @@ def test_tp_refusals(kw, grid, match):
              if grid is None else _fake_grid(*grid))
     with pytest.raises(ValueError, match=match):
         Trainer(config=cfg, group=group)
+
+
+@pytest.mark.parametrize("mode", ["amortized", "fresh"])
+def test_tp_takes_the_spectral_projection(mode):
+    """The spectral projection runs under tp (parallel/tp.py::
+    on_whole_weights): nothing refuses it, and each rank holds the whole
+    carried vectors (amortized) beside its slices of the critic."""
+    from generative_models_tpu_torch.parallel import tp
+    cfg = variant_config("nsgan", **dict(KW, tp=2, spectral_projection=True,
+                                         sn_mode=mode))
+    assert tp.unsupported(get_variant("nsgan"), cfg) is None
+    t = Trainer(config=cfg, group=_fake_grid(2, "model"))
+    w0 = t.state["d_params"][0]["w"]
+    assert w0.shape == (cfg.image_dim, cfg.hidden_dim // 2)
+    if mode == "amortized":
+        assert t.state["sn_v"][0]["w"].shape == (cfg.hidden_dim,)
+    else:
+        assert "sn_v" not in t.state
 
 
 def test_tp_with_conv_is_refused_by_the_config():
@@ -170,3 +187,25 @@ def test_cli_vqprior_tp2_trains_on_the_cpu(tmp_path, capsys):
     assert all(np.isfinite(v) for v in line["eval"].values())
     assert out[-1] == f"saved: {tmp_path / 'ck.npz'}"
     assert os.path.exists(tmp_path / "vqprior" / "final.png")
+
+
+def test_cli_tp2_profile_and_dir_checkpoint_on_the_cpu(tmp_path, capsys):
+    """--profile under two ranks sharing a run directory writes one trace
+    a rank; --ckpt-backend orbax saves the whole state from rank 0 with no
+    collective (DCP's no_dist; a fresh grid loads it in
+    test_torch_port_tp.py's spawn, and the CLI resumes from a directory in
+    test_torch_port_ckpt_dir.py)."""
+    ck = str(tmp_path / "ck_dir")
+    flags = ["--variant", "nsgan", "--tp", "2", "--device", "cpu",
+             "--dataset", "synthetic", "--batch-size", "16", "--hidden-dim",
+             "32", "--z-dim", "8", "--scan-steps", "2", "--steps", "2",
+             "--echo-every", "0", "--out-dir", str(tmp_path),
+             "--ckpt-backend", "orbax", "--ckpt", ck]
+    assert cli.main(flags + ["--profile"]) == 0
+    for r in range(2):
+        trace = tmp_path / "nsgan" / "trace" / f"rank{r}.pt.trace.json"
+        with open(trace) as f:
+            assert json.load(f)["traceEvents"]
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == f"saved: {os.path.abspath(ck)}"
+    assert os.path.isfile(os.path.join(ck, ".metadata"))
