@@ -51,9 +51,12 @@ is not. The flags whose paths are not ported yet exit with a usage
 error that names them (none is left). ``--profile`` traces training with
 ``torch.profiler`` (the host, and the card's kernels on CUDA) and writes
 a Chrome trace, ``<out_dir>/<variant>/trace/rank<r>.pt.trace.json``, one
-a rank, printing ``trace: <path>``; ``--ckpt-backend orbax`` saves and
-resumes a directory checkpoint (``utils/dcp_ckpt.py``). ``--device``
-defaults to ``cuda``; ``cpu`` runs the kernels' plain versions.
+a rank, printing ``trace: <path>``, which holds the Trainer's phases as
+``gmt.<span>`` ranges (``utils/spans.py``), and ``spans: <json>``, each
+phase's count and total, self and longest host ms; ``--ckpt-backend orbax``
+saves and resumes a directory checkpoint (``utils/dcp_ckpt.py``).
+``--device`` defaults to ``cuda``; ``cpu`` runs the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -231,6 +234,7 @@ def _run(args, cfg, say, group=None, log_every_rank=False) -> int:
 
 def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
     from generative_models_tpu_torch.train.trainer import Trainer
+    from generative_models_tpu_torch.utils import spans
     from generative_models_tpu_torch.utils.checkpoint import exists
     data = teacher = None
     if args.reflow_from:
@@ -283,6 +287,9 @@ def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
     # not hold; the reference settles it when its Trainer is built
     t._load_data()
     prof = _profiler(t) if cfg.profile else contextlib.nullcontext()
+    if cfg.profile:  # the Trainer's phases as ranges over its kernels
+        spans.reset()
+        spans.enable(ranges=True)
     with prof:  # around training only, as the reference's trace
         t.train(num_epochs=cfg.epochs,
                 steps=None if cfg.epochs else cfg.steps,
@@ -294,7 +301,12 @@ def _run_body(args, cfg, say, group, log_every_rank=False) -> int:
         path = os.path.join(run_dir, "trace", f"rank{rank}.pt.trace.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
+        spans.disable()
         say(f"trace: {path}")
+        say("spans: " + json.dumps({  # each phase's host time, in ms
+            k: {"n": v["count"], **{f"{t}_ms": round(v[f"{t}_ns"] / 1e6, 3)
+                                    for t in ("total", "self", "max")}}
+            for k, v in spans.snapshot()["aggregates"].items()}))
     sps = t.steps_done / t.wall_time
     eval_metrics = t.evaluate("test", max_batches=10)
     say(json.dumps({

@@ -42,6 +42,7 @@ import torch
 
 from generative_models_tpu_torch.losses.base import SingleModelSpec
 from generative_models_tpu_torch.models import ddpm_net
+from generative_models_tpu_torch.utils import spans
 from generative_models_tpu_torch.utils.tree import tree_device
 
 
@@ -238,13 +239,14 @@ def _sample_with_labels(params, gen, n, cfg, y, z=None, chain=None):
                                device=gen.device).to(dev)
     y2 = guided_labels(y, n, cfg)
     for i in range(len(ts)):
-        eps = guided_apply(params, x, float(ts[i]), cfg, y, y2)
-        c_n, c_t, c_p, c_dir, sigma = _step_coefs(ab_t[i], ab_prev[i],
-                                                  cfg.ddpm_eta)
-        x0_hat = torch.clamp((x - c_n * eps) / c_t, -1.0, 1.0)
-        x = c_p * x0_hat + c_dir * eps
-        if cfg.ddpm_eta > 0:  # sigma is 0 at eta 0: no draw
-            x = x + sigma * chain(i)
+        with spans.span("sampler.step", i):
+            eps = guided_apply(params, x, float(ts[i]), cfg, y, y2)
+            c_n, c_t, c_p, c_dir, sigma = _step_coefs(ab_t[i], ab_prev[i],
+                                                      cfg.ddpm_eta)
+            x0_hat = torch.clamp((x - c_n * eps) / c_t, -1.0, 1.0)
+            x = c_p * x0_hat + c_dir * eps
+            if cfg.ddpm_eta > 0:  # sigma is 0 at eta 0: no draw
+                x = x + sigma * chain(i)
     return torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)   # [-1, 1] -> [0, 1]
 
 

@@ -85,6 +85,7 @@ from generative_models_tpu_torch.train.step import (
     noise_lanes,
     stream_bytes_per_step,
 )
+from generative_models_tpu_torch.utils import spans
 
 SOURCE = "generative_models_tpu_torch/csrc/gan_chunk.cu"
 # variant -> the critic hook its kernel is compiled for (GM_HOOK in the
@@ -892,8 +893,10 @@ def gan_chunk(xs, zd, zg, p, mu, nu, *, steps: int, ds: int, batch: int,
     with torch.cuda.device(xs.device):
         metrics = torch.zeros((steps, METRIC_LANES), dtype=torch.float32,
                               device=xs.device)
-        lam_buf = torch.as_tensor(lam, dtype=torch.float32,
-                                  device=xs.device).reshape(1).clone()
+        # a host scalar reaches the card by a copy that waits on the stream
+        with spans.span("chunk.lam.wait"):
+            lam_buf = torch.as_tensor(lam, dtype=torch.float32,
+                                      device=xs.device).reshape(1).clone()
         scratch = torch.empty(
             lib.gm_gan_chunk_scratch_floats(batch, z, h, x, hd,
                                             x + hp.n_cls, hp.head_width(x)),
@@ -1079,15 +1082,18 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
         # copies of the planes, for the kernel to update in place
         p, mu, nu, ema = [None if pl is None else [t.clone() for t in pl]
                           for pl in (*state_planes(state), ema_plane(state))]
-        t_g, t_d = ((int(g_opt["count"]), int(d_opt["count"])) if hp.adam
-                    else (0, 0))
+        with spans.span("chunk.count.wait"):  # the counts live on the card
+            t_g, t_d = ((int(g_opt["count"]), int(d_opt["count"]))
+                        if hp.adam else (0, 0))
         lam = state["vstate"][carried] if carried else 0.0
         rows = []
         for k0 in range(0, steps, sub):
-            xs, ys = gather_streams(images, labels, perm_stack,
-                                    rel_offsets[k0:k0 + sub], rows_per_step,
-                                    rows_per_epoch)
-            drawn = noise(k0, sub)
+            with spans.span("chunk.gather"):
+                xs, ys = gather_streams(images, labels, perm_stack,
+                                        rel_offsets[k0:k0 + sub],
+                                        rows_per_step, rows_per_epoch)
+            with spans.span("chunk.noise"):
+                drawn = noise(k0, sub)
             xs = xs.reshape(sub * rows_per_step, -1)
             zd = drawn[0].reshape(sub * rows_per_step, -1)
             zg = drawn[1].reshape(sub * b, -1)
@@ -1107,11 +1113,13 @@ def build_fused_many_steps(spec, cfg, steps_per_epoch: int):
                 zd = torch.cat([zd, oh], 1)
                 zg = torch.cat([zg, oh.reshape(sub, ds, b, -1)[:, -1]
                                 .reshape(sub * b, -1)], 1)
-            rows.append(gan_chunk(
-                xs.contiguous(), zd.contiguous(), zg.contiguous(), p, mu, nu,
-                steps=sub, ds=ds, batch=b, t_g=t_g + k0, t_d=t_d + k0 * ds,
-                hp=hp, lam=lam,
-                xtra=None if xtra is None else xtra.contiguous(), ema=ema))
+            with spans.span("chunk.kernel"):
+                rows.append(gan_chunk(
+                    xs.contiguous(), zd.contiguous(), zg.contiguous(), p, mu,
+                    nu, steps=sub, ds=ds, batch=b, t_g=t_g + k0,
+                    t_d=t_d + k0 * ds, hp=hp, lam=lam,
+                    xtra=None if xtra is None else xtra.contiguous(),
+                    ema=ema))
             if carried:  # the scalar rides out through lane 7
                 lam = rows[-1][-1, 7]
         new = dict(state, step=state["step"] + steps,

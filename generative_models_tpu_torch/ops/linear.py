@@ -26,6 +26,7 @@ import torch
 from generative_models_tpu_torch.ops.activations import ACTIVATIONS, apply_act
 from generative_models_tpu_torch.ops.cuda_linear import linear_cuda
 from generative_models_tpu_torch.ops.cuda_mlp import SUPPORTED_ACTS, round_bf16
+from generative_models_tpu_torch.utils import spans
 
 
 def linear_plain(x, w, b, act: str = "none", slope: float = 0.2,
@@ -43,10 +44,11 @@ def fused_linear(x, w, b, act: str = "none", slope: float = 0.2,
     if x.device.type == "cpu":
         return linear_plain(x, w, b, act=act, slope=slope,
                             compute_dtype=compute_dtype)
-    if act in SUPPORTED_ACTS:
-        return linear_cuda(x, w, b, act=act, slope=slope,
-                           compute_dtype=compute_dtype)
-    if act not in ACTIVATIONS:
-        apply_act(x, act)  # raises, naming the known activations
-    return apply_act(linear_cuda(x, w, b, act="none",
-                                 compute_dtype=compute_dtype), act, slope)
+    with spans.span("linear.launch"):
+        if act in SUPPORTED_ACTS:
+            return linear_cuda(x, w, b, act=act, slope=slope,
+                               compute_dtype=compute_dtype)
+        if act not in ACTIVATIONS:
+            apply_act(x, act)  # raises, naming the known activations
+        return apply_act(linear_cuda(x, w, b, act="none",
+                                     compute_dtype=compute_dtype), act, slope)

@@ -61,6 +61,7 @@ from generative_models_tpu_torch.ops.spectral import (
     project_spectral_amortized,
 )
 from generative_models_tpu_torch.train.optim import apply_opt, init_opt
+from generative_models_tpu_torch.utils import spans
 from generative_models_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -527,10 +528,12 @@ def build_many_steps(spec, cfg, steps_per_epoch: int):
         sub = pick_sub(steps, stream_bytes_per_step(cfg, spec))
         hist: Dict[str, list] = {}
         for k0 in range(0, steps, sub):
-            xs, ys = gather_streams(images, labels, perm_stack,
-                                    rel_offsets[k0:k0 + sub], rows_per_step,
-                                    rows_per_epoch)
-            drawn = noise(k0, sub)
+            with spans.span("chunk.gather"):
+                xs, ys = gather_streams(images, labels, perm_stack,
+                                        rel_offsets[k0:k0 + sub],
+                                        rows_per_step, rows_per_epoch)
+            with spans.span("chunk.noise"):
+                drawn = noise(k0, sub)
             for k in range(sub):
                 batches = {"image": xs[k].reshape(nb, bsz, -1),
                            "label": ys[k].reshape(nb, bsz)}

@@ -81,6 +81,7 @@ from generative_models_tpu_torch.parallel.mesh import Grid
 from generative_models_tpu_torch.train import step as step_lib
 from generative_models_tpu_torch.train.optim import init_opt
 from generative_models_tpu_torch.utils import checkpoint as ckpt
+from generative_models_tpu_torch.utils import spans
 from generative_models_tpu_torch.utils.metrics import MetricsLogger
 from generative_models_tpu_torch.utils.tree import tree_leaves_with_path
 from generative_models_tpu_torch.utils.viz import plot_losses, save_image_grid
@@ -357,68 +358,88 @@ class Trainer:
         done = 0
         last_sampled = 0
         last_ckpt = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
         win = (cfg.scan_steps * self.rows_per_step - 1
                ) // self.rows_per_epoch + 2
         # metric fetches are deferred so the host does not wait on the
         # device each chunk; fetched now only when the host needs them
         pending: list = []
 
-        def fetch(stacked):
-            return {k: v.cpu().numpy() for k, v in stacked.items()}
+        def log_pending():
+            with spans.span("trainer.fetch"):
+                spans.wait("fetch.wait", self.device)
+                got = [(start, {k: v.cpu().numpy() for k, v in st.items()})
+                       for start, st in pending]
+            pending.clear()
+            with spans.span("trainer.log"):
+                for start, m in got:
+                    logger.log_chunk(start, m)
 
         while done < total:
             chunk = min(cfg.scan_steps, total - done)
             first = base_step + done
-            start_row = first * self.rows_per_step
-            e0 = start_row // self.rows_per_epoch
-            perm_stack = self._perm_window(e0, win)
-            rel = (start_row - e0 * self.rows_per_epoch) + torch.arange(
-                chunk, device=self.device) * self.rows_per_step
-            try:
-                self.state, stacked = self._many_steps(
-                    self.state, self.x_train, self.y_train, perm_stack, rel,
-                    lambda k0, n, first=first: self._noise(first + k0, n))
-            except RuntimeError as e:
-                if not (self.debug_nans and "nan" in str(e).lower()):
-                    raise
-                raise FloatingPointError(
-                    f"--debug-nans: a non-finite value in the backward of a "
-                    f"step of steps {first}-{first + chunk - 1}: {e}") from e
-            if self.debug_nans:
-                self._check_finite(first, chunk, stacked)
-            prev_epochs = first // self.steps_per_epoch
-            done += chunk
-            cur_epochs = (base_step + done) // self.steps_per_epoch
-            epoch_work = cur_epochs > prev_epochs and (
-                self.x_val is not None or sample_every == 0)
-            if echo_every or epoch_work or (
-                    sample_every > 0 and done - last_sampled >= sample_every):
-                for start, st in pending:
-                    logger.log_chunk(start, fetch(st))
-                pending.clear()
-                logger.log_chunk(done - chunk, fetch(stacked))
-            else:
+            with spans.span("trainer.chunk", first, chunk), spans.syncs(
+                    "chunk.syncs", self.device):
+                with spans.span("trainer.perm"):
+                    start_row = first * self.rows_per_step
+                    e0 = start_row // self.rows_per_epoch
+                    perm_stack = self._perm_window(e0, win)
+                    rel = (start_row - e0 * self.rows_per_epoch
+                           ) + torch.arange(chunk, device=self.device
+                                            ) * self.rows_per_step
+                try:
+                    with spans.span("trainer.launch"):
+                        self.state, stacked = self._many_steps(
+                            self.state, self.x_train, self.y_train,
+                            perm_stack, rel,
+                            lambda k0, n, first=first: self._noise(
+                                first + k0, n))
+                except RuntimeError as e:
+                    if not (self.debug_nans and "nan" in str(e).lower()):
+                        raise
+                    raise FloatingPointError(
+                        f"--debug-nans: a non-finite value in the backward "
+                        f"of a step of steps {first}-{first + chunk - 1}: "
+                        f"{e}") from e
+                if self.debug_nans:
+                    with spans.span("trainer.nans"):
+                        spans.wait("nans.wait", self.device)
+                        self._check_finite(first, chunk, stacked)
+                prev_epochs = first // self.steps_per_epoch
+                done += chunk
+                cur_epochs = (base_step + done) // self.steps_per_epoch
+                epoch_work = cur_epochs > prev_epochs and (
+                    self.x_val is not None or sample_every == 0)
                 pending.append((done - chunk, stacked))
-            if cur_epochs > prev_epochs and self.x_val is not None:
-                vm = self.evaluate("val")
-                logger.log_event({"epoch": cur_epochs,
-                                  **{f"val_{k}": v for k, v in vm.items()}})
-            if sample_every == 0 and cur_epochs > prev_epochs:
-                self.generate_images(tag=f"epoch{cur_epochs:03d}")
-            elif sample_every > 0 and done - last_sampled >= sample_every:
-                self.generate_images(tag=f"step{done:06d}")
-                last_sampled = done
-            if (ckpt_path and cfg.ckpt_every > 0
-                    and done - last_ckpt >= cfg.ckpt_every):
-                self.save_model(ckpt_path)
-                last_ckpt = done
+                if echo_every or epoch_work or (
+                        sample_every > 0
+                        and done - last_sampled >= sample_every):
+                    log_pending()
+                if cur_epochs > prev_epochs and self.x_val is not None:
+                    with spans.span("trainer.eval"):
+                        vm = self.evaluate("val")
+                        logger.log_event({"epoch": cur_epochs, **{
+                            f"val_{k}": v for k, v in vm.items()}})
+                if sample_every == 0 and cur_epochs > prev_epochs:
+                    with spans.span("trainer.images"):
+                        self.generate_images(tag=f"epoch{cur_epochs:03d}")
+                elif sample_every > 0 and done - last_sampled >= sample_every:
+                    with spans.span("trainer.images"):
+                        self.generate_images(tag=f"step{done:06d}")
+                    last_sampled = done
+                if (ckpt_path and cfg.ckpt_every > 0
+                        and done - last_ckpt >= cfg.ckpt_every):
+                    with spans.span("trainer.ckpt"):
+                        spans.wait("ckpt.wait", self.device)
+                        self.save_model(ckpt_path)
+                    last_ckpt = done
         # train time runs to the last step's completion on the device
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.wall_time = time.time() - t0
-        for start, st in pending:
-            logger.log_chunk(start, fetch(st))
+            with spans.span("trainer.sync.wait"):
+                torch.cuda.synchronize(self.device)
+        self.wall_time = time.perf_counter() - t0
+        if pending:
+            log_pending()
         self.steps_done = total
         logger.close()
         self.history = logger.history
@@ -496,6 +517,7 @@ class Trainer:
             else:
                 _, m = self.spec.loss(st["params"], batch, self._sample_gen,
                                       cfg)
+            spans.wait("eval.wait", self.device)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         return {k: v / nb for k, v in sums.items()}
@@ -547,17 +569,21 @@ class Trainer:
         `chain`, step i -> that reverse step's noise [n, image_dim], and
         vqprior step i's Gumbel draws [n, K] (n then from `n`); either is
         drawn from the Trainer's sampling generator when not given."""
-        if z is not None:
-            z = torch.as_tensor(z, device=self.device)
-            z = (z.to(torch.float32) if z.is_floating_point()
-                 else z.long()).contiguous()
-            n = z.shape[0]
-        n = n or self.cfg.sample_n
-        extra = {"chain": chain} if getattr(self.spec, "chain_noise",
-                                            False) else {}
-        out = self.spec.sample(self.generator_params, self._sample_gen, n,
-                               self.cfg, z=z, **extra)
-        return out.cpu().numpy()
+        with spans.span("trainer.sample"):
+            if z is not None:
+                z = torch.as_tensor(z, device=self.device)
+                z = (z.to(torch.float32) if z.is_floating_point()
+                     else z.long()).contiguous()
+                n = z.shape[0]
+            n = n or self.cfg.sample_n
+            extra = {"chain": chain} if getattr(self.spec, "chain_noise",
+                                                False) else {}
+            out = self.spec.sample(self.generator_params, self._sample_gen,
+                                   n, self.cfg, z=z, **extra)
+            spans.wait("sample.wait", self.device)
+            with spans.span("sample.copy"):
+                host = out.cpu().numpy()
+        return host
 
     @property
     def writes(self) -> bool:
@@ -580,7 +606,10 @@ class Trainer:
         imgs = self.sample(n)
         out_dir = out_dir or os.path.join(self.cfg.out_dir, self.cfg.variant)
         path = os.path.join(out_dir, f"{tag}.png")
-        return save_image_grid(path, imgs) if self.logs else path
+        if not self.logs:
+            return path
+        with spans.span("images.png"):
+            return save_image_grid(path, imgs)
 
     def viz_loss(self, path: Optional[str] = None) -> str:
         """Reference's loss-curve plot (a CSV without matplotlib; rank 0

@@ -212,8 +212,9 @@ def test_cli_unported_paths_are_usage_errors(flags, named, capsys):
 def test_cli_profile_writes_a_trace_of_training(tmp_path, capsys):
     """--profile is ported (no flag is refused any more): the run writes
     a Chrome trace of its training, which json reads, holding the step's
-    ops (the MLP's products), and prints its path before the run's line;
-    the reference wraps the same span in a jax.profiler trace."""
+    ops (the MLP's products) and the Trainer's spans as ``gmt.`` ranges,
+    and prints its path before the run's line; the reference wraps the
+    same span in a jax.profiler trace."""
     assert cli._NOT_PORTED == {}
     rc = cli.main(["--variant", "nsgan", "--device", "cpu", "--steps", "3",
                    "--batch-size", "16", "--hidden-dim", "32", "--z-dim",
@@ -227,6 +228,18 @@ def test_cli_profile_writes_a_trace_of_training(tmp_path, capsys):
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names or "aten::addmm" in names
+    # the Trainer's phases ride in the trace as ranges, and stop with it
+    assert "gmt.trainer.chunk" in names and "gmt.trainer.launch" in names
+    # and each phase's host time is printed after the trace's path
+    got = [ln for ln in lines if ln.startswith("spans: ")]
+    assert len(got) == 1 and lines.index(got[0]) > lines.index(
+        f"trace: {path}")
+    phases = json.loads(got[0][len("spans: "):])
+    assert phases["trainer.chunk"]["n"] == 1
+    for v in phases.values():
+        assert 0 <= v["self_ms"] <= v["total_ms"] and v["max_ms"] > 0
+    from generative_models_tpu_torch.utils import spans
+    assert not spans.on()
 
 
 def test_cli_profile_settles_the_policy_before_the_trace(tmp_path,
