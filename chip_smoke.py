@@ -34,7 +34,13 @@ imports nothing of JAX. Phases:
      feature layer 784->128 at B 256/1024/10000, in float32 and bf16
      operands; then G at B 100 and D at
      a ragged B 37 under one launch plan of every cluster size and item
-     height (``ops/cuda_mlp.py::chain_candidates``);
+     height (``ops/cuda_mlp.py::chain_candidates``); the GEMM route
+     (one layer of float32 products at ``GEMM_MIN_ROWS`` rows or more):
+     the diffusion net's eight launches of a reverse step at n 10,000,
+     784->400 at a ragged GEMM_MIN_ROWS + 1 and 10,001, 400->784 at
+     10,001 under each act code, narrow and odd widths (37->130,
+     6272->1, 128->10), and x and W off 16-byte alignment; each case's
+     route (GEMM or chain) held to ``cuda_mlp.takes_gemm``;
    - the whole-MLP backward (every dW, db and dx): G at B 1/37/100/8192,
      D at B 100, the tanh stack, the classifier at B 256; G at B 100 under one pass-1 plan of every
      cluster size and item height, G at B 8192 in 1, 3 and 7 slices and at
@@ -261,7 +267,9 @@ imports nothing of JAX. Phases:
    the same yardstick with a wrong loss term must exceed); (5a) also the
   conv stacks' dense layers (G's 128->6272, the critic's 6272->1, the
   encoder's 6272->400, infogan's 6272->400->15) and the diffusion nets'
-  (DIFF_DENSE, also held in 3a/3b at B 100, 200 and 2048), (5g) the conv
+  (DIFF_DENSE, also held in 3a/3b at B 100, 200 and 2048), the MLP
+  net's widths at n 10,000 and its eight launches of a reverse step
+  there (DIFF_STEP, the GEMM route), (5g) the conv
   nsgan and vae general steps: steps/s, and a step's device time split
   into cuDNN's convolutions, the hand-written kernels and the rest; (5h)
   the same for ddpm and flow on both nets, and their served images/s at
@@ -486,6 +494,14 @@ DIFF_DENSE = (("diff_skip", [784, 784]), ("diff_in", [784, 400]),
               ("diff_mid", [400, 400]), ("diff_out", [400, 784]),
               ("diff_unet_t", [128, 64]))
 DIFF_BATCHES = (TRAIN_B, 2 * TRAIN_B, 2048)
+# The MLP net's eight launches of a reverse step, in order
+# (models/ddpm_net.py::mlp_apply): the time MLP's two, in, t1, mid, t2,
+# out, skip; each at n rows when sampling n images (an FID draw: n
+# 10,000, the benchmark's generation cell), the GEMM route's main path.
+DIFF_STEP = (("time0", [128, 128]), ("time1", [128, 128]),
+             ("in", [784, 400]), ("t1", [128, 400]), ("mid", [400, 400]),
+             ("t2", [128, 400]), ("out", [400, 784]), ("skip", [784, 784]))
+DIFF_GEN_N = 10000
 # The VQ family's dense layers at config.py's defaults
 # (models/ar_prior.py, models/vq_net.py): the prior's five linears, 128
 # wide (act "none": fc1's GELU follows its product), each one linear_cuda
@@ -614,13 +630,30 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
               for name, dims, acts, b in (("G", G_DIMS, G_ACTS, TRAIN_B),
                                           ("D", D_DIMS, D_ACTS, 37))
               for p in forced_plans(cuda_mlp, dims, b, False)]
+    # the GEMM route, at TOL too: each output is one float32 sum of the K
+    # products in k order, the plain version's in cuBLAS's order
+    cases += [(f"diff_{name}", dims, ("none",), DIFF_GEN_N)
+              for name, dims in DIFF_STEP]
+    cases += [("gemm_ragged", [784, 400], ("none",), b)
+              for b in (cuda_mlp.GEMM_MIN_ROWS + 1, DIFF_GEN_N + 1)]
+    cases += [(f"gemm_{act}", [400, 784], (act,), DIFF_GEN_N + 1)
+              for act in cuda_mlp.SUPPORTED_ACTS]
+    cases += [("gemm_narrow", dims, ("relu",), b)
+              for dims, b in (([37, 130], 5003), ([6272, 1], 4096),
+                              ([128, 10], 3001))]
+    cases += [("gemm_unaligned", [401, 403], ("tanh",), 3333)]
     worst = 0.0
     for name, dims, acts, b, *plan in cases:
         ws, bs = make_stack(rng, dims, "cuda")
         x = torch.from_numpy(
             rng.standard_normal((b, dims[0])).astype(np.float32)).cuda()
+        if name == "gemm_unaligned":  # x and W 4 bytes past 16-byte alignment
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+            ws = [torch.cat([w.new_zeros(1), w.flatten()])[1:].view(w.shape)
+                  for w in ws]
         for cdt in (None, torch.bfloat16):
             key = "bfloat16" if cdt is not None else "float32"
+            gemm0 = cuda_mlp.gemm_launches
             if name == "lin" or name.startswith(("diff_", "vqp_")):  # row 2
                 out, hid = linear_cuda(x, ws[0], bs[0], acts[0], 0.2, cdt), []
             elif plan:
@@ -628,19 +661,26 @@ def check_fwd(cuda_mlp, linear_cuda, torch):
                                                plan[0])
             else:
                 out, hid = cuda_mlp.mlp_fwd(x, ws, bs, acts, 0.2, cdt)
+            gemm = cuda_mlp.gemm_launches - gemm0
             ref, ref_hid = cuda_mlp.mlp_fwd_plain(x, ws, bs, acts, 0.2, cdt)
             torch.cuda.synchronize()
             err = max(float((a - r).abs().max())
                       for a, r in zip([out] + hid, [ref] + ref_hid))
             ok = err <= TOL[key] and all(
                 bool(torch.isfinite(a).all()) for a in [out] + hid)
+            route = "gemm" if gemm else "chain"
             print(f"  fwd {name:14s} {dims} {acts} B={b:5d} {key:8s} "
-                  f"max_abs_err={err:.3e} tol={TOL[key]:.0e} "
+                  f"{route:5s} max_abs_err={err:.3e} tol={TOL[key]:.0e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(
                     f"mlp_fwd disagrees with its plain version: {name} "
                     f"{dims} B={b} {key}: {err} > {TOL[key]}")
+            want = int(not plan and cuda_mlp.takes_gemm(len(ws), b, cdt))
+            if gemm != want:
+                raise AssertionError(
+                    f"mlp_fwd {name} {dims} B={b} {key}: {gemm} GEMM "
+                    f"launches, {want} expected")
             if key == "float32":
                 worst = max(worst, err)
     return worst
@@ -3921,6 +3961,9 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
                   for name, dims in DIFF_DENSE]
     fwd_cases += [(name, dims, ("none",), VQ_TRAIN_ROWS, None)
                   for name, dims in VQ_DENSE]
+    # the GEMM route's main path: the MLP net's six widths at n 10,000
+    fwd_cases += [(f"diff_{name}", dims, ("none",), DIFF_GEN_N, None)
+                  for name, dims in DIFF_STEP[1:]]
     for name, dims, acts, b, cdt in fwd_cases:
         ws, bs = make_stack(rng, dims, "cuda")
         z = torch.randn(b, dims[0], device="cuda")
@@ -3965,6 +4008,31 @@ def time_kernels(cuda_mlp, linear_cuda, cuda_train, torch, card):
             "device_ms": d_ms,
             "plain_ms": p_ms, "library_ms": l_ms, "library_device_ms": ld_ms,
             "bound_ms": b_ms, "bound_by": b_by})
+    # a reverse step's eight launches at n 10,000, one after another
+    step = [make_stack(rng, dims, "cuda") for _, dims in DIFF_STEP]
+    xs = [torch.randn(DIFF_GEN_N, dims[0], device="cuda")
+          for _, dims in DIFF_STEP]
+
+    def kern():
+        for x, (lw, lb) in zip(xs, step):
+            linear_cuda(x, lw[0], lb[0], "none")
+
+    def plain():
+        for x, (lw, lb) in zip(xs, step):
+            cuda_mlp.mlp_fwd_plain(x, lw, lb, ("none",))
+
+    def lib():
+        for x, (lw, lb) in zip(xs, step):
+            library_mlp(torch, lw, lb, ("none",), x)
+    _, d_ms = device_ms_by_name(torch, kern)
+    _, ld_ms = device_ms_by_name(torch, lib)
+    rows["linear"].append({
+        "shape": f"diff step (8) n={DIFF_GEN_N}",
+        "ms": time_ms(torch, kern, 50), "device_ms": d_ms,
+        "plain_ms": time_ms(torch, plain, 50),
+        "library_ms": time_ms(torch, lib, 50), "library_device_ms": ld_ms,
+        "bound_ms": sum(fwd_bound(dims, DIFF_GEN_N)[0]
+                        for _, dims in DIFF_STEP), "bound_by": "operations"})
     for name, dims, acts, b, cdt in (("G", G_DIMS, G_ACTS, TRAIN_B, None),
                                      ("D", D_DIMS, D_ACTS, TRAIN_B, None),
                                      ("G", G_DIMS, G_ACTS, 8192, None),

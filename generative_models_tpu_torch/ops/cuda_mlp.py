@@ -3,7 +3,9 @@
 ``_make_bwd_kernel``/``_bwd_call`` and the ``mlp_pallas`` custom VJP).
 
 - :func:`mlp_fwd` runs a stack of ``act(h @ W + b)`` layers and returns
-  ``(out, hiddens)``, every tensor float32 (``csrc/mlp_fwd.cu``).
+  ``(out, hiddens)``, every tensor float32 (``csrc/mlp_fwd.cu``): on the
+  row chain, or, for one layer of float32 products at
+  ``GEMM_MIN_ROWS`` rows or more, on the tiled GEMM route.
 - :func:`mlp_bwd` returns every dW, db and dx of the stack from the
   forward's saved activations (``csrc/mlp_bwd.cu``).
 - :class:`MLPFunction` is the ``torch.autograd.Function`` that joins
@@ -19,14 +21,17 @@ so :func:`mlp_fwd` refuses a CUDA input that requires grad while grad
 mode is on: such a call must go through :class:`MLPFunction`.
 
 Each launch follows a plan, a pure function of the batch, the widths and
-the SM count (:func:`fwd_plan`, :func:`bwd_plan`; chosen at the call,
-cached, never at import): the kernels' item rows, tile rows, cluster
-size, W chunk depth and whether the input streams from device memory,
-and for the backward its dW slices and scratch. The C entries recompute
-the shared bytes and refuse a plan they cannot run.
+the SM count (:func:`fwd_plan`, :func:`bwd_plan`, :func:`gemm_plan`;
+chosen at the call, cached, never at import): the chain kernels' item
+rows, tile rows, cluster size, W chunk depth and whether the input
+streams from device memory, and for the backward its dW slices and
+scratch; the GEMM route's output tile. The C entries recompute the
+shared bytes and refuse a plan they cannot run.
 
 ``launches`` and ``bwd_launches`` count the kernels' launches, so a run
-can show that its main path went through them.
+can show that its main path went through them; ``gemm_launches`` counts
+the forward launches that took the GEMM route (each also in
+``launches``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ BWD_SOURCE = "generative_models_tpu_torch/csrc/mlp_bwd.cu"
 
 launches = 0
 bwd_launches = 0
+gemm_launches = 0
 
 
 def acts_tuple(n: int, hidden_act: str, out_act: str) -> Tuple[str, ...]:
@@ -128,6 +134,9 @@ def _lib():
                                ctypes.POINTER(i), ctypes.c_float, i,
                                ctypes.POINTER(i), p]
     lib.gm_mlp_fwd.restype = i
+    lib.gm_mlp_gemm.argtypes = [p, i, i, i, p, p, p, i, ctypes.c_float,
+                                ctypes.POINTER(i), p]
+    lib.gm_mlp_gemm.restype = i
     return lib
 
 
@@ -308,6 +317,101 @@ def fwd_plan(batch: int, dims: Sequence[int], sm_count: int) -> FwdPlan:
                        int(sm_count), False)
 
 
+# ---------------------------------------------------------------------
+# The GEMM route: one layer at thousands of rows (gm_mlp_gemm)
+# ---------------------------------------------------------------------
+
+# Fewest rows a one-layer call of float32 products needs to take the
+# GEMM route. In three runs of tools/mlp_ab.py --sweep on the H100
+# (PERF.md) the GEMM beat the chain's plans at every one-layer shape from
+# 768 rows on (by 4-65%) but 128 -> 128, which tied (0.98-1.02x) up to
+# 2048 rows and won from 3072; under 768 the chain won the 128-deep
+# layers, under 384 all of them.
+GEMM_MIN_ROWS = 768
+# (BM, BN) output tiles the kernel is instantiated at (gemm_kernel in
+# csrc/mlp_fwd.cu); a thread computes 8 x 8 of a tile
+GEMM_TILES = ((64, 128), (128, 112), (128, 128))
+GEMM_DEPTH = 16    # GM_BK: depth of a ring slot
+GEMM_STAGES = 4    # GM_STAGES: ring slots
+GEMM_REGS = 168    # registers a thread at most (gemm_min_blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """A GEMM launch: output tiles of `bm` x `bn`, `row_tiles` x
+    `col_tiles` of them, one CTA of bm x bn / 64 threads each, tile t
+    at row tile t // col_tiles and column tile t % col_tiles."""
+    bm: int
+    bn: int
+    row_tiles: int
+    col_tiles: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def threads(self) -> int:
+        return self.bm * self.bn // 64
+
+    def c_args(self) -> List[int]:
+        return [self.bm, self.bn, self.smem_bytes]
+
+
+def gemm_smem_bytes(bm: int, bn: int) -> int:
+    """Shared bytes of a GEMM CTA: the ring of x's and W's slots (x's
+    four k-quad planes padded by 8 floats each)."""
+    return 4 * GEMM_STAGES * (GEMM_DEPTH * (bm + bn) + 2 * GEMM_DEPTH)
+
+
+def takes_gemm(n_layers: int, batch: int, compute_dtype) -> bool:
+    """Whether a forward call takes the GEMM route: one layer, at least
+    GEMM_MIN_ROWS rows, float32 products (bf16 operands stay on the
+    chain)."""
+    return (n_layers == 1 and batch >= GEMM_MIN_ROWS
+            and compute_dtype != torch.bfloat16)
+
+
+def gemm_resident(bm: int, bn: int) -> int:
+    """CTAs of a bm x bn tile an SM holds at once, by registers (64K an
+    SM, GEMM_REGS a thread): 3 of 64 x 128, 1 of the 128-row tiles."""
+    return max(1, 65536 // (GEMM_REGS * bm * bn // 64))
+
+
+def _sm_rate(warps: int) -> float:
+    """An SM's FMA rate with `warps` resident, relative to 12 (three 64 x
+    128 CTAs): fitted to tools/mlp_ab.py --sweep on the H100, where one
+    4-warp CTA ran at 0.76 of it and one 7- or 8-warp CTA at 0.83."""
+    return min(1.0, 0.64 + 0.03 * warps)
+
+
+@functools.lru_cache(maxsize=256)
+def _gemm_plan(batch: int, width: int, sm_count: int) -> GemmPlan:
+    def cost(tile):
+        # the fullest SM's time: its tiles in rounds of the resident
+        # CTAs (padded columns counted as work), each round's work at
+        # the rate of its warps; ties: the first listed
+        bm, bn = tile
+        per_sm = _cdiv(_cdiv(batch, bm) * _cdiv(width, bn), sm_count)
+        resident, warps = gemm_resident(bm, bn), bm * bn // 64 // 32
+        full, rest = divmod(per_sm, resident)
+        t = full * resident * bm * bn / _sm_rate(resident * warps)
+        if rest:
+            t += rest * bm * bn / _sm_rate(rest * warps)
+        return t
+    bm, bn = min(GEMM_TILES, key=cost)
+    return GemmPlan(bm, bn, _cdiv(batch, bm), _cdiv(width, bn),
+                    gemm_smem_bytes(bm, bn))
+
+
+def gemm_plan(batch: int, width: int, sm_count: int) -> GemmPlan:
+    """The GEMM route's plan for `batch` rows of a layer `width` wide on
+    a card of `sm_count` SMs: the tile of GEMM_TILES that leaves the
+    fullest SM the least time by its rounds of resident CTAs."""
+    return _gemm_plan(int(batch), int(width), int(sm_count))
+
+
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """The backward's launches: pass 1's chain (`rows`, over the widths
@@ -375,7 +479,8 @@ def mlp_fwd(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     """Whole-MLP forward: returns ``(out, [h_1, ..., h_{n-1}])``.
 
     CPU tensors run :func:`mlp_fwd_plain`; CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise. A
+    kernel on the current stream (no synchronisation) or raise: the
+    GEMM route where :func:`takes_gemm` says so, else the chain. A
     non-CPU input that requires grad under grad mode raises: the
     kernel's outputs would carry no graph (use :class:`MLPFunction`)."""
     _check(x, ws, bs, acts, compute_dtype)
@@ -390,6 +495,9 @@ def mlp_fwd(x, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         outs = [torch.empty((0, d), device=x.device, dtype=torch.float32)
                 for d in dims[1:]]
         return outs[-1], outs[:-1]
+    if takes_gemm(len(ws), batch, compute_dtype):
+        plan = gemm_plan(batch, dims[1], _sm_count(x.device))
+        return launch_gemm(x, ws[0], bs[0], acts[0], slope, plan), []
     return launch_fwd(x, ws, bs, acts, slope, compute_dtype,
                       fwd_plan(batch, dims, _sm_count(x.device)))
 
@@ -426,6 +534,29 @@ def launch_fwd(x, ws, bs, acts, slope, compute_dtype, plan: FwdPlan):
                            f"(plan {plan})")
     launches += 1
     return outs[-1], outs[:-1]
+
+
+def launch_gemm(x, w, b, act, slope, plan: GemmPlan):
+    """Launches the GEMM route with `plan` on CUDA tensors already
+    checked by :func:`mlp_fwd` (a timing tool passes plans of its own):
+    returns ``act(x @ w + b)``; raises if the launch fails."""
+    global launches, gemm_launches
+    batch, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((batch, n), device=x.device, dtype=torch.float32)
+    lib = _lib()
+    c_plan = (ctypes.c_int * 3)(*plan.c_args())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gm_mlp_gemm(x.data_ptr(), batch, k, n, w.data_ptr(),
+                             b.data_ptr(), out.data_ptr(), ACT_CODES[act],
+                             float(slope), c_plan, stream)
+    if rc != 0:
+        raise RuntimeError(f"mlp_fwd GEMM launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    launches += 1
+    gemm_launches += 1
+    return out
 
 
 def _refuse_untracked_grad(name: str, tensors) -> None:

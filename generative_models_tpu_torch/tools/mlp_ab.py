@@ -23,7 +23,14 @@ machines or sittings.
 of each shape once against the plain version, then times it as a CUDA
 graph of 20 calls (device time without the host's enqueue), and prints
 the planner's choice and every plan, fastest first (``--only`` limits it
-to the listed ``kind:name:B`` shapes). Needs a CUDA card and nvcc.
+to the listed ``kind:name:B`` shapes). Then, in versions with the GEMM
+route, it times every one-layer shape of ``ONE_LAYER`` at each batch of
+``GEMM_BATCHES`` on the chain's planned launch and on every GEMM tile
+(each checked against the plain version first), prints the planner's
+tile, the fastest tile and the chain, and the crossover: the least
+batch from which the planner's GEMM beats the chain at every shape and
+every larger batch, the measurement behind ``GEMM_MIN_ROWS``. Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -40,6 +47,17 @@ FWD_SHAPES = [("G", G, 64), ("G", G, 100), ("G", G, 1024), ("G", G, 8192),
               ("D", D, 100), ("lin", LIN, 100), ("lin", LIN, 8192)]
 BWD_SHAPES = [("G", G, 100), ("D", D, 100), ("G", G, 8192)]
 BF16_SHAPES = [("G", G, 100), ("G", G, 8192)]
+# one-layer calls the GEMM route may take: the diffusion net's six
+# widths (skip, in, the time MLP, its projections, mid, out), the
+# one-layer 784->400 leaky_relu, the VQ prior's qkv, fc1, fc2 and head
+ONE_LAYER = [("skip", [784, 784], "none"), ("in", [784, 400], "none"),
+             ("time", [128, 128], "none"), ("tproj", [128, 400], "none"),
+             ("mid", [400, 400], "none"), ("out", [400, 784], "none"),
+             ("lin", [784, 400], "leaky_relu"), ("qkv", [128, 384], "none"),
+             ("fc1", [128, 512], "none"), ("fc2", [512, 128], "none"),
+             ("head", [128, 64], "none")]
+GEMM_BATCHES = (256, 384, 512, 768, 1024, 1600, 2048, 3072, 4096, 8192,
+                10000)
 
 
 def stack(torch, dims, b, seed):
@@ -189,6 +207,50 @@ def sweep(tag, torch, m, only=None):
                       flush=True)
 
 
+def gemm_sweep(tag, torch, m):
+    """The GEMM route against the chain at every ONE_LAYER shape and
+    GEMM_BATCHES batch (see the module's docstring)."""
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    wins = {}  # batch -> the planner's GEMM beat the chain at every shape
+    for name, dims, act in ONE_LAYER:
+        for b in GEMM_BATCHES:
+            x, ws, bs = stack(torch, dims, b, 9)
+            ref, _ = m.mlp_fwd_plain(x, ws, bs, (act,))
+            chain = m.fwd_plan(b, dims, sm)
+            c_ms = graph_ms(torch, lambda: m.launch_fwd(
+                x, ws, bs, (act,), 0.2, None, chain))
+            pick = m.gemm_plan(b, dims[1], sm)
+            rows = []
+            for bm, bn in m.GEMM_TILES:
+                p = m.GemmPlan(bm, bn, -(-b // bm), -(-dims[1] // bn),
+                               m.gemm_smem_bytes(bm, bn))
+                got = m.launch_gemm(x, ws[0], bs[0], act, 0.2, p)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                if not err <= 1e-4:
+                    raise AssertionError(f"GEMM {p} at {name} B={b}: "
+                                         f"max abs err {err}")
+                ms = graph_ms(torch, lambda: m.launch_gemm(
+                    x, ws[0], bs[0], act, 0.2, p))
+                rows.append((ms, p))
+            rows.sort(key=lambda r: r[0])
+            p_ms = next(ms for ms, p in rows if p == pick)
+            wins[b] = wins.get(b, True) and p_ms < c_ms
+            print(f"GEMM {tag} {name} {dims} B={b}: chain {c_ms:.4f} ms; "
+                  f"planner {pick.bm}x{pick.bn} {p_ms:.4f} ms "
+                  f"(x{c_ms / p_ms:.2f}); fastest "
+                  + " ".join(f"{p.bm}x{p.bn}={ms:.4f}" for ms, p in rows),
+                  flush=True)
+    cross = None
+    for b in sorted(wins, reverse=True):
+        if not wins[b]:
+            break
+        cross = b
+    print(f"GEMM {tag} crossover: the planner's GEMM beats the chain at "
+          f"every shape from B={cross} (batches {sorted(wins)}; "
+          f"GEMM_MIN_ROWS {m.GEMM_MIN_ROWS})", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -199,6 +261,8 @@ def main(argv) -> int:
         only = [a.split("=", 1)[1].split(",") for a in argv
                 if a.startswith("--only=")]
         sweep(tag, torch, m, only[0] if only else None)
+        if hasattr(m, "launch_gemm"):
+            gemm_sweep(tag, torch, m)
     else:
         ab(tag, torch, m)
     print(subprocess.run(

@@ -238,3 +238,173 @@ def test_fwd_plan_fits_and_covers(name, batch):
 def test_fwd_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
         cuda_mlp.fwd_plan(8192, [128, 30000, 784], 132)
+
+
+# ---------------------------------------------------------------------
+# The GEMM route: one layer of float32 products at GEMM_MIN_ROWS rows or
+# more (csrc/mlp_fwd.cu gm_mlp_gemm)
+# ---------------------------------------------------------------------
+
+GEMM_ROWS = (10000, cuda_mlp.GEMM_MIN_ROWS + 1, 10001)
+
+
+def gemm_thread_cells(bm, bn, tid):
+    """(rows, columns) of a tile that thread `tid` computes, by the
+    kernel's own index arithmetic (csrc/mlp_fwd.cu): rows tr*4 + i and
+    bm/2 + tr*4 + i, columns tc*4 + j and bn/2 + tc*4 + j (i, j < 4)."""
+    tc, tr = tid % (bn // 8), tid // (bn // 8)
+    rows = [h * (bm // 2) + tr * 4 + i for h in (0, 1) for i in range(4)]
+    cols = [h * (bn // 2) + tc * 4 + j for h in (0, 1) for j in range(4)]
+    return rows, cols
+GEMM_CASES = [(b, n) for b in GEMM_ROWS for n in (128, 400, 784)]
+
+
+@pytest.mark.parametrize("batch,width", GEMM_CASES,
+                         ids=[f"B{b}-N{n}" for b, n in GEMM_CASES])
+def test_gemm_plan_covers_every_cell_once(batch, width):
+    """The GEMM plan's tiles cover [0, batch) x [0, width) exactly once,
+    and inside a tile the threads' 8 x 8 cells (the kernel's index
+    arithmetic) cover the bm x bn tile exactly once; an instantiated
+    tile within the shared-memory limit."""
+    plan = cuda_mlp.gemm_plan(batch, width, 132)
+    assert (plan.bm, plan.bn) in cuda_mlp.GEMM_TILES
+    assert plan.smem_bytes == cuda_mlp.gemm_smem_bytes(plan.bm, plan.bn)
+    assert plan.smem_bytes <= cuda_mlp.MAX_SMEM_BYTES
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.grid == plan.row_tiles * plan.col_tiles
+    # tile t is (t // col_tiles, t % col_tiles): every pair once
+    pairs = {divmod(t, plan.col_tiles) for t in range(plan.grid)}
+    assert pairs == {(r, c) for r in range(plan.row_tiles)
+                     for c in range(plan.col_tiles)}
+    rows = [r * plan.bm + i for r in range(plan.row_tiles)
+            for i in range(plan.bm) if r * plan.bm + i < batch]
+    cols = [c * plan.bn + j for c in range(plan.col_tiles)
+            for j in range(plan.bn) if c * plan.bn + j < width]
+    assert rows == list(range(batch)) and cols == list(range(width))
+    cells = []
+    for tid in range(plan.threads):
+        r, c = gemm_thread_cells(plan.bm, plan.bn, tid)
+        cells += [(i, j) for i in r for j in c]
+    assert sorted(cells) == [(i, j) for i in range(plan.bm)
+                             for j in range(plan.bn)]
+    assert plan == cuda_mlp.gemm_plan(batch, width, 132)  # pure
+
+
+@pytest.mark.parametrize("width", [400, 784])
+def test_gemm_plan_wastes_few_columns(width):
+    """Columns padded to the last tile: at most 112 (a 128-wide tile over
+    400 or 784 leaves 16 columns in its last; 28% of 400, 14% of 784),
+    at any batch the route takes. The planner counts the padding as
+    work: the 128-wide tile wins where it does because the sweep's 64 x
+    128 CTAs, three an SM, outrun fitted widths (PERF.md)."""
+    for b in range(cuda_mlp.GEMM_MIN_ROWS, 60000, 97):
+        p = cuda_mlp.gemm_plan(b, width, 132)
+        assert p.col_tiles * p.bn - width <= 112
+        assert (p.col_tiles - 1) * p.bn < width
+
+
+@pytest.mark.parametrize("batch,width,tile", [
+    (10000, 128, (64, 128)), (10000, 400, (64, 128)),
+    (10000, 784, (64, 128)), (8192, 400, (128, 112)),
+    (8192, 784, (64, 128)), (4096, 784, (128, 112)),
+    (2048, 400, (64, 128))])
+def test_gemm_plan_picks_the_sweeps_tile(batch, width, tile):
+    """At shapes tools/mlp_ab.py --sweep timed on the H100, the planner's
+    tile is the fastest of GEMM_TILES there: three resident 64 x 128
+    CTAs an SM at 10,000 rows (the generation cell's eight launches),
+    one 128 x 112 where that fills the SMs in fewer rounds."""
+    p = cuda_mlp.gemm_plan(batch, width, 132)
+    assert (p.bm, p.bn) == tile
+    assert cuda_mlp.gemm_resident(64, 128) == 3
+    assert cuda_mlp.gemm_resident(128, 112) == 1
+
+
+@pytest.mark.parametrize("n_layers,batch,cdt,want", [
+    (1, cuda_mlp.GEMM_MIN_ROWS, None, True),
+    (1, 10000, None, True),
+    (1, 10000, torch.float32, True),
+    (1, cuda_mlp.GEMM_MIN_ROWS - 1, None, False),
+    (1, 10000, torch.bfloat16, False),
+    (2, 10000, None, False),
+    (3, 8192, None, False),
+], ids=["one-at-threshold", "one-10000", "one-float32", "one-under",
+        "one-bf16", "two-layers", "three-layers"])
+def test_takes_gemm(n_layers, batch, cdt, want):
+    """One layer, float32 products, at least GEMM_MIN_ROWS rows: the GEMM
+    route; any stack, bf16 operands or fewer rows: the chain."""
+    assert cuda_mlp.takes_gemm(n_layers, batch, cdt) is want
+
+
+# (dims, batch) -> (tr, row_groups, cluster, kc, smem bytes, grid, stream):
+# the chain's plans as they were before the GEMM route, for calls that
+# stay on the chain (stacks, few rows, and the chain's own plan of a
+# layer, which bf16 operands take at any batch)
+CHAIN_PLANS = {
+    ((128, 400, 784), 8192): (8, 4, 2, 32, 219136, 512, True),
+    ((128, 400, 784), 100): (1, 8, 8, 64, 123648, 104, False),
+    ((128, 400, 784), 64): (1, 8, 8, 64, 123648, 64, False),
+    ((784, 400, 1), 100): (1, 8, 8, 64, 95488, 104, False),
+    ((784, 400), 1024): (4, 4, 2, 32, 111616, 128, True),
+    ((784, 400), 10000): (8, 8, 2, 32, 139264, 314, True),
+    ((784, 784), 10000): (8, 4, 2, 32, 219136, 626, True),
+    ((128, 128), 1600): (4, 7, 2, 32, 48896, 116, True),
+    ((784, 128, 10), 10000): (8, 8, 2, 32, 69632, 314, True),
+}
+PREFERRED = {64: [(1, 8, 8, 64, False)], 256: [(1, 16, 8, 64, False)],
+             1024: [(4, 16, 2, 32, True)], 2048: [(4, 32, 2, 32, True)],
+             10000: [(8, 64, 2, 32, True), (8, 32, 2, 32, True)]}
+
+
+@pytest.mark.parametrize("dims,batch", list(CHAIN_PLANS),
+                         ids=[f"{'-'.join(map(str, d))}-B{b}"
+                              for d, b in CHAIN_PLANS])
+def test_chain_plans_are_unchanged(dims, batch):
+    p = cuda_mlp.fwd_plan(batch, dims, 132)
+    assert (p.tr, p.row_groups, p.cluster, p.kc, p.smem_bytes, p.grid,
+            p.stream) == CHAIN_PLANS[(dims, batch)]
+    for b, want in PREFERRED.items():
+        assert cuda_mlp.preferred_plans(b, 132) == want
+
+
+def _fake_launch(monkeypatch):
+    """A library whose C entries queue nothing and return 0, and a
+    device context that takes the meta device: the wrappers' own work
+    (outputs, counters) runs on the CPU."""
+    import contextlib
+    import types
+    calls = []
+
+    class Lib:
+        def gm_mlp_fwd(self, *args):
+            calls.append("chain")
+            return 0
+
+        def gm_mlp_gemm(self, *args):
+            calls.append(("gemm", args[1:4], tuple(args[9][:3])))
+            return 0
+    monkeypatch.setattr(cuda_mlp, "_lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_mlp, "launches", 0)
+    monkeypatch.setattr(cuda_mlp, "gemm_launches", 0)
+    return calls
+
+
+def test_a_gemm_launch_counts_in_both_counters(monkeypatch):
+    """A launch on the GEMM route bumps ``launches`` and ``gemm_launches``
+    by one each and hands the C entry the shape and the plan; a chain
+    launch bumps ``launches`` only."""
+    calls = _fake_launch(monkeypatch)
+    b, k, n = 10000, 784, 400
+    x, w, bias = (torch.ones(s, device="meta") for s in ((b, k), (k, n), n))
+    plan = cuda_mlp.gemm_plan(b, n, 132)
+    out = cuda_mlp.launch_gemm(x, w, bias, "relu", 0.2, plan)
+    assert out.shape == (b, n) and out.device.type == "meta"
+    assert (cuda_mlp.launches, cuda_mlp.gemm_launches) == (1, 1)
+    assert calls == [("gemm", (b, k, n), (64, 128, plan.smem_bytes))]
+    cuda_mlp.launch_fwd(x, [w], [bias], ("relu",), 0.2, None,
+                        cuda_mlp.fwd_plan(b, [k, n], 132))
+    assert (cuda_mlp.launches, cuda_mlp.gemm_launches) == (2, 1)
+    assert calls[-1] == "chain"
